@@ -1,0 +1,192 @@
+"""MSM basic search: isotope patterns -> ion images -> metrics -> FDR.
+
+Port of ``sm_distributed_tpu/models/msm_basic.py`` for the library entry
+point::
+
+    ds = SpectralDataset.from_imzml(path)
+    MSMBasicSearch(ds, formulas, ds_config, sm_config).search()
+
+Decoy selection and isotope patterns run on the host, formula batches are
+scored by the ``torch_cuda`` backend (``models/msm_torch.py``), and FDR runs
+on the host.  The JAX package's checkpoint groups, circuit breaker, OOM
+backoff, pattern prefetch and provisional partial results are not part of
+this port yet (ROADMAP queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+
+import numpy as np
+import pandas as pd
+
+from ..io.dataset import SpectralDataset
+from ..ops import buckets as shape_buckets
+from ..ops.fdr import FDR, DecoyAssignment
+from ..ops.isocalc import IsocalcWrapper, IsotopePatternTable
+from ..utils.config import DSConfig, SMConfig
+
+logger = logging.getLogger(__name__)
+
+
+@contextmanager
+def phase_timer(name: str, timings: dict[str, float]):
+    """Record the wall seconds of a phase into ``timings[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        timings[name] = time.perf_counter() - t0
+
+
+def _slice_table(table: IsotopePatternTable, s: int, e: int
+                 ) -> IsotopePatternTable:
+    return IsotopePatternTable(
+        sfs=table.sfs[s:e],
+        adducts=table.adducts[s:e],
+        mzs=table.mzs[s:e],
+        ints=table.ints[s:e],
+        n_valid=table.n_valid[s:e],
+        targets=table.targets[s:e],
+    )
+
+
+def maybe_order_table(table: IsotopePatternTable, order_ions: str,
+                      formula_batch: int) -> IsotopePatternTable:
+    """Apply parallel.order_ions: "mz" always orders, "table" never, "auto"
+    orders when the stream has >= 6 batches.  Per-ion metrics are the same
+    in any order; only batch composition changes."""
+    if order_ions == "mz":
+        return order_table_by_mz(table)
+    if order_ions == "table":
+        return table
+    n_batches = -(-table.n_ions // max(1, formula_batch))
+    return order_table_by_mz(table) if n_batches >= 6 else table
+
+
+def order_table_by_mz(table: IsotopePatternTable) -> IsotopePatternTable:
+    """Reorder ions by principal-peak m/z (stable), targets and decoys
+    interleaved, so each batch's window union is m/z-localized."""
+    order = np.argsort(table.mzs[:, 0], kind="stable")
+    return IsotopePatternTable(
+        sfs=[table.sfs[i] for i in order],
+        adducts=[table.adducts[i] for i in order],
+        mzs=table.mzs[order],
+        ints=table.ints[order],
+        n_valid=table.n_valid[order],
+        targets=table.targets[order],
+    )
+
+
+def make_backend(name: str, ds: SpectralDataset, ds_config: DSConfig,
+                 sm_config: SMConfig, table: IsotopePatternTable | None = None):
+    """The scoring backend named ``name``.  ``table`` (the search's full ion
+    table) lets the backend drop dataset peaks outside every window."""
+    if name == "torch_cuda":
+        from .msm_torch import TorchBackend
+
+        return TorchBackend(ds, ds_config, sm_config, restrict_table=table)
+    raise ValueError(f"unknown backend {name!r}")
+
+
+@dataclass
+class SearchResultsBundle:
+    """Everything a search produces: annotated targets and every scored ion."""
+
+    annotations: pd.DataFrame      # target ions with fdr/fdr_level
+    all_metrics: pd.DataFrame      # every scored ion incl. decoys
+    timings: dict[str, float] = field(default_factory=dict)
+
+
+class MSMBasicSearch:
+    """End-to-end search over a dataset and a formula list."""
+
+    _ANN_COLUMNS = ["sf", "adduct", "msm", "fdr", "fdr_level",
+                    "chaos", "spatial", "spectral"]
+    _ALL_COLUMNS = ["sf", "adduct", "is_target", "chaos", "spatial",
+                    "spectral", "msm"]
+
+    def __init__(self, ds: SpectralDataset, formulas: list[str],
+                 ds_config: DSConfig, sm_config: SMConfig | None = None):
+        self.ds = ds
+        self.formulas = list(dict.fromkeys(formulas))  # dedup, keep order
+        self.ds_config = ds_config
+        self.sm_config = sm_config or SMConfig()
+        par = self.sm_config.parallel
+        self.isocalc = IsocalcWrapper(ds_config.isotope_generation,
+                                      n_procs=par.isocalc_workers or None)
+        # the pad-to batch snapped to the lattice: slicing here and padding
+        # in the backend use the same value
+        self._batch_eff = shape_buckets.effective_batch(par)
+        self.last_table: IsotopePatternTable | None = None
+        self.last_backend = None
+
+    def search(self) -> SearchResultsBundle:
+        timings: dict[str, float] = {}
+        if not self.formulas:
+            return SearchResultsBundle(
+                annotations=pd.DataFrame(columns=self._ANN_COLUMNS),
+                all_metrics=pd.DataFrame(columns=self._ALL_COLUMNS),
+            )
+        iso_cfg = self.ds_config.isotope_generation
+        fdr = FDR(decoy_sample_size=self.sm_config.fdr.decoy_sample_size,
+                  target_adducts=iso_cfg.adducts, seed=self.sm_config.fdr.seed)
+        with phase_timer("decoy_selection", timings):
+            assignment = fdr.decoy_adduct_selection(self.formulas)
+            pairs, flags = assignment.all_ion_tuples(
+                self.formulas, iso_cfg.adducts)
+        with phase_timer("isotope_patterns", timings):
+            table = self.isocalc.pattern_table(pairs, flags)
+            table = maybe_order_table(
+                table, self.sm_config.parallel.order_ions,
+                self.sm_config.parallel.formula_batch)
+        return self._score_and_rank(table, fdr, assignment, timings)
+
+    def _score_and_rank(self, table: IsotopePatternTable, fdr: FDR,
+                        assignment: DecoyAssignment,
+                        timings: dict[str, float]) -> SearchResultsBundle:
+        self.last_table = table
+        logger.info("scoring %d ions (%d targets, %d decoys) with backend=%s",
+                    table.n_ions, int(table.targets.sum()),
+                    int((~table.targets).sum()), self.sm_config.backend)
+        with phase_timer("backend_setup", timings):
+            backend = make_backend(self.sm_config.backend, self.ds,
+                                   self.ds_config, self.sm_config, table=table)
+        self.last_backend = backend
+        batch = self._batch_eff
+        metrics = np.zeros((table.n_ions, 4))
+        with phase_timer("score", timings):
+            slices = [(s, min(s + batch, table.n_ions))
+                      for s in range(0, table.n_ions, batch)]
+            # the leading batch is its own group, as in the JAX package;
+            # presizing first keeps every batch at one band width
+            groups = [slices[:1], slices[1:]] if len(slices) > 1 else [slices]
+            if len(groups) > 1:
+                backend.presize(_slice_table(table, s, e) for s, e in slices)
+            for group in groups:
+                outs = backend.score_batches(
+                    [_slice_table(table, s, e) for s, e in group])
+                for (s, e), out in zip(group, outs):
+                    metrics[s:e] = out
+        with phase_timer("fdr", timings):
+            all_df = pd.DataFrame({
+                "sf": table.sfs,
+                "adduct": table.adducts,
+                "is_target": table.targets,
+                "chaos": metrics[:, 0],
+                "spatial": metrics[:, 1],
+                "spectral": metrics[:, 2],
+                "msm": metrics[:, 3],
+            })
+            annotations = fdr.estimate_fdr(all_df[["sf", "adduct", "msm"]],
+                                           assignment)
+            annotations = annotations.merge(
+                all_df[["sf", "adduct", "chaos", "spatial", "spectral"]],
+                on=["sf", "adduct"], how="left")
+            annotations = annotations[self._ANN_COLUMNS]
+            all_df = all_df[self._ALL_COLUMNS]
+        return SearchResultsBundle(annotations=annotations,
+                                   all_metrics=all_df, timings=timings)
