@@ -4,12 +4,28 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc, drives the library search at full width (256x256 pixels, 200 noise
-peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern cache),
-holds each kernel against its plain PyTorch version on the main path's
-first image block and checks the 32x32 golden fixture against ``tests/data/golden_spheroid.json``.  One line per
-phase; any failure raises and exits non-zero.  The line before the last is
-a JSON object with each kernel's launches on the main path, its error
+nvcc and drives four paths of the library search, each with the kernel
+launch counts set to 0 just before it and read just after:
+
+- the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
+  noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
+  cache; each kernel held against its plain PyTorch version on its first
+  image block, and the 32x32 golden fixture checked against
+  ``tests/data/golden_spheroid.json``;
+- the fused path (phase 6): the same search with
+  ``parallel.fused_metrics="on"``, held against the main path's results, and
+  the fused window-moments kernel against its plain version;
+- the cube path at the main size (phase 7): the main path's dataset and
+  ions with ``parallel.mz_chunk=512``, held ion by ion to the main path's
+  results;
+- the whole-slide path (phase 8): a 1024x1024 dataset on the m/z-chunked
+  cube path (``parallel.mz_chunk=512``), whose chaos takes the strip
+  kernel, held against its plain version and scipy; its unmasked moments
+  kernel and its metrics held against their plain versions and f64 on the
+  path's first batch.
+
+One line per phase; any failure raises and exits non-zero.  The line before
+the last is a JSON object with each kernel's launches on its path, its error
 against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
@@ -49,6 +65,14 @@ CONTRACT = {"chaos": 0, "spatial": 16, "spectral": 16, "msm": 32}
 NROWS = NCOLS = 256
 NOISE_PEAKS = 200
 N_FORMULAS = 100          # ~4.9k ions with 3 adducts and 20 decoys each
+
+# the whole-slide path: a 1024x1024 DESI-like slide on the m/z-chunked cube
+# path (mz_chunk = the flat path's BAND_WINDOWS, formula_batch = the JAX
+# bench's desi batch), +H only, ~20 formulas with 20 decoys each: 2 batches
+WS_SIDE = 1024
+WS_NOISE_PEAKS = 200
+WS_FORMULAS = 20
+WS_PARALLEL = {"mz_chunk": 512, "formula_batch": 256}
 
 # the golden fixture recipe of scripts/make_golden_report.py (GEN, SM, DS)
 GOLDEN_GEN = dict(nrows=32, ncols=32, formulas=None, present_fraction=0.6,
@@ -103,6 +127,41 @@ def ulps_at(diff: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """|diff| in ulp of ``scale`` (f32)."""
     s = scale.float().clamp(min=1e-30)
     return diff.abs().double() / (torch.nextafter(s, s * 2) - s).double()
+
+
+def time_once(fn) -> tuple[float, object]:
+    """Milliseconds of one call of ``fn`` (CUDA events) and its result."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def _kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from sm_distributed_tpu_torch.ops.chaos import (
+        chaos_count_sums,
+        chaos_count_sums_strips,
+    )
+    from sm_distributed_tpu_torch.ops.moments import batch_moments
+    from sm_distributed_tpu_torch.ops.score import fused_window_moments
+
+    return {"moments": batch_moments, "chaos": chaos_count_sums,
+            "chaos_strips": chaos_count_sums_strips,
+            "fused_window_moments": fused_window_moments}
+
+
+def reset_launches() -> None:
+    for wrapper in _kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in _kernel_wrappers().items()}
 
 
 # ----------------------------------------------------------------- phases
@@ -326,19 +385,15 @@ def _setup_main_path():
 
 def phase_main_path(ds, truth, search) -> dict:
     from sm_distributed_tpu_torch.models.msm_basic import _slice_table
-    from sm_distributed_tpu_torch.ops.chaos import chaos_count_sums
-    from sm_distributed_tpu_torch.ops.moments import batch_moments
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    batch_moments.launches = 0
-    chaos_count_sums.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     bundle = search.search()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"moments": batch_moments.launches,
-                "chaos": chaos_count_sums.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     table = search.last_table
     n_batches = -(-table.n_ions // search.last_backend.batch)
@@ -349,8 +404,8 @@ def phase_main_path(ds, truth, search) -> dict:
         + ", ".join(f"{k} {v:.3f} s" for k, v in tim.items())
         + f"; {table.n_ions / tim['score']:.1f} ions/s scored; peak device "
         f"memory {peak / 2**30:.2f} GiB; launches {launches}")
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} never launched on the main path"
+    for name in ("moments", "chaos"):
+        assert launches[name] > 0, f"kernel {name} never launched on the main path"
     ann = bundle.annotations
     hits = set(ann[(ann.adduct == "+H") & (ann.fdr_level <= 0.1)].sf)
     present = [str(sf) for sf in truth.present]
@@ -375,7 +430,8 @@ def phase_main_path(ds, truth, search) -> dict:
     return {"launches": launches, "ions_per_s": table.n_ions / tim["score"],
             "timings": tim, "peak_bytes": peak, "wall_s": wall,
             "n_ions": table.n_ions, "n_peaks": ds.n_peaks,
-            "drift": drift, "recall": recall, "batch_ms": breakdown}
+            "drift": drift, "recall": recall, "batch_ms": breakdown,
+            "bundle": bundle}
 
 
 def _batch_breakdown(backend, table) -> dict:
@@ -497,6 +553,425 @@ def phase_golden() -> None:
         f"metrics within {worst:.2e} <= 1e-6)")
 
 
+def _search_rows(bundle) -> np.ndarray:
+    return bundle.all_metrics[list(CONTRACT)].to_numpy().astype(np.float32)
+
+
+def _hold_to_main(bundle, ref, label: str) -> dict:
+    """Another path's search of the main path's dataset and ions against
+    the main path's: the same ions in the same order, the same annotations
+    and FDR arrays, and ion by ion chaos bit-equal and spatial, spectral
+    and msm within the contracts.  Returns the largest ulp gap of each."""
+    got_m, ref_m = bundle.all_metrics, ref.all_metrics
+    assert got_m.sf.tolist() == ref_m.sf.tolist() and \
+        got_m.adduct.tolist() == ref_m.adduct.tolist(), \
+        f"{label}: the ion rows differ from the main path's"
+    got_rows = torch.from_numpy(_search_rows(bundle))
+    ref_rows = torch.from_numpy(_search_rows(ref))
+    gaps = {}
+    for col, comp in enumerate(CONTRACT):
+        gap = ulps(got_rows[:, col], ref_rows[:, col])
+        bad = torch.nonzero(gap > CONTRACT[comp]).flatten()[:5].tolist()
+        assert not bad, (
+            f"{label}: {int((gap > CONTRACT[comp]).sum())} ions' {comp} past "
+            f"{CONTRACT[comp]} ulp from the main path, e.g. "
+            + "; ".join(f"{ref_m.sf.iloc[i]}{ref_m.adduct.iloc[i]} "
+                        f"{got_rows[i].tolist()} vs {ref_rows[i].tolist()}"
+                        for i in bad))
+        gaps[comp] = int(gap.max())
+    ann, ref_ann = bundle.annotations, ref.annotations
+    assert [(r.sf, r.adduct) for r in ann.itertuples()] == [
+        (r.sf, r.adduct) for r in ref_ann.itertuples()], \
+        f"{label}: annotation order differs from the main path"
+    assert np.array_equal(ann.fdr.to_numpy(), ref_ann.fdr.to_numpy())
+    assert np.array_equal(ann.fdr_level.to_numpy(),
+                          ref_ann.fdr_level.to_numpy())
+    return gaps
+
+
+def _band_rows(starts, r_lo_loc, r_hi_loc, cols: int, gc_width: int
+               ) -> tuple[int, int]:
+    """(distinct histogram rows the plan's windows cover, their sum over
+    windows): the rows the fused kernel reads, clipped to each chunk's band
+    as the plain chain clips them."""
+    rlo = r_lo_loc.cpu().numpy().astype(np.int64)
+    rhi = r_hi_loc.cpu().numpy().astype(np.int64)
+    st = np.asarray(starts, dtype=np.int64)
+    st_eff = np.minimum(st, cols - (gc_width + 2))
+    shift = (st - st_eff)[:, None]
+    g0 = np.maximum(rlo + shift + 1, 0) + st_eff[:, None]
+    g1 = np.minimum(rhi + shift, gc_width + 1) + st_eff[:, None]
+    n = np.maximum(g1 - g0 + 1, 0).ravel()
+    covered = np.zeros(cols, dtype=bool)
+    for a, m in zip(g0.ravel()[n > 0], n[n > 0]):
+        covered[a:a + m] = True
+    return int(covered.sum()), int(n.sum())
+
+
+def _histogram_block(backend, table) -> tuple:
+    """``(whp, starts, r_lo_loc, r_hi_loc, n_real, gc_width)`` of one flat
+    batch as the fused kernel receives them in ``score_flat_fused``: the
+    (cols, P) histogram rows (P row-bucketed), the host chunk offsets, the
+    device rank bounds at the sticky band width and the real pixel count."""
+    from sm_distributed_tpu_torch.ops.imager import flat_histogram
+
+    d = backend._device_plan(table)
+    n_pix = backend.grid[0] * backend.grid[1]
+    wh = flat_histogram(backend._px_s, backend._in_s, d["pos"],
+                        gc_width=d["gc_width"], n_pixels=n_pix)
+    return (wh[:, :n_pix], d["starts"], d["r_lo_loc"], d["r_hi_loc"],
+            backend.n_real or n_pix, d["gc_width"])
+
+
+def phase_fused(ds, truth, search, ds_cfg, main: dict) -> tuple[dict, dict]:
+    """The main path's search again with ``fused_metrics="on"``: the fused
+    window-moments kernel on every batch, results held to the main path's
+    rows, and the kernel against its plain version on batch 0."""
+    from sm_distributed_tpu_torch.models.msm_basic import (
+        MSMBasicSearch,
+        _slice_table,
+    )
+    from sm_distributed_tpu_torch.ops.imager import banded_images
+    from sm_distributed_tpu_torch.ops.moments import (
+        batch_moments,
+        batch_moments_torch,
+    )
+    from sm_distributed_tpu_torch.ops.score import (
+        fused_window_moments,
+        fused_window_moments_torch,
+    )
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    t_start = time.perf_counter()
+    fused = MSMBasicSearch(ds, truth.formulas, ds_cfg, SMConfig.from_dict(
+        {"fdr": {"decoy_sample_size": 20},
+         "parallel": {"fused_metrics": "on"}}))
+    fused.isocalc = search.isocalc       # the main path's warm patterns
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    bundle = fused.search()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    table, backend = fused.last_table, fused.last_backend
+    n_batches = -(-table.n_ions // backend.batch)
+    tim = bundle.timings
+    say(f"  fused path: {table.n_ions} ions in {n_batches} batches; wall "
+        f"{wall:.3f} s; phases "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in tim.items())
+        + f"; {table.n_ions / tim['score']:.1f} ions/s scored; peak device "
+        f"memory {peak / 2**30:.2f} GiB (main path "
+        f"{main['peak_bytes'] / 2**30:.2f} GiB); launches {launches}")
+    assert launches["fused_window_moments"] == n_batches, launches
+    assert launches["moments"] == 0 and launches["chaos"] == n_batches
+    gaps = _hold_to_main(bundle, main["bundle"], "fused path")
+
+    # batch 0: the kernel against its plain version and f64
+    t_b0 = _slice_table(table, 0, backend.batch)
+    k = t_b0.max_peaks
+    whp, starts, rlo, rhi, n_real, gc = _histogram_block(backend, t_b0)
+    args = (whp, starts, rlo, rhi, n_real)
+    got = fused_window_moments(*args, gc_width=gc, k=k)
+    want = fused_window_moments_torch(*args, gc_width=gc, k=k)
+    block = banded_images(whp, starts, rlo, rhi, gc_width=gc).view(
+        -1, k, whp.shape[1])
+    ref64 = [r.float() for r in batch_moments_torch(block.double(), n_real)]
+    torch.cuda.synchronize()
+    gp, wp = got[0].view(-1, k, 5), want[0].view(-1, k, 5)
+    assert torch.equal(got[1], want[1]), "fused: principal rows differ"
+    for i, name in ((0, "sums"), (3, "vmax"), (4, "nn")):
+        assert torch.equal(gp[..., i], wp[..., i]), f"fused: {name} differ"
+    scale = torch.sqrt((ref64[1][:, 0:1] * ref64[1]).clamp(min=0))
+    mom_gaps = {}
+    for name, i, dist in (("normsq", 1, ulps),
+                          ("dots", 2, lambda a, b: ulps_at(a - b, scale))):
+        to_ref = dist(gp[..., i], ref64[i])
+        plain_to_ref = dist(wp[..., i], ref64[i])
+        to_plain = dist(gp[..., i], wp[..., i])
+        assert float(to_ref.max()) <= MOMENT_ULPS, (
+            f"fused: {name} {float(to_ref.max())} ulp from f64")
+        assert bool((to_plain <= MOMENT_ULPS + plain_to_ref).all()), (
+            f"fused: {name} {float(to_plain.max())} ulp from plain")
+        mom_gaps[name] = (float(to_plain.max()), float(to_ref.max()),
+                          float(plain_to_ref.max()))
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want))
+    kern_ms = time_ms(lambda: fused_window_moments(*args, gc_width=gc, k=k))
+    plain_ms = time_ms(lambda: fused_window_moments_torch(
+        *args, gc_width=gc, k=k), reps=3)
+    # context, not a yardstick: the plain chain's steps the kernel replaces
+    matmul_ms = time_ms(lambda: banded_images(whp, starts, rlo, rhi,
+                                              gc_width=gc), reps=3)
+    block = block.contiguous()
+    mom_ms = time_ms(lambda: batch_moments(block, backend.n_real), reps=3)
+    del block
+    hist_ms = time_ms(lambda: _histogram_block(backend, t_b0), reps=3)
+    batch_ms = time_ms(lambda: backend.score_batch(t_b0), reps=3)
+    n_win, p = rlo.numel(), whp.shape[1]
+    rows, row_reads = _band_rows(starts, rlo, rhi, whp.shape[0], gc)
+    n_bytes = (rows * p * 4 + got[1].numel() * 4 + got[0].numel() * 4
+               + 3 * rlo.numel() * 4)
+    # per (window, pixel): its band rows added on both passes, then max,
+    # compare, subtract and two multiplies in f32 and three f64 adds
+    f32_ops = (2 * row_reads + 5 * n_win) * p
+    f64_ops = 3 * n_win * p
+    bound, by = bound_ms(n_bytes, f32_ops / F32_OPS_PER_S
+                         + f64_ops / F64_OPS_PER_S)
+    say(f"  fused kernel batch 0 ({n_win} windows x {p} pixels, "
+        f"{rows} band rows): principal rows, sums, vmax, nn bit-equal to "
+        "the plain version; ulp gap (kernel-plain, kernel-f64, plain-f64) "
+        + ", ".join(f"{k_} {v[0]:.0f}/{v[1]:.0f}/{v[2]:.0f}"
+                    for k_, v in mom_gaps.items())
+        + f"; max abs err vs plain {err}")
+    say(f"  fused times: kernel {kern_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound:.3f} ms ({by}); plain-chain steps it replaces: "
+        f"banded matmuls {matmul_ms:.3f} ms + moments kernel {mom_ms:.3f} "
+        f"ms; batch 0 device ms: histogram (with host plan) {hist_ms:.3f}, "
+        f"batch {batch_ms:.3f}")
+    say(f"phase 6 fused path: {time.perf_counter() - t_start:.1f} s; "
+        "fused kernel launched once per batch, FDR ranks identical to the "
+        "main path, per-ion ulp gaps to the main path " + json.dumps(gaps))
+    entry = {"name": "fused_window_moments", "route": "cuda",
+             "source": "sm_distributed_tpu_torch/csrc/fused_moments.cu",
+             "replaces": "sm_distributed_tpu/ops/score_pallas.py:250",
+             "launches": launches["fused_window_moments"],
+             "max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": by, "library_ms": None}
+    summary = {"wall_s": wall, "timings": tim, "peak_bytes": peak,
+               "ions_per_s": table.n_ions / tim["score"],
+               "ulp_to_main": gaps, "moments_gaps": mom_gaps,
+               "batch_ms": {"histogram": hist_ms, "kernel": kern_ms,
+                            "batch": batch_ms,
+                            "replaced_matmuls": matmul_ms,
+                            "replaced_moments": mom_ms}}
+    return entry, summary
+
+
+def phase_cube_main(ds, truth, search, ds_cfg, main: dict) -> dict:
+    """The main path's dataset and ions on the m/z-chunked cube path
+    (``mz_chunk`` as on the whole-slide path): off the row lattice, so the
+    moments kernel runs unmasked; chaos takes the packed kernel at this
+    size.  Held ion by ion to the main path's rows."""
+    from sm_distributed_tpu_torch.models.msm_basic import MSMBasicSearch
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    t_start = time.perf_counter()
+    cube = MSMBasicSearch(ds, truth.formulas, ds_cfg, SMConfig.from_dict(
+        {"fdr": {"decoy_sample_size": 20},
+         "parallel": {"mz_chunk": WS_PARALLEL["mz_chunk"]}}))
+    cube.isocalc = search.isocalc        # the main path's warm patterns
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    bundle = cube.search()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    table, backend = cube.last_table, cube.last_backend
+    n_batches = -(-table.n_ions // backend.batch)
+    tim = bundle.timings
+    say(f"  cube path, main dataset: {table.n_ions} ions in {n_batches} "
+        f"batches of {backend.batch}, mz_chunk {backend.mz_chunk}; wall "
+        f"{wall:.3f} s; phases "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in tim.items())
+        + f"; peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
+    assert backend.mz_chunk and backend.n_real is None
+    assert launches["moments"] == n_batches, launches
+    assert launches["chaos"] == n_batches, launches
+    assert launches["chaos_strips"] == 0 and launches["fused_window_moments"] == 0
+    gaps = _hold_to_main(bundle, main["bundle"], "cube path")
+    say(f"phase 7 cube path on the main dataset: "
+        f"{time.perf_counter() - t_start:.1f} s; unmasked moments and packed "
+        "chaos kernels launched once per batch, FDR ranks identical to the "
+        "main path, per-ion ulp gaps to the main path " + json.dumps(gaps))
+    return {"wall_s": wall, "timings": tim, "peak_bytes": peak,
+            "launches": launches, "ulp_to_main": gaps}
+
+
+def _kernels_vs_f64(backend, imgs, theor, n_valid) -> tuple[dict, torch.Tensor]:
+    """One batch's metrics through the kernels against the f64 reference of
+    the moments and epilogues (with the kernels' chaos, which is held to
+    the plain version on its own): spatial, spectral and msm within the
+    contracts, ion by ion.  Returns the largest ulp gap of each, and the
+    kernels' (b, 4) metrics."""
+    from sm_distributed_tpu_torch.ops.metrics import batch_metrics
+
+    nrows, ncols = backend.grid
+    kern = batch_metrics(imgs.clone(), theor, n_valid, nrows, ncols,
+                         backend.nlevels, n_real=backend.n_real)
+    ref = _metrics_f64(imgs, theor, n_valid, backend.n_real, kern[:, 0])
+    gaps = {}
+    for col, comp in list(enumerate(CONTRACT))[1:]:
+        gap = ulps(kern[:, col], ref[:, col])
+        assert int(gap.max()) <= CONTRACT[comp], (
+            f"{comp}: kernels {int(gap.max())} ulp from f64")
+        gaps[comp] = int(gap.max())
+    del ref
+    return gaps, kern
+
+
+def _serpentine(r: int, c: int) -> np.ndarray:
+    """One path through the whole image: rows joined at alternate ends."""
+    img = np.zeros((r, c), np.float32)
+    img[::2, :] = 1.0
+    for row in range(1, r, 2):
+        img[row, c - 1 if (row // 2) % 2 == 0 else 0] = 1.0
+    return img
+
+
+def phase_whole_slide(dev, nlevels: int) -> tuple[dict, dict]:
+    """A 1024x1024 slide on the m/z-chunked cube path: chaos takes the
+    strip kernel, held against its plain version and scipy."""
+    from sm_distributed_tpu_torch.io.fixtures import (
+        expand_formula_list,
+        synthetic_dataset_arrays,
+    )
+    from sm_distributed_tpu_torch.models.msm_basic import (
+        MSMBasicSearch,
+        _slice_table,
+    )
+    from sm_distributed_tpu_torch.ops.chaos import (
+        chaos_count_sums_strips,
+        chaos_count_sums_torch,
+        chaos_route,
+    )
+    from sm_distributed_tpu_torch.ops.moments import batch_moments
+    from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
+
+    t_start = time.perf_counter()
+    ds, truth = synthetic_dataset_arrays(
+        WS_SIDE, WS_SIDE, formulas=expand_formula_list(WS_FORMULAS),
+        present_fraction=0.6, noise_peaks=WS_NOISE_PEAKS, seed=7)
+    t_ds = time.perf_counter() - t_start
+    ds_cfg = DSConfig.from_dict({"isotope_generation": {"adducts": ["+H"]}})
+    search = MSMBasicSearch(ds, truth.formulas, ds_cfg, SMConfig.from_dict(
+        {"fdr": {"decoy_sample_size": 20}, "parallel": WS_PARALLEL}))
+    say(f"  whole-slide set-up: {ds.nrows}x{ds.ncols} pixels, {ds.n_peaks} "
+        f"peaks ({WS_NOISE_PEAKS} noise peaks a pixel); dataset {t_ds:.1f} s")
+    route = chaos_route(ds.nrows, ds.ncols)
+    assert route == "strips", f"{ds.nrows}x{ds.ncols} routes to {route}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    bundle = search.search()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    table, backend = search.last_table, search.last_backend
+    n_batches = -(-table.n_ions // backend.batch)
+    tim = bundle.timings
+    say(f"  whole-slide path: {table.n_ions} ions in {n_batches} batches of "
+        f"{backend.batch}, mz_chunk {backend.mz_chunk}; wall {wall:.3f} s; "
+        "phases " + ", ".join(f"{k} {v:.3f} s" for k, v in tim.items())
+        + f"; {table.n_ions / tim['score']:.1f} ions/s scored; peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    assert n_batches >= 2
+    assert launches["chaos_strips"] >= n_batches, launches
+    assert launches["moments"] >= n_batches, launches
+    assert launches["chaos"] == 0 and launches["fused_window_moments"] == 0
+    ann = bundle.annotations
+    hits = set(ann[(ann.adduct == "+H") & (ann.fdr_level <= 0.1)].sf)
+    present = [str(sf) for sf in truth.present]
+    recall = sum(sf in hits for sf in present) / len(present)
+    say(f"  recall of the {len(present)} present (+H) ions at fdr_level "
+        f"<= 0.1: {recall:.3f} ({len(ann)} annotations)")
+    assert recall >= 0.5, f"whole-slide recall {recall:.3f}"
+
+    # batch 0: the unmasked moments kernel against its plain version and
+    # f64 on the path's own block (a million pixels a row: row sums pass
+    # 2**24), the metrics against f64 and the search's rows, the step
+    # times, then the strip kernel on the principal images
+    t_b0 = _slice_table(table, 0, backend.batch)
+    imgs, theor, n_valid = backend.image_block(t_b0)
+    mom_err = _check_moments(imgs, None, False, "whole-slide block")
+    metric_gaps, kern = _kernels_vs_f64(backend, imgs, theor, n_valid)
+    rows = bundle.all_metrics[list(CONTRACT)].to_numpy()[:t_b0.n_ions]
+    assert np.array_equal(kern[:t_b0.n_ions].double().cpu().numpy(), rows), \
+        "whole-slide: the checked block's metrics differ from the search's"
+    del kern, theor, n_valid
+    say(f"  whole-slide batch 0: metrics of the checked block equal the "
+        f"search's rows; kernels' ulp gaps to f64 {json.dumps(metric_gaps)}")
+    extract_ms = time_ms(lambda: backend.image_block(t_b0), reps=3,
+                         warmup=1)
+    nrows, ncols = backend.grid
+    principal = imgs[:, 0, :]
+    mom_ms = time_ms(lambda: batch_moments(imgs, None), reps=3)
+    kern_ms = time_ms(lambda: chaos_count_sums_strips(
+        principal, nrows, ncols, nlevels), reps=3)
+    got = chaos_count_sums_strips(principal, nrows, ncols, nlevels)
+    plain_ms, want = time_once(lambda: chaos_count_sums_torch(
+        principal, nrows, ncols, nlevels))
+    assert torch.equal(got, want), (
+        f"strips: {int((got != want).sum())} principal images differ")
+    sc = _scipy_count_sums(principal[:3].cpu().numpy(), nrows, ncols, nlevels)
+    assert got[:3].cpu().tolist() == [float(v) for v in sc], (got[:3], sc)
+    n_img, p = principal.shape
+    del imgs, principal
+    batch_ms = time_ms(lambda: backend.score_batch(t_b0), reps=2, warmup=1)
+    say(f"  strips: {n_img} batch-0 principal images bit-equal to the plain "
+        f"version, first 3 equal to scipy {sc}")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    masks = _random_images(16, WS_SIDE * WS_SIDE, dev, gen)
+    _check_chaos_strips(masks, nlevels, "random masks")
+    snake = torch.from_numpy(_serpentine(WS_SIDE, WS_SIDE).reshape(1, -1))
+    got = chaos_count_sums_strips(snake.to(dev), WS_SIDE, WS_SIDE, nlevels)
+    sc = _scipy_count_sums(snake.numpy(), WS_SIDE, WS_SIDE, nlevels)
+    assert got.cpu().tolist() == [float(sc[0])] == [float(nlevels)], (
+        got, sc)
+    say(f"  strips: serpentine {WS_SIDE}x{WS_SIDE} (one path through every "
+        f"row) {int(got[0])} = scipy {sc[0]}")
+    n_bytes = n_img * (p * 4 + nlevels * 4 + 4)
+    # the byte floor: the union-find's compares and atomics are integer
+    # work whose count depends on the images, which no peak rate models
+    bound, by = bound_ms(n_bytes, 0.0)
+    say(f"  whole-slide batch 0 device ms: extract {extract_ms:.3f}, "
+        f"moments (unmasked) {mom_ms:.3f}, strip chaos {kern_ms:.3f} (plain "
+        f"{plain_ms:.3f}, byte floor {bound:.3f}), batch {batch_ms:.3f}")
+    say(f"phase 8 whole-slide path: {time.perf_counter() - t_start:.1f} s; "
+        f"chaos routed {route!r}; strip and unmasked moments kernels "
+        "launched on every batch; strip kernel bit-equal to the plain "
+        "version and scipy; unmasked moments within "
+        f"{MOMENT_ULPS} ulp of f64 and of the plain version beyond its drift")
+    entry = {"name": "chaos_strips", "route": "cuda",
+             "source": "sm_distributed_tpu_torch/csrc/chaos_strips.cu",
+             "replaces": "sm_distributed_tpu/ops/chaos_pallas.py:516",
+             "launches": launches["chaos_strips"], "max_abs_err": 0.0,
+             "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": by, "library_ms": None}
+    summary = {"wall_s": wall, "timings": tim, "peak_bytes": peak,
+               "n_ions": table.n_ions, "n_peaks": ds.n_peaks,
+               "launches": launches, "recall": recall,
+               "ions_per_s": table.n_ions / tim["score"],
+               "moments_max_abs_err": mom_err, "ulp_to_f64": metric_gaps,
+               "batch_ms": {"extract": extract_ms, "moments": mom_ms,
+                            "chaos_strips": kern_ms, "batch": batch_ms}}
+    return entry, summary
+
+
+def _check_chaos_strips(images: torch.Tensor, nlevels: int, label: str):
+    from sm_distributed_tpu_torch.ops.chaos import (
+        chaos_count_sums_strips,
+        chaos_count_sums_torch,
+    )
+
+    got = chaos_count_sums_strips(images, WS_SIDE, WS_SIDE, nlevels)
+    want = chaos_count_sums_torch(images, WS_SIDE, WS_SIDE, nlevels)
+    assert torch.equal(got, want), (
+        f"strips {label}: {int((got != want).sum())} images differ")
+    sc = _scipy_count_sums(images[:3].cpu().numpy(), WS_SIDE, WS_SIDE,
+                           nlevels)
+    assert got[:3].cpu().tolist() == [float(v) for v in sc], (got[:3], sc)
+    say(f"  strips {label}: {images.shape[0]} images {WS_SIDE}x{WS_SIDE} "
+        f"bit-equal to the plain version, first 3 equal to scipy {sc}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -522,10 +997,25 @@ def main() -> int:
     for entry in kernels:
         entry["launches"] = main["launches"][entry["name"]]
     phase_golden()
+    fused_entry, fused = phase_fused(ds, truth, search, ds_cfg, main)
+    torch.cuda.empty_cache()
+    cube = phase_cube_main(ds, truth, search, ds_cfg, main)
     say("main path: " + json.dumps({
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
                              "n_ions", "n_peaks", "drift", "recall",
                              "batch_ms")}))
+    del ds, truth, search, backend, main
+    torch.cuda.empty_cache()
+    strips_entry, slide = phase_whole_slide(dev,
+                                            ds_cfg.image_generation.nlevels)
+    say("fused path: " + json.dumps(fused))
+    say("cube path, main dataset: " + json.dumps(cube))
+    say("whole-slide path: " + json.dumps(slide))
+    # the moments kernel's error: the largest over phase 4's blocks and the
+    # whole-slide block of phase 8
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                    slide["moments_max_abs_err"])
+    kernels = [kernels[0], kernels[1], strips_entry, fused_entry]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

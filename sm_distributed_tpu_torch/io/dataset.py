@@ -161,3 +161,25 @@ class SpectralDataset:
 
     def row_lengths(self) -> np.ndarray:
         return np.diff(self.row_ptr)
+
+    def padded_cube(self, ints: np.ndarray | None = None
+                    ) -> tuple[np.ndarray, np.ndarray]:
+        """Dense (n_pixels, L) m/z + intensity cube for the m/z-chunked cube
+        path: (mz_cube f64, int_cube f32), the JAX package's default layout.
+
+        m/z rows are padded with +inf (so searchsorted puts windows before the
+        padding), intensities with 0.  L is the max spectrum length rounded up
+        to a multiple of 128.  ``ints`` (one per peak, in ``mzs_flat`` order)
+        replaces the raw intensities, e.g. with their integer-grid values.
+        """
+        lens = self.row_lengths()
+        L = int(max(1, lens.max())) if lens.size else 1
+        L = -(-L // 128) * 128
+        mz_cube = np.full((self.n_pixels, L), np.inf, dtype=np.float64)
+        int_cube = np.zeros((self.n_pixels, L), dtype=np.float32)
+        pixel_of_peak = np.repeat(np.arange(self.n_pixels), lens)
+        col_of_peak = np.arange(self.n_peaks) - np.repeat(self.row_ptr[:-1], lens)
+        mz_cube[pixel_of_peak, col_of_peak] = self.mzs_flat
+        int_cube[pixel_of_peak, col_of_peak] = (
+            self.ints_flat if ints is None else ints)
+        return mz_cube, int_cube

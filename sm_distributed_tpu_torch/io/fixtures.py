@@ -162,6 +162,22 @@ def generate_synthetic_dataset(
     return imzml_path, truth
 
 
+def _pixel_mz_order(pix: np.ndarray, mzs: np.ndarray, counts: np.ndarray,
+                    row_ptr: np.ndarray) -> np.ndarray:
+    """``np.lexsort((mzs, pix))``, ties included, in a fraction of its time
+    at whole-slide sizes: a stable sort by pixel (``pix`` is a few sorted
+    runs), then a stable sort of each pixel's m/z row, padded with +inf."""
+    by_pix = np.argsort(pix, kind="stable")
+    width = int(counts.max()) if counts.size else 0
+    slot = np.arange(pix.size) - np.repeat(row_ptr[:-1], counts)
+    rows = np.full((counts.size, width), np.inf)
+    rows[pix[by_pix], slot] = mzs[by_pix]
+    within = np.argsort(rows, axis=1, kind="stable")
+    del rows
+    real = np.arange(width)[None, :] < counts[:, None]
+    return by_pix[(within + row_ptr[:-1, None])[real]]
+
+
 def synthetic_dataset_arrays(
     nrows: int = 32,
     ncols: int = 32,
@@ -206,10 +222,10 @@ def synthetic_dataset_arrays(
     pix = np.concatenate(pix_parts)
     mzs = np.concatenate(mz_parts)
     ints = np.concatenate(int_parts).astype(np.float32)
-    order = np.lexsort((mzs, pix))
     counts = np.bincount(pix, minlength=n_pix)
     row_ptr = np.zeros(n_pix + 1, dtype=np.int64)
     np.cumsum(counts, out=row_ptr[1:])
+    order = _pixel_mz_order(pix, mzs, counts, row_ptr)
     ds = SpectralDataset(
         nrows=nrows, ncols=ncols,
         pixel_inds=np.arange(n_pix, dtype=np.int64),

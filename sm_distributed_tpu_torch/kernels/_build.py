@@ -27,8 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the kernels every main-path run needs, built together by build_all()
-KERNELS = ("moments", "chaos")
+# every kernel of the port, built together by build_all()
+KERNELS = ("moments", "chaos", "chaos_strips", "fused_moments")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -6,15 +6,20 @@ number of 4-connected components of ``max(img, 0) > thr``, exact integers
 bit-equal to ``scipy.ndimage.label``.
 
 - :func:`chaos_count_sums` is the wrapper.  A CPU tensor goes to the plain
-  version; a CUDA tensor goes to the hand-written kernel ``csrc/chaos.cu``
-  (kernel 3 of the port, the "packed" route), or the call raises.
-- :func:`chaos_count_sums_torch` is the plain version: iterated 4-neighbour
-  min-label propagation with pointer jumping, run to its fixpoint.
+  version.  A CUDA tensor goes to a hand-written kernel chosen by the JAX
+  package's routing rule :func:`chaos_route`: images within the lean
+  whole-image budget (256x256, 512x512) to ``csrc/chaos.cu`` (the "packed"
+  route, counted in ``chaos_count_sums.launches``), larger ones (1024x1024
+  whole-slide images) to ``csrc/chaos_strips.cu`` (the "strips" route,
+  counted in ``chaos_count_sums_strips.launches``).  A kernel that fails to
+  build or launch raises.
+- :func:`chaos_count_sums_torch` is the plain version of both kernels:
+  iterated 4-neighbour min-label propagation with pointer jumping, run to
+  its fixpoint, for any image size.
 
-The JAX package routes images past its lean whole-image budget to the strip
-kernel (``chaos_route(...) == "strips"``, e.g. 1024x1024); that kernel is not
-ported yet, so those shapes raise ``NotImplementedError`` here on every
-device.
+Shapes for which the JAX package has no Pallas route (``"scan"``: past the
+packed budget and wider than the strip kernel's 8192 columns) raise
+``NotImplementedError`` on every device.
 """
 
 from __future__ import annotations
@@ -60,13 +65,13 @@ def chaos_route(nrows: int, ncols: int, lane_width: int = 512) -> str:
     return "scan"
 
 
-def _check_route(nrows: int, ncols: int) -> None:
+def _check_route(nrows: int, ncols: int) -> str:
     route = chaos_route(nrows, ncols)
-    if route != "packed":
+    if route == "scan":
         raise NotImplementedError(
-            f"{nrows}x{ncols} images take the JAX package's {route!r} chaos "
-            "route, which the port does not have yet (ROADMAP queue 2 item "
-            "4, the strip chaos kernel)")
+            f"{nrows}x{ncols} images take the JAX package's 'scan' chaos "
+            "route (no Pallas kernel fits them), which the port does not have")
+    return route
 
 
 def chaos_thresholds(vmax: torch.Tensor, nlevels: int) -> torch.Tensor:
@@ -109,8 +114,7 @@ def _component_counts(mask: torch.Tensor) -> torch.Tensor:
 def chaos_count_sums_torch(principal: torch.Tensor, nrows: int, ncols: int,
                            nlevels: int) -> torch.Tensor:
     """(N,) f32 per-image sums over levels of component counts, in plain
-    torch ops."""
-    _check_route(nrows, ncols)
+    torch ops, for any image size."""
     img = torch.clamp(principal, min=0.0)
     thr = chaos_thresholds(img.amax(dim=1), nlevels)
     n = img.shape[0]
@@ -121,8 +125,25 @@ def chaos_count_sums_torch(principal: torch.Tensor, nrows: int, ncols: int,
     return total.to(torch.float32)
 
 
-def _launch(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
-            ncols: int, nlevels: int) -> torch.Tensor:
+def _kernel_thresholds(principal: torch.Tensor, nrows: int, ncols: int,
+                       nlevels: int, what: str) -> torch.Tensor:
+    """Check a CUDA input of a chaos kernel; return its (N, nlevels)
+    thresholds."""
+    if principal.dtype != torch.float32 or principal.dim() != 2 \
+            or principal.shape[1] != nrows * ncols:
+        raise ValueError(
+            f"{what} takes an (N, {nrows * ncols}) float32 tensor, "
+            f"got {tuple(principal.shape)} {principal.dtype}")
+    if principal.shape[0] and (principal.stride(1) != 1
+                               or principal.stride(0) < principal.shape[1]):
+        raise ValueError(f"{what} needs contiguous pixels per image")
+    # max(max(x), 0) == max(max(x, 0)): no clamped copy of the images
+    vmax = torch.clamp(principal.amax(dim=1), min=0.0)
+    return chaos_thresholds(vmax, nlevels).contiguous()
+
+
+def _launch_packed(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
+                   ncols: int, nlevels: int) -> torch.Tensor:
     from ..kernels import _build
 
     n, p = principal.shape
@@ -152,33 +173,79 @@ def _launch(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
     return out
 
 
+def _launch_strips(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
+                   ncols: int, nlevels: int) -> torch.Tensor:
+    from ..kernels import _build
+
+    n, p = principal.shape
+    dev = principal.device
+    lib = _build.load("chaos_strips")
+    fn = lib.sm_chaos_strips
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [
+        ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if nlevels > lib.sm_chaos_strips_max_levels():
+        raise ValueError(
+            f"strip chaos kernel takes at most "
+            f"{lib.sm_chaos_strips_max_levels()} levels, got {nlevels}")
+    if n > 65535 or p >= 2**31 - lib.sm_chaos_strips_strip_pixels():
+        raise ValueError(f"strip chaos kernel: {n} images of {p} pixels "
+                         "past its grid limits")
+    strips = -(-p // lib.sm_chaos_strips_strip_pixels())
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    par = torch.empty(n * p, dtype=torch.int32, device=dev)
+    lev = torch.empty(n * p, dtype=torch.uint8, device=dev)
+    counts = torch.zeros(2, n, dtype=torch.int64, device=dev)  # total, credit
+    strip_top = torch.empty(n * strips, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(fn(principal.data_ptr(), principal.stride(0), thr.data_ptr(),
+                    out.data_ptr(), par.data_ptr(), lev.data_ptr(),
+                    counts[0].data_ptr(), counts[1].data_ptr(),
+                    strip_top.data_ptr(), n, nrows, ncols, nlevels, stream),
+                 "strip chaos kernel launch")
+    return out
+
+
 def chaos_count_sums(principal: torch.Tensor, nrows: int, ncols: int,
                      nlevels: int) -> torch.Tensor:
     """(N,) f32 per-image sums over levels of component counts for (N,
     nrows*ncols) principal images.  Rows may be strided (a ``[:, 0, :]``
     view of the image block), pixels must be contiguous.  CPU: the plain
-    version.  CUDA: the ``csrc/chaos.cu`` kernel (counted in
-    ``chaos_count_sums.launches``); anything else raises."""
+    version.  CUDA: the kernel of the shape's route, the ``csrc/chaos.cu``
+    kernel (counted in ``chaos_count_sums.launches``) or
+    :func:`chaos_count_sums_strips`; anything else raises."""
+    route = _check_route(nrows, ncols)
     if principal.device.type == "cpu":
         return chaos_count_sums_torch(principal, nrows, ncols, nlevels)
     if principal.device.type != "cuda":
         raise ValueError(
             f"chaos_count_sums: unsupported device {principal.device}")
-    _check_route(nrows, ncols)
-    if principal.dtype != torch.float32 or principal.dim() != 2 \
-            or principal.shape[1] != nrows * ncols:
-        raise ValueError(
-            f"chaos_count_sums takes an (N, {nrows * ncols}) float32 tensor, "
-            f"got {tuple(principal.shape)} {principal.dtype}")
-    if principal.shape[0] and (principal.stride(1) != 1
-                               or principal.stride(0) < principal.shape[1]):
-        raise ValueError("chaos_count_sums needs contiguous pixels per image")
-    # max(max(x), 0) == max(max(x, 0)): no clamped copy of the images
-    vmax = torch.clamp(principal.amax(dim=1), min=0.0)
-    thr = chaos_thresholds(vmax, nlevels).contiguous()
-    out = _launch(principal, thr, nrows, ncols, nlevels)
+    if route == "strips":
+        return chaos_count_sums_strips(principal, nrows, ncols, nlevels)
+    thr = _kernel_thresholds(principal, nrows, ncols, nlevels,
+                             "chaos_count_sums")
+    out = _launch_packed(principal, thr, nrows, ncols, nlevels)
     chaos_count_sums.launches += 1
     return out
 
 
+def chaos_count_sums_strips(principal: torch.Tensor, nrows: int, ncols: int,
+                            nlevels: int) -> torch.Tensor:
+    """The same counts through the whole-slide kernel ``csrc/chaos_strips.cu``
+    (counted in ``chaos_count_sums_strips.launches``), which takes images of
+    any size; :func:`chaos_count_sums` sends it the shapes past the packed
+    kernel's budget.  CPU: the plain version; anything else raises."""
+    if principal.device.type == "cpu":
+        return chaos_count_sums_torch(principal, nrows, ncols, nlevels)
+    if principal.device.type != "cuda":
+        raise ValueError(
+            f"chaos_count_sums_strips: unsupported device {principal.device}")
+    thr = _kernel_thresholds(principal, nrows, ncols, nlevels,
+                             "chaos_count_sums_strips")
+    out = _launch_strips(principal, thr, nrows, ncols, nlevels)
+    chaos_count_sums_strips.launches += 1
+    return out
+
+
 chaos_count_sums.launches = 0
+chaos_count_sums_strips.launches = 0

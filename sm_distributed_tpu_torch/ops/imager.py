@@ -1,16 +1,22 @@
-"""Ion-image extraction on the flat, m/z-sorted resident-peak layout.
+"""Ion-image extraction on the flat, m/z-sorted resident-peak layout and on
+the m/z-chunked dense cube.
 
-Port of the flat-banded path of ``sm_distributed_tpu/ops/imager_jax.py``.
-The host planners below are copies (the JAX module imports jax at its top,
-so the port keeps its own): the window-bound rank grid, the globally
-m/z-sorted peak arrays, bound ranks, the window-union restriction and the
-ion-major chunk plan.  ``extract_images_flat_banded`` is the device step in
-torch:
+Port of the flat-banded and m/z-chunked paths of
+``sm_distributed_tpu/ops/imager_jax.py``.  The host planners below are
+copies (the JAX module imports jax at its top, so the port keeps its own):
+the window-bound rank grid, the globally m/z-sorted peak arrays, bound
+ranks, the window-union restriction, the ion-major and window-major chunk
+plans and the quantized cube.  ``extract_images_flat_banded`` is the flat
+path's device step in torch:
 
 1. bins from a delta array and a cumsum (``bins[j] = #{g: grid[g] <= mz[j]}``);
 2. a histogram scatter-add (``index_put_(accumulate=True)``) of the integer
    grid intensities into the bins-major ``(cols, P+1)`` scratch;
 3. per chunk of windows, a banded membership matmul ``d.T @ band``.
+
+``extract_images_mz_chunked`` is the cube path's: one searchsorted of the
+cube against the batch's bound grid, then per chunk a scatter-add into a
+``(P, gc_width+2)`` scratch and one membership matmul.
 
 Exactness: intensities sit on the shared integer grid with every
 per-(pixel, window) sum below 2**24, so the scatter's atomics and the
@@ -251,6 +257,59 @@ def ion_window_chunks(
             order.astype(np.int32))
 
 
+def flat_histogram(
+    pixel_sorted: torch.Tensor,  # (N,) int64, overflow slots -> a pad row
+    int_sorted: torch.Tensor,    # (N,) f32 integer grid, 0 at padding
+    pos: torch.Tensor,           # (G,) int64 host-computed bound ranks
+    *,
+    gc_width: int,
+    n_pixels: int,
+) -> torch.Tensor:
+    """The bins-major ``(cols, n_pixels + 1)`` f32 histogram scratch of one
+    batch, ``cols = max(G + 1, gc_width + 2)``: row g holds, per pixel, the
+    intensities of the peaks whose bin (the count of bounds <= their m/z) is
+    g.  The last column is the overflow row of the padding slots."""
+    dev = int_sorted.device
+    n = pixel_sorted.shape[0]
+    g = pos.shape[0]
+    delta = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    delta.index_add_(0, pos, torch.ones_like(pos))
+    bins = torch.cumsum(delta[:-1], dim=0)
+    cols = max(g + 1, gc_width + 2)
+    wh = torch.zeros((cols, n_pixels + 1), dtype=torch.float32, device=dev)
+    wh.index_put_((bins, pixel_sorted), int_sorted, accumulate=True)
+    return wh
+
+
+def banded_images(
+    whp: torch.Tensor,           # (cols, P) f32 histogram rows, pixels unit-strided
+    starts,                      # (C,) chunk grid offsets (host ints)
+    r_lo_loc: torch.Tensor,      # (C, Wc) int32 local lo ranks
+    r_hi_loc: torch.Tensor,      # (C, Wc) int32 local hi ranks
+    *,
+    gc_width: int,
+) -> torch.Tensor:
+    """(C*Wc, P) f32 images in plan order.  Each chunk slices its
+    ``gc_width + 2`` rows of the scratch (the start clamped so the slice
+    stays inside, the local ranks shifted by the same amount) and runs one
+    membership matmul.  Out-of-band bins have zero membership in the dense
+    form, so the banded result is bit-identical to it."""
+    dev = whp.device
+    cols, n_pixels = whp.shape
+    gg = torch.arange(gc_width + 2, dtype=torch.int32, device=dev)[:, None]
+    n_chunks, wc = r_lo_loc.shape
+    imgs = torch.empty((n_chunks * wc, n_pixels), dtype=torch.float32,
+                       device=dev)
+    for c, start in enumerate(np.asarray(starts).tolist()):
+        start_eff = min(start, cols - (gc_width + 2))
+        shift = start - start_eff
+        band = whp[start_eff:start_eff + gc_width + 2]
+        d = ((gg > (r_lo_loc[c] + shift)[None, :])
+             & (gg <= (r_hi_loc[c] + shift)[None, :])).to(torch.float32)
+        torch.matmul(d.T, band, out=imgs[c * wc:(c + 1) * wc])
+    return imgs
+
+
 def extract_images_flat_banded(
     pixel_sorted: torch.Tensor,  # (N,) int64, overflow slots -> a pad row
     int_sorted: torch.Tensor,    # (N,) f32 integer grid, 0 at padding
@@ -263,34 +322,115 @@ def extract_images_flat_banded(
     gc_width: int,
     n_pixels: int,
 ) -> torch.Tensor:
-    """(C*Wc, n_pixels) f32 images (input order when ``inv`` is given).
-
-    The histogram is built once at full width; each chunk slices its
-    ``gc_width + 2`` rows of the scratch (the start clamped so the slice
-    stays inside, the local ranks shifted by the same amount) and runs one
-    membership matmul.  Out-of-band bins have zero membership in the dense
-    form, so the banded result is bit-identical to it."""
-    dev = int_sorted.device
-    n = pixel_sorted.shape[0]
-    g = pos.shape[0]
-    delta = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-    delta.index_add_(0, pos, torch.ones_like(pos))
-    bins = torch.cumsum(delta[:-1], dim=0)
-    cols = max(g + 1, gc_width + 2)
-    wh = torch.zeros((cols, n_pixels + 1), dtype=torch.float32, device=dev)
-    wh.index_put_((bins, pixel_sorted), int_sorted, accumulate=True)
-    whp = wh[:, :n_pixels]
-    gg = torch.arange(gc_width + 2, dtype=torch.int32, device=dev)[:, None]
-    n_chunks, wc = r_lo_loc.shape
-    imgs = torch.empty((n_chunks * wc, n_pixels), dtype=torch.float32,
-                       device=dev)
-    for c, start in enumerate(np.asarray(starts).tolist()):
-        start_eff = min(start, cols - (gc_width + 2))
-        shift = start - start_eff
-        band = whp[start_eff:start_eff + gc_width + 2]
-        d = ((gg > (r_lo_loc[c] + shift)[None, :])
-             & (gg <= (r_hi_loc[c] + shift)[None, :])).to(torch.float32)
-        torch.matmul(d.T, band, out=imgs[c * wc:(c + 1) * wc])
+    """(C*Wc, n_pixels) f32 images (input order when ``inv`` is given): the
+    histogram built once at full width, then the banded membership matmul
+    of every chunk."""
+    wh = flat_histogram(pixel_sorted, int_sorted, pos, gc_width=gc_width,
+                        n_pixels=n_pixels)
+    imgs = banded_images(wh[:, :n_pixels], starts, r_lo_loc, r_hi_loc,
+                         gc_width=gc_width)
     if inv is None:
         return imgs
+    return imgs[inv]
+
+
+# -- m/z-chunked cube path ----------------------------------------------------
+#
+# A whole-slide image (1024x1024 pixels and more) makes the flat path's
+# (2BK+1, P+1) histogram scratch too large for any batch size.  With
+# ``ParallelConfig.mz_chunk`` set, the dense (pixels x peaks) cube is resident
+# instead, windows are sorted by m/z and cut into chunks, and each chunk's
+# LOCAL bound-grid slice bounds the scratch at (P, gc_width+2).  The global
+# searchsorted happens once per batch (local bins are global bins minus the
+# chunk's grid offset); only the scatter-add repeats per chunk.  Images are
+# bit-identical to the unchunked path: hit sets are exact integer-grid
+# matches and sums are exact integers in any grouping.
+
+
+def prepare_cube_arrays(
+    ds: SpectralDataset,
+    ppm: float | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side: (mz_q_cube int32 (P, L), int_cube float32 (P, L)).
+
+    m/z rows are quantized (padding saturates to the MZ_PAD_Q sentinel, above
+    every real window bound, so padded peaks land past every rank).  With
+    ``ppm`` given, intensities come from the shared integer grid
+    (ds.intensity_quantization): every per-(pixel, window) sum stays below
+    2**24, so scatter-add and matmul accumulation are exact in f32 in any
+    order."""
+    ints_q = None if ppm is None else ds.intensity_quantization(ppm)[0]
+    mz_cube, int_cube = ds.padded_cube(ints_q)
+    return quantize_mz(mz_cube), int_cube
+
+
+def window_chunks(
+    r_lo: np.ndarray, r_hi: np.ndarray, mz_chunk: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """Host-side window-major chunk plan: (starts (C,), r_lo_loc (C, Wc),
+    r_hi_loc (C, Wc), inv (W,), gc_width).
+
+    Windows are ordered by lo rank and cut every ``mz_chunk`` windows; a
+    chunk's grid offset is its first window's lo rank; ``gc_width`` (the max
+    local rank span on the ``gc_ladder``) sizes the scratch.  Empty windows
+    (batch padding, or windows collapsed by quantization) sort last: a
+    partially padded batch would otherwise put rank-0 empties and high-rank
+    real windows into one chunk whose span is the whole grid.  Their local
+    ranks go negative in a straddling chunk, which the membership test
+    treats as empty.  ``inv`` maps sorted rows back to input order."""
+    w = int(r_lo.size)
+    wc = max(1, int(mz_chunk))
+    c = max(1, -(-w // wc))
+    order = np.lexsort((r_lo, (r_lo == r_hi).astype(np.int8)))
+    pad = c * wc - w
+    r_lo_s = np.concatenate([r_lo[order], np.zeros(pad, r_lo.dtype)]).reshape(c, wc)
+    r_hi_s = np.concatenate([r_hi[order], np.zeros(pad, r_hi.dtype)]).reshape(c, wc)
+    starts = r_lo_s[:, 0].astype(np.int32)
+    # padded tail windows: snap to the chunk offset -> empty local window
+    if pad:
+        r_lo_s[-1, wc - pad:] = starts[-1]
+        r_hi_s[-1, wc - pad:] = starts[-1]
+    r_lo_loc = (r_lo_s - starts[:, None]).astype(np.int32)
+    r_hi_loc = (r_hi_s - starts[:, None]).astype(np.int32)
+    gc_width = gc_ladder(max(int(r_hi_loc.max()) if w else 1, wc, 2))
+    inv = np.empty(w, dtype=np.int32)
+    inv[order] = np.arange(w, dtype=np.int32)
+    return starts, r_lo_loc, r_hi_loc, inv, gc_width
+
+
+def extract_images_mz_chunked(
+    mz_q_cube: torch.Tensor,   # (P, L) int32, MZ_PAD_Q padding
+    int_cube: torch.Tensor,    # (P, L) f32 integer grid, 0 at padding
+    grid: torch.Tensor,        # (G,) int32 sorted window bounds (all chunks)
+    starts,                    # (C,) grid offset per chunk (host ints)
+    r_lo_loc: torch.Tensor,    # (C, Wc) int32 local lo ranks
+    r_hi_loc: torch.Tensor,    # (C, Wc) int32 local hi ranks
+    inv: torch.Tensor,         # (W,) int64 sorted-row -> input-order map
+    *,
+    gc_width: int,
+) -> torch.Tensor:
+    """(W, P) f32 ion-window images, the scratch bounded at (P, gc_width+2).
+
+    Out-of-chunk peaks clip to bins 0 and gc_width+1, which no window of the
+    chunk covers (local interiors are (rlo, rhi] with rlo >= 0 and
+    rhi <= gc_width)."""
+    dev = int_cube.device
+    p = mz_q_cube.shape[0]
+    width = gc_width + 2
+    bins_g = torch.searchsorted(grid, mz_q_cube, right=True)   # once
+    rows = torch.arange(p, dtype=torch.int64, device=dev)[:, None] * width
+    vals = int_cube.reshape(-1)
+    gg = torch.arange(width, dtype=torch.int32, device=dev)[:, None]
+    n_chunks, wc = r_lo_loc.shape
+    imgs = torch.empty((n_chunks * wc, p), dtype=torch.float32, device=dev)
+    for c, start in enumerate(np.asarray(starts).tolist()):
+        lin = (bins_g - start).clamp_(0, gc_width + 1).add_(rows)
+        wh = torch.zeros(p * width, dtype=torch.float32, device=dev)
+        wh.index_add_(0, lin.view(-1), vals)
+        del lin
+        d = ((gg > r_lo_loc[c][None, :])
+             & (gg <= r_hi_loc[c][None, :])).to(torch.float32)
+        torch.matmul(d.T, wh.view(p, width).T,
+                     out=imgs[c * wc:(c + 1) * wc])
+        del wh
     return imgs[inv]

@@ -1,10 +1,11 @@
 """MSM metrics for a formula batch, in torch.
 
-Port of ``sm_distributed_tpu/ops/metrics_jax.py`` (``batch_metrics`` and its
-epilogues): one moments pass (``ops/moments.py``) feeds the chaos thresholds
-and the correlation and pattern-match epilogues; chaos counts come from
-``ops/chaos.py``.  On the card those two are the hand-written kernels; on
-the CPU their plain versions.
+Port of ``sm_distributed_tpu/ops/metrics_jax.py`` (``batch_metrics``,
+``batch_metrics_from_partials`` and their epilogues): one moments pass
+(``ops/moments.py``, or the fused kernel's partials from ``ops/score.py``)
+feeds the chaos thresholds and the correlation and pattern-match epilogues;
+chaos counts come from ``ops/chaos.py``.  On the card those are the
+hand-written kernels; on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -96,7 +97,48 @@ def batch_metrics(images: torch.Tensor, theor_ints: torch.Tensor,
     images.masked_fill_(~valid[:, :, None], 0.0)
     moments = batch_moments_torch if plain else batch_moments
     sums, normsq, dots, vmax, n_notnull = moments(images, n_real)
-    chaos = measure_of_chaos_batch(images[:, 0, :], nrows, ncols, nlevels,
+    return _msm_rows(images[:, 0, :], sums, normsq, dots, vmax, n_notnull,
+                     theor_ints, n_valid, valid, nrows, ncols, nlevels, plain)
+
+
+def batch_metrics_from_partials(partials: torch.Tensor,
+                                principal: torch.Tensor,
+                                theor_ints: torch.Tensor,
+                                n_valid: torch.Tensor, nrows: int, ncols: int,
+                                nlevels: int = 30) -> torch.Tensor:
+    """``batch_metrics`` from precomputed moments: the fused kernel's exit.
+
+    ``partials``: (N, K, 5) moment columns (sums, normsq, dots, vmax, nn)
+    of the UNMASKED window rows; ``principal``: (N, nrows*ncols) window-0
+    images.  ``batch_metrics`` zeroes invalid rows before its moments pass;
+    here the mask moves onto the moment columns, which is exactly
+    equivalent: an invalid row's masked image is all zero, so its sums,
+    normsq and dots are 0.0, what the ``where`` writes, and valid rows'
+    moments never see the mask.  vmax, nn and the principal image are
+    window 0's, valid iff ``n_valid > 0``.  Pad pixels of ``principal``
+    are exact zeros, so chaos needs no ``n_real`` mask.  The principal rows
+    of ions with no valid peak are zeroed IN PLACE."""
+    k = partials.shape[1]
+    valid = (torch.arange(k, device=partials.device)[None, :]
+             < n_valid[:, None])
+    zero = torch.zeros((), dtype=partials.dtype, device=partials.device)
+    sums, normsq, dots = (torch.where(valid, partials[..., i], zero)
+                          for i in range(3))
+    alive0 = n_valid > 0
+    vmax = torch.where(alive0, partials[:, 0, 3], zero)
+    n_notnull = torch.where(alive0, partials[:, 0, 4], zero)
+    principal.masked_fill_(~alive0[:, None], 0.0)
+    return _msm_rows(principal, sums, normsq, dots, vmax, n_notnull,
+                     theor_ints, n_valid, valid, nrows, ncols, nlevels)
+
+
+def _msm_rows(principal, sums, normsq, dots, vmax, n_notnull, theor_ints,
+              n_valid, valid, nrows, ncols, nlevels, plain=False
+              ) -> torch.Tensor:
+    """(N, 4) (chaos, spatial, spectral, msm) from the moments, each
+    component 0 where the ion has no valid peak or an all-zero principal
+    image."""
+    chaos = measure_of_chaos_batch(principal, nrows, ncols, nlevels,
                                    vmax, n_notnull, plain=plain)
     spatial = correlation_from_moments(normsq, dots, theor_ints, valid)
     spectral = isotope_pattern_match_batch(sums, theor_ints, valid)

@@ -3,7 +3,7 @@
 A port of ``sm_distributed_tpu/utils/config.py`` cut to this slice: the
 per-dataset ``DSConfig`` (database, isotope_generation, image_generation)
 with the same keys and defaults, and an ``SMConfig`` with ``backend``,
-``device``, ``fdr`` and the ``parallel`` knobs the flat scoring path reads.
+``device``, ``fdr`` and the ``parallel`` knobs the scoring paths read.
 ``from_dict`` rejects unknown keys, as the JAX package does.
 
 A value this slice cannot honour raises ``NotImplementedError`` naming the
@@ -115,8 +115,11 @@ class FDRConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The ``parallel`` knobs the flat scoring path reads (same names and
-    defaults as the JAX package)."""
+    """The ``parallel`` knobs the scoring paths read (same names and
+    defaults as the JAX package).  ``mz_chunk > 0`` takes the m/z-chunked
+    cube path; ``fused_metrics="on"`` takes the fused window-moments kernel
+    on the flat path, while ``"auto"`` and ``"off"`` keep the plain
+    chain."""
     formula_batch: int = 2048
     mz_chunk: int = 0
     peak_compaction: str = "auto"
@@ -142,15 +145,9 @@ class ParallelConfig:
         if self.formula_batch <= 0 or self.isocalc_workers < 0:
             raise ValueError("parallel: formula_batch must be positive and "
                              "isocalc_workers >= 0")
-        if self.mz_chunk > 0:
-            raise _not_in_slice("parallel.mz_chunk > 0 (the m/z-chunked "
-                                "cube path)", "queue 1 item 8")
         if self.cube_dtype != "f32":
             raise _not_in_slice(f"parallel.cube_dtype={self.cube_dtype!r} "
                                 "(resident-cube compaction)", "queue 1 item 6")
-        if self.fused_metrics == "on":
-            raise _not_in_slice("parallel.fused_metrics='on' (the fused "
-                                "window-moments kernel)", "queue 2 item 5")
         if self.peak_compaction == "on":
             raise _not_in_slice("parallel.peak_compaction='on'",
                                 "queue 1 item 5")

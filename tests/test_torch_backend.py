@@ -35,6 +35,11 @@ from sm_distributed_tpu_torch.convert import (
 # and torch's CPU thread pools would oversubscribe them
 torch.set_num_threads(1)
 
+# the JAX backends here leave XLA's persistent compilation cache off: it is
+# process-global once on, and would turn later tests' compiles in the same
+# worker into cache loads
+NO_XLA_CACHE = "off"
+
 CONTRACT = {"chaos": 0, "spatial": 16, "spectral": 16, "msm": 32}
 FIXTURES = {
     "offgrid9x11": dict(nrows=9, ncols=11, formulas=None,
@@ -119,7 +124,8 @@ def test_matches_jax_backend(fixtures, case):
     name, buckets, batch, shrink = CASES[case]
     jds, table, fdr, assignment, oracle = fixtures(name)
     sm_dict = {"backend": "jax_tpu",
-               "parallel": {"formula_batch": batch, "shape_buckets": buckets}}
+               "parallel": {"formula_batch": batch, "shape_buckets": buckets,
+                            "compile_cache_dir": NO_XLA_CACHE}}
     ds_dict = {"isotope_generation": {"adducts": list(ADDUCTS)}}
     jb = JaxBackend(jds, DSConfig.from_dict(ds_dict),
                     SMConfig.from_dict(sm_dict), restrict_table=table)

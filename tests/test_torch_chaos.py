@@ -5,7 +5,9 @@ contract is 0 ulp): against the Pallas packed kernel in interpret mode,
 against the JAX chaos score on its associative-scan route
 (``measure_of_chaos_batch(use_pallas=False)``) through the port's epilogue,
 and against ``scipy.ndimage.label`` with 4-connectivity on the same f32
-threshold grid.  Shapes the JAX package sends to its strip kernel raise.
+threshold grid.  The plain version is also the plain version of the strip
+kernel: it matches the JAX package's strip kernel in interpret mode on
+multi-strip images, and scipy on whole-slide shapes.
 """
 
 from __future__ import annotations
@@ -16,10 +18,14 @@ import torch
 from scipy import ndimage
 
 from sm_distributed_tpu.ops.chaos_pallas import chaos_count_sums as jcount
+from sm_distributed_tpu.ops.chaos_pallas import (
+    chaos_count_sums_strips as jstrips,
+)
 from sm_distributed_tpu.ops.chaos_pallas import chaos_route as jroute
 from sm_distributed_tpu.ops.metrics_jax import measure_of_chaos_batch as jchaos
 from sm_distributed_tpu_torch.ops.chaos import (
     chaos_count_sums,
+    chaos_count_sums_strips,
     chaos_count_sums_torch,
     chaos_route,
 )
@@ -109,7 +115,55 @@ def test_route_matches_jax(shape):
 
 @pytest.mark.parametrize("shape", [(1024, 1024), (700, 900)])
 def test_strip_shapes_raise(shape):
-    assert jroute(*shape) == "strips"
-    img = torch.zeros((1, shape[0] * shape[1]))
-    with pytest.raises(NotImplementedError, match="strip chaos kernel"):
-        chaos_count_sums(img, shape[0], shape[1], 4)
+    """Shapes the JAX package routes to its strip kernel are served: on the
+    CPU the wrappers return scipy's count sums (a sparse seeded image,
+    two levels, so the plain version stays quick)."""
+    assert jroute(*shape) == chaos_route(*shape) == "strips"
+    r, c = shape
+    rng = np.random.default_rng(r + c)
+    img = np.where(rng.random(r * c) < 0.05, rng.random(r * c),
+                   0).astype(np.float32)[None]
+    want = np.float32(_scipy_count_sum(img[0].reshape(r, c), 2))
+    for wrapper in (chaos_count_sums, chaos_count_sums_strips):
+        got = wrapper(torch.from_numpy(img), r, c, 2).numpy()
+        np.testing.assert_array_equal(got, [want])
+
+
+def _snake(nr, nc):
+    """One component that spans every strip, down and up across their
+    boundaries (tests/test_chaos_pallas.py)."""
+    snake = np.zeros((nr, nc), np.float32)
+    snake[:, 2] = 1.0
+    snake[0, 2:60] = 1.0
+    snake[:, 60] = 1.0
+    snake[nr - 1, 10:60] = 1.0
+    return snake
+
+
+STRIP_CASES = {
+    # shape, strip rows, levels, image count (the JAX kernel's test shapes)
+    "48x64-serpentine": ((48, 64), 16, 6, 3),
+    "50x70": ((50, 70), 16, 5, 4),
+    "33x129": ((33, 129), 8, 5, 4),
+}
+
+
+@pytest.mark.parametrize("name", list(STRIP_CASES))
+def test_plain_matches_strip_kernel_interpret(name):
+    (r, c), strip_rows, nlevels, n = STRIP_CASES[name]
+    imgs = _random((r, c), sum(map(ord, name)), n=n)
+    if name.endswith("serpentine"):
+        imgs = np.concatenate([imgs, _snake(r, c).reshape(1, -1),
+                               _serpentine(r, c).reshape(1, -1),
+                               np.zeros((1, r * c), np.float32)])
+    want = np.asarray(jstrips(imgs, nrows=r, ncols=c, nlevels=nlevels,
+                              interpret=True, strip_rows=strip_rows))
+    got = chaos_count_sums_strips(torch.from_numpy(imgs), r, c, nlevels)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.any()
+
+
+def test_scan_shapes_raise():
+    assert jroute(2, 100000) == chaos_route(2, 100000) == "scan"
+    with pytest.raises(NotImplementedError, match="scan"):
+        chaos_count_sums(torch.zeros((1, 2 * 100000)), 2, 100000, 4)

@@ -31,6 +31,11 @@ from sm_distributed_tpu_torch.ops.imager import extract_images_flat_banded
 # and torch's CPU thread pools would oversubscribe them
 torch.set_num_threads(1)
 
+# the JAX backends here leave XLA's persistent compilation cache off: it is
+# process-global once on, and would turn later tests' compiles in the same
+# worker into cache loads
+NO_XLA_CACHE = "off"
+
 FIXTURES = {
     "offgrid9x11": dict(nrows=9, ncols=11, formulas=None,
                         present_fraction=0.5, noise_peaks=12, seed=41),
@@ -64,7 +69,8 @@ def _backends(fixture, buckets, batch):
 
     jds, tds, _jt, _tt = fixture
     sm = {"backend": "jax_tpu",
-          "parallel": {"formula_batch": batch, "shape_buckets": buckets}}
+          "parallel": {"formula_batch": batch, "shape_buckets": buckets,
+                       "compile_cache_dir": NO_XLA_CACHE}}
     ds = {"isotope_generation": {"adducts": ["+H", "+K"]}}
     jb = JaxBackend(jds, DSConfig.from_dict(ds), SMConfig.from_dict(sm))
     tsm, tdc = configs_from_dicts(sm, ds, device="cpu")

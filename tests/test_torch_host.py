@@ -213,3 +213,21 @@ def test_fdr_selection_and_estimate():
                        "msm": msm})
     pd.testing.assert_frame_equal(tf.estimate_fdr(df, ta),
                                   jf.estimate_fdr(df, ja))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_in_memory_fixture_sort_is_lexsort(ties):
+    """``synthetic_dataset_arrays`` orders its peaks by (pixel, m/z) exactly
+    as ``np.lexsort`` does, equal m/z within a pixel included."""
+    from sm_distributed_tpu_torch.io.fixtures import _pixel_mz_order
+
+    rng = np.random.default_rng(5)
+    pix = np.concatenate([np.sort(rng.integers(0, 40, 3000)),
+                          np.repeat(np.arange(43), 20)])
+    mzs = (rng.integers(0, 15, pix.size).astype(np.float64) if ties
+           else rng.uniform(80.0, 1000.0, pix.size))
+    counts = np.bincount(pix, minlength=45)    # two pixels hold no peak
+    row_ptr = np.zeros(counts.size + 1, dtype=np.int64)
+    np.cumsum(counts, out=row_ptr[1:])
+    np.testing.assert_array_equal(_pixel_mz_order(pix, mzs, counts, row_ptr),
+                                  np.lexsort((mzs, pix)))

@@ -7,7 +7,7 @@ card by default with no CPU fallback.
 - the backend and the search, at their default device, raise without a GPU;
 - kernel wrappers given CPU tensors take the plain version and leave their
   launch counters alone;
-- config values outside this slice raise ``NotImplementedError``.
+- config values the port does not have raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -121,22 +121,44 @@ def test_moments_wrapper_on_cpu_uses_plain_version():
 def test_chaos_wrapper_on_cpu_uses_plain_version():
     from sm_distributed_tpu_torch.ops.chaos import (
         chaos_count_sums,
+        chaos_count_sums_strips,
         chaos_count_sums_torch,
     )
 
     rng = np.random.default_rng(2)
     x = torch.from_numpy(np.where(rng.random((3, 30)) < 0.5,
                                   rng.random((3, 30)), 0).astype(np.float32))
-    before = chaos_count_sums.launches
-    assert torch.equal(chaos_count_sums(x, 5, 6, 4),
-                       chaos_count_sums_torch(x, 5, 6, 4))
-    assert chaos_count_sums.launches == before
+    before = chaos_count_sums.launches, chaos_count_sums_strips.launches
+    for wrapper in (chaos_count_sums, chaos_count_sums_strips):
+        assert torch.equal(wrapper(x, 5, 6, 4),
+                           chaos_count_sums_torch(x, 5, 6, 4))
+    assert (chaos_count_sums.launches,
+            chaos_count_sums_strips.launches) == before
+
+
+def test_fused_wrapper_on_cpu_uses_plain_version():
+    from sm_distributed_tpu_torch.ops.score import (
+        fused_window_moments,
+        fused_window_moments_torch,
+    )
+
+    rng = np.random.default_rng(3)
+    whp = torch.from_numpy(rng.integers(0, 9, (20, 40)).astype(np.float32))
+    starts = np.array([0, 5], np.int32)
+    r_lo = torch.from_numpy(rng.integers(-1, 6, (2, 6)).astype(np.int32))
+    r_hi = r_lo + torch.from_numpy(rng.integers(0, 3, (2, 6)).astype(np.int32))
+    before = fused_window_moments.launches
+    args = (whp, starts, r_lo, r_hi, 37)
+    got = fused_window_moments(*args, gc_width=8, k=3)
+    want = fused_window_moments_torch(*args, gc_width=8, k=3)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert fused_window_moments.launches == before
 
 
 @pytest.mark.parametrize("section,knob,value", [
-    ("parallel", "mz_chunk", 512),
     ("parallel", "cube_dtype", "bf16"),
-    ("parallel", "fused_metrics", "on"),
+    ("parallel", "cube_dtype", "int8"),
     ("parallel", "peak_compaction", "on"),
     ("parallel", "band_slice", "on"),
     ("image_generation", "do_preprocessing", True),
@@ -152,6 +174,7 @@ def test_values_outside_the_slice_raise(section, knob, value):
 
 
 @pytest.mark.parametrize("knob,value", [
+    ("mz_chunk", 512), ("fused_metrics", "on"),
     ("fused_metrics", "auto"), ("fused_metrics", "off"),
     ("peak_compaction", "auto"), ("peak_compaction", "off"),
     ("band_slice", "auto"), ("band_slice", "off"),
