@@ -11,7 +11,10 @@ launch counts set to 0 just before it and read just after:
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
   cache; each kernel held against its plain PyTorch version on its first
   image block, and the 32x32 golden fixture checked against
-  ``tests/data/golden_spheroid.json``;
+  ``tests/data/golden_spheroid.json``.  Chaos takes the packed route's
+  shared-memory kernel (images of at most 65,536 pixels); phase 4 also
+  holds the packed route's global-plane kernel (512x512) and times the two
+  on the main path's images;
 - the fused path (phase 6): the same search with
   ``parallel.fused_metrics="on"``, held against the main path's results, and
   the fused window-moments kernel against its plain version;
@@ -141,8 +144,9 @@ def time_once(fn) -> tuple[float, object]:
     return start.elapsed_time(end), out
 
 
-def _kernel_wrappers() -> dict:
-    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+def _launch_counters() -> dict:
+    """Each kernel's launch counter: the wrapper that holds it and its
+    attribute (the packed chaos wrapper counts its two kernels apart)."""
     from sm_distributed_tpu_torch.ops.chaos import (
         chaos_count_sums,
         chaos_count_sums_strips,
@@ -150,18 +154,20 @@ def _kernel_wrappers() -> dict:
     from sm_distributed_tpu_torch.ops.moments import batch_moments
     from sm_distributed_tpu_torch.ops.score import fused_window_moments
 
-    return {"moments": batch_moments, "chaos": chaos_count_sums,
-            "chaos_strips": chaos_count_sums_strips,
-            "fused_window_moments": fused_window_moments}
+    return {"moments": (batch_moments, "launches"),
+            "chaos": (chaos_count_sums, "launches"),
+            "chaos_global": (chaos_count_sums, "global_launches"),
+            "chaos_strips": (chaos_count_sums_strips, "launches"),
+            "fused_window_moments": (fused_window_moments, "launches")}
 
 
 def reset_launches() -> None:
-    for wrapper in _kernel_wrappers().values():
-        wrapper.launches = 0
+    for wrapper, attr in _launch_counters().values():
+        setattr(wrapper, attr, 0)
 
 
 def read_launches() -> dict:
-    return {k: w.launches for k, w in _kernel_wrappers().items()}
+    return {k: getattr(w, attr) for k, (w, attr) in _launch_counters().items()}
 
 
 # ----------------------------------------------------------------- phases
@@ -253,22 +259,74 @@ def _scipy_count_sums(images: np.ndarray, nrows: int, ncols: int,
 
 
 def _check_chaos(images: torch.Tensor, nrows: int, ncols: int, nlevels: int,
-                 label: str) -> None:
+                 label: str, variant: str, n_scipy: int = 3) -> float:
+    """The packed chaos wrapper on ``images`` against the plain version
+    (bit-equal) and scipy (the first ``n_scipy``), and the packed kernel it
+    launched (``variant``: "smem" or "global", by the two counters).
+    Returns the plain version's milliseconds."""
     from sm_distributed_tpu_torch.ops.chaos import (
         chaos_count_sums,
         chaos_count_sums_torch,
+        packed_variant,
     )
 
+    assert packed_variant(nrows * ncols) == variant
+    before = (chaos_count_sums.launches, chaos_count_sums.global_launches)
     got = chaos_count_sums(images, nrows, ncols, nlevels)
-    want = chaos_count_sums_torch(images, nrows, ncols, nlevels)
+    ran = (chaos_count_sums.launches - before[0],
+           chaos_count_sums.global_launches - before[1])
+    assert ran == ((1, 0) if variant == "smem" else (0, 1)), (label, ran)
+    plain_ms, want = time_once(
+        lambda: chaos_count_sums_torch(images, nrows, ncols, nlevels))
     assert torch.equal(got, want), (
         f"chaos {label}: {int((got != want).sum())} images differ")
-    host = images[:3].cpu().numpy()
+    host = images[:n_scipy].cpu().numpy()
     sc = _scipy_count_sums(host, nrows, ncols, nlevels)
-    assert got[:3].cpu().tolist() == [float(v) for v in sc], (
-        f"chaos {label}: kernel {got[:3].tolist()} != scipy {sc}")
-    say(f"  chaos {label}: {images.shape[0]} images {nrows}x{ncols} "
-        f"bit-equal to the plain version, first 3 equal to scipy {sc}")
+    assert got[:n_scipy].cpu().tolist() == [float(v) for v in sc], (
+        f"chaos {label}: kernel {got[:n_scipy].tolist()} != scipy {sc}")
+    say(f"  chaos {label} ({variant} kernel): {images.shape[0]} images "
+        f"{nrows}x{ncols}, {nlevels} levels, bit-equal to the plain version, "
+        f"first {n_scipy} equal to scipy {sc}")
+    return plain_ms
+
+
+def _check_smem_layout(shapes, levels) -> None:
+    """The shared-memory chaos kernel's layout in csrc/chaos.cu is the one
+    ops/chaos.py::chaos_smem_bytes mirrors (the CPU tests hold the mirror
+    to the card's shared memory per block)."""
+    import ctypes
+
+    from sm_distributed_tpu_torch.kernels import _build
+    from sm_distributed_tpu_torch.ops.chaos import chaos_smem_bytes
+
+    fn = _build.load("chaos").sm_chaos_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    for r, c in shapes:
+        for nl in levels:
+            assert fn(r, c, nl) == chaos_smem_bytes(r, c, nl), (r, c, nl)
+
+
+def _edge_images(side: int, dev) -> torch.Tensor:
+    """Four side x side images: all positive (one component, the longest
+    chains), a checkerboard (the most components, no links), a serpentine
+    through every row, and one with only the last pixel set."""
+    ones = np.ones((side, side), np.float32)
+    checker = (np.indices((side, side)).sum(axis=0) % 2).astype(np.float32)
+    last = np.zeros((side, side), np.float32)
+    last[-1, -1] = 1.0
+    stack = np.stack([ones, checker, _serpentine(side, side), last])
+    return torch.from_numpy(stack.reshape(4, -1)).to(dev)
+
+
+def _time_turns(fn_a, fn_b, reps: int) -> tuple[float, float]:
+    """Milliseconds of two versions timed in turns (a, b, b, a): the mean
+    of each one's two medians."""
+    a1 = time_ms(fn_a, reps=reps)
+    b1 = time_ms(fn_b, reps=reps)
+    b2 = time_ms(fn_b, reps=reps)
+    a2 = time_ms(fn_a, reps=reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def _random_images(n: int, p: int, dev, gen) -> torch.Tensor:
@@ -283,7 +341,10 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int) -> list:
     shapes: ``block`` is the first (2048, 4, 65536) image block of the main
     path's dataset, as the metrics receive it."""
     from sm_distributed_tpu_torch.ops.chaos import (
+        _kernel_thresholds,
+        _launch_global,
         chaos_count_sums,
+        chaos_count_sums_strips,
         chaos_count_sums_torch,
     )
     from sm_distributed_tpu_torch.ops.moments import (
@@ -320,32 +381,74 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int) -> list:
         f"masked, {mom_unmasked_plain_ms:.3f} ms unmasked; bound "
         f"{mom_bound:.3f} ms ({mom_by})")
 
-    # --- chaos (kernel 3, packed route) ---
+    # --- chaos (kernel 3, packed route): the shared-memory kernel up to
+    # 65,536 pixels, the global-plane kernel above ---
     principal = block[:, 0, :]                 # the main path's strided view
     side = int(round(p ** 0.5))
-    _check_chaos(principal, side, side, nlevels, "main-path principal")
-    _check_chaos(_random_images(256, 256 * 256, dev, gen), 256, 256, nlevels,
-                 "random masks")
-    _check_chaos(_random_images(64, 512 * 512, dev, gen), 512, 512, nlevels,
-                 "random masks")
+    _check_smem_layout(((side, side), (32, 32), (9, 11), (1, 4096)),
+                       (1, nlevels, 255))
+    ch_plain_ms = _check_chaos(principal, side, side, nlevels,
+                               "main-path principal", "smem")
+    _check_chaos(_random_images(256, side * side, dev, gen), side, side,
+                 nlevels, "random masks", "smem")
+    edges = _edge_images(side, dev)
+    _check_chaos(edges, side, side, nlevels, "edge images", "smem",
+                 n_scipy=4)
+    edge_sums = chaos_count_sums(edges, side, side, nlevels).tolist()
+    assert edge_sums == [nlevels, side * side // 2 * nlevels, nlevels,
+                         nlevels], edge_sums
+    _check_chaos(_random_images(16, side * side, dev, gen), side, side, 255,
+                 "random masks", "smem")
+    _check_chaos(_random_images(64, 32 * 32, dev, gen), 32, 32, nlevels,
+                 "random batch", "smem")
+    _check_chaos(_random_images(64, 9 * 11, dev, gen), 9, 11, nlevels,
+                 "random batch", "smem")
+    masks512 = _random_images(64, 512 * 512, dev, gen)
+    g512_plain_ms = _check_chaos(masks512, 512, 512, nlevels, "random masks",
+                                 "global")
     up = principal[:64].reshape(64, side, side).repeat_interleave(
         2, dim=1).repeat_interleave(2, dim=2).reshape(64, -1)
-    _check_chaos(up, 2 * side, 2 * side, nlevels, "principal upsampled 2x")
-    ch_ms = time_ms(lambda: chaos_count_sums(principal, side, side, nlevels),
-                    reps=5)
-    ch_plain_ms = time_ms(
-        lambda: chaos_count_sums_torch(principal, side, side, nlevels),
-        reps=1, warmup=0)
+    _check_chaos(up, 2 * side, 2 * side, nlevels, "principal upsampled 2x",
+                 "global")
+    # the global-plane kernel on the main path's images, through the
+    # wrapper's private call of that variant, bit-equal too
+    thr = _kernel_thresholds(principal, side, side, nlevels, "chip_smoke")
+    assert torch.equal(_launch_global(principal, thr, side, side, nlevels),
+                       chaos_count_sums(principal, side, side, nlevels))
+    old_ms, ch_ms = _time_turns(
+        lambda: _launch_global(principal, thr, side, side, nlevels),
+        lambda: chaos_count_sums(principal, side, side, nlevels), reps=5)
+    # the strip kernel's design (one image over many CTAs) on the same
+    # images, for comparison: it takes any image size
+    assert torch.equal(
+        chaos_count_sums_strips(principal, side, side, nlevels),
+        chaos_count_sums(principal, side, side, nlevels))
+    strips_ms = time_ms(lambda: chaos_count_sums_strips(
+        principal, side, side, nlevels), reps=5)
+    g512_ms = time_ms(lambda: chaos_count_sums(masks512, 512, 512, nlevels),
+                      reps=5)
     # the byte floor: the union-find's compares and atomics are integer
     # work whose count depends on the images, which no peak rate models
     ch_bytes = principal.shape[0] * (p * 4 + nlevels * 4 + 4)
     ch_bound, ch_by = bound_ms(ch_bytes, 0.0)
-    say(f"  chaos times: kernel {ch_ms:.3f} ms, plain {ch_plain_ms:.3f} ms, "
-        f"byte floor {ch_bound:.3f} ms")
+    g512_bound, g512_by = bound_ms(
+        masks512.shape[0] * (512 * 512 * 4 + nlevels * 4 + 4), 0.0)
+    n_px = principal.shape[0] * p
+    say(f"  chaos times on the {principal.shape[0]} main-path principal "
+        f"images: shared-memory kernel {ch_ms:.3f} ms "
+        f"({ch_ms * 1e6 / n_px:.4f} ns a pixel), global-plane kernel "
+        f"{old_ms:.3f} ms ({old_ms * 1e6 / n_px:.4f} ns a pixel), timed in "
+        f"turns; strip kernel {strips_ms:.3f} ms "
+        f"({strips_ms * 1e6 / n_px:.4f} ns a pixel); plain "
+        f"{ch_plain_ms:.3f} ms; byte floor {ch_bound:.3f} ms")
+    say(f"  chaos times on {masks512.shape[0]} random 512x512 masks: "
+        f"global-plane kernel {g512_ms:.3f} ms "
+        f"({g512_ms * 1e6 / masks512.numel():.4f} ns a pixel), plain "
+        f"{g512_plain_ms:.3f} ms, byte floor {g512_bound:.3f} ms")
     say("phase 4 kernels: moments within "
         f"{MOMENT_ULPS} ulp of f64 and of the plain version beyond its own "
-        "drift (sums/max/counts exact on the integer grid), chaos bit-equal "
-        "to the plain version and scipy")
+        "drift (sums/max/counts exact on the integer grid), both packed chaos "
+        "kernels bit-equal to the plain version and scipy")
     return [
         {"name": "moments", "route": "cuda",
          "source": "sm_distributed_tpu_torch/csrc/moments.cu",
@@ -357,6 +460,11 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int) -> list:
          "replaces": "sm_distributed_tpu/ops/chaos_pallas.py:284",
          "max_abs_err": 0.0, "ms": ch_ms, "plain_ms": ch_plain_ms,
          "bound_ms": ch_bound, "bound_by": ch_by, "library_ms": None},
+        {"name": "chaos_global", "route": "cuda",
+         "source": "sm_distributed_tpu_torch/csrc/chaos.cu",
+         "replaces": "sm_distributed_tpu/ops/chaos_pallas.py:284",
+         "max_abs_err": 0.0, "ms": g512_ms, "plain_ms": g512_plain_ms,
+         "bound_ms": g512_bound, "bound_by": g512_by, "library_ms": None},
     ]
 
 
@@ -404,8 +512,10 @@ def phase_main_path(ds, truth, search) -> dict:
         + ", ".join(f"{k} {v:.3f} s" for k, v in tim.items())
         + f"; {table.n_ions / tim['score']:.1f} ions/s scored; peak device "
         f"memory {peak / 2**30:.2f} GiB; launches {launches}")
-    for name in ("moments", "chaos"):
-        assert launches[name] > 0, f"kernel {name} never launched on the main path"
+    assert launches["moments"] > 0, "moments kernel never launched"
+    assert launches["chaos"] == n_batches and launches["chaos_global"] == 0, (
+        f"packed chaos: the shared-memory kernel must run once a batch and "
+        f"the global-plane kernel never: {launches}")
     ann = bundle.annotations
     hits = set(ann[(ann.adduct == "+H") & (ann.fdr_level <= 0.1)].sf)
     present = [str(sf) for sf in truth.present]
@@ -667,6 +777,7 @@ def phase_fused(ds, truth, search, ds_cfg, main: dict) -> tuple[dict, dict]:
         f"{main['peak_bytes'] / 2**30:.2f} GiB); launches {launches}")
     assert launches["fused_window_moments"] == n_batches, launches
     assert launches["moments"] == 0 and launches["chaos"] == n_batches
+    assert launches["chaos_global"] == 0, launches
     gaps = _hold_to_main(bundle, main["bundle"], "fused path")
 
     # batch 0: the kernel against its plain version and f64
@@ -783,6 +894,7 @@ def phase_cube_main(ds, truth, search, ds_cfg, main: dict) -> dict:
     assert backend.mz_chunk and backend.n_real is None
     assert launches["moments"] == n_batches, launches
     assert launches["chaos"] == n_batches, launches
+    assert launches["chaos_global"] == 0, launches
     assert launches["chaos_strips"] == 0 and launches["fused_window_moments"] == 0
     gaps = _hold_to_main(bundle, main["bundle"], "cube path")
     say(f"phase 7 cube path on the main dataset: "
@@ -876,6 +988,7 @@ def phase_whole_slide(dev, nlevels: int) -> tuple[dict, dict]:
     assert launches["chaos_strips"] >= n_batches, launches
     assert launches["moments"] >= n_batches, launches
     assert launches["chaos"] == 0 and launches["fused_window_moments"] == 0
+    assert launches["chaos_global"] == 0, launches
     ann = bundle.annotations
     hits = set(ann[(ann.adduct == "+H") & (ann.fdr_level <= 0.1)].sf)
     present = [str(sf) for sf in truth.present]
@@ -1015,7 +1128,7 @@ def main() -> int:
     # whole-slide block of phase 8
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     slide["moments_max_abs_err"])
-    kernels = [kernels[0], kernels[1], strips_entry, fused_entry]
+    kernels = kernels[:3] + [strips_entry, fused_entry]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

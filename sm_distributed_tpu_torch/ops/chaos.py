@@ -9,10 +9,15 @@ bit-equal to ``scipy.ndimage.label``.
   version.  A CUDA tensor goes to a hand-written kernel chosen by the JAX
   package's routing rule :func:`chaos_route`: images within the lean
   whole-image budget (256x256, 512x512) to ``csrc/chaos.cu`` (the "packed"
-  route, counted in ``chaos_count_sums.launches``), larger ones (1024x1024
-  whole-slide images) to ``csrc/chaos_strips.cu`` (the "strips" route,
-  counted in ``chaos_count_sums_strips.launches``).  A kernel that fails to
-  build or launch raises.
+  route), larger ones (1024x1024 whole-slide images) to
+  ``csrc/chaos_strips.cu`` (the "strips" route, counted in
+  ``chaos_count_sums_strips.launches``).  Within the packed route,
+  :func:`packed_variant` picks one of the two kernels of ``csrc/chaos.cu``
+  by pixel count: images of at most 65,536 pixels keep their union-find in
+  shared memory (``"smem"``, counted in ``chaos_count_sums.launches``),
+  larger ones in global memory (``"global"``, counted in
+  ``chaos_count_sums.global_launches``).  A kernel that fails to build or
+  launch raises.
 - :func:`chaos_count_sums_torch` is the plain version of both kernels:
   iterated 4-neighbour min-label propagation with pointer jumping, run to
   its fixpoint, for any image size.
@@ -35,6 +40,9 @@ import torch
 _MAX_CELLS_LEAN = 288 * 1024
 _MAX_CELLS_STRIP = 192 * 1024
 _HALO = 8
+
+# the shared-memory kernel's labels are uint16: pixel indices 0..65535
+SMEM_MAX_PIXELS = 65536
 
 
 def _pack_geometry(nrows: int, ncols: int, lane_width: int,
@@ -63,6 +71,27 @@ def chaos_route(nrows: int, ncols: int, lane_width: int = 512) -> str:
     if strip >= 8 and (strip + 2 * _HALO) * cp <= _MAX_CELLS_STRIP:
         return "strips"
     return "scan"
+
+
+def packed_variant(n_pixels: int) -> str:
+    """The packed route's kernel for images of ``n_pixels``: ``"smem"`` (the
+    union-find in shared memory) up to the uint16 label limit, else
+    ``"global"``."""
+    return "smem" if n_pixels <= SMEM_MAX_PIXELS else "global"
+
+
+def chaos_smem_bytes(nrows: int, ncols: int, nlevels: int) -> int:
+    """Dynamic shared memory of one CTA of the shared-memory kernel (the
+    layout of ``csrc/chaos.cu::sm_chaos_smem_bytes``, which the kernel's C
+    entry checks against the device's opt-in limit): 33 reduction ints,
+    the thresholds, P uint16 labels, each 16-byte aligned, then the level
+    plane of ``nrows`` rows of ``round_up(ncols + 1, 4)`` bytes and one zero
+    word."""
+    def r16(b: int) -> int:
+        return -(-b // 16) * 16
+
+    return (r16(4 * 33) + r16(4 * nlevels) + r16(2 * nrows * ncols)
+            + nrows * ((ncols + 4) & ~3) + 4)
 
 
 def _check_route(nrows: int, ncols: int) -> str:
@@ -144,6 +173,36 @@ def _kernel_thresholds(principal: torch.Tensor, nrows: int, ncols: int,
 
 def _launch_packed(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
                    ncols: int, nlevels: int) -> torch.Tensor:
+    if packed_variant(nrows * ncols) == "smem":
+        return _launch_smem(principal, thr, nrows, ncols, nlevels)
+    return _launch_global(principal, thr, nrows, ncols, nlevels)
+
+
+def _launch_smem(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
+                 ncols: int, nlevels: int) -> torch.Tensor:
+    from ..kernels import _build
+
+    n = principal.shape[0]
+    dev = principal.device
+    lib = _build.load("chaos")
+    fn = lib.sm_chaos_smem
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if nlevels > lib.sm_chaos_max_levels():
+        raise ValueError(f"chaos kernel takes at most "
+                         f"{lib.sm_chaos_max_levels()} levels, got {nlevels}")
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check(fn(principal.data_ptr(), principal.stride(0), thr.data_ptr(),
+                    out.data_ptr(), n, nrows, ncols, nlevels, stream),
+                 "shared-memory chaos kernel launch")
+    chaos_count_sums.launches += 1
+    return out
+
+
+def _launch_global(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
+                   ncols: int, nlevels: int) -> torch.Tensor:
     from ..kernels import _build
 
     n, p = principal.shape
@@ -170,6 +229,7 @@ def _launch_packed(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
                     lev.data_ptr(), n, nrows, ncols, nlevels, grid,
                     int(lev_in_smem), p if lev_in_smem else 0, stream),
                  "chaos kernel launch")
+    chaos_count_sums.global_launches += 1
     return out
 
 
@@ -211,8 +271,10 @@ def chaos_count_sums(principal: torch.Tensor, nrows: int, ncols: int,
     """(N,) f32 per-image sums over levels of component counts for (N,
     nrows*ncols) principal images.  Rows may be strided (a ``[:, 0, :]``
     view of the image block), pixels must be contiguous.  CPU: the plain
-    version.  CUDA: the kernel of the shape's route, the ``csrc/chaos.cu``
-    kernel (counted in ``chaos_count_sums.launches``) or
+    version.  CUDA: the kernel of the shape's route and
+    :func:`packed_variant`: ``csrc/chaos.cu``'s shared-memory kernel
+    (counted in ``chaos_count_sums.launches``) or its global-plane kernel
+    (``chaos_count_sums.global_launches``), or
     :func:`chaos_count_sums_strips`; anything else raises."""
     route = _check_route(nrows, ncols)
     if principal.device.type == "cpu":
@@ -224,9 +286,7 @@ def chaos_count_sums(principal: torch.Tensor, nrows: int, ncols: int,
         return chaos_count_sums_strips(principal, nrows, ncols, nlevels)
     thr = _kernel_thresholds(principal, nrows, ncols, nlevels,
                              "chaos_count_sums")
-    out = _launch_packed(principal, thr, nrows, ncols, nlevels)
-    chaos_count_sums.launches += 1
-    return out
+    return _launch_packed(principal, thr, nrows, ncols, nlevels)
 
 
 def chaos_count_sums_strips(principal: torch.Tensor, nrows: int, ncols: int,
@@ -248,4 +308,5 @@ def chaos_count_sums_strips(principal: torch.Tensor, nrows: int, ncols: int,
 
 
 chaos_count_sums.launches = 0
+chaos_count_sums.global_launches = 0
 chaos_count_sums_strips.launches = 0

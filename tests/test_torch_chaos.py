@@ -8,6 +8,12 @@ and against ``scipy.ndimage.label`` with 4-connectivity on the same f32
 threshold grid.  The plain version is also the plain version of the strip
 kernel: it matches the JAX package's strip kernel in interpret mode on
 multi-strip images, and scipy on whole-slide shapes.
+
+The packed route's shared-memory kernel (``csrc/chaos.cu``, images of at
+most 65,536 pixels) cannot run here: its routing, its shared-memory budget
+and a sequential model of its algorithm (uint16 labels, level counts, the
+padded level plane, links level by level from the top, the count identity)
+are held here; ``chip_smoke.py`` holds the kernel itself on the card.
 """
 
 from __future__ import annotations
@@ -24,10 +30,14 @@ from sm_distributed_tpu.ops.chaos_pallas import (
 from sm_distributed_tpu.ops.chaos_pallas import chaos_route as jroute
 from sm_distributed_tpu.ops.metrics_jax import measure_of_chaos_batch as jchaos
 from sm_distributed_tpu_torch.ops.chaos import (
+    SMEM_MAX_PIXELS,
     chaos_count_sums,
     chaos_count_sums_strips,
     chaos_count_sums_torch,
     chaos_route,
+    chaos_smem_bytes,
+    chaos_thresholds,
+    packed_variant,
 )
 from sm_distributed_tpu_torch.ops.metrics import measure_of_chaos_batch
 
@@ -167,3 +177,139 @@ def test_scan_shapes_raise():
     assert jroute(2, 100000) == chaos_route(2, 100000) == "scan"
     with pytest.raises(NotImplementedError, match="scan"):
         chaos_count_sums(torch.zeros((1, 2 * 100000)), 2, 100000, 4)
+
+
+# ------------------------------------------- the shared-memory packed kernel
+# shared memory an H100 block may use (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+H100_SMEM_PER_BLOCK = 232448
+
+
+@pytest.mark.parametrize("shape,variant", [
+    ((256, 256), "smem"), ((9, 11), "smem"), ((32, 32), "smem"),
+    ((1, 65537), "global"), ((257, 256), "global"), ((512, 512), "global")])
+def test_packed_variant_by_pixel_count(shape, variant):
+    """Images of at most 65,536 pixels (the uint16 label limit) take the
+    shared-memory kernel, larger ones the global-plane kernel."""
+    assert packed_variant(shape[0] * shape[1]) == variant
+    assert (shape[0] * shape[1] <= SMEM_MAX_PIXELS) == (variant == "smem")
+    if shape != (1, 65537):
+        assert chaos_route(*shape) == "packed"
+
+
+@pytest.mark.parametrize("nlevels", [1, 30, 255])
+def test_smem_bytes_fit_an_h100_block(nlevels):
+    """The main path's 256x256 grid fits one block's shared memory at every
+    level count up to the kernels' 255: labels 2 bytes and level counts 1
+    byte a pixel, plus row padding, thresholds and the reduction."""
+    got = chaos_smem_bytes(256, 256, nlevels)
+    assert 3 * 65536 < got <= H100_SMEM_PER_BLOCK
+    assert chaos_smem_bytes(256, 256, 255) == 144 + 1024 + 131072 + 66564
+
+
+def test_smem_bytes_fit_every_small_packed_shape():
+    """Any packed-route shape of at most 65,536 pixels fits (the packed
+    budget keeps narrow images short, so row padding stays small)."""
+    for nrows in (1, 2, 3, 7, 64, 255, 2048, 2304):
+        for ncols in (1, 2, 3, 5, 16, 31, 256, 300, 4096, 65536):
+            if nrows * ncols <= SMEM_MAX_PIXELS and \
+                    chaos_route(nrows, ncols) == "packed":
+                assert chaos_smem_bytes(nrows, ncols, 255) \
+                    <= H100_SMEM_PER_BLOCK, (nrows, ncols)
+
+
+def _model_union(par, a, b):
+    """``smem_union`` run alone: climb the side whose parent is larger
+    (halving its path) until the two sides share a parent (one tree, 0) or
+    that side is a root, which then hangs under the other side's smaller
+    parent (the compare-and-swap, a join, 1)."""
+    while True:
+        pa, pb = int(par[a]), int(par[b])
+        if pa == pb:
+            return 0
+        if pa < pb:
+            a, b, pa, pb = b, a, pb, pa
+        if pa == a:
+            par[a] = pb
+            return 1
+        g = int(par[pa])
+        if g != pa:
+            par[a] = g
+        a = g
+
+
+def _model_smem_kernel(imgs, nrows, ncols, nlevels):
+    """A sequential model of ``csrc/chaos.cu::chaos_smem_kernel`` on (N, P)
+    f32 images: per image, the level counts by binary search over the
+    thresholds, the padded level plane (rows of round_up(ncols + 1, 4)
+    bytes, padding at level 0, a zero word after the last row), uint16
+    labels set for m > 0, then levels e = top .. 1, each linking the right
+    and down edges whose byte-wise minimum is e by the kernel's union, and
+    the count identity sum(m) - sum over joins of e.  Returns the (N,)
+    f32 sums and each image's final label plane."""
+    p_count = nrows * ncols
+    assert p_count <= SMEM_MAX_PIXELS
+    img = np.maximum(imgs.astype(np.float32), 0.0)
+    vmax = torch.from_numpy(img.max(axis=1))
+    thr = chaos_thresholds(vmax, nlevels).numpy()
+    row = (ncols + 4) & ~3
+    words = nrows * row
+    sums, planes = [], []
+    for im in range(img.shape[0]):
+        # #{l : thr[l] < v}: a binary search over the rising thresholds
+        m = np.searchsorted(thr[im], img[im], side="left").astype(np.uint8)
+        lev = np.zeros(words + 4, np.uint8)
+        lev[:words].reshape(nrows, row)[:, :ncols] = m.reshape(nrows, ncols)
+        par = np.zeros(p_count, np.uint16)
+        live = np.nonzero(m)[0]
+        par[live] = live.astype(np.uint16)
+        acc = int(m.sum(dtype=np.int64))
+        e_right = np.minimum(lev[:words], lev[1:words + 1])
+        e_down = np.minimum(lev[:words - row], lev[row:words])
+        for e in range(int(m.max(initial=0)), 0, -1):
+            links = 0
+            hits_r = set(np.nonzero(e_right == e)[0].tolist())
+            hits_d = set(np.nonzero(e_down == e)[0].tolist())
+            for q in sorted(hits_r | hits_d):
+                assert q % row < ncols      # padding never links
+                a = (q // row) * ncols + q % row
+                if q in hits_r:
+                    links += _model_union(par, a, a + 1)
+                if q in hits_d:
+                    links += _model_union(par, a, a + ncols)
+            acc -= e * links
+        assert (par[live] <= live).all()    # labels fall along every chain
+        sums.append(acc)
+        planes.append(par)
+    return np.asarray(sums, np.float32), planes
+
+
+def test_smem_model_matches_plain_pallas_and_scipy(case):
+    (r, c), imgs, nlevels = case
+    got, _ = _model_smem_kernel(imgs, r, c, nlevels)
+    plain = chaos_count_sums_torch(torch.from_numpy(imgs), r, c, nlevels)
+    np.testing.assert_array_equal(got, plain.numpy())
+    want = np.asarray(jcount(imgs, nrows=r, ncols=c, nlevels=nlevels,
+                             interpret=True))
+    np.testing.assert_array_equal(got, want)
+    sc = [_scipy_count_sum(im.reshape(r, c), nlevels) for im in imgs]
+    np.testing.assert_array_equal(got, np.asarray(sc, np.float32))
+
+
+def test_smem_model_at_the_uint16_limit():
+    """One 256x256 image, dense enough that its last pixel (label 65535,
+    set) joins a component and is linked under a smaller root: the model
+    stays bit-equal to the plain version, the Pallas kernel in interpret
+    mode and scipy."""
+    rng = np.random.default_rng(65535)
+    img = np.where(rng.random(65536) < 0.55, rng.random(65536),
+                   0).astype(np.float32)
+    img[[65535, 65534, 65535 - 256]] = 0.9
+    imgs = img[None]
+    got, planes = _model_smem_kernel(imgs, 256, 256, 5)
+    assert planes[0][65535] < 65535          # label 65535 was live, linked
+    plain = chaos_count_sums_torch(torch.from_numpy(imgs), 256, 256, 5)
+    np.testing.assert_array_equal(got, plain.numpy())
+    want = np.asarray(jcount(imgs, nrows=256, ncols=256, nlevels=5,
+                             interpret=True))
+    np.testing.assert_array_equal(got, want)
+    assert got[0] == _scipy_count_sum(img.reshape(256, 256), 5)
