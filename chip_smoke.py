@@ -27,6 +27,20 @@ launch counts set to 0 just before it and read just after:
   kernel and its metrics held against their plain versions and f64 on the
   path's first batch.
 
+The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
+one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
+each moments check prints its plan (cluster size, slice, regime), and the
+timing lines put each kernel beside its bound, a measured one-read
+yardstick (one ``sum(-1)`` over the same block) and the number of clusters
+of its plan the card holds at once.
+
+    python3 chip_smoke.py --ab DIR
+
+also times the moments and fused kernels of another checkout of the repo at
+``DIR`` (its ``sm_distributed_tpu_torch`` built from its own sources into
+its own ``build/``) against this one's, in turns (other, this, this, other),
+on the same inputs.
+
 One line per phase; any failure raises and exits non-zero.  The line before
 the last is a JSON object with each kernel's launches on its path, its error
 against the plain version and its times; the last line is
@@ -36,7 +50,12 @@ port beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import importlib
+import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -190,15 +209,74 @@ def phase_environment() -> tuple[str, torch.device]:
     return card, dev
 
 
+def _ptxas_report(log: str) -> dict:
+    """{kernel: (registers, spill store bytes)} from ptxas -v output; the
+    moments kernels' template instances named ``name<K,regime>``."""
+    out, fn, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn, spill = m.group(1), 0
+            t = re.match(r"_Z\d+(\w+?)ILi(\d+)ELb(\d)E", fn)
+            if t:
+                fn = (f"{t.group(1)}<{t.group(2)},"
+                      f"{'resident' if t.group(3) == '1' else 'streaming'}>")
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn] = (int(m.group(1)), spill)
+    return out
+
+
+def _check_moments_layout() -> None:
+    """The cluster kernels' shared-memory layout (``mc_smem_bytes`` in
+    csrc/moments_cluster.cuh) is the one ops/moments.py::moments_smem_bytes
+    mirrors for the plans."""
+    from sm_distributed_tpu_torch.kernels import _build
+    from sm_distributed_tpu_torch.ops.moments import moments_smem_bytes
+
+    fn = _build.load("moments").sm_moments_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    for k in (1, 4, 8):
+        for sl in (99, 999, 1024, 4096, 16384, 65536):
+            for res in (True, False):
+                assert fn(k, sl, int(res)) == moments_smem_bytes(k, sl, res), (
+                    k, sl, res)
+
+
+def active_clusters(k: int, plan) -> int:
+    """Clusters of a moments plan's shape the card holds at once
+    (cudaOccupancyMaxActiveClusters, through csrc/moments.cu)."""
+    from sm_distributed_tpu_torch.kernels import _build
+
+    fn = _build.load("moments").sm_moments_active_clusters
+    fn.argtypes = [ctypes.c_int] * 4
+    return fn(k, plan.cluster, plan.slice_len, int(plan.regime == "resident"))
+
+
 def phase_build() -> None:
     from sm_distributed_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
     _build.build_all()
-    regs = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
-            for name, log in _build.build_logs.items()}
-    say(f"phase 2 build: {time.perf_counter() - t0:.2f} s for "
-        f"{', '.join(_build.KERNELS)} (nvcc {_build.NVCC_FLAGS}); {regs}")
+    took = time.perf_counter() - t0
+    regs = {}
+    for name, log in _build.build_logs.items():
+        rep = _ptxas_report(log)
+        if name in ("moments", "fused_moments") and rep:
+            # the paths' K = 4 instances, and the largest spill of any K
+            worst = max(rep.items(), key=lambda kv: kv[1][1])
+            rep = {f: v for f, v in rep.items() if "<4," in f}
+            rep["largest spill"] = f"{worst[0]} {worst[1]}"
+        regs[name] = rep
+    _check_moments_layout()
+    say(f"phase 2 build: {took:.2f} s for {', '.join(_build.KERNELS)} "
+        f"(nvcc {_build.NVCC_FLAGS}); ptxas (registers, spill store bytes) "
+        f"{regs}; cluster layout mirrors ops/moments.py")
 
 
 def _check_moments(x: torch.Tensor, n_real, exact_sums: bool, label: str):
@@ -210,8 +288,10 @@ def _check_moments(x: torch.Tensor, n_real, exact_sums: bool, label: str):
     from sm_distributed_tpu_torch.ops.moments import (
         batch_moments,
         batch_moments_torch,
+        moments_plan,
     )
 
+    plan = moments_plan(*x.shape)
     got = batch_moments(x, n_real)
     want = batch_moments_torch(x, n_real)
     ref = [r.float() for r in batch_moments_torch(x.double(), n_real)]
@@ -235,7 +315,9 @@ def _check_moments(x: torch.Tensor, n_real, exact_sums: bool, label: str):
                       float(plain_to_ref.max()))
     err = max(float((g.double() - w.double()).abs().max())
               for g, w in zip(got, want))
-    say(f"  moments {label} {tuple(x.shape)} n_real={n_real}: ulp gap "
+    say(f"  moments {label} {tuple(x.shape)} n_real={n_real} "
+        f"(plan: {plan.cluster} CTAs x {plan.slice_len} px, {plan.regime}"
+        f"{'' if x.data_ptr() % 16 == 0 else ', misaligned'}): ulp gap "
         "(kernel-plain, kernel-f64, plain-f64) "
         + ", ".join(f"{k} {v[0]:.0f}/{v[1]:.0f}/{v[2]:.0f}"
                     for k, v in gaps.items())
@@ -336,10 +418,12 @@ def _random_images(n: int, p: int, dev, gen) -> torch.Tensor:
     return torch.where(keep, vals, torch.zeros((), device=dev))
 
 
-def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int) -> list:
+def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
+                  ab=None) -> list:
     """Kernels against their plain versions on the card, at the main path's
     shapes: ``block`` is the first (2048, 4, 65536) image block of the main
-    path's dataset, as the metrics receive it."""
+    path's dataset, as the metrics receive it.  ``ab``: another checkout's
+    port (``--ab``), timed in turns against this one."""
     from sm_distributed_tpu_torch.ops.chaos import (
         _kernel_thresholds,
         _launch_global,
@@ -350,36 +434,76 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int) -> list:
     from sm_distributed_tpu_torch.ops.moments import (
         batch_moments,
         batch_moments_torch,
+        moments_plan,
     )
 
     gen = torch.Generator(device=dev).manual_seed(11)
     n, k, p = block.shape
-    # --- moments (kernels 1 and 2: masked and unmasked) ---
+    # --- moments (kernels 1 and 2: masked and unmasked), resident regime
+    # at the main shape, and every edge of the cluster split ---
     grid = (torch.randint(0, 256, (n, k, p), device=dev, generator=gen)
             .float() * (torch.rand(n, k, p, device=dev, generator=gen) < 0.3))
+    slice0 = moments_plan(n, k, p).slice_len
     err = 0.0
     err = max(err, _check_moments(grid, p - 256, True, "integer grid masked"))
     err = max(err, _check_moments(grid, None, True, "integer grid unmasked"))
-    del grid
+    err = max(err, _check_moments(grid, slice0 + 904, True,
+                                  "integer grid, n_real in slice 1"))
+    err = max(err, _check_moments(grid, 1, True, "integer grid, n_real 1"))
+    buf = torch.empty(64 * k * p + 1, device=dev)
+    mis = buf[1:].view(64, k, p)            # contiguous, 4 bytes off 16
+    mis.copy_(grid[:64])
+    err = max(err, _check_moments(mis, p - 3000, True, "misaligned view"))
+    err = max(err, _check_moments(mis, None, True, "misaligned view"))
+    del grid, mis, buf
     err = max(err, _check_moments(block, n_real, False, "main-path block"))
-    small = (torch.randint(0, 1000, (5, 3, 999), device=dev, generator=gen)
-             .float() * (torch.rand(5, 3, 999, device=dev, generator=gen) < .5))
-    _check_moments(small, 990, True, "off-lattice masked")
-    _check_moments(small, None, True, "off-lattice unmasked")
+    for shape, nr in (((5, 3, 999), 990), ((5, 3, 999), None),
+                      ((2, 1, 99), 1), ((2, 1, 99), None),
+                      ((64, 8, 65536), 65000), ((64, 8, 65536), None),
+                      ((256, 1, 65536), 20000), ((256, 1, 65536), None)):
+        # values below 256: row sums stay below 2**24 at 65,536 pixels
+        edge = (torch.randint(0, 256, shape, device=dev, generator=gen)
+                .float() * (torch.rand(shape, device=dev, generator=gen) < .5))
+        err = max(err, _check_moments(edge, nr, True, "edge block"))
+    # streaming regime (values below 16, so row sums stay below 2**24 and
+    # the plain version's f32 sums are exact too): n_real in slice 3, and a
+    # P that is not a multiple of 4 (4-byte loads)
+    for shape, nr in (((8, 4, 1 << 20), 3 * (1 << 16) + 1000),
+                      ((8, 4, 1 << 20), None), ((4, 3, 1000003), 999000)):
+        edge = (torch.randint(0, 16, shape, device=dev, generator=gen)
+                .float() * (torch.rand(shape, device=dev, generator=gen) < .3))
+        err = max(err, _check_moments(edge, nr, True, "streaming block"))
+    del edge
     mom_ms = time_ms(lambda: batch_moments(block, n_real))
     mom_unmasked_ms = time_ms(lambda: batch_moments(block, None))
     mom_plain_ms = time_ms(lambda: batch_moments_torch(block, n_real), reps=3)
     mom_unmasked_plain_ms = time_ms(lambda: batch_moments_torch(block, None),
                                     reps=3)
+    one_read_ms = time_ms(lambda: block.sum(-1))
     mom_bytes = block.numel() * 4 + n * k * 5 * 4
     # per element: 1 f32 sub + 2 f32 mul (centered terms) and 3 f64 adds
     mom_bound, mom_by = bound_ms(
         mom_bytes, 3 * block.numel() / F32_OPS_PER_S
         + 3 * block.numel() / F64_OPS_PER_S)
+    plan = moments_plan(n, k, p)
     say(f"  moments times: kernel {mom_ms:.3f} ms masked, "
         f"{mom_unmasked_ms:.3f} ms unmasked; plain {mom_plain_ms:.3f} ms "
         f"masked, {mom_unmasked_plain_ms:.3f} ms unmasked; bound "
-        f"{mom_bound:.3f} ms ({mom_by})")
+        f"{mom_bound:.3f} ms ({mom_by}, {mom_bound / mom_ms:.1%} of it); "
+        f"one-read yardstick block.sum(-1) {one_read_ms:.3f} ms; plan "
+        f"{plan.cluster} CTAs x {plan.slice_len} px {plan.regime}, "
+        f"{active_clusters(k, plan)} clusters resident at once")
+    if ab is not None:
+        for masked_nr, label in ((n_real, "masked"), (None, "unmasked")):
+            old_ms, new_ms = _time_turns(
+                lambda: ab.moments.batch_moments(block, masked_nr),
+                lambda: batch_moments(block, masked_nr), reps=10)
+            say(f"  moments in turns against {ab.root} ({label}, main "
+                f"block): other {old_ms:.3f} ms, this {new_ms:.3f} ms")
+        want = batch_moments(block, n_real)
+        other = ab.moments.batch_moments(block, n_real)
+        assert all(torch.equal(a, b) for i, (a, b) in
+                   enumerate(zip(want, other)) if i in (0, 3, 4))
 
     # --- chaos (kernel 3, packed route): the shared-memory kernel up to
     # 65,536 pixels, the global-plane kernel above ---
@@ -733,10 +857,12 @@ def _histogram_block(backend, table) -> tuple:
             backend.n_real or n_pix, d["gc_width"])
 
 
-def phase_fused(ds, truth, search, ds_cfg, main: dict) -> tuple[dict, dict]:
+def phase_fused(ds, truth, search, ds_cfg, main: dict,
+                ab=None) -> tuple[dict, dict]:
     """The main path's search again with ``fused_metrics="on"``: the fused
     window-moments kernel on every batch, results held to the main path's
-    rows, and the kernel against its plain version on batch 0."""
+    rows, and the kernel against its plain version on batch 0 (and, with
+    ``ab``, against another checkout's kernel in turns)."""
     from sm_distributed_tpu_torch.models.msm_basic import (
         MSMBasicSearch,
         _slice_table,
@@ -745,6 +871,7 @@ def phase_fused(ds, truth, search, ds_cfg, main: dict) -> tuple[dict, dict]:
     from sm_distributed_tpu_torch.ops.moments import (
         batch_moments,
         batch_moments_torch,
+        moments_plan,
     )
     from sm_distributed_tpu_torch.ops.score import (
         fused_window_moments,
@@ -825,9 +952,9 @@ def phase_fused(ds, truth, search, ds_cfg, main: dict) -> tuple[dict, dict]:
     rows, row_reads = _band_rows(starts, rlo, rhi, whp.shape[0], gc)
     n_bytes = (rows * p * 4 + got[1].numel() * 4 + got[0].numel() * 4
                + 3 * rlo.numel() * 4)
-    # per (window, pixel): its band rows added on both passes, then max,
-    # compare, subtract and two multiplies in f32 and three f64 adds
-    f32_ops = (2 * row_reads + 5 * n_win) * p
+    # per (window, pixel): its band rows added once, then max, compare,
+    # subtract and two multiplies in f32 and three f64 adds
+    f32_ops = (row_reads + 5 * n_win) * p
     f64_ops = 3 * n_win * p
     bound, by = bound_ms(n_bytes, f32_ops / F32_OPS_PER_S
                          + f64_ops / F64_OPS_PER_S)
@@ -837,11 +964,25 @@ def phase_fused(ds, truth, search, ds_cfg, main: dict) -> tuple[dict, dict]:
         + ", ".join(f"{k_} {v[0]:.0f}/{v[1]:.0f}/{v[2]:.0f}"
                     for k_, v in mom_gaps.items())
         + f"; max abs err vs plain {err}")
+    one_read_ms = time_ms(lambda: whp.sum(-1))
+    plan = moments_plan(n_win // k, k, p)
     say(f"  fused times: kernel {kern_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound:.3f} ms ({by}); plain-chain steps it replaces: "
-        f"banded matmuls {matmul_ms:.3f} ms + moments kernel {mom_ms:.3f} "
-        f"ms; batch 0 device ms: histogram (with host plan) {hist_ms:.3f}, "
-        f"batch {batch_ms:.3f}")
+        f"bound {bound:.3f} ms ({by}, {bound / kern_ms:.1%} of it); "
+        f"one-read yardstick whp.sum(-1) {one_read_ms:.3f} ms over "
+        f"{whp.shape[0]} rows ({whp.shape[0] * p * 4 / 1e9:.3f} GB; the "
+        f"kernel reads {rows}); plan {plan.cluster} CTAs x {plan.slice_len} "
+        f"px {plan.regime}, whp row stride {whp.stride(0)}; plain-chain "
+        f"steps it replaces: banded matmuls {matmul_ms:.3f} ms + moments "
+        f"kernel {mom_ms:.3f} ms; batch 0 device ms: histogram (with host "
+        f"plan) {hist_ms:.3f}, batch {batch_ms:.3f}")
+    if ab is not None:
+        other = ab.score.fused_window_moments(*args, gc_width=gc, k=k)
+        assert torch.equal(other[1], got[1])
+        old_ms, new_ms = _time_turns(
+            lambda: ab.score.fused_window_moments(*args, gc_width=gc, k=k),
+            lambda: fused_window_moments(*args, gc_width=gc, k=k), reps=10)
+        say(f"  fused kernel in turns against {ab.root} (batch 0): other "
+            f"{old_ms:.3f} ms, this {new_ms:.3f} ms")
     say(f"phase 6 fused path: {time.perf_counter() - t_start:.1f} s; "
         "fused kernel launched once per batch, FDR ranks identical to the "
         "main path, per-ion ulp gaps to the main path " + json.dumps(gaps))
@@ -936,9 +1077,10 @@ def _serpentine(r: int, c: int) -> np.ndarray:
     return img
 
 
-def phase_whole_slide(dev, nlevels: int) -> tuple[dict, dict]:
+def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
     """A 1024x1024 slide on the m/z-chunked cube path: chaos takes the
-    strip kernel, held against its plain version and scipy."""
+    strip kernel, held against its plain version and scipy; the unmasked
+    moments kernel in its streaming regime on the path's own block."""
     from sm_distributed_tpu_torch.io.fixtures import (
         expand_formula_list,
         synthetic_dataset_arrays,
@@ -952,7 +1094,10 @@ def phase_whole_slide(dev, nlevels: int) -> tuple[dict, dict]:
         chaos_count_sums_torch,
         chaos_route,
     )
-    from sm_distributed_tpu_torch.ops.moments import batch_moments
+    from sm_distributed_tpu_torch.ops.moments import (
+        batch_moments,
+        moments_plan,
+    )
     from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
 
     t_start = time.perf_counter()
@@ -1016,6 +1161,24 @@ def phase_whole_slide(dev, nlevels: int) -> tuple[dict, dict]:
     nrows, ncols = backend.grid
     principal = imgs[:, 0, :]
     mom_ms = time_ms(lambda: batch_moments(imgs, None), reps=3)
+    mom_sum_ms = time_ms(lambda: imgs.sum(-1), reps=3)
+    # the bound from the block's own bytes (one read, the (n, k, 5) rows
+    # written); the streaming regime reads it twice
+    mom_bound, mom_by = bound_ms(imgs.numel() * 4 + imgs.shape[0]
+                                 * imgs.shape[1] * 5 * 4, 0.0)
+    ws_plan = moments_plan(*imgs.shape)
+    say(f"  whole-slide moments (unmasked, plan {ws_plan.cluster} CTAs x "
+        f"{ws_plan.slice_len} px {ws_plan.regime}, "
+        f"{active_clusters(imgs.shape[1], ws_plan)} clusters resident at "
+        f"once): kernel {mom_ms:.3f} ms, bound {mom_bound:.3f} ms ({mom_by}, "
+        f"one read; {mom_bound / mom_ms:.1%} of it), one-read yardstick "
+        f"imgs.sum(-1) {mom_sum_ms:.3f} ms")
+    if ab is not None:
+        old_ms, new_ms = _time_turns(
+            lambda: ab.moments.batch_moments(imgs, None),
+            lambda: batch_moments(imgs, None), reps=3)
+        say(f"  whole-slide moments in turns against {ab.root}: other "
+            f"{old_ms:.3f} ms, this {new_ms:.3f} ms")
     kern_ms = time_ms(lambda: chaos_count_sums_strips(
         principal, nrows, ncols, nlevels), reps=3)
     got = chaos_count_sums_strips(principal, nrows, ncols, nlevels)
@@ -1064,6 +1227,8 @@ def phase_whole_slide(dev, nlevels: int) -> tuple[dict, dict]:
                "ions_per_s": table.n_ions / tim["score"],
                "moments_max_abs_err": mom_err, "ulp_to_f64": metric_gaps,
                "batch_ms": {"extract": extract_ms, "moments": mom_ms,
+                            "moments_bound": mom_bound,
+                            "moments_one_read": mom_sum_ms,
                             "chaos_strips": kern_ms, "batch": batch_ms}}
     return entry, summary
 
@@ -1085,7 +1250,30 @@ def _check_chaos_strips(images: torch.Tensor, nlevels: int, label: str):
         f"bit-equal to the plain version, first 3 equal to scipy {sc}")
 
 
+class OtherPort:
+    """The moments and fused wrappers of another checkout's port
+    (``--ab DIR``), imported under the package name ``ab_port``: its kernels
+    build from that checkout's sources into its own ``build/``."""
+
+    def __init__(self, root: str):
+        self.root = root
+        pkg = Path(root).resolve() / "sm_distributed_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            "ab_port", pkg / "__init__.py",
+            submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["ab_port"] = mod
+        spec.loader.exec_module(mod)
+        self.moments = importlib.import_module("ab_port.ops.moments")
+        self.score = importlib.import_module("ab_port.ops.score")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--ab", metavar="DIR", help="another checkout of the "
+                        "repo whose moments and fused kernels are timed in "
+                        "turns against this one's")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1098,19 +1286,20 @@ def main() -> int:
 
     _card, dev = phase_environment()
     phase_build()
+    ab = OtherPort(opts.ab) if opts.ab else None
     ds, truth, search, ds_cfg = _setup_main_path()
     main = phase_main_path(ds, truth, search)
     backend = search.last_backend
     block, _theor, _n_valid = backend.image_block(
         _slice_table(search.last_table, 0, backend.batch))
     kernels = phase_kernels(dev, block, backend.n_real,
-                            ds_cfg.image_generation.nlevels)
+                            ds_cfg.image_generation.nlevels, ab)
     del block
     torch.cuda.empty_cache()
     for entry in kernels:
         entry["launches"] = main["launches"][entry["name"]]
     phase_golden()
-    fused_entry, fused = phase_fused(ds, truth, search, ds_cfg, main)
+    fused_entry, fused = phase_fused(ds, truth, search, ds_cfg, main, ab)
     torch.cuda.empty_cache()
     cube = phase_cube_main(ds, truth, search, ds_cfg, main)
     say("main path: " + json.dumps({
@@ -1119,8 +1308,8 @@ def main() -> int:
                              "batch_ms")}))
     del ds, truth, search, backend, main
     torch.cuda.empty_cache()
-    strips_entry, slide = phase_whole_slide(dev,
-                                            ds_cfg.image_generation.nlevels)
+    strips_entry, slide = phase_whole_slide(
+        dev, ds_cfg.image_generation.nlevels, ab)
     say("fused path: " + json.dumps(fused))
     say("cube path, main dataset: " + json.dumps(cube))
     say("whole-slide path: " + json.dumps(slide))

@@ -13,7 +13,7 @@
 // start_eff: exactly the rows the plain chain's banded membership matmul
 // reads (ops/imager.py::banded_images).  The values are integer-grid sums
 // below 2^24, exact in f32 in any order, so the kernel adds the rows
-// directly: no membership matrix, no matmul.
+// directly (in row order, __fadd_rn): no membership matrix, no matmul.
 // Output, per window row (columns as the TPU kernel's):
 //   partials[c, w] = (sum_p v, sum_p cen^2, sum_p cen0 * cen, max_p v,
 //                     #{p : v > 0}),
@@ -26,215 +26,261 @@
 // per (window, pixel) are far below the compute rates.  The (B, K, P) image
 // block is never written: that is the point of the fusion.
 //
-// Design: one CTA of 256 threads per ion, as csrc/moments.cu, both passes
-// in the block, so pass 1's mean needs no second launch or grid barrier.
-// Pass 0 derives every window's value per pixel (coalesced loads of the
-// ion's band rows), writes the principal row and reduces sums, max and
-// positive count; pass 1 re-derives the values (the ion's band rows, ~1 MB
-// at 65536 pixels, mostly still in L2) and reduces the centered norms and
-// the dots against window 0.  Numerics as csrc/moments.cu: centered values
-// and their products are f32 and round once each (__fsub_rn/__fmul_rn keep
-// nvcc from contracting them into FMAs); all sums accumulate in f64 and
-// round to f32 once, so sums are the exact totals correctly rounded and the
-// centered terms sit within an ulp or two of an f64 reference.
+// Design: csrc/moments.cu's cluster per ion (csrc/moments_cluster.cuh) with
+// another producer of pixel values.  Pass 0 derives the windows' values for
+// the CTA's pixel slice one window at a time, summing that window's band
+// rows with 16-byte loads where `ld`, P and the pointer allow (`vec`; each
+// thread takes FUSED_U groups of four pixels at once, so that many loads are
+// in flight: the values come from loads, not from a bulk copy), and
+// writes them to shared memory (resident regime), window 0's also to
+// `principal`; it reduces sums, max and positive count per window as the
+// values are made.  The cluster combines the sums over DSMEM, pass 1 runs
+// the centered terms from shared memory, and a second DSMEM reduction gives
+// rank 0 the norms and dots.  The band rows are read once per ion.  Where
+// the ion's windows do not fit the cluster's shared memory (streaming
+// regime, S = 16), pass 1 derives the values again from the band rows.
+// The grid keeps the plan's ion order (cluster index c * ipc + i), so the
+// ions of one chunk, which share band rows, run side by side and find those
+// rows in L2.  Numerics as csrc/moments.cu: centered values and their
+// products are f32 and round once each; all sums accumulate in f64 (threads,
+// warps, then the cluster's CTAs in rank order) and round to f32 once, so
+// sums are the exact totals correctly rounded and the centered terms sit
+// within an ulp or two of an f64 reference.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "moments_cluster.cuh"
 
-#define FUSED_THREADS 256
-#define FUSED_WARPS (FUSED_THREADS / 32)
-#define K_MAX 8
+// Float4 groups a thread derives together in pass 0, so that U * nrow
+// independent 16-byte loads are in flight per band-row step.
+#define FUSED_U 4
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = __dadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
+__device__ __forceinline__ void add4(float4& v, const float4 q) {
+    v.x = __fadd_rn(v.x, q.x);
+    v.y = __fadd_rn(v.y, q.y);
+    v.z = __fadd_rn(v.z, q.z);
+    v.w = __fadd_rn(v.w, q.w);
+}
+
+// Four pixels of one window: its nrow band rows summed in row order.
+__device__ __forceinline__ float4 window4(const float* src, int nrow, long long ld, int j) {
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+    for (int t = 0; t < nrow; ++t)
+        add4(v, __ldg(reinterpret_cast<const float4*>(src + (size_t)t * ld) + j));
     return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+// FUSED_U groups of four pixels of one window, j0 + u * MC_THREADS (those
+// below len4), each its band rows summed in row order.
+__device__ __forceinline__ void window4x(const float* src, int nrow, long long ld, int j0,
+                                         int len4, float4 (&v)[FUSED_U]) {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
-    return v;
-}
-
-__device__ __forceinline__ int warp_isum(int v) {
+    for (int u = 0; u < FUSED_U; ++u) v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 2
+    for (int t = 0; t < nrow; ++t) {
+        const float4* rowp = reinterpret_cast<const float4*>(src + (size_t)t * ld);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    return v;
-}
-
-// Block sums of the first k entries of `v`; results land in red[r][0].
-// Ends with a barrier, so red may be read right after.
-__device__ __forceinline__ void block_sum(const double* v, int k,
-                                          double (*red)[FUSED_WARPS]) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int r = 0; r < K_MAX; ++r) {
-        if (r < k) {
-            const double s = warp_sum(v[r]);
-            if (lane == 0) red[r][warp] = s;
-        }
+        for (int u = 0; u < FUSED_U; ++u)
+            if (j0 + u * MC_THREADS < len4) add4(v[u], __ldg(rowp + j0 + u * MC_THREADS));
     }
-    __syncthreads();
-    if (warp == 0) {
-#pragma unroll
-        for (int r = 0; r < K_MAX; ++r) {
-            if (r < k) {
-                double s = lane < FUSED_WARPS ? red[r][lane] : 0.0;
-                s = warp_sum(s);
-                if (lane == 0) red[r][0] = s;
-            }
-        }
-    }
-    __syncthreads();
 }
 
-// The image value of one window at pixel p: its band rows summed in f32.
-__device__ __forceinline__ float window_value(const float* row0, int nrow,
-                                              long long ld, int p) {
+// One pixel of one window.
+__device__ __forceinline__ float window1(const float* src, int nrow, long long ld, int j) {
     float v = 0.0f;
-    for (int t = 0; t < nrow; ++t) v = __fadd_rn(v, row0[(size_t)t * ld + p]);
+#pragma unroll 4
+    for (int t = 0; t < nrow; ++t) v = __fadd_rn(v, __ldg(src + (size_t)t * ld + j));
     return v;
 }
 
-__global__ void __launch_bounds__(FUSED_THREADS)
-fused_kernel(const float* __restrict__ whp, long long ld, int cols,
-             const int* __restrict__ starts, const int* __restrict__ rlo,
-             const int* __restrict__ rhi, float* __restrict__ partials,
-             float* __restrict__ principal, int wc, int k, int p, int n_real,
-             int gc_width) {
-    __shared__ double red_s[K_MAX][FUSED_WARPS];
-    __shared__ double red_n[K_MAX][FUSED_WARPS];
-    __shared__ double red_d[K_MAX][FUSED_WARPS];
-    __shared__ float red_max[K_MAX][FUSED_WARPS];
-    __shared__ int red_nn[K_MAX][FUSED_WARPS];
-
-    const int ipc = wc / k;
-    const int ion = blockIdx.x;          // c * ipc + i: the plan's ion order
+template <int K, bool RESIDENT>
+__global__ void __launch_bounds__(MC_THREADS, 3)
+fused_cluster_kernel(const float* whp, long long ld, int cols, const int* starts,
+                     const int* rlo, const int* rhi, float* partials, float* principal, int wc,
+                     int p, int n_real, int gc_width, int slice, int vec) {
+    __shared__ McScratch sc;
+    __shared__ long long win_off[K];       // each window's first band row, in floats
+    __shared__ int win_rows[K];            // and its band row count
+    extern __shared__ __align__(16) unsigned char dyn[];
+    cg::cluster_group cluster = cg::this_cluster();
+    mc_cluster_start();
+    const int n_cta = (int)cluster.num_blocks();
+    const int ion = blockIdx.x / n_cta;   // c * ipc + i: the plan's ion order
+    const int ipc = wc / K;
     const int c = ion / ipc;
-    const int w0 = (ion % ipc) * k;      // the ion's first window in its chunk
-    const int start = starts[c];
-    const int start_eff = min(start, cols - (gc_width + 2));
-    const int shift = start - start_eff;
+    const int w0 = (ion % ipc) * K;        // the ion's first window in its chunk
+    const int a = (int)cluster.block_rank() * slice;
+    const int len = max(0, min(slice, p - a));
+    const int row = mc_row_floats(slice);
+    float* data = reinterpret_cast<float*>(dyn + MC_BARRIER_BYTES);   // window r at data + r * row
 
-    const float* row0[K_MAX];
-    int nrow[K_MAX];
-#pragma unroll
-    for (int r = 0; r < K_MAX; ++r) {
-        row0[r] = whp;
-        nrow[r] = 0;
-        if (r < k) {
-            const int w = c * wc + w0 + r;
-            const int g0 = max(rlo[w] + shift + 1, 0);
-            const int g1 = min(rhi[w] + shift, gc_width + 1);
-            if (g1 >= g0) {
-                row0[r] = whp + (size_t)(start_eff + g0) * (size_t)ld;
-                nrow[r] = g1 - g0 + 1;
-            }
-        }
+    if (threadIdx.x < K) {
+        const int r = threadIdx.x;
+        const int start = starts[c];
+        const int start_eff = min(start, cols - (gc_width + 2));
+        const int shift = start - start_eff;
+        const int w = c * wc + w0 + r;
+        const int g0 = max(rlo[w] + shift + 1, 0);
+        const int g1 = min(rhi[w] + shift, gc_width + 1);
+        win_off[r] = g1 >= g0 ? (long long)(start_eff + g0) * ld : 0;
+        win_rows[r] = g1 >= g0 ? g1 - g0 + 1 : 0;
     }
+    __syncthreads();
 
-    // ---- pass 0: principal row, sums, max and positive count -----------
-    double s[K_MAX];
-    float vmax[K_MAX];
-    int nn[K_MAX];
+    // ---- pass 0: values, principal row, sums, max and positive count ---
+    double s[K];
+    float vmax[K];
+    int nn[K];
+    float* prow = principal + (size_t)ion * p + a;
 #pragma unroll
-    for (int r = 0; r < K_MAX; ++r) { s[r] = 0.0; vmax[r] = -INFINITY; nn[r] = 0; }
-    float* prow = principal + (size_t)ion * (size_t)p;
-    for (int j = threadIdx.x; j < p; j += FUSED_THREADS) {
+    for (int r = 0; r < K; ++r) {
+        const float* src = whp + win_off[r] + a;
+        const int nrow = win_rows[r];
+        double sr = 0.0;
+        float mr = -INFINITY;
+        int cr = 0;
+        if (vec) {
+            const int len4 = len >> 2;
+            for (int j0 = threadIdx.x; j0 < len4; j0 += FUSED_U * MC_THREADS) {
+                float4 vs[FUSED_U];
+                window4x(src, nrow, ld, j0, len4, vs);
 #pragma unroll
-        for (int r = 0; r < K_MAX; ++r) {
-            if (r < k) {
-                const float v = window_value(row0[r], nrow[r], ld, j);
-                s[r] = __dadd_rn(s[r], (double)v);
-                vmax[r] = fmaxf(vmax[r], v);
-                nn[r] += (v > 0.0f);
+                for (int u = 0; u < FUSED_U; ++u) {
+                    const int j = j0 + u * MC_THREADS;
+                    if (j < len4) {
+                        const float4 v = vs[u];
+                        if (RESIDENT) reinterpret_cast<float4*>(data + r * row)[j] = v;
+                        if (r == 0) reinterpret_cast<float4*>(prow)[j] = v;
+                        sr = __dadd_rn(__dadd_rn(__dadd_rn(__dadd_rn(sr, v.x), v.y), v.z), v.w);
+                        mr = fmaxf(mr, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+                        cr += (v.x > 0.0f) + (v.y > 0.0f) + (v.z > 0.0f) + (v.w > 0.0f);
+                    }
+                }
+            }
+        } else {
+            for (int j = threadIdx.x; j < len; j += MC_THREADS) {
+                const float v = window1(src, nrow, ld, j);
+                if (RESIDENT) data[r * row + j] = v;
                 if (r == 0) prow[j] = v;
+                sr = __dadd_rn(sr, v);
+                mr = fmaxf(mr, v);
+                cr += (v > 0.0f);
             }
         }
+        s[r] = sr;
+        vmax[r] = mr;
+        nn[r] = cr;
     }
-    block_sum(s, k, red_s);
-    {
-        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    mc_block_sum<K>(s, sc.s, sc);
+    mc_block_maxcnt<K>(vmax, nn, sc);
+    mc_cluster_totals<K, K>(cluster, sc, (float)n_real);
+
+    float mean[K];
 #pragma unroll
-        for (int r = 0; r < K_MAX; ++r) {
-            if (r < k) {
-                const float m = warp_max(vmax[r]);
-                const int cnt = warp_isum(nn[r]);
-                if (lane == 0) { red_max[r][warp] = m; red_nn[r][warp] = cnt; }
+    for (int r = 0; r < K; ++r) mean[r] = sc.mean[r];
+
+    // ---- pass 1: centered norms and dots vs window 0 --------------------
+    double ns[K], dt[K];
+#pragma unroll
+    for (int r = 0; r < K; ++r) { ns[r] = 0.0; dt[r] = 0.0; }
+    const int lim = n_real - a;            // slice-local bound of the real pixels
+    if (vec) {
+        const int len4 = len >> 2;
+        for (int j = threadIdx.x; j < len4; j += MC_THREADS) {
+            float cen[K][4];
+#pragma unroll
+            for (int r = 0; r < K; ++r) {
+                const float4 v = RESIDENT ? reinterpret_cast<const float4*>(data + r * row)[j]
+                                          : window4(whp + win_off[r] + a, win_rows[r], ld, j);
+                const float xs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                for (int t = 0; t < 4; ++t)
+                    cen[r][t] = (4 * j + t < lim) ? __fsub_rn(xs[t], mean[r]) : 0.0f;
             }
-        }
-        __syncthreads();
-        if (warp == 0) {
 #pragma unroll
-            for (int r = 0; r < K_MAX; ++r) {
-                if (r < k) {
-                    float m = lane < FUSED_WARPS ? red_max[r][lane] : -INFINITY;
-                    int cnt = lane < FUSED_WARPS ? red_nn[r][lane] : 0;
-                    m = warp_max(m);
-                    cnt = warp_isum(cnt);
-                    if (lane == 0) { red_max[r][0] = m; red_nn[r][0] = cnt; }
+            for (int r = 0; r < K; ++r) {
+#pragma unroll
+                for (int t = 0; t < 4; ++t) {
+                    ns[r] = __dadd_rn(ns[r], (double)__fmul_rn(cen[r][t], cen[r][t]));
+                    dt[r] = __dadd_rn(dt[r], (double)__fmul_rn(cen[0][t], cen[r][t]));
                 }
             }
         }
-        __syncthreads();
-    }
-
-    float mean[K_MAX];
-    const float fn = (float)n_real;
+    } else {
+        for (int j = threadIdx.x; j < len; j += MC_THREADS) {
+            const bool in = j < lim;
+            float cen[K];
 #pragma unroll
-    for (int r = 0; r < K_MAX; ++r)
-        mean[r] = r < k ? __fdiv_rn(__double2float_rn(red_s[r][0]), fn) : 0.0f;
-
-    // ---- pass 1: centered norms and dots vs window 0 --------------------
-    double ns[K_MAX], dt[K_MAX];
+            for (int r = 0; r < K; ++r) {
+                const float v = RESIDENT ? data[r * row + j]
+                                         : window1(whp + win_off[r] + a, win_rows[r], ld, j);
+                cen[r] = in ? __fsub_rn(v, mean[r]) : 0.0f;
+            }
 #pragma unroll
-    for (int r = 0; r < K_MAX; ++r) { ns[r] = 0.0; dt[r] = 0.0; }
-    for (int j = threadIdx.x; j < p; j += FUSED_THREADS) {
-        const bool in = j < n_real;
-        float c0 = 0.0f;
-#pragma unroll
-        for (int r = 0; r < K_MAX; ++r) {
-            if (r < k) {
-                const float cen = in ? __fsub_rn(window_value(row0[r], nrow[r], ld, j), mean[r])
-                                     : 0.0f;
-                if (r == 0) c0 = cen;
-                ns[r] = __dadd_rn(ns[r], (double)__fmul_rn(cen, cen));
-                dt[r] = __dadd_rn(dt[r], (double)__fmul_rn(c0, cen));
+            for (int r = 0; r < K; ++r) {
+                ns[r] = __dadd_rn(ns[r], (double)__fmul_rn(cen[r], cen[r]));
+                dt[r] = __dadd_rn(dt[r], (double)__fmul_rn(cen[0], cen[r]));
             }
         }
     }
-    block_sum(ns, k, red_n);
-    block_sum(dt, k, red_d);
+    mc_block_sum<K>(ns, sc.ns, sc);
+    mc_block_sum<K>(dt, sc.dt, sc);
 
-    if (threadIdx.x < k) {
+    if (mc_cluster_push_centered<K>(cluster, sc) && threadIdx.x < K) {
         const int r = threadIdx.x;
         float* o = partials + ((size_t)c * wc + w0 + r) * 5;
-        o[0] = __double2float_rn(red_s[r][0]);
-        o[1] = __double2float_rn(red_n[r][0]);
-        o[2] = __double2float_rn(red_d[r][0]);
-        o[3] = red_max[r][0];
-        o[4] = (float)red_nn[r][0];
+        o[0] = __double2float_rn(sc.tot_s[r]);
+        o[1] = __double2float_rn(mc_rank_total(sc.pns, n_cta, r));
+        o[2] = __double2float_rn(mc_rank_total(sc.pdt, n_cta, r));
+        o[3] = sc.tot_max[r];
+        o[4] = (float)sc.tot_cnt[r];
     }
 }
 
-// C entry point (bound with ctypes).  `partials` is (C, wc, 5) f32 and
-// `principal` (C * wc / k, p) f32; one CTA per ion.  Returns
-// cudaGetLastError() after the launch; 0 is success.
-extern "C" int sm_fused_moments(const float* whp, long long ld, int cols,
-                                const int* starts, const int* rlo,
-                                const int* rhi, float* partials,
-                                float* principal, int n_chunks, int wc, int k,
-                                int p, int n_real, int gc_width, void* stream) {
-    if (n_chunks <= 0) return 0;
-    if (k <= 0 || k > K_MAX || wc % k != 0 || p <= 0 || n_real <= 0
-        || n_real > p || cols < gc_width + 2)
-        return (int)cudaErrorInvalidValue;
-    const int n_ions = n_chunks * (wc / k);
-    fused_kernel<<<n_ions, FUSED_THREADS, 0, (cudaStream_t)stream>>>(
-        whp, ld, cols, starts, rlo, rhi, partials, principal, wc, k, p,
-        n_real, gc_width);
-    return (int)cudaGetLastError();
+template <bool RESIDENT>
+static int launch(int k, int n_ions, int cluster, int smem, cudaStream_t stream, const float* whp,
+                  long long ld, int cols, const int* starts, const int* rlo, const int* rhi,
+                  float* partials, float* principal, int wc, int p, int n_real, int gc_width,
+                  int slice, int vec) {
+    switch (k) {
+#define FUSED_CASE(KK)                                                                        \
+    case KK:                                                                                  \
+        return mc_launch(fused_cluster_kernel<KK, RESIDENT>, n_ions, cluster, smem, stream,  \
+                         whp, ld, cols, starts, rlo, rhi, partials, principal, wc, p, n_real, \
+                         gc_width, slice, vec);
+        FUSED_CASE(1) FUSED_CASE(2) FUSED_CASE(3) FUSED_CASE(4)
+        FUSED_CASE(5) FUSED_CASE(6) FUSED_CASE(7) FUSED_CASE(8)
+#undef FUSED_CASE
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int sm_fused_moments_k_max(void) { return K_MAX; }
+// C entry point (bound with ctypes).  `partials` is (C, wc, 5) f32 and
+// `principal` (C * wc / k, p) f32; one cluster per ion, planned by
+// ops/moments.py::moments_plan (cluster, slice, resident, smem_bytes).
+// `vec` says the histogram rows and the principal rows may be read and
+// written in 16-byte units (ld, P and slice multiples of 4, both bases
+// 16-byte aligned).  Returns cudaGetLastError() after the launch, 0 on
+// success; cudaErrorInvalidValue for an argument or plan the kernel does not
+// take; MC_CLUSTER_UNSCHEDULABLE when no cluster of the plan's shape fits.
+extern "C" int sm_fused_moments(const float* whp, long long ld, int cols, const int* starts,
+                                const int* rlo, const int* rhi, float* partials,
+                                float* principal, int n_chunks, int wc, int k, int p,
+                                int n_real, int gc_width, int cluster, int slice, int resident,
+                                int smem_bytes, int vec, void* stream) {
+    if (n_chunks <= 0) return 0;
+    if (k <= 0 || k > MC_K_MAX || wc % k != 0 || p <= 0 || n_real <= 0 || n_real > p ||
+        cols < gc_width + 2 || !mc_valid_cluster(cluster) || !mc_valid_slices(p, cluster, slice) ||
+        (long long)smem_bytes != mc_smem_bytes(k, slice, resident) ||
+        (vec && ((p & 3) || (ld & 3) || (cluster > 1 && (slice & 3)) || ((uintptr_t)whp & 15) ||
+                 ((uintptr_t)principal & 15))))
+        return (int)cudaErrorInvalidValue;
+    const int n_ions = n_chunks * (wc / k);
+    cudaStream_t st = (cudaStream_t)stream;
+    return resident
+        ? launch<true>(k, n_ions, cluster, smem_bytes, st, whp, ld, cols, starts, rlo, rhi, partials,
+                       principal, wc, p, n_real, gc_width, slice, vec)
+        : launch<false>(k, n_ions, cluster, smem_bytes, st, whp, ld, cols, starts, rlo, rhi,
+                        partials, principal, wc, p, n_real, gc_width, slice, vec);
+}
+
+extern "C" int sm_fused_moments_k_max(void) { return MC_K_MAX; }

@@ -2,13 +2,16 @@
 
 Each ``csrc/<name>.cu`` compiles on first use into a shared library with a
 plain C interface under ``build/torch_kernels/`` at the repository root
-(ignored by git).  The library name carries a hash of the source and the
-flags, so an edited source rebuilds and a stale library is never loaded.
+(ignored by git).  The library name carries a hash of the source, of every
+shared header ``csrc/*.cuh`` and of the flags, so an edited source or header
+rebuilds and a stale library is never loaded.
 Only the repository's own sources go into a build: no PyTorch headers, no
 third-party kernels.
 
-Every C entry point returns ``cudaGetLastError()`` after its launch; the
-Python wrappers raise :class:`KernelError` when that is not 0.
+Every C entry point returns ``cudaGetLastError()`` after its launch (or
+``CLUSTER_UNSCHEDULABLE`` when the occupancy API says its thread-block
+cluster does not fit the device); the Python wrappers raise
+:class:`KernelError` when that is not 0.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every kernel of the port, built together by build_all()
 KERNELS = ("moments", "chaos", "chaos_strips", "fused_moments")
+# MC_CLUSTER_UNSCHEDULABLE of csrc/moments_cluster.cuh
+CLUSTER_UNSCHEDULABLE = -1
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -52,8 +57,10 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + repr(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(repr(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -120,5 +127,8 @@ def load(name: str) -> ctypes.CDLL:
 
 def check(err: int, what: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
+    if err == CLUSTER_UNSCHEDULABLE:
+        raise KernelError(f"{what}: no thread-block cluster of this shape "
+                          "fits the device (cudaOccupancyMaxActiveClusters)")
     if err != 0:
         raise KernelError(f"{what}: CUDA error {err}")

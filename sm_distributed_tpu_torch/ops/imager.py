@@ -265,10 +265,13 @@ def flat_histogram(
     gc_width: int,
     n_pixels: int,
 ) -> torch.Tensor:
-    """The bins-major ``(cols, n_pixels + 1)`` f32 histogram scratch of one
-    batch, ``cols = max(G + 1, gc_width + 2)``: row g holds, per pixel, the
+    """The bins-major ``(cols, W)`` f32 histogram scratch of one batch,
+    ``cols = max(G + 1, gc_width + 2)``: row g holds, per pixel, the
     intensities of the peaks whose bin (the count of bounds <= their m/z) is
-    g.  The last column is the overflow row of the padding slots."""
+    g.  Column ``n_pixels`` is the overflow column of the padding slots; the
+    width W is ``n_pixels + 1`` rounded up to a multiple of 4 (zero columns
+    past the overflow), so every row starts 16-byte aligned for the fused
+    kernel's vector loads."""
     dev = int_sorted.device
     n = pixel_sorted.shape[0]
     g = pos.shape[0]
@@ -276,7 +279,8 @@ def flat_histogram(
     delta.index_add_(0, pos, torch.ones_like(pos))
     bins = torch.cumsum(delta[:-1], dim=0)
     cols = max(g + 1, gc_width + 2)
-    wh = torch.zeros((cols, n_pixels + 1), dtype=torch.float32, device=dev)
+    width = -(-(n_pixels + 1) // 4) * 4
+    wh = torch.zeros((cols, width), dtype=torch.float32, device=dev)
     wh.index_put_((bins, pixel_sorted), int_sorted, accumulate=True)
     return wh
 

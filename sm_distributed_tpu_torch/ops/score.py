@@ -17,8 +17,9 @@ then ``ops/moments``) is never written.
 
 - :func:`fused_window_moments` is the wrapper.  A CPU tensor goes to the
   plain version; a CUDA tensor goes to the hand-written kernel
-  ``csrc/fused_moments.cu`` (counted in ``fused_window_moments.launches``),
-  or the call raises.
+  ``csrc/fused_moments.cu``, one thread-block cluster per ion planned by
+  ``ops/moments.moments_plan`` (counted in
+  ``fused_window_moments.launches``), or the call raises.
 - :func:`fused_window_moments_torch` is the plain version: the plain
   chain's ``banded_images`` and ``batch_moments_torch``, rearranged into the
   partials and the principal rows.
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from .imager import banded_images
-from .moments import batch_moments_torch
+from .moments import batch_moments_torch, moments_plan
 
 
 def _moment_partials(x: torch.Tensor, n_real: int) -> torch.Tensor:
@@ -80,20 +81,25 @@ def _launch(whp: torch.Tensor, starts: torch.Tensor, r_lo_loc: torch.Tensor,
     lib = _build.load("fused_moments")
     fn = lib.sm_fused_moments
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + [
-        ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     k_max = lib.sm_fused_moments_k_max()
     if k > k_max:
         raise ValueError(f"fused kernel takes K <= {k_max} peaks, got {k}")
+    plan = moments_plan(n_chunks * (wc // k), k, p)
     partials = torch.empty((n_chunks, wc, 5), dtype=torch.float32, device=dev)
     principal = torch.empty((n_chunks, wc // k, p), dtype=torch.float32,
                             device=dev)
+    vec = int(p % 4 == 0 and whp.stride(0) % 4 == 0
+              and whp.data_ptr() % 16 == 0 and principal.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(fn(whp.data_ptr(), whp.stride(0), cols, starts.data_ptr(),
                     r_lo_loc.data_ptr(), r_hi_loc.data_ptr(),
                     partials.data_ptr(), principal.data_ptr(), n_chunks, wc,
-                    k, p, int(n_real), gc_width, stream),
-                 "fused window-moments kernel launch")
+                    k, p, int(n_real), gc_width, plan.cluster, plan.slice_len,
+                    int(plan.regime == "resident"), plan.smem_bytes, vec,
+                    stream),
+                 f"fused window-moments kernel launch ({plan})")
     return partials, principal
 
 

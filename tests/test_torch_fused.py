@@ -37,7 +37,8 @@ from sm_distributed_tpu_torch.convert import (
     dataset_from_arrays,
     pattern_table_from_arrays,
 )
-from sm_distributed_tpu_torch.ops.imager import flat_histogram
+from sm_distributed_tpu_torch.ops.imager import banded_images, flat_histogram
+from sm_distributed_tpu_torch.ops.moments import CLUSTER_SIZES, slice_len
 from sm_distributed_tpu_torch.ops.score import (
     _moment_partials,
     fused_window_moments,
@@ -200,6 +201,107 @@ def test_plain_matches_jax_plain_chain(fixtures, name, buckets):
         assert imgs[:, 0].any()
 
 
+def _model_window_values(whp, starts, r_lo, r_hi, gc_width, cluster):
+    """A sequential model of the fused kernel's pass 0 on a (cols, P) f32
+    histogram: per window (its chunk's start clamped to start_eff, the
+    local ranks shifted by the same amount, the band rows g0..g1 clipped to
+    [0, gc_width + 1]) and per CTA slice of the plan's split over
+    ``cluster`` CTAs, the window's band rows added in row order in f32.
+    Returns the (C * Wc, P) values in plan order."""
+    from test_torch_moments import slices
+
+    cols, p = whp.shape
+    n_chunks, wc = r_lo.shape
+    out = np.zeros((n_chunks * wc, p), np.float32)
+    for c in range(n_chunks):
+        start = int(starts[c])
+        start_eff = min(start, cols - (gc_width + 2))
+        shift = start - start_eff
+        for w in range(wc):
+            g0 = max(int(r_lo[c, w]) + shift + 1, 0)
+            g1 = min(int(r_hi[c, w]) + shift, gc_width + 1)
+            for a, length in slices(p, cluster):
+                v = np.zeros(length, np.float32)
+                for g in range(g0, g1 + 1):
+                    v = v + whp[start_eff + g, a:a + length]
+                out[c * wc + w, a:a + length] = v
+    return out
+
+
+def _largest_cluster(p, want):
+    """The largest cluster size up to ``want`` whose slices of P pixels are
+    all non-empty (the plans the kernels take)."""
+    return max(s for s in CLUSTER_SIZES
+               if s <= want and (s - 1) * slice_len(p, s) < p)
+
+
+def _model_fused(whp, starts, r_lo, r_hi, n_real, gc_width, k, cluster):
+    """(values (C*Wc, P), partials (C, Wc, 5), principal (C, ipc, P)) of
+    the fused kernel's model: pass 0's window values, then the cluster
+    moments model with max and positive count for every window."""
+    from test_torch_moments import _model_cluster_moments
+
+    cluster = _largest_cluster(whp.shape[1], cluster)
+    vals = _model_window_values(whp, starts, r_lo, r_hi, gc_width, cluster)
+    n_chunks, wc = r_lo.shape
+    blk = vals.reshape(-1, k, whp.shape[1])
+    part = _model_cluster_moments(blk, n_real, cluster, max_rows=k)
+    return (vals, part.reshape(n_chunks, wc, 5),
+            blk[:, 0, :].reshape(n_chunks, wc // k, -1))
+
+
+@pytest.mark.parametrize("name", list(FIXTURES))
+@pytest.mark.parametrize("cluster", [1, 4, 16])
+def test_cluster_model_matches_plain_chain(fixtures, name, cluster):
+    """The fused kernel's per-slice window derivation is bit-equal to the
+    port's ``banded_images`` rows and to the JAX package's plain chain
+    (``extract_images_flat_banded``) on the fixture's first batch; its
+    partials, through the cluster moments model, hold the contract of
+    ``_check_partials`` against those images, JAX's moments and f64."""
+    from sm_distributed_tpu.models.msm_jax import JaxBackend
+    from sm_distributed_tpu.ops.imager_jax import (
+        extract_images_flat_banded as jextract,
+    )
+    from sm_distributed_tpu.ops.moments_pallas import batch_moments_jnp
+    from sm_distributed_tpu.utils.config import DSConfig, SMConfig
+    from sm_distributed_tpu_torch.models.msm_torch import TorchBackend
+
+    jds, tds, jt = fixtures(name)[:3]
+    sm_dict = {"backend": "jax_tpu",
+               "parallel": {"formula_batch": 64,
+                            "compile_cache_dir": NO_XLA_CACHE}}
+    ds_dict = {"isotope_generation": {"adducts": list(ADDUCTS)}}
+    jb = JaxBackend(jds, DSConfig.from_dict(ds_dict),
+                    SMConfig.from_dict(sm_dict))
+    sm, dc = configs_from_dicts(sm_dict, ds_dict, device="cpu")
+    tb = TorchBackend(tds, dc, sm)
+    n_pix = tb._n_pix_b
+    n_real = tb.n_real if tb.n_real is not None else n_pix
+    t = _slice_table(jt, 0, min(tb.batch, jt.n_ions))
+    _grid, _lo, _hi, _ints, _nv, chunks, pos, b_eff = tb._flat_plan(t)
+    starts, r_lo_loc, r_hi_loc, _inv, gc, _order = chunks
+    k = t.max_peaks
+    wh = flat_histogram(tb._px_s, tb._in_s,
+                        torch.from_numpy(pos.astype(np.int64)),
+                        gc_width=gc, n_pixels=n_pix)
+    assert wh.stride(0) % 4 == 0           # rows 16-byte aligned
+    whp = wh[:, :n_pix]
+    vals, partials, principal = _model_fused(
+        whp.numpy(), starts, r_lo_loc, r_hi_loc, n_real, gc, k, cluster)
+    plain = banded_images(whp, starts, torch.from_numpy(r_lo_loc),
+                          torch.from_numpy(r_hi_loc), gc_width=gc).numpy()
+    np.testing.assert_array_equal(vals, plain)
+    imgs = np.asarray(jextract(
+        jb._px_s, jb._in_s, pos, starts, r_lo_loc, r_hi_loc, None,
+        gc_width=gc, n_pixels=n_pix))
+    np.testing.assert_array_equal(vals, imgs)
+    imgs = imgs.reshape(b_eff, k, n_pix)
+    sums, normsq, dots, _vmax, _nn = (
+        np.asarray(a) for a in batch_moments_jnp(imgs, np.int32(n_real)))
+    _check_partials(partials, principal, imgs, n_real, (sums, normsq, dots))
+    assert imgs[:, 0].any()
+
+
 def _plan_case(seed, C=3, ipc=4, k=3, gc_width=11, g=40, n_pix=128):
     """A histogram scratch and a chunk plan shaped like ``ion_window_chunks``
     output (the recipe of tests/test_score_pallas.py): integer-grid values
@@ -224,6 +326,32 @@ def _dense_images(whp, starts, r_lo, r_hi):
          & (rows[None, None, :] <= ghi[..., None]))
     return np.einsum("cwr,rp->cwp", d.astype(np.float64),
                      whp.astype(np.float64))
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 16])
+@pytest.mark.parametrize("n_real", [128, 37])
+def test_cluster_model_matches_dense_reference(cluster, n_real):
+    """On a synthetic plan with clamped chunk starts and empty windows, the
+    model's values equal the dense membership's, and its partials those of
+    the plain fused version (exact columns equal, centered ones in
+    contract); n_real 37 falls in the first slice of a split."""
+    k, gc_width = 3, 11
+    whp, starts, r_lo, r_hi = _plan_case(7, k=k, gc_width=gc_width)
+    starts[0] = whp.shape[0] - 3           # clamped: start_eff < start
+    r_hi[1, 2] = r_lo[1, 2]                # an empty window
+    vals, partials, principal = _model_fused(whp, starts, r_lo, r_hi,
+                                             n_real, gc_width, k, cluster)
+    dense = _dense_images(whp, starts, r_lo, r_hi)
+    np.testing.assert_array_equal(vals, dense.reshape(vals.shape))
+    want_p, want_pr = fused_window_moments_torch(
+        torch.from_numpy(whp), starts, torch.from_numpy(r_lo),
+        torch.from_numpy(r_hi), n_real, gc_width=gc_width, k=k)
+    np.testing.assert_array_equal(principal, want_pr.numpy())
+    for i in (0, 3, 4):
+        np.testing.assert_array_equal(partials[..., i], want_p.numpy()[..., i])
+    c, wc = r_lo.shape
+    _check_partials(partials, principal,
+                    vals.reshape(c * wc // k, k, -1), n_real)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
