@@ -13,8 +13,9 @@ launch counts set to 0 just before it and read just after:
   image block, and the 32x32 golden fixture checked against
   ``tests/data/golden_spheroid.json``.  Chaos takes the packed route's
   shared-memory kernel (images of at most 65,536 pixels); phase 4 also
-  holds the packed route's global-plane kernel (512x512) and times the two
-  on the main path's images;
+  holds the row-tile kernel that serves larger packed images (512x512, and
+  8x36864 with one-row tiles) on random masks and images whose components
+  cross the tile seams;
 - the fused path (phase 6): the same search with
   ``parallel.fused_metrics="on"``, held against the main path's results, and
   the fused window-moments kernel against its plain version;
@@ -22,8 +23,10 @@ launch counts set to 0 just before it and read just after:
   ions with ``parallel.mz_chunk=512``, held ion by ion to the main path's
   results;
 - the whole-slide path (phase 8): a 1024x1024 dataset on the m/z-chunked
-  cube path (``parallel.mz_chunk=512``), whose chaos takes the strip
-  kernel, held against its plain version and scipy; its unmasked moments
+  cube path (``parallel.mz_chunk=512``), whose chaos takes the row-tile
+  kernel on the strips route, held against its plain version and scipy
+  (also on a comb and a spiral across the tile seams, and on a 2048x2048
+  pair whose seam merge takes the global seam plane); its unmasked moments
   kernel and its metrics held against their plain versions and f64 on the
   path's first batch.
 
@@ -36,10 +39,11 @@ of its plan the card holds at once.
 
     python3 chip_smoke.py --ab DIR
 
-also times the moments and fused kernels of another checkout of the repo at
-``DIR`` (its ``sm_distributed_tpu_torch`` built from its own sources into
-its own ``build/``) against this one's, in turns (other, this, this, other),
-on the same inputs.
+also times the moments, fused and chaos kernels of another checkout of the
+repo at ``DIR`` (its ``sm_distributed_tpu_torch`` built from its own
+sources into its own ``build/``) against this one's, in turns (other, this,
+this, other), on the same inputs: chaos on the 512x512 masks, the main
+path's principal images and the whole-slide batch's.
 
 One line per phase; any failure raises and exits non-zero.  The line before
 the last is a JSON object with each kernel's launches on its path, its error
@@ -163,9 +167,47 @@ def time_once(fn) -> tuple[float, object]:
     return start.elapsed_time(end), out
 
 
+def kernel_split(calls: dict, names) -> dict:
+    """Device milliseconds, by kernel, of one run of each of ``calls``
+    ({label: fn}), in one torch.profiler session (the CUPTI trace of the
+    card): {label: {kernel: ms}} for the kernels whose names contain one of
+    ``names``, each call launching ``len(names) - 1`` of them (the row-tile
+    kernel and one merge).  Empty when the trace holds another count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            fn()
+            torch.cuda.synchronize()
+    per_call = len(names) - 1
+    evs = sorted((e for e in prof.events()
+                  if "CUDA" in str(e.device_type)
+                  and any(k in e.name for k in names)),
+                 key=lambda e: e.time_range.start)
+    if len(evs) != per_call * len(calls):
+        return {}
+    out = {}
+    for i, label in enumerate(calls):
+        out[label] = {
+            next(k for k in names if k in e.name):
+                e.time_range.elapsed_us() / 1e3
+            for e in evs[i * per_call:(i + 1) * per_call]}
+    return out
+
+
+TILE_KERNELS = ("chaos_tile_kernel", "seam_merge_smem_kernel",
+                "seam_merge_plane_kernel")
+
+
 def _launch_counters() -> dict:
     """Each kernel's launch counter: the wrapper that holds it and its
-    attribute (the packed chaos wrapper counts its two kernels apart)."""
+    attribute.  The packed chaos wrapper counts its two kernels apart (the
+    shared-memory kernel, and the row-tile kernel for images past 65,536
+    pixels); ``chaos_seam_plane`` counts the row-tile launches, on either
+    route, whose seam merge keeps its union-find in a global plane."""
     from sm_distributed_tpu_torch.ops.chaos import (
         chaos_count_sums,
         chaos_count_sums_strips,
@@ -175,8 +217,10 @@ def _launch_counters() -> dict:
 
     return {"moments": (batch_moments, "launches"),
             "chaos": (chaos_count_sums, "launches"),
-            "chaos_global": (chaos_count_sums, "global_launches"),
+            "chaos_tiles": (chaos_count_sums, "tiled_launches"),
             "chaos_strips": (chaos_count_sums_strips, "launches"),
+            "chaos_seam_plane": (chaos_count_sums_strips,
+                                 "seam_plane_launches"),
             "fused_window_moments": (fused_window_moments, "launches")}
 
 
@@ -221,6 +265,9 @@ def _ptxas_report(log: str) -> dict:
             if t:
                 fn = (f"{t.group(1)}<{t.group(2)},"
                       f"{'resident' if t.group(3) == '1' else 'streaming'}>")
+            t = re.match(r"_Z(\d+)(\w+)", fn)
+            if t and not fn.endswith(">"):
+                fn = t.group(2)[:int(t.group(1))]
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
@@ -344,20 +391,26 @@ def _check_chaos(images: torch.Tensor, nrows: int, ncols: int, nlevels: int,
                  label: str, variant: str, n_scipy: int = 3) -> float:
     """The packed chaos wrapper on ``images`` against the plain version
     (bit-equal) and scipy (the first ``n_scipy``), and the packed kernel it
-    launched (``variant``: "smem" or "global", by the two counters).
+    launched (``variant``: "smem" or "tiles", by the two counters; for
+    "tiles", the seam merge's placement by its plan and counter).
     Returns the plain version's milliseconds."""
     from sm_distributed_tpu_torch.ops.chaos import (
         chaos_count_sums,
         chaos_count_sums_torch,
         packed_variant,
+        tile_plan,
     )
 
     assert packed_variant(nrows * ncols) == variant
-    before = (chaos_count_sums.launches, chaos_count_sums.global_launches)
+    plane = variant == "tiles" and not tile_plan(nrows, ncols,
+                                                 nlevels).seam_in_smem
+    reset_launches()
     got = chaos_count_sums(images, nrows, ncols, nlevels)
-    ran = (chaos_count_sums.launches - before[0],
-           chaos_count_sums.global_launches - before[1])
-    assert ran == ((1, 0) if variant == "smem" else (0, 1)), (label, ran)
+    ran = read_launches()
+    want_ran = {"chaos": int(variant == "smem"),
+                "chaos_tiles": int(variant == "tiles"),
+                "chaos_strips": 0, "chaos_seam_plane": int(plane)}
+    assert {k: ran[k] for k in want_ran} == want_ran, (label, ran)
     plain_ms, want = time_once(
         lambda: chaos_count_sums_torch(images, nrows, ncols, nlevels))
     assert torch.equal(got, want), (
@@ -366,7 +419,8 @@ def _check_chaos(images: torch.Tensor, nrows: int, ncols: int, nlevels: int,
     sc = _scipy_count_sums(host, nrows, ncols, nlevels)
     assert got[:n_scipy].cpu().tolist() == [float(v) for v in sc], (
         f"chaos {label}: kernel {got[:n_scipy].tolist()} != scipy {sc}")
-    say(f"  chaos {label} ({variant} kernel): {images.shape[0]} images "
+    say(f"  chaos {label} ({variant} kernel"
+        f"{', global seam plane' if plane else ''}): {images.shape[0]} images "
         f"{nrows}x{ncols}, {nlevels} levels, bit-equal to the plain version, "
         f"first {n_scipy} equal to scipy {sc}")
     return plain_ms
@@ -387,6 +441,83 @@ def _check_smem_layout(shapes, levels) -> None:
     for r, c in shapes:
         for nl in levels:
             assert fn(r, c, nl) == chaos_smem_bytes(r, c, nl), (r, c, nl)
+
+
+# shapes whose row-tile plans phase 4 holds to the kernels' layout: the
+# whole-slide and 512x512 shapes, the widest strip shape, one-row tiles and
+# two plans with the global seam plane
+TILE_LAYOUT_SHAPES = ((1024, 1024), (512, 512), (700, 900), (100, 8192),
+                      (400, 333), (8, 36864), (2048, 2048))
+
+
+def _check_tile_layout(levels) -> None:
+    """The row-tile kernel's and the seam merge's shared-memory layouts in
+    csrc/chaos_strips.cu are the ones ops/chaos.py::tile_plan mirrors."""
+    from sm_distributed_tpu_torch.kernels import _build
+    from sm_distributed_tpu_torch.ops.chaos import tile_plan
+
+    lib = _build.load("chaos_strips")
+    tile_fn = lib.sm_chaos_tile_smem_bytes
+    seam_fn = lib.sm_chaos_seam_smem_bytes
+    tile_fn.argtypes = [ctypes.c_int] * 3
+    seam_fn.argtypes = [ctypes.c_int]
+    for r, c in TILE_LAYOUT_SHAPES:
+        for nl in levels:
+            plan = tile_plan(r, c, nl)
+            assert tile_fn(plan.rows, c, nl) == plan.tile_smem_bytes, (
+                r, c, nl)
+            if plan.seam_in_smem:
+                assert seam_fn(plan.seam_nodes) == plan.merge_smem_bytes, (
+                    r, c)
+
+
+def _spiral(n: int) -> np.ndarray:
+    """A square spiral of one-pixel lines one pixel apart, walked inwards
+    from the top-left corner: one path whose vertical runs cross every
+    horizontal tile seam many times."""
+    img = np.zeros((n, n), np.float32)
+    r = c = 0
+    dr, dc = 0, 1
+    img[r, c] = 1.0
+    while True:
+        for _ in range(2):      # straight on, else turn right once
+            nr, nc = r + dr, c + dc
+            ar, ac = nr + dr, nc + dc
+            if 0 <= nr < n and 0 <= nc < n and not img[nr, nc] and not (
+                    0 <= ar < n and 0 <= ac < n and img[ar, ac]):
+                r, c = nr, nc
+                img[r, c] = 1.0
+                break
+            dr, dc = dc, -dr
+        else:
+            return img
+
+
+def _seam_images(nrows: int, ncols: int, dev) -> torch.Tensor:
+    """Images whose components cross tile seams: a comb (teeth on the even
+    columns joined only by the last row, so the teeth meet in the last
+    tile), the same comb at graded heights (teeth split across levels), and
+    for square shapes a spiral and a spiral at graded heights."""
+    comb = np.zeros((nrows, ncols), np.float32)
+    comb[:, ::2] = 1.0
+    comb[-1, :] = 1.0
+    grade = (np.arange(nrows * ncols, dtype=np.float32).reshape(nrows, ncols)
+             % 7 + 1) / 7
+    stack = [comb, comb * grade]
+    if nrows == ncols:
+        spiral = _spiral(nrows)
+        stack += [spiral, spiral * grade]
+    return torch.from_numpy(np.stack(stack).reshape(len(stack), -1)).to(dev)
+
+
+def _blob_images(n: int, side: int, dev, gen) -> torch.Tensor:
+    """n smooth side x side images: bicubic upsampling of 24x24 uniform
+    noise, shifted down so ~30% of the pixels are 0.  Their level sets are
+    large nested components, the opposite of random masks."""
+    coarse = torch.rand(n, 1, 24, 24, device=dev, generator=gen)
+    up = torch.nn.functional.interpolate(coarse, size=(side, side),
+                                         mode="bicubic", align_corners=False)
+    return (up - 0.35).clamp(min=0).reshape(n, -1).contiguous()
 
 
 def _edge_images(side: int, dev) -> torch.Tensor:
@@ -425,11 +556,8 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
     path's dataset, as the metrics receive it.  ``ab``: another checkout's
     port (``--ab``), timed in turns against this one."""
     from sm_distributed_tpu_torch.ops.chaos import (
-        _kernel_thresholds,
-        _launch_global,
         chaos_count_sums,
         chaos_count_sums_strips,
-        chaos_count_sums_torch,
     )
     from sm_distributed_tpu_torch.ops.moments import (
         batch_moments,
@@ -506,11 +634,12 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
                    enumerate(zip(want, other)) if i in (0, 3, 4))
 
     # --- chaos (kernel 3, packed route): the shared-memory kernel up to
-    # 65,536 pixels, the global-plane kernel above ---
+    # 65,536 pixels, the row-tile kernel of csrc/chaos_strips.cu above ---
     principal = block[:, 0, :]                 # the main path's strided view
     side = int(round(p ** 0.5))
     _check_smem_layout(((side, side), (32, 32), (9, 11), (1, 4096)),
                        (1, nlevels, 255))
+    _check_tile_layout((1, nlevels, 255))
     ch_plain_ms = _check_chaos(principal, side, side, nlevels,
                                "main-path principal", "smem")
     _check_chaos(_random_images(256, side * side, dev, gen), side, side,
@@ -529,26 +658,35 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
                  "random batch", "smem")
     masks512 = _random_images(64, 512 * 512, dev, gen)
     g512_plain_ms = _check_chaos(masks512, 512, 512, nlevels, "random masks",
-                                 "global")
+                                 "tiles")
     up = principal[:64].reshape(64, side, side).repeat_interleave(
         2, dim=1).repeat_interleave(2, dim=2).reshape(64, -1)
     _check_chaos(up, 2 * side, 2 * side, nlevels, "principal upsampled 2x",
-                 "global")
-    # the global-plane kernel on the main path's images, through the
-    # wrapper's private call of that variant, bit-equal too
-    thr = _kernel_thresholds(principal, side, side, nlevels, "chip_smoke")
-    assert torch.equal(_launch_global(principal, thr, side, side, nlevels),
-                       chaos_count_sums(principal, side, side, nlevels))
-    old_ms, ch_ms = _time_turns(
-        lambda: _launch_global(principal, thr, side, side, nlevels),
-        lambda: chaos_count_sums(principal, side, side, nlevels), reps=5)
-    # the strip kernel's design (one image over many CTAs) on the same
-    # images, for comparison: it takes any image size
+                 "tiles")
+    _check_chaos(_random_images(8, 512 * 512, dev, gen), 512, 512, 255,
+                 "random masks", "tiles")
+    # one-row tiles: the packed shape 8x36864 (its seam merge's 294,912
+    # nodes take the global seam plane)
+    _check_chaos(_random_images(16, 8 * 36864, dev, gen), 8, 36864, nlevels,
+                 "random masks, one-row tiles", "tiles")
+    _check_chaos(_seam_images(8, 36864, dev), 8, 36864, nlevels,
+                 "comb and spiral, one-row tiles", "tiles", n_scipy=2)
+    _check_chaos(_seam_images(512, 512, dev), 512, 512, nlevels,
+                 "comb and spiral", "tiles", n_scipy=2)
+    # an odd width: 4-byte loads, and 1,998 seam nodes (the merge's last
+    # word of four nodes padded)
+    _check_chaos(_random_images(16, 400 * 333, dev, gen), 400, 333, nlevels,
+                 "random masks, odd width", "tiles")
+    _check_chaos(_seam_images(400, 333, dev), 400, 333, nlevels,
+                 "comb, odd width", "tiles", n_scipy=2)
+    # the row-tile kernel on the main path's images: one tile an image
     assert torch.equal(
         chaos_count_sums_strips(principal, side, side, nlevels),
         chaos_count_sums(principal, side, side, nlevels))
     strips_ms = time_ms(lambda: chaos_count_sums_strips(
         principal, side, side, nlevels), reps=5)
+    ch_ms = time_ms(lambda: chaos_count_sums(principal, side, side, nlevels),
+                    reps=5)
     g512_ms = time_ms(lambda: chaos_count_sums(masks512, 512, 512, nlevels),
                       reps=5)
     # the byte floor: the union-find's compares and atomics are integer
@@ -560,15 +698,29 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
     n_px = principal.shape[0] * p
     say(f"  chaos times on the {principal.shape[0]} main-path principal "
         f"images: shared-memory kernel {ch_ms:.3f} ms "
-        f"({ch_ms * 1e6 / n_px:.4f} ns a pixel), global-plane kernel "
-        f"{old_ms:.3f} ms ({old_ms * 1e6 / n_px:.4f} ns a pixel), timed in "
-        f"turns; strip kernel {strips_ms:.3f} ms "
-        f"({strips_ms * 1e6 / n_px:.4f} ns a pixel); plain "
-        f"{ch_plain_ms:.3f} ms; byte floor {ch_bound:.3f} ms")
+        f"({ch_ms * 1e6 / n_px:.4f} ns a pixel), row-tile kernel (one tile "
+        f"an image) {strips_ms:.3f} ms ({strips_ms * 1e6 / n_px:.4f} ns a "
+        f"pixel); plain {ch_plain_ms:.3f} ms; byte floor {ch_bound:.3f} ms")
     say(f"  chaos times on {masks512.shape[0]} random 512x512 masks: "
-        f"global-plane kernel {g512_ms:.3f} ms "
-        f"({g512_ms * 1e6 / masks512.numel():.4f} ns a pixel), plain "
+        f"row-tile kernel {g512_ms:.3f} ms "
+        f"({g512_ms * 1e6 / masks512.numel():.4f} ns a pixel; "
+        f"{g512_bound / g512_ms:.2%} of its bound), plain "
         f"{g512_plain_ms:.3f} ms, byte floor {g512_bound:.3f} ms")
+    if ab is not None:
+        assert torch.equal(ab.chaos.chaos_count_sums(masks512, 512, 512,
+                                                     nlevels),
+                           chaos_count_sums(masks512, 512, 512, nlevels))
+        old_ms, new_ms = _time_turns(
+            lambda: ab.chaos.chaos_count_sums(masks512, 512, 512, nlevels),
+            lambda: chaos_count_sums(masks512, 512, 512, nlevels), reps=5)
+        say(f"  chaos in turns against {ab.root} (64 random 512x512 "
+            f"masks): other {old_ms:.3f} ms, this {new_ms:.3f} ms")
+        old_ms, new_ms = _time_turns(
+            lambda: ab.chaos.chaos_count_sums(principal, side, side, nlevels),
+            lambda: chaos_count_sums(principal, side, side, nlevels), reps=5)
+        say(f"  chaos in turns against {ab.root} (main-path principal, "
+            f"shared-memory kernel): other {old_ms:.3f} ms, this "
+            f"{new_ms:.3f} ms")
     say("phase 4 kernels: moments within "
         f"{MOMENT_ULPS} ulp of f64 and of the plain version beyond its own "
         "drift (sums/max/counts exact on the integer grid), both packed chaos "
@@ -584,8 +736,8 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
          "replaces": "sm_distributed_tpu/ops/chaos_pallas.py:284",
          "max_abs_err": 0.0, "ms": ch_ms, "plain_ms": ch_plain_ms,
          "bound_ms": ch_bound, "bound_by": ch_by, "library_ms": None},
-        {"name": "chaos_global", "route": "cuda",
-         "source": "sm_distributed_tpu_torch/csrc/chaos.cu",
+        {"name": "chaos_tiles", "route": "cuda",
+         "source": "sm_distributed_tpu_torch/csrc/chaos_strips.cu",
          "replaces": "sm_distributed_tpu/ops/chaos_pallas.py:284",
          "max_abs_err": 0.0, "ms": g512_ms, "plain_ms": g512_plain_ms,
          "bound_ms": g512_bound, "bound_by": g512_by, "library_ms": None},
@@ -637,9 +789,10 @@ def phase_main_path(ds, truth, search) -> dict:
         + f"; {table.n_ions / tim['score']:.1f} ions/s scored; peak device "
         f"memory {peak / 2**30:.2f} GiB; launches {launches}")
     assert launches["moments"] > 0, "moments kernel never launched"
-    assert launches["chaos"] == n_batches and launches["chaos_global"] == 0, (
-        f"packed chaos: the shared-memory kernel must run once a batch and "
-        f"the global-plane kernel never: {launches}")
+    assert launches["chaos"] == n_batches and launches["chaos_tiles"] == 0 \
+        and launches["chaos_strips"] == 0, (
+            f"chaos: the shared-memory kernel must run once a batch and the "
+            f"row-tile kernel never: {launches}")
     ann = bundle.annotations
     hits = set(ann[(ann.adduct == "+H") & (ann.fdr_level <= 0.1)].sf)
     present = [str(sf) for sf in truth.present]
@@ -904,7 +1057,8 @@ def phase_fused(ds, truth, search, ds_cfg, main: dict,
         f"{main['peak_bytes'] / 2**30:.2f} GiB); launches {launches}")
     assert launches["fused_window_moments"] == n_batches, launches
     assert launches["moments"] == 0 and launches["chaos"] == n_batches
-    assert launches["chaos_global"] == 0, launches
+    assert launches["chaos_tiles"] == 0 and launches["chaos_strips"] == 0, \
+        launches
     gaps = _hold_to_main(bundle, main["bundle"], "fused path")
 
     # batch 0: the kernel against its plain version and f64
@@ -1035,7 +1189,7 @@ def phase_cube_main(ds, truth, search, ds_cfg, main: dict) -> dict:
     assert backend.mz_chunk and backend.n_real is None
     assert launches["moments"] == n_batches, launches
     assert launches["chaos"] == n_batches, launches
-    assert launches["chaos_global"] == 0, launches
+    assert launches["chaos_tiles"] == 0, launches
     assert launches["chaos_strips"] == 0 and launches["fused_window_moments"] == 0
     gaps = _hold_to_main(bundle, main["bundle"], "cube path")
     say(f"phase 7 cube path on the main dataset: "
@@ -1079,7 +1233,7 @@ def _serpentine(r: int, c: int) -> np.ndarray:
 
 def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
     """A 1024x1024 slide on the m/z-chunked cube path: chaos takes the
-    strip kernel, held against its plain version and scipy; the unmasked
+    row-tile kernel, held against its plain version and scipy; the unmasked
     moments kernel in its streaming regime on the path's own block."""
     from sm_distributed_tpu_torch.io.fixtures import (
         expand_formula_list,
@@ -1090,6 +1244,7 @@ def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
         _slice_table,
     )
     from sm_distributed_tpu_torch.ops.chaos import (
+        chaos_count_sums,
         chaos_count_sums_strips,
         chaos_count_sums_torch,
         chaos_route,
@@ -1133,7 +1288,9 @@ def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
     assert launches["chaos_strips"] >= n_batches, launches
     assert launches["moments"] >= n_batches, launches
     assert launches["chaos"] == 0 and launches["fused_window_moments"] == 0
-    assert launches["chaos_global"] == 0, launches
+    assert launches["chaos_tiles"] == 0, launches
+    # 1024x1024: the seam merge's 32,768 nodes fit its shared memory
+    assert launches["chaos_seam_plane"] == 0, launches
     ann = bundle.annotations
     hits = set(ann[(ann.adduct == "+H") & (ann.fdr_level <= 0.1)].sf)
     present = [str(sf) for sf in truth.present]
@@ -1145,7 +1302,7 @@ def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
     # batch 0: the unmasked moments kernel against its plain version and
     # f64 on the path's own block (a million pixels a row: row sums pass
     # 2**24), the metrics against f64 and the search's rows, the step
-    # times, then the strip kernel on the principal images
+    # times, then the row-tile kernel on the principal images
     t_b0 = _slice_table(table, 0, backend.batch)
     imgs, theor, n_valid = backend.image_block(t_b0)
     mom_err = _check_moments(imgs, None, False, "whole-slide block")
@@ -1188,14 +1345,41 @@ def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
         f"strips: {int((got != want).sum())} principal images differ")
     sc = _scipy_count_sums(principal[:3].cpu().numpy(), nrows, ncols, nlevels)
     assert got[:3].cpu().tolist() == [float(v) for v in sc], (got[:3], sc)
+    if ab is not None:
+        assert torch.equal(ab.chaos.chaos_count_sums_strips(
+            principal, nrows, ncols, nlevels), got)
+        old_ms, new_ms = _time_turns(
+            lambda: ab.chaos.chaos_count_sums_strips(principal, nrows, ncols,
+                                                     nlevels),
+            lambda: chaos_count_sums_strips(principal, nrows, ncols,
+                                            nlevels), reps=3)
+        say(f"  whole-slide chaos (strips route) in turns against {ab.root}: "
+            f"other {old_ms:.3f} ms, this {new_ms:.3f} ms")
     n_img, p = principal.shape
+    # the split of the row-tile kernel's time between its two kernels, on
+    # this batch, 256 smooth blobs and 64 random 512x512 masks (made here,
+    # after the path's peak memory was read)
+    masks512 = _random_images(
+        64, 512 * 512, dev, torch.Generator(device=dev).manual_seed(17))
+    blobs = _blob_images(256, WS_SIDE, dev,
+                         torch.Generator(device=dev).manual_seed(19))
+    split = kernel_split({
+        "whole-slide batch 0": lambda: chaos_count_sums_strips(
+            principal, nrows, ncols, nlevels),
+        "256 smooth blobs": lambda: chaos_count_sums_strips(
+            blobs, WS_SIDE, WS_SIDE, nlevels),
+        "64 random 512x512 masks": lambda: chaos_count_sums(
+            masks512, 512, 512, nlevels)}, TILE_KERNELS)
+    del masks512
     del imgs, principal
     batch_ms = time_ms(lambda: backend.score_batch(t_b0), reps=2, warmup=1)
     say(f"  strips: {n_img} batch-0 principal images bit-equal to the plain "
         f"version, first 3 equal to scipy {sc}")
     gen = torch.Generator(device=dev).manual_seed(13)
     masks = _random_images(16, WS_SIDE * WS_SIDE, dev, gen)
-    _check_chaos_strips(masks, nlevels, "random masks")
+    _check_chaos_strips(masks, WS_SIDE, nlevels, "random masks")
+    _check_chaos_strips(_seam_images(WS_SIDE, WS_SIDE, dev), WS_SIDE,
+                        nlevels, "comb and spiral", n_scipy=4)
     snake = torch.from_numpy(_serpentine(WS_SIDE, WS_SIDE).reshape(1, -1))
     got = chaos_count_sums_strips(snake.to(dev), WS_SIDE, WS_SIDE, nlevels)
     sc = _scipy_count_sums(snake.numpy(), WS_SIDE, WS_SIDE, nlevels)
@@ -1203,17 +1387,44 @@ def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
         got, sc)
     say(f"  strips: serpentine {WS_SIDE}x{WS_SIDE} (one path through every "
         f"row) {int(got[0])} = scipy {sc[0]}")
+    # smooth images: large components in every tile and across every seam
+    _check_chaos_strips(blobs[:4], WS_SIDE, nlevels, "smooth blobs", n_scipy=2)
+    blob_ms = time_ms(lambda: chaos_count_sums_strips(
+        blobs, WS_SIDE, WS_SIDE, nlevels), reps=3)
+    say(f"  strips: 256 smooth blobs {WS_SIDE}x{WS_SIDE}: row-tile kernel "
+        f"{blob_ms:.3f} ms")
+    if ab is not None:
+        assert torch.equal(ab.chaos.chaos_count_sums_strips(
+            blobs, WS_SIDE, WS_SIDE, nlevels), chaos_count_sums_strips(
+            blobs, WS_SIDE, WS_SIDE, nlevels))
+        old_ms, new_ms = _time_turns(
+            lambda: ab.chaos.chaos_count_sums_strips(blobs, WS_SIDE, WS_SIDE,
+                                                     nlevels),
+            lambda: chaos_count_sums_strips(blobs, WS_SIDE, WS_SIDE,
+                                            nlevels), reps=3)
+        say(f"  strips: 256 smooth blobs in turns against {ab.root}: other "
+            f"{old_ms:.3f} ms, this {new_ms:.3f} ms")
+    del blobs
+    # 2048x2048: 64 tiles of 32 rows, 262,144 seam nodes, past the merge's
+    # shared memory: the global seam plane
+    big = _random_images(2, 4 * WS_SIDE * WS_SIDE, dev, gen)
+    _check_chaos_strips(big, 2 * WS_SIDE, nlevels, "random masks",
+                        plane=True, n_scipy=2)
+    del big
     n_bytes = n_img * (p * 4 + nlevels * 4 + 4)
     # the byte floor: the union-find's compares and atomics are integer
     # work whose count depends on the images, which no peak rate models
     bound, by = bound_ms(n_bytes, 0.0)
+    say("  row-tile chaos split by kernel, ms (torch.profiler, one call "
+        "each): " + (json.dumps(split) if split else "not measured"))
     say(f"  whole-slide batch 0 device ms: extract {extract_ms:.3f}, "
-        f"moments (unmasked) {mom_ms:.3f}, strip chaos {kern_ms:.3f} (plain "
-        f"{plain_ms:.3f}, byte floor {bound:.3f}), batch {batch_ms:.3f}")
+        f"moments (unmasked) {mom_ms:.3f}, row-tile chaos {kern_ms:.3f} "
+        f"({bound / kern_ms:.2%} of its bound; plain {plain_ms:.3f}, byte "
+        f"floor {bound:.3f}), batch {batch_ms:.3f}")
     say(f"phase 8 whole-slide path: {time.perf_counter() - t_start:.1f} s; "
-        f"chaos routed {route!r}; strip and unmasked moments kernels "
-        "launched on every batch; strip kernel bit-equal to the plain "
-        "version and scipy; unmasked moments within "
+        f"chaos routed {route!r}; row-tile chaos and unmasked moments "
+        "kernels launched on every batch; row-tile kernel bit-equal to the "
+        "plain version and scipy; unmasked moments within "
         f"{MOMENT_ULPS} ulp of f64 and of the plain version beyond its drift")
     entry = {"name": "chaos_strips", "route": "cuda",
              "source": "sm_distributed_tpu_torch/csrc/chaos_strips.cu",
@@ -1229,29 +1440,47 @@ def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
                "batch_ms": {"extract": extract_ms, "moments": mom_ms,
                             "moments_bound": mom_bound,
                             "moments_one_read": mom_sum_ms,
-                            "chaos_strips": kern_ms, "batch": batch_ms}}
+                            "chaos_strips": kern_ms,
+                            "chaos_strips_split": split,
+                            "chaos_strips_blobs": blob_ms,
+                            "batch": batch_ms}}
     return entry, summary
 
 
-def _check_chaos_strips(images: torch.Tensor, nlevels: int, label: str):
+def _check_chaos_strips(images: torch.Tensor, side: int, nlevels: int,
+                        label: str, plane: bool = False, n_scipy: int = 3):
+    """The strips route's wrapper on side x side ``images`` against the
+    plain version (bit-equal) and scipy (the first ``n_scipy``), with its
+    launch counted once and the seam merge's global plane used iff
+    ``plane``."""
     from sm_distributed_tpu_torch.ops.chaos import (
         chaos_count_sums_strips,
         chaos_count_sums_torch,
+        chaos_route,
+        tile_plan,
     )
 
-    got = chaos_count_sums_strips(images, WS_SIDE, WS_SIDE, nlevels)
-    want = chaos_count_sums_torch(images, WS_SIDE, WS_SIDE, nlevels)
+    assert chaos_route(side, side) == "strips"
+    assert tile_plan(side, side, nlevels).seam_in_smem != plane
+    reset_launches()
+    got = chaos_count_sums_strips(images, side, side, nlevels)
+    ran = read_launches()
+    assert (ran["chaos_strips"], ran["chaos_seam_plane"],
+            ran["chaos_tiles"]) == (1, int(plane), 0), (label, ran)
+    want = chaos_count_sums_torch(images, side, side, nlevels)
     assert torch.equal(got, want), (
         f"strips {label}: {int((got != want).sum())} images differ")
-    sc = _scipy_count_sums(images[:3].cpu().numpy(), WS_SIDE, WS_SIDE,
+    sc = _scipy_count_sums(images[:n_scipy].cpu().numpy(), side, side,
                            nlevels)
-    assert got[:3].cpu().tolist() == [float(v) for v in sc], (got[:3], sc)
-    say(f"  strips {label}: {images.shape[0]} images {WS_SIDE}x{WS_SIDE} "
-        f"bit-equal to the plain version, first 3 equal to scipy {sc}")
+    assert got[:n_scipy].cpu().tolist() == [float(v) for v in sc], (
+        got[:n_scipy], sc)
+    say(f"  strips {label}: {images.shape[0]} images {side}x{side}"
+        f"{' (global seam plane)' if plane else ''} bit-equal to the plain "
+        f"version, first {n_scipy} equal to scipy {sc}")
 
 
 class OtherPort:
-    """The moments and fused wrappers of another checkout's port
+    """The moments, fused and chaos wrappers of another checkout's port
     (``--ab DIR``), imported under the package name ``ab_port``: its kernels
     build from that checkout's sources into its own ``build/``."""
 
@@ -1266,13 +1495,14 @@ class OtherPort:
         spec.loader.exec_module(mod)
         self.moments = importlib.import_module("ab_port.ops.moments")
         self.score = importlib.import_module("ab_port.ops.score")
+        self.chaos = importlib.import_module("ab_port.ops.chaos")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", metavar="DIR", help="another checkout of the "
-                        "repo whose moments and fused kernels are timed in "
-                        "turns against this one's")
+                        "repo whose moments, fused and chaos kernels are "
+                        "timed in turns against this one's")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

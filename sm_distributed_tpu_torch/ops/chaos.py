@@ -7,17 +7,22 @@ bit-equal to ``scipy.ndimage.label``.
 
 - :func:`chaos_count_sums` is the wrapper.  A CPU tensor goes to the plain
   version.  A CUDA tensor goes to a hand-written kernel chosen by the JAX
-  package's routing rule :func:`chaos_route`: images within the lean
-  whole-image budget (256x256, 512x512) to ``csrc/chaos.cu`` (the "packed"
-  route), larger ones (1024x1024 whole-slide images) to
-  ``csrc/chaos_strips.cu`` (the "strips" route, counted in
-  ``chaos_count_sums_strips.launches``).  Within the packed route,
-  :func:`packed_variant` picks one of the two kernels of ``csrc/chaos.cu``
-  by pixel count: images of at most 65,536 pixels keep their union-find in
-  shared memory (``"smem"``, counted in ``chaos_count_sums.launches``),
-  larger ones in global memory (``"global"``, counted in
-  ``chaos_count_sums.global_launches``).  A kernel that fails to build or
-  launch raises.
+  package's routing rule :func:`chaos_route` and, within the "packed" route
+  (images within the lean whole-image budget: 256x256, 512x512), by
+  :func:`packed_variant`:
+  - images of at most 65,536 pixels take ``csrc/chaos.cu``, one CTA an
+    image with the whole union-find in shared memory (``"smem"``, counted in
+    ``chaos_count_sums.launches``);
+  - larger packed images (``"tiles"``, counted in
+    ``chaos_count_sums.tiled_launches``) and the "strips" route (1024x1024
+    whole-slide images, through :func:`chaos_count_sums_strips`, counted in
+    ``chaos_count_sums_strips.launches``) take ``csrc/chaos_strips.cu``:
+    row tiles of at most 65,536 pixels, each with its union-find in shared
+    memory, then a seam merge per image, on the plan of :func:`tile_plan`.
+    Launches whose seam merge keeps its union-find in a global plane (more
+    seam nodes than shared memory holds, e.g. 2048x2048) are also counted
+    in ``chaos_count_sums_strips.seam_plane_launches``.
+  A kernel that fails to build or launch raises.
 - :func:`chaos_count_sums_torch` is the plain version of both kernels:
   iterated 4-neighbour min-label propagation with pointer jumping, run to
   its fixpoint, for any image size.
@@ -30,6 +35,7 @@ packed budget and wider than the strip kernel's 8192 columns) raise
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -75,23 +81,90 @@ def chaos_route(nrows: int, ncols: int, lane_width: int = 512) -> str:
 
 def packed_variant(n_pixels: int) -> str:
     """The packed route's kernel for images of ``n_pixels``: ``"smem"`` (the
-    union-find in shared memory) up to the uint16 label limit, else
-    ``"global"``."""
-    return "smem" if n_pixels <= SMEM_MAX_PIXELS else "global"
+    whole image's union-find in shared memory) up to the uint16 label limit,
+    else ``"tiles"`` (the row-tile kernel)."""
+    return "smem" if n_pixels <= SMEM_MAX_PIXELS else "tiles"
+
+
+def _round16(b: int) -> int:
+    return -(-b // 16) * 16
 
 
 def chaos_smem_bytes(nrows: int, ncols: int, nlevels: int) -> int:
-    """Dynamic shared memory of one CTA of the shared-memory kernel (the
-    layout of ``csrc/chaos.cu::sm_chaos_smem_bytes``, which the kernel's C
-    entry checks against the device's opt-in limit): 33 reduction ints,
-    the thresholds, P uint16 labels, each 16-byte aligned, then the level
-    plane of ``nrows`` rows of ``round_up(ncols + 1, 4)`` bytes and one zero
-    word."""
-    def r16(b: int) -> int:
-        return -(-b // 16) * 16
+    """Dynamic shared memory of one CTA counting an nrows x ncols block (a
+    whole image or a row tile; the layout of ``csrc/chaos_smem.cuh``'s
+    ``chaos_block_smem_bytes``, which the C entries check against the
+    device's opt-in limit): 33 reduction ints, the thresholds, P uint16
+    labels, each 16-byte aligned, then the level plane of ``nrows`` rows of
+    ``round_up(ncols + 1, 4)`` bytes and one zero word."""
+    return (_round16(4 * 33) + _round16(4 * nlevels)
+            + _round16(2 * nrows * ncols) + nrows * ((ncols + 4) & ~3) + 4)
 
-    return (r16(4 * 33) + r16(4 * nlevels) + r16(2 * nrows * ncols)
-            + nrows * ((ncols + 4) & ~3) + 4)
+
+# the seam merge's shared memory before its node arrays: 32 int64 partial
+# sums and the top level
+_SEAM_HEAD_BYTES = _round16(8 * 32 + 4)
+
+
+def seam_smem_bytes(nodes: int) -> int:
+    """Dynamic shared memory of the seam merge's CTA with its union-find in
+    shared memory (``csrc/chaos_strips.cu::seam_smem_bytes``): the partial
+    sums, then per seam node a uint16 label and record partner and a uint8
+    level count and record level, each array 16-byte aligned."""
+    return _SEAM_HEAD_BYTES + 2 * _round16(2 * nodes) + 2 * _round16(nodes)
+
+
+# shared memory an H100 block may use (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+SMEM_BLOCK_BYTES = 232448
+
+
+class TilePlan(NamedTuple):
+    """How ``csrc/chaos_strips.cu`` cuts an image (:func:`tile_plan`)."""
+    rows: int             # rows a tile (the last tile may have fewer)
+    tiles: int            # tiles an image
+    seam_slots: int       # seam nodes a tile: 2 * ncols, ncols for one row
+    seam_nodes: int       # seam nodes an image: tiles * seam_slots
+    tile_smem_bytes: int  # dynamic shared memory of the tile kernel's CTA
+    tile_words: int       # lev words of a full tile (past 17,408, the
+    #                       register slots of csrc/chaos_smem.cuh, the rest
+    #                       are scanned at every level)
+    seam_in_smem: bool    # the merge's union-find in shared memory
+    merge_smem_bytes: int  # dynamic shared memory of the merge's CTA
+    scratch_bytes: int    # an image's scratch: level count (1 B) and record
+    #                       (4 B) a seam node, local sum (4 B) a tile
+    plane_bytes: int      # a merge CTA's global seam plane (4 B a node), or 0
+
+
+def tile_plan(nrows: int, ncols: int, nlevels: int) -> TilePlan:
+    """The row-tile kernel's plan for nrows x ncols images: tiles of as many
+    whole rows as keep a tile within the uint16 label limit (65,536 pixels)
+    and its shared memory within an H100 block's; the seam merge's
+    union-find in shared memory when its nodes fit uint16 labels and its
+    bytes the block, else in a global int32 plane over the seam nodes."""
+    if nrows <= 0 or ncols <= 0:
+        raise ValueError(f"tile_plan: empty {nrows}x{ncols} image")
+    rows = min(nrows, SMEM_MAX_PIXELS // ncols)
+    while rows > 0 and \
+            chaos_smem_bytes(rows, ncols, nlevels) > SMEM_BLOCK_BYTES:
+        rows -= 1
+    if rows == 0:
+        raise ValueError(f"tile_plan: one row of {ncols} pixels does not "
+                         "fit a row tile")
+    tiles = -(-nrows // rows)
+    slots = 2 * ncols if rows > 1 else ncols
+    nodes = tiles * slots
+    words = rows * (((ncols + 4) & ~3) // 4)
+    in_smem = (nodes <= SMEM_MAX_PIXELS
+               and seam_smem_bytes(nodes) <= SMEM_BLOCK_BYTES)
+    return TilePlan(
+        rows=rows, tiles=tiles, seam_slots=slots, seam_nodes=nodes,
+        tile_smem_bytes=chaos_smem_bytes(rows, ncols, nlevels),
+        tile_words=words,
+        seam_in_smem=in_smem,
+        merge_smem_bytes=seam_smem_bytes(nodes) if in_smem
+        else _SEAM_HEAD_BYTES,
+        scratch_bytes=5 * nodes + 4 * tiles,
+        plane_bytes=0 if in_smem else 4 * nodes)
 
 
 def _check_route(nrows: int, ncols: int) -> str:
@@ -171,13 +244,6 @@ def _kernel_thresholds(principal: torch.Tensor, nrows: int, ncols: int,
     return chaos_thresholds(vmax, nlevels).contiguous()
 
 
-def _launch_packed(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
-                   ncols: int, nlevels: int) -> torch.Tensor:
-    if packed_variant(nrows * ncols) == "smem":
-        return _launch_smem(principal, thr, nrows, ncols, nlevels)
-    return _launch_global(principal, thr, nrows, ncols, nlevels)
-
-
 def _launch_smem(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
                  ncols: int, nlevels: int) -> torch.Tensor:
     from ..kernels import _build
@@ -201,68 +267,48 @@ def _launch_smem(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
     return out
 
 
-def _launch_global(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
-                   ncols: int, nlevels: int) -> torch.Tensor:
+def _launch_tiles(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
+                  ncols: int, nlevels: int) -> torch.Tensor:
+    """The row-tile kernel and the seam merge of ``csrc/chaos_strips.cu``
+    on the plan of :func:`tile_plan`; counts the launches whose seam merge
+    keeps its union-find in a global plane in
+    ``chaos_count_sums_strips.seam_plane_launches``."""
     from ..kernels import _build
 
-    n, p = principal.shape
+    n = principal.shape[0]
     dev = principal.device
-    lib = _build.load("chaos")
-    fn = lib.sm_chaos
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    if nlevels > lib.sm_chaos_max_levels():
-        raise ValueError(f"chaos kernel takes at most "
-                         f"{lib.sm_chaos_max_levels()} levels, got {nlevels}")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(n, 2 * sms))
-    lev_in_smem = p <= 160 * 1024
-    out = torch.empty(n, dtype=torch.float32, device=dev)
-    par = torch.empty(grid * p, dtype=torch.int32, device=dev)
-    lev = torch.empty(0 if lev_in_smem else grid * p, dtype=torch.uint8,
-                      device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(fn(principal.data_ptr(), principal.stride(0),
-                    thr.data_ptr(), out.data_ptr(), par.data_ptr(),
-                    lev.data_ptr(), n, nrows, ncols, nlevels, grid,
-                    int(lev_in_smem), p if lev_in_smem else 0, stream),
-                 "chaos kernel launch")
-    chaos_count_sums.global_launches += 1
-    return out
-
-
-def _launch_strips(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
-                   ncols: int, nlevels: int) -> torch.Tensor:
-    from ..kernels import _build
-
-    n, p = principal.shape
-    dev = principal.device
+    plan = tile_plan(nrows, ncols, nlevels)
     lib = _build.load("chaos_strips")
-    fn = lib.sm_chaos_strips
+    fn = lib.sm_chaos_tiles
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [
-        ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    if nlevels > lib.sm_chaos_strips_max_levels():
+    if nlevels > lib.sm_chaos_tiles_max_levels():
         raise ValueError(
-            f"strip chaos kernel takes at most "
-            f"{lib.sm_chaos_strips_max_levels()} levels, got {nlevels}")
-    if n > 65535 or p >= 2**31 - lib.sm_chaos_strips_strip_pixels():
-        raise ValueError(f"strip chaos kernel: {n} images of {p} pixels "
-                         "past its grid limits")
-    strips = -(-p // lib.sm_chaos_strips_strip_pixels())
+            f"row-tile chaos kernel takes at most "
+            f"{lib.sm_chaos_tiles_max_levels()} levels, got {nlevels}")
+    if n * plan.tiles >= 2**31:
+        raise ValueError(f"row-tile chaos kernel: {n} images of "
+                         f"{plan.tiles} tiles past its grid limits")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = max(1, min(n, sms))
+    nodes = plan.seam_nodes
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    par = torch.empty(n * p, dtype=torch.int32, device=dev)
-    lev = torch.empty(n * p, dtype=torch.uint8, device=dev)
-    counts = torch.zeros(2, n, dtype=torch.int64, device=dev)  # total, credit
-    strip_top = torch.empty(n * strips, dtype=torch.int32, device=dev)
+    seam_m = torch.empty(n * nodes, dtype=torch.uint8, device=dev)
+    rec = torch.empty(n * nodes, dtype=torch.int32, device=dev)
+    tile_sum = torch.empty(n * plan.tiles, dtype=torch.int32, device=dev)
+    plane = (None if plan.seam_in_smem else
+             torch.empty(grid * nodes, dtype=torch.int32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(fn(principal.data_ptr(), principal.stride(0), thr.data_ptr(),
-                    out.data_ptr(), par.data_ptr(), lev.data_ptr(),
-                    counts[0].data_ptr(), counts[1].data_ptr(),
-                    strip_top.data_ptr(), n, nrows, ncols, nlevels, stream),
-                 "strip chaos kernel launch")
+                    out.data_ptr(), seam_m.data_ptr(), rec.data_ptr(),
+                    tile_sum.data_ptr(),
+                    None if plane is None else plane.data_ptr(), n, nrows,
+                    ncols, nlevels, plan.rows, int(plan.seam_in_smem), grid,
+                    stream),
+                 "row-tile chaos kernel launch")
+    if not plan.seam_in_smem:
+        chaos_count_sums_strips.seam_plane_launches += 1
     return out
 
 
@@ -273,8 +319,8 @@ def chaos_count_sums(principal: torch.Tensor, nrows: int, ncols: int,
     view of the image block), pixels must be contiguous.  CPU: the plain
     version.  CUDA: the kernel of the shape's route and
     :func:`packed_variant`: ``csrc/chaos.cu``'s shared-memory kernel
-    (counted in ``chaos_count_sums.launches``) or its global-plane kernel
-    (``chaos_count_sums.global_launches``), or
+    (counted in ``chaos_count_sums.launches``) or the row-tile kernel
+    (``chaos_count_sums.tiled_launches``), or
     :func:`chaos_count_sums_strips`; anything else raises."""
     route = _check_route(nrows, ncols)
     if principal.device.type == "cpu":
@@ -286,15 +332,20 @@ def chaos_count_sums(principal: torch.Tensor, nrows: int, ncols: int,
         return chaos_count_sums_strips(principal, nrows, ncols, nlevels)
     thr = _kernel_thresholds(principal, nrows, ncols, nlevels,
                              "chaos_count_sums")
-    return _launch_packed(principal, thr, nrows, ncols, nlevels)
+    if packed_variant(nrows * ncols) == "smem":
+        return _launch_smem(principal, thr, nrows, ncols, nlevels)
+    out = _launch_tiles(principal, thr, nrows, ncols, nlevels)
+    chaos_count_sums.tiled_launches += 1
+    return out
 
 
 def chaos_count_sums_strips(principal: torch.Tensor, nrows: int, ncols: int,
                             nlevels: int) -> torch.Tensor:
-    """The same counts through the whole-slide kernel ``csrc/chaos_strips.cu``
-    (counted in ``chaos_count_sums_strips.launches``), which takes images of
-    any size; :func:`chaos_count_sums` sends it the shapes past the packed
-    kernel's budget.  CPU: the plain version; anything else raises."""
+    """The same counts through the row-tile kernel of
+    ``csrc/chaos_strips.cu`` (counted in ``chaos_count_sums_strips.launches``),
+    which takes images of more than 65,536 pixels;
+    :func:`chaos_count_sums` sends it the shapes past the packed kernel's
+    budget.  CPU: the plain version; anything else raises."""
     if principal.device.type == "cpu":
         return chaos_count_sums_torch(principal, nrows, ncols, nlevels)
     if principal.device.type != "cuda":
@@ -302,11 +353,12 @@ def chaos_count_sums_strips(principal: torch.Tensor, nrows: int, ncols: int,
             f"chaos_count_sums_strips: unsupported device {principal.device}")
     thr = _kernel_thresholds(principal, nrows, ncols, nlevels,
                              "chaos_count_sums_strips")
-    out = _launch_strips(principal, thr, nrows, ncols, nlevels)
+    out = _launch_tiles(principal, thr, nrows, ncols, nlevels)
     chaos_count_sums_strips.launches += 1
     return out
 
 
 chaos_count_sums.launches = 0
-chaos_count_sums.global_launches = 0
+chaos_count_sums.tiled_launches = 0
 chaos_count_sums_strips.launches = 0
+chaos_count_sums_strips.seam_plane_launches = 0

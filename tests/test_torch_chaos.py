@@ -38,6 +38,8 @@ from sm_distributed_tpu_torch.ops.chaos import (
     chaos_smem_bytes,
     chaos_thresholds,
     packed_variant,
+    seam_smem_bytes,
+    tile_plan,
 )
 from sm_distributed_tpu_torch.ops.metrics import measure_of_chaos_batch
 
@@ -186,10 +188,10 @@ H100_SMEM_PER_BLOCK = 232448
 
 @pytest.mark.parametrize("shape,variant", [
     ((256, 256), "smem"), ((9, 11), "smem"), ((32, 32), "smem"),
-    ((1, 65537), "global"), ((257, 256), "global"), ((512, 512), "global")])
+    ((1, 65537), "tiles"), ((257, 256), "tiles"), ((512, 512), "tiles")])
 def test_packed_variant_by_pixel_count(shape, variant):
     """Images of at most 65,536 pixels (the uint16 label limit) take the
-    shared-memory kernel, larger ones the global-plane kernel."""
+    shared-memory kernel, larger ones the row-tile kernel."""
     assert packed_variant(shape[0] * shape[1]) == variant
     assert (shape[0] * shape[1] <= SMEM_MAX_PIXELS) == (variant == "smem")
     if shape != (1, 65537):
@@ -217,24 +219,30 @@ def test_smem_bytes_fit_every_small_packed_shape():
                     <= H100_SMEM_PER_BLOCK, (nrows, ncols)
 
 
-def _model_union(par, a, b):
+def _model_link(par, a, b):
     """``smem_union`` run alone: climb the side whose parent is larger
-    (halving its path) until the two sides share a parent (one tree, 0) or
-    that side is a root, which then hangs under the other side's smaller
-    parent (the compare-and-swap, a join, 1)."""
+    (halving its path) until the two sides share a parent (one tree: None)
+    or that side is a root, which then hangs under the other side's smaller
+    parent (the compare-and-swap, a join: the hung root and its new
+    parent)."""
     while True:
         pa, pb = int(par[a]), int(par[b])
         if pa == pb:
-            return 0
+            return None
         if pa < pb:
             a, b, pa, pb = b, a, pb, pa
         if pa == a:
             par[a] = pb
-            return 1
+            return a, pb
         g = int(par[pa])
         if g != pa:
             par[a] = g
         a = g
+
+
+def _model_union(par, a, b):
+    """1 when ``smem_union`` joins two trees, 0 when they were one."""
+    return int(_model_link(par, a, b) is not None)
 
 
 def _model_smem_kernel(imgs, nrows, ncols, nlevels):
@@ -313,3 +321,273 @@ def test_smem_model_at_the_uint16_limit():
                              interpret=True))
     np.testing.assert_array_equal(got, want)
     assert got[0] == _scipy_count_sum(img.reshape(256, 256), 5)
+
+
+# --------------------------------------- the row-tile kernel and seam merge
+# A sequential model of csrc/chaos_strips.cu: the tile kernel
+# (chaos_block_count<true> of csrc/chaos_smem.cuh on tiles of whole rows,
+# labels rotated one row, the joins of seam-holding trees recorded) and the
+# seam merge (a union-find over every tile's seam slots, levels from the top,
+# the records replayed and the cross-seam edges added, and the identity
+# sum_t localsum_t - sum over cross joins of e + sum over records that
+# joined nothing of e).  The tile-row count is a parameter, so small images
+# are cut into many tiles; `seed` shuffles the links within each level, in
+# the tiles and in the merge, as the card's threads may order them.
+
+def _model_find(par, a):
+    while int(par[a]) != a:
+        a = int(par[a])
+    return a
+
+
+def _model_tile(m, rng):
+    """One tile of level counts ``m`` (rows, ncols).  Returns its local sum,
+    the level counts of its S seam labels and its records {a: (pb, e)}: the
+    seam root a hung under pb at level e.
+    Checks on the way, at every level, the per-level form of the records:
+    each seam pixel's root rep_l(s) is a seam pixel, and I_t(l) (the seam
+    pixels in the mask with rep_l(s) != s) equals the records of levels
+    >= e."""
+    rows, ncols = m.shape
+    n_px = rows * ncols
+    seam = 2 * ncols if rows > 1 else ncols
+    flat = m.ravel()
+
+    def label(p):
+        return (p + ncols) % n_px
+
+    par = np.zeros(n_px, np.int64)
+    seam_m = np.zeros(seam, np.int64)
+    for p in range(n_px):
+        if flat[p]:
+            par[label(p)] = label(p)
+        if label(p) < seam:
+            seam_m[label(p)] = flat[p]
+    acc = int(flat.sum())
+    rec = {}
+    for e in range(int(flat.max(initial=0)), 0, -1):
+        edges = [(p, p + 1) for p in range(n_px)
+                 if p % ncols + 1 < ncols and min(flat[p], flat[p + 1]) == e]
+        edges += [(p, p + ncols) for p in range(n_px - ncols)
+                  if min(flat[p], flat[p + ncols]) == e]
+        if rng is not None:
+            rng.shuffle(edges)
+        for a, b in edges:
+            joined = _model_link(par, label(a), label(b))
+            if joined is None:
+                continue
+            acc -= e
+            root, parent = joined
+            if root < seam:
+                assert parent < root and root not in rec
+                rec[root] = (parent, e)
+        reps = {s: _model_find(par, s) for s in range(seam) if seam_m[s] >= e}
+        assert all(r < seam for r in reps.values())
+        i_t = sum(r != s for s, r in reps.items())
+        assert i_t == sum(le >= e for _, le in rec.values())
+    return acc, seam_m, rec
+
+
+def _model_tiles(imgs, nrows, ncols, nlevels, rows, seed=None):
+    """The (N,) f32 sums of the row-tile kernel and the seam merge on (N, P)
+    f32 images cut into tiles of ``rows`` rows."""
+    rng = None if seed is None else np.random.default_rng(seed)
+    img = np.maximum(imgs.astype(np.float32), 0.0)
+    thr = chaos_thresholds(torch.from_numpy(img.max(axis=1)), nlevels).numpy()
+    tiles = -(-nrows // rows)
+    slots = 2 * ncols if rows > 1 else ncols
+    nodes = tiles * slots
+    sums = []
+    for im in range(img.shape[0]):
+        m = np.searchsorted(thr[im], img[im],
+                            side="left").reshape(nrows, ncols)
+        seam_m = np.zeros(nodes, np.int64)
+        rec = {}
+        total = 0
+        for t in range(tiles):
+            acc, sm, rc = _model_tile(m[t * rows:(t + 1) * rows], rng)
+            total += acc
+            seam_m[t * slots:t * slots + len(sm)] = sm
+            rec.update({t * slots + a: (t * slots + pb, e)
+                        for a, (pb, e) in rc.items()})
+        par = np.arange(nodes)
+        for e in range(int(seam_m.max(initial=0)), 0, -1):
+            ops = []
+            for v in range(nodes):
+                if seam_m[v] < e:
+                    continue
+                if v in rec and rec[v][1] == e:
+                    ops.append((True, v, rec[v][0]))
+                t, lab = divmod(v, slots)
+                if lab < ncols and t + 1 < tiles:
+                    below = min(rows, nrows - (t + 1) * rows)
+                    q = (t + 1) * slots + (ncols + lab if below > 1 else lab)
+                    if min(seam_m[v], seam_m[q]) == e:
+                        ops.append((False, v, q))
+            if rng is not None:
+                rng.shuffle(ops)
+            for replay, a, b in ops:
+                joined = _model_union(par, a, b)
+                if replay and not joined:
+                    total += e
+                elif not replay and joined:
+                    total -= e
+        sums.append(total)
+    return np.asarray(sums, np.float32)
+
+
+def _comb(teeth_down=True, r=24, c=21):
+    """Vertical teeth on the even columns joined by one bar in the last
+    (or first) row: cut into tiles of a few rows, the teeth join only in
+    the bar's tile."""
+    img = np.zeros((r, c), np.float32)
+    img[:, ::2] = 1.0
+    img[r - 1 if teeth_down else 0, :] = 1.0
+    return img
+
+
+def _spiral(n=23):
+    """A square spiral of one-pixel lines one pixel apart, walked inwards
+    from the top-left corner: one path whose vertical runs cross every
+    horizontal seam many times."""
+    img = np.zeros((n, n), np.float32)
+    r = c = 0
+    dr, dc = 0, 1
+    img[r, c] = 1.0
+    while True:
+        for _ in range(2):      # straight on, else turn right once
+            nr, nc = r + dr, c + dc
+            ar, ac = nr + dr, nc + dc
+            if 0 <= nr < n and 0 <= nc < n and not img[nr, nc] and not (
+                    0 <= ar < n and 0 <= ac < n and img[ar, ac]):
+                r, c = nr, nc
+                img[r, c] = 1.0
+                break
+            dr, dc = dc, -dr
+        else:
+            return img
+
+
+def _ramp(img, levels, seed):
+    """``img`` with its set pixels at random heights, so components split
+    and join across levels."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(1, levels + 1, size=img.shape).astype(np.float32)
+    return (img * h).reshape(1, -1)
+
+
+TILE_CASES = {
+    # name: images, shape, levels, tile rows
+    "random-3rows": lambda: (_random((12, 10), 4), (12, 10), 6, 3),
+    "random-1row": lambda: (_random((7, 9), 5), (7, 9), 5, 1),
+    "random-last-tile-1row": lambda: (_random((13, 8), 6), (13, 8), 5, 4),
+    "random-16x33-5rows": lambda: (_random((16, 33), 7, n=3), (16, 33), 6, 5),
+    "snake-5rows": lambda: (_snake(48, 64).reshape(1, -1), (48, 64), 3, 5),
+    "snake-levels-7rows": lambda: (
+        np.concatenate([_ramp(_snake(48, 64), 4, 1), _random((48, 64), 8, 2)]),
+        (48, 64), 4, 7),
+    "serpentine-2rows": lambda: (_serpentine(16, 16).reshape(1, -1),
+                                 (16, 16), 2, 2),
+    "comb-down-4rows": lambda: (_comb(True).reshape(1, -1), (24, 21), 2, 4),
+    "comb-up-4rows": lambda: (_comb(False).reshape(1, -1), (24, 21), 2, 4),
+    "comb-levels-3rows": lambda: (_ramp(_comb(True), 5, 2), (24, 21), 5, 3),
+    "spiral-2rows": lambda: (_spiral().reshape(1, -1), (23, 23), 2, 2),
+    "spiral-3rows": lambda: (_spiral().reshape(1, -1), (23, 23), 2, 3),
+    "spiral-levels-4rows": lambda: (_ramp(_spiral(), 6, 3), (23, 23), 6, 4),
+    "all-ones-3rows": lambda: (np.ones((1, 60), np.float32), (10, 6), 4, 3),
+    "single-pixel": lambda: (np.eye(1, 9 * 8, 5 * 8 + 3, dtype=np.float32),
+                             (9, 8), 3, 2),
+    "one-row-tiles": lambda: (_ramp(_serpentine(9, 12), 3, 4), (9, 12), 3, 1),
+}
+
+
+@pytest.mark.parametrize("name", list(TILE_CASES))
+@pytest.mark.parametrize("seed", [None, 1])
+def test_tile_model_matches_plain_and_scipy(name, seed):
+    """The row-tile kernel's and the seam merge's model, in label order and
+    with the links of each level shuffled, equals the plain version and
+    scipy."""
+    imgs, (r, c), nlevels, rows = TILE_CASES[name]()
+    got = _model_tiles(imgs, r, c, nlevels, rows, seed)
+    plain = chaos_count_sums_torch(torch.from_numpy(imgs), r, c, nlevels)
+    np.testing.assert_array_equal(got, plain.numpy())
+    sc = [_scipy_count_sum(im.reshape(r, c), nlevels) for im in imgs]
+    np.testing.assert_array_equal(got, np.asarray(sc, np.float32))
+    assert got.any()
+
+
+def test_tile_cases_cross_seams():
+    """The comb's teeth and the spiral's path are one component that each
+    tile sees in many pieces."""
+    for img, rows in ((_comb(True), 4), (_comb(False), 4), (_spiral(), 2)):
+        assert ndimage.label(img, structure=_S4)[1] == 1
+        r = img.shape[0]
+        pieces = [ndimage.label(img[t:t + rows], structure=_S4)[1]
+                  for t in range(0, r, rows)]
+        assert max(pieces) > 2, pieces
+
+
+def test_tile_model_at_every_tile_height():
+    """One random image cut at every tile height from one row to the whole
+    image: the same sums."""
+    imgs = _random((11, 7), 9, n=2)
+    plain = chaos_count_sums_torch(torch.from_numpy(imgs), 11, 7, 4).numpy()
+    for rows in range(1, 12):
+        np.testing.assert_array_equal(_model_tiles(imgs, 11, 7, 4, rows),
+                                      plain, err_msg=f"{rows} rows")
+
+
+# the shapes of the route tests above that the row-tile kernel serves: every
+# strip shape, every packed shape past 65,536 pixels, and the widest of each
+TILE_SHAPES = [(1024, 1024), (700, 900), (512, 512), (257, 256),
+               (400, 333), (8, 36864), (2048, 2048), (24, 8192), (100, 8192)]
+
+
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+@pytest.mark.parametrize("nlevels", [30, 255])
+def test_tile_plan_fits_an_h100_block(shape, nlevels):
+    """A tile holds at most 65,536 pixels and fits one block's shared
+    memory; its level words fit the register slots or are counted; the seam
+    nodes, the merge's placement and the scratch follow from the tiles."""
+    r, c = shape
+    assert packed_variant(r * c) == "tiles" or chaos_route(r, c) == "strips"
+    plan = tile_plan(r, c, nlevels)
+    assert 1 <= plan.rows <= r and plan.rows * c <= SMEM_MAX_PIXELS
+    assert plan.tiles == -(-r // plan.rows)
+    assert plan.tile_smem_bytes == chaos_smem_bytes(plan.rows, c, nlevels)
+    assert plan.tile_smem_bytes <= H100_SMEM_PER_BLOCK
+    assert plan.tile_words == plan.rows * ((c + 4) & ~3) // 4
+    # every tile of these shapes fits the 17 register slots of 1024 words
+    assert plan.tile_words <= 17 * 1024
+    assert plan.seam_slots == (2 * c if plan.rows > 1 else c)
+    assert plan.seam_nodes == plan.tiles * plan.seam_slots
+    fits = (plan.seam_nodes <= SMEM_MAX_PIXELS
+            and seam_smem_bytes(plan.seam_nodes) <= H100_SMEM_PER_BLOCK)
+    assert plan.seam_in_smem == fits
+    assert plan.plane_bytes == (0 if fits else 4 * plan.seam_nodes)
+    assert plan.scratch_bytes == 5 * plan.seam_nodes + 4 * plan.tiles
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((1024, 1024), (64, 16, 32768, True)),
+    ((512, 512), (128, 4, 4096, True)),
+    ((8, 36864), (1, 8, 294912, False)),
+    ((2048, 2048), (32, 64, 262144, False)),
+    ((24, 8192), (8, 3, 49152, False)),
+    ((100, 8192), (8, 13, 212992, False)),
+])
+def test_tile_plan_shapes(shape, want):
+    """Rows a tile, tiles, seam nodes and whether the merge keeps its
+    union-find in shared memory: at the whole-slide shape, the 512x512
+    packed shape, one-row tiles, the widest strip shape, and 2048x2048,
+    whose seam nodes take the global seam plane."""
+    plan = tile_plan(*shape, 30)
+    assert (plan.rows, plan.tiles, plan.seam_nodes, plan.seam_in_smem) == want
+
+
+def test_tile_scratch_is_sized_by_the_seams():
+    """A 256-image whole-slide batch's scratch is far below the old design's
+    label and level planes (5 bytes a pixel: 1.34 GB)."""
+    plan = tile_plan(1024, 1024, 30)
+    assert 256 * plan.scratch_bytes <= 256 * 1024 * 1024 * 5 // 2
+    assert plan.scratch_bytes == 5 * 32768 + 4 * 16
