@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives four paths of the library search, each with the kernel
-launch counts set to 0 just before it and read just after:
+nvcc and drives five paths (four of the library search and the job path),
+each with the kernel launch counts set to 0 just before it and read just
+after:
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -15,7 +16,19 @@ launch counts set to 0 just before it and read just after:
   shared-memory kernel (images of at most 65,536 pixels); phase 4 also
   holds the row-tile kernel that serves larger packed images (512x512, and
   8x36864 with one-row tiles) on random masks and images whose components
-  cross the tile seams;
+  cross the tile seams, both chaos kernels at 300 levels (launched over
+  level ranges of at most 255; a checkerboard whose range counts pass
+  2**24), "scan" shapes (64x16384 on the row-tile
+  kernel, 2x70000 on the scan route's torch ops) and the moments kernel
+  at K = 12 (row groups);
+- the job path (phase 3b): the README's Quickstart on the card — the main
+  path's dataset written as an imzML/ibd pair and its formulas as a
+  molecular-DB CSV, the port's CLI (``import-db``, ``run`` twice, with a
+  cold and a warm isotope-pattern cache, ``search``) as subprocesses, and
+  one ``SearchJob`` in-process (counts reset: the masked moments kernel
+  and the shared-memory chaos kernel); the stored annotations, metrics and
+  ion images held bit-equal to phase 3's and to the device image block,
+  each run's phase walls and the job's device peak printed;
 - the fused path (phase 6): the same search with
   ``parallel.fused_metrics="on"``, held against the main path's results, and
   the fused window-moments kernel against its plain version;
@@ -26,7 +39,7 @@ launch counts set to 0 just before it and read just after:
   cube path (``parallel.mz_chunk=512``), whose chaos takes the row-tile
   kernel on the strips route, held against its plain version and scipy
   (also on a comb and a spiral across the tile seams, and on a 2048x2048
-  pair whose seam merge takes the global seam plane); its unmasked moments
+  image whose seam merge takes the global seam plane); its unmasked moments
   kernel and its metrics held against their plain versions and f64 on the
   path's first batch.
 
@@ -93,12 +106,13 @@ NOISE_PEAKS = 200
 N_FORMULAS = 100          # ~4.9k ions with 3 adducts and 20 decoys each
 
 # the whole-slide path: a 1024x1024 DESI-like slide on the m/z-chunked cube
-# path (mz_chunk = the flat path's BAND_WINDOWS, formula_batch = the JAX
-# bench's desi batch), +H only, ~20 formulas with 20 decoys each: 2 batches
+# path (mz_chunk = the flat path's BAND_WINDOWS), +H only, ~12 formulas with
+# 20 decoys each: 2 batches of 128 (its depth, cut from 20 formulas in 2
+# batches of the JAX bench's desi batch of 256 to keep the script's time)
 WS_SIDE = 1024
 WS_NOISE_PEAKS = 200
-WS_FORMULAS = 20
-WS_PARALLEL = {"mz_chunk": 512, "formula_batch": 256}
+WS_FORMULAS = 12
+WS_PARALLEL = {"mz_chunk": 512, "formula_batch": 128}
 
 # the golden fixture recipe of scripts/make_golden_report.py (GEN, SM, DS)
 GOLDEN_GEN = dict(nrows=32, ncols=32, formulas=None, present_fraction=0.6,
@@ -204,12 +218,17 @@ TILE_KERNELS = ("chaos_tile_kernel", "seam_merge_smem_kernel",
 
 def _launch_counters() -> dict:
     """Each kernel's launch counter: the wrapper that holds it and its
-    attribute.  The packed chaos wrapper counts its two kernels apart (the
-    shared-memory kernel, and the row-tile kernel for images past 65,536
-    pixels); ``chaos_seam_plane`` counts the row-tile launches, on either
-    route, whose seam merge keeps its union-find in a global plane."""
+    attribute.  Every counter counts kernel launches: one a level range
+    (more than 255 levels) for chaos, one a row group (more than 8 rows an
+    ion) for the moments kernels.  The packed chaos wrapper counts its two
+    kernels apart (the shared-memory kernel, and the row-tile kernel for
+    images past 65,536 pixels); ``chaos_seam_plane`` counts the row-tile
+    launches, on either route, whose seam merge keeps its union-find in a
+    global plane; ``chaos_scan`` counts calls of the scan route's torch
+    ops."""
     from sm_distributed_tpu_torch.ops.chaos import (
         chaos_count_sums,
+        chaos_count_sums_scan,
         chaos_count_sums_strips,
     )
     from sm_distributed_tpu_torch.ops.moments import batch_moments
@@ -221,7 +240,16 @@ def _launch_counters() -> dict:
             "chaos_strips": (chaos_count_sums_strips, "launches"),
             "chaos_seam_plane": (chaos_count_sums_strips,
                                  "seam_plane_launches"),
+            "chaos_scan": (chaos_count_sums_scan, "launches"),
             "fused_window_moments": (fused_window_moments, "launches")}
+
+
+# the launches of the calls over more than one level range (more than 255
+# levels) and over more than one row group (more than 8 rows an ion) made
+# by the checks of phases 4 and 6, for the kernels line: by packed chaos
+# kernel, and [moments, fused]
+_LEVEL_RANGE_LAUNCHES = {"smem": 0, "tiles": 0}
+_ROW_GROUP_LAUNCHES = [0, 0]
 
 
 def reset_launches() -> None:
@@ -333,13 +361,23 @@ def _check_moments(x: torch.Tensor, n_real, exact_sums: bool, label: str):
     reference: the plain version's f32 sums drift too, and that drift is
     not the kernel's (sums, max and counts are exact where stated)."""
     from sm_distributed_tpu_torch.ops.moments import (
+        K_MAX,
         batch_moments,
         batch_moments_torch,
+        moments_groups,
         moments_plan,
     )
 
-    plan = moments_plan(*x.shape)
+    n, k, p = x.shape
+    plan = moments_plan(n, min(k, K_MAX), p)
+    groups = moments_groups(k)
+    before = batch_moments.launches
     got = batch_moments(x, n_real)
+    assert batch_moments.launches - before == len(groups), (
+        f"moments {label}: {batch_moments.launches - before} launches for "
+        f"{len(groups)} row groups")
+    if len(groups) > 1:
+        _ROW_GROUP_LAUNCHES[0] += len(groups)
     want = batch_moments_torch(x, n_real)
     ref = [r.float() for r in batch_moments_torch(x.double(), n_real)]
     torch.cuda.synchronize()
@@ -363,7 +401,8 @@ def _check_moments(x: torch.Tensor, n_real, exact_sums: bool, label: str):
     err = max(float((g.double() - w.double()).abs().max())
               for g, w in zip(got, want))
     say(f"  moments {label} {tuple(x.shape)} n_real={n_real} "
-        f"(plan: {plan.cluster} CTAs x {plan.slice_len} px, {plan.regime}"
+        f"({'' if len(groups) == 1 else f'row groups {groups}, first '}"
+        f"plan: {plan.cluster} CTAs x {plan.slice_len} px, {plan.regime}"
         f"{'' if x.data_ptr() % 16 == 0 else ', misaligned'}): ulp gap "
         "(kernel-plain, kernel-f64, plain-f64) "
         + ", ".join(f"{k} {v[0]:.0f}/{v[1]:.0f}/{v[2]:.0f}"
@@ -397,6 +436,7 @@ def _check_chaos(images: torch.Tensor, nrows: int, ncols: int, nlevels: int,
     from sm_distributed_tpu_torch.ops.chaos import (
         chaos_count_sums,
         chaos_count_sums_torch,
+        level_ranges,
         packed_variant,
         tile_plan,
     )
@@ -404,13 +444,17 @@ def _check_chaos(images: torch.Tensor, nrows: int, ncols: int, nlevels: int,
     assert packed_variant(nrows * ncols) == variant
     plane = variant == "tiles" and not tile_plan(nrows, ncols,
                                                  nlevels).seam_in_smem
+    n_ranges = len(level_ranges(nlevels))
     reset_launches()
     got = chaos_count_sums(images, nrows, ncols, nlevels)
     ran = read_launches()
-    want_ran = {"chaos": int(variant == "smem"),
-                "chaos_tiles": int(variant == "tiles"),
-                "chaos_strips": 0, "chaos_seam_plane": int(plane)}
+    want_ran = {"chaos": n_ranges * (variant == "smem"),
+                "chaos_tiles": n_ranges * (variant == "tiles"),
+                "chaos_strips": 0, "chaos_seam_plane": n_ranges * plane,
+                "chaos_scan": 0}
     assert {k: ran[k] for k in want_ran} == want_ran, (label, ran)
+    if n_ranges > 1:
+        _LEVEL_RANGE_LAUNCHES[variant] += n_ranges
     plain_ms, want = time_once(
         lambda: chaos_count_sums_torch(images, nrows, ncols, nlevels))
     assert torch.equal(got, want), (
@@ -420,7 +464,9 @@ def _check_chaos(images: torch.Tensor, nrows: int, ncols: int, nlevels: int,
     assert got[:n_scipy].cpu().tolist() == [float(v) for v in sc], (
         f"chaos {label}: kernel {got[:n_scipy].tolist()} != scipy {sc}")
     say(f"  chaos {label} ({variant} kernel"
-        f"{', global seam plane' if plane else ''}): {images.shape[0]} images "
+        f"{', global seam plane' if plane else ''}"
+        f"{f', {n_ranges} level ranges' if n_ranges > 1 else ''}): "
+        f"{images.shape[0]} images "
         f"{nrows}x{ncols}, {nlevels} levels, bit-equal to the plain version, "
         f"first {n_scipy} equal to scipy {sc}")
     return plain_ms
@@ -558,6 +604,7 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
     from sm_distributed_tpu_torch.ops.chaos import (
         chaos_count_sums,
         chaos_count_sums_strips,
+        chaos_count_sums_torch,
     )
     from sm_distributed_tpu_torch.ops.moments import (
         batch_moments,
@@ -593,6 +640,14 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
         edge = (torch.randint(0, 256, shape, device=dev, generator=gen)
                 .float() * (torch.rand(shape, device=dev, generator=gen) < .5))
         err = max(err, _check_moments(edge, nr, True, "edge block"))
+    # more than K_MAX = 8 peaks: one launch per row group, each carrying row
+    # 0 (K = 12: rows 0-7, then 0 and 8-11), resident at the main shape
+    for nr in (p - 256, None):
+        k12 = (torch.randint(0, 256, (256, 12, p), device=dev, generator=gen)
+               .float() * (torch.rand(256, 12, p, device=dev, generator=gen)
+                           < 0.3))
+        err = max(err, _check_moments(k12, nr, True, "integer grid, K = 12"))
+    del k12
     # streaming regime (values below 16, so row sums stay below 2**24 and
     # the plain version's f32 sums are exact too): n_real in slice 3, and a
     # P that is not a multiple of 4 (4-byte loads)
@@ -679,6 +734,45 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
                  "random masks, odd width", "tiles")
     _check_chaos(_seam_images(400, 333, dev), 400, 333, nlevels,
                  "comb, odd width", "tiles", n_scipy=2)
+    # more than 255 levels: the kernels over consecutive ranges of at most
+    # 255 thresholds, the shares added (packed shape and a row-tile shape)
+    _check_chaos(principal[:8], side, side, 300,
+                 "main-path principal, 300 levels", "smem")
+    _check_chaos(_random_images(4, side * side, dev, gen), side, side, 300,
+                 "random masks, 300 levels", "smem")
+    _check_chaos(masks512[:2], 512, 512, 300, "random masks, 300 levels",
+                 "tiles", n_scipy=2)
+    # isolated pixels of random heights: a level range's count passes 2**24,
+    # where a share rounded to f32 before the sum would lose bits
+    board = ((torch.arange(512, device=dev)[:, None]
+              + torch.arange(512, device=dev)[None, :]) % 2).float()
+    board = board.reshape(1, -1) * (0.5 + 0.5 * torch.rand(
+        2, 512 * 512, device=dev, generator=gen))
+    vmax = board.amax(dim=1, keepdim=True)
+    fracs = torch.arange(255, device=dev, dtype=torch.float32) / 300.0
+    first_range = int(sum((board[:1] > vmax[:1] * f).sum() for f in fracs))
+    assert first_range > 2**24, first_range
+    _check_chaos(board, 512, 512, 300,
+                 f"checkerboard, 300 levels, first range's count "
+                 f"{first_range}", "tiles", n_scipy=1)
+    del board
+    # "scan" shapes (past the packed budget, wider than 8192 columns): the
+    # row-tile kernel when a row fits a tile (64x16384: 4-row tiles) ...
+    _check_chaos(_random_images(2, 64 * 16384, dev, gen), 64, 16384,
+                 nlevels, "scan shape, random masks", "tiles", n_scipy=2)
+    _check_chaos(_seam_images(64, 16384, dev), 64, 16384, nlevels,
+                 "scan shape, comb and spiral", "tiles", n_scipy=2)
+    # ... else the scan route's torch ops (2x70000: a row wider than a tile)
+    wide = _random_images(2, 2 * 70000, dev, gen)
+    reset_launches()
+    got = chaos_count_sums(wide, 2, 70000, nlevels)
+    assert read_launches()["chaos_scan"] == 1, read_launches()
+    assert torch.equal(got, chaos_count_sums_torch(wide, 2, 70000, nlevels))
+    sc = _scipy_count_sums(wide.cpu().numpy(), 2, 70000, nlevels)
+    assert got.cpu().tolist() == [float(v) for v in sc], (got, sc)
+    say(f"  chaos scan shape 2x70000 (scan route, torch ops): bit-equal to "
+        f"the plain version and scipy {sc}")
+    del wide
     # the row-tile kernel on the main path's images: one tile an image
     assert torch.equal(
         chaos_count_sums_strips(principal, side, side, nlevels),
@@ -723,8 +817,9 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
             f"{new_ms:.3f} ms")
     say("phase 4 kernels: moments within "
         f"{MOMENT_ULPS} ulp of f64 and of the plain version beyond its own "
-        "drift (sums/max/counts exact on the integer grid), both packed chaos "
-        "kernels bit-equal to the plain version and scipy")
+        "drift (sums/max/counts exact on the integer grid; K = 12 in row "
+        "groups), both packed chaos kernels bit-equal to the plain version "
+        "and scipy (300 levels in level ranges; scan shapes)")
     return [
         {"name": "moments", "route": "cuda",
          "source": "sm_distributed_tpu_torch/csrc/moments.cu",
@@ -819,6 +914,246 @@ def phase_main_path(ds, truth, search) -> dict:
             "n_ions": table.n_ions, "n_peaks": ds.n_peaks,
             "drift": drift, "recall": recall, "batch_ms": breakdown,
             "bundle": bundle}
+
+
+# the job path's phases, in the order SearchJob runs them
+JOB_PHASES = ("stage_input", "read_dataset", "decoy_selection",
+              "isotope_patterns", "backend_setup", "score", "fdr",
+              "store_results")
+
+
+_LOG_TS = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) - ")
+
+
+def _cli(args: list, what: str) -> dict:
+    """Run the port's CLI as a subprocess (the repo on its path).  Returns
+    its wall seconds, its standard output, the phases its log reports
+    (``phase X done in Ys``), the seconds from launch to its first log line
+    (interpreter start and imports) and from its last log line to its exit,
+    and its trace file; raises on a nonzero exit."""
+    import datetime
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    t_launch = time.time()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sm_distributed_tpu_torch.engine.cli", *args],
+        capture_output=True, text=True, env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    t_end = time.time()
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what}: exit {proc.returncode}\n"
+                           f"{proc.stderr[-4000:]}")
+    stamps = [datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f")
+              .timestamp() for m in map(_LOG_TS.match,
+                                        proc.stderr.splitlines()) if m]
+    phases = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"phase (\w+) done in ([0-9.]+)s", proc.stderr)}
+    trace = re.search(r"trace written to (\S+)", proc.stderr)
+    return {"wall_s": wall, "stdout": proc.stdout, "phases": phases,
+            "to_first_log_s": stamps[0] - t_launch if stamps else None,
+            "after_last_log_s": t_end - stamps[-1] if stamps else None,
+            "trace": trace.group(1) if trace else None}
+
+
+def _same_frame(got, want, what: str) -> None:
+    """Two result frames equal: the same columns, rows in the same order,
+    strings equal and numbers bit-equal."""
+    assert list(got.columns) == list(want.columns), (what, list(got.columns))
+    assert len(got) == len(want), (what, len(got), len(want))
+    for col in want.columns:
+        a, b = got[col].to_numpy(), want[col].to_numpy()
+        if b.dtype.kind in "fiub":
+            assert np.array_equal(a.astype(b.dtype), b, equal_nan=True), (
+                f"{what}: column {col} differs")
+        else:
+            assert [str(v) for v in a] == [str(v) for v in b], (
+                f"{what}: column {col} differs")
+
+
+def phase_job_path(ds, truth, search, main: dict) -> dict:
+    """The README's Quickstart on the card: the main path's dataset written
+    as an imzML/ibd pair, its formulas as a molecular-DB CSV, then the
+    port's CLI as subprocesses — ``import-db``, ``run`` with a cold and then
+    a warm isotope-pattern cache (one work dir, one results dir), and
+    ``search --max-fdr 0.1`` — and one ``SearchJob`` in-process with the
+    launch counts reset.  The stored results are held to phase 3's:
+    annotations and all metrics bit-equal with identical FDR ranks, the
+    ledger's job rows FINISHED, the search output listing the annotations
+    at FDR <= 0.1, and the stored ion images bit-equal to the device image
+    block's rows."""
+    from sm_distributed_tpu_torch.engine.search_job import SearchJob
+    from sm_distributed_tpu_torch.engine.storage import (
+        JobLedger,
+        SearchResultsStore,
+    )
+    from sm_distributed_tpu_torch.io.dataset import SpectralDataset
+    from sm_distributed_tpu_torch.io.imzml import ImzMLWriter
+    from sm_distributed_tpu_torch.models.msm_basic import _slice_table
+    from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_job_") as tmp:
+        tmp = Path(tmp)
+        # the dataset as an imzML/ibd pair, read back array by array
+        t0 = time.perf_counter()
+        imzml = tmp / "main_path.imzML"
+        rp = ds.row_ptr
+        with ImzMLWriter(imzml) as wr:
+            for i in range(ds.n_pixels):
+                r, c = divmod(i, ds.ncols)
+                wr.add_spectrum(c + 1, r + 1, ds.mzs_flat[rp[i]:rp[i + 1]],
+                                ds.ints_flat[rp[i]:rp[i + 1]])
+        t_write = time.perf_counter() - t0
+        back = SpectralDataset.from_imzml(imzml)
+        assert (back.nrows, back.ncols) == (ds.nrows, ds.ncols)
+        for f in ("pixel_inds", "mask", "mzs_flat", "ints_flat", "row_ptr"):
+            a, b = getattr(back, f), getattr(ds, f)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (
+                f"imzML round trip: {f} differs")
+        del back
+        (tmp / "formulas.csv").write_text(
+            "id,formula\n" + "".join(f"m{i},{sf}\n" for i, sf in
+                                     enumerate(truth.formulas)))
+        sm_json, ds_json = tmp / "sm.json", tmp / "ds.json"
+        sm_json.write_text(json.dumps({
+            "device": "cuda", "work_dir": str(tmp / "work"),
+            "fdr": {"decoy_sample_size": 20},
+            "storage": {"results_dir": str(tmp / "results"),
+                        "store_images": True, "image_format": "npz"}}))
+        ds_json.write_text(json.dumps(
+            {"database": {"name": "main_path", "version": "1"}}))
+        cfg = ["--sm-config", str(sm_json)]
+        steps = {"write_imzml": t_write,
+                 "read_back": time.perf_counter() - t0 - t_write}
+        t0 = time.perf_counter()
+        _cli(["import-db", str(tmp / "formulas.csv"), "main_path", "1", *cfg],
+             "import-db")
+        steps["import_db"] = time.perf_counter() - t0
+        runs = {}
+        res = tmp / "results" / "main"
+        from sm_distributed_tpu_torch.utils.tracing import read_trace
+
+        for label in ("cold", "warm"):
+            t0 = time.perf_counter()
+            out = _cli(["run", "main path", str(imzml), "--ds-id", "main",
+                        "--ds-config", str(ds_json), *cfg],
+                       f"run ({label} isotope patterns)")
+            steps[f"run_{label}"] = time.perf_counter() - t0
+            spans = {r["name"]: r["dur"] for r in read_trace(out["trace"])
+                     if r.get("kind") == "span"}
+            # decoy selection runs in the prefetch thread: its time is in
+            # the stored timings, not in the log's phase lines
+            tim = {**json.loads((res / "timings.json").read_text()),
+                   **out["phases"]}
+            runs[label] = {
+                "wall_s": out["wall_s"],
+                "phases": {k: tim.get(k) for k in JOB_PHASES},
+                "to_first_log_s": out["to_first_log_s"],
+                "after_last_log_s": out["after_last_log_s"],
+                # pattern generation and the prefetch's set-up (decoys,
+                # cache-shard load, stream start), from the job's trace
+                "isocalc_gen_s": spans.get("isocalc_gen"),
+                "prefetch_setup_s": spans.get("isotope_prefetch_setup")}
+            say(f"  job run, {label} isotope patterns: wall "
+                f"{out['wall_s']:.3f} s (the CLI process; "
+                f"{out['to_first_log_s']:.3f} s to its first log line, "
+                f"{out['after_last_log_s']:.3f} s after its last); phases "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in
+                            runs[label]["phases"].items() if v is not None)
+                + f"; trace: isocalc_gen {spans.get('isocalc_gen')}, "
+                f"isotope_prefetch_setup "
+                f"{spans.get('isotope_prefetch_setup')}")
+        t0 = time.perf_counter()
+        out = _cli(["search", "--ds-id", "main", "--max-fdr", "0.1", *cfg],
+                   "search")["stdout"]
+        steps["search"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        import pandas as pd
+
+        ann = pd.read_parquet(res / "annotations.parquet")
+        ref = main["bundle"]
+        _same_frame(ann, ref.annotations.reset_index(drop=True),
+                    "stored annotations")
+        _same_frame(pd.read_parquet(res / "all_metrics.parquet"),
+                    ref.all_metrics.reset_index(drop=True),
+                    "stored all_metrics")
+        jobs = JobLedger(tmp / "results").jobs("main")
+        assert list(jobs.status) == ["FINISHED", "FINISHED"], jobs
+        passed = ann[ann.fdr_level <= 0.1]
+        lines = [ln.split() for ln in out.strip().splitlines()[1:]]
+        assert sorted((ln[2], ln[3]) for ln in lines) == sorted(
+            zip(passed.sf, passed.adduct)), "search output"
+        # the stored ion images against the device image block's rows
+        stored, ions = SearchResultsStore.load_ion_images(
+            res / "ion_images.npz")
+        backend, table = search.last_backend, search.last_table
+        row_of = {ion: i for i, ion in enumerate(zip(table.sfs,
+                                                     table.adducts))}
+        idx = [row_of[ion] for ion in ions]
+        sub = type(table)(
+            sfs=[table.sfs[i] for i in idx],
+            adducts=[table.adducts[i] for i in idx], mzs=table.mzs[idx],
+            ints=table.ints[idx], n_valid=table.n_valid[idx],
+            targets=table.targets[idx])
+        plan = backend._flat_plan(sub)
+        block, _t, _nv = backend.image_block(sub, plan)
+        order = plan[5][5]                  # block row j is ion order[j]
+        real = np.nonzero(order < sub.n_ions)[0]
+        dev_imgs = (block[torch.from_numpy(real).to(block.device), :,
+                          :ds.n_pixels] / np.float32(backend.int_scale))
+        want = torch.from_numpy(
+            stored.reshape(len(ions), stored.shape[1], -1)[order[real]])
+        assert torch.equal(dev_imgs.cpu(), want), "stored ion images"
+        steps["hold_results"] = time.perf_counter() - t0
+        say(f"  stored results: {len(ann)} annotations and "
+            f"{len(ref.all_metrics)} ions bit-equal to phase 3's (FDR ranks "
+            f"identical); ledger rows FINISHED; search lists the "
+            f"{len(passed)} annotations at FDR <= 0.1; {len(ions)} stored ion "
+            "image sets bit-equal to the device image block")
+        # one SearchJob in-process: the kernels it launches, its device peak
+        t0 = time.perf_counter()
+        sm_cfg = SMConfig.from_dict(json.loads(sm_json.read_text()))
+        job = SearchJob("main_inproc", "main path", imzml,
+                        DSConfig.load(ds_json), sm_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t_job = time.perf_counter()
+        bundle = job.run()
+        torch.cuda.synchronize()
+        inproc_wall = time.perf_counter() - t_job
+        launches = read_launches()
+        n_batches = -(-table.n_ions // backend.batch)
+        assert launches["moments"] == n_batches and \
+            launches["chaos"] == n_batches, launches
+        assert launches["chaos_tiles"] == 0 and launches["chaos_strips"] == 0 \
+            and launches["fused_window_moments"] == 0, launches
+        _same_frame(bundle.annotations.reset_index(drop=True),
+                    ref.annotations.reset_index(drop=True),
+                    "in-process job annotations")
+        hbm = job.last_hbm
+        steps["in_process"] = time.perf_counter() - t0
+        say(f"  in-process SearchJob (warm patterns): wall {inproc_wall:.3f} "
+            "s; phases " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                     bundle.timings.items())
+            + f"; launches {launches}; device peak {hbm}")
+        t0 = time.perf_counter()
+    steps["cleanup"] = time.perf_counter() - t0
+    took = time.perf_counter() - t_start
+    say(f"phase 3b job path: {took:.1f} s (steps, s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()) + "); "
+        f"cold run {runs['cold']['wall_s']:.3f} s, warm run "
+        f"{runs['warm']['wall_s']:.3f} s; isotope patterns "
+        f"{runs['cold']['phases']['isotope_patterns']:.3f} -> "
+        f"{runs['warm']['phases']['isotope_patterns']:.3f} s; device peak "
+        f"{hbm['hbm_peak_bytes']} B; stored results bit-equal to phase 3")
+    return {"runs": runs, "inproc_wall_s": inproc_wall,
+            "inproc_timings": bundle.timings, "inproc_launches": launches,
+            "hbm": hbm, "phase_s": took, "steps_s": steps}
 
 
 def _batch_breakdown(backend, table) -> dict:
@@ -1091,6 +1426,36 @@ def phase_fused(ds, truth, search, ds_cfg, main: dict,
                           float(plain_to_ref.max()))
     err = max(float((g.double() - w.double()).abs().max())
               for g, w in zip(got, want))
+    # more than K_MAX = 8 windows an ion: batch 0's windows three times over
+    # (K = 12), one launch per row group, against the plain version
+    n_ch = rlo.shape[0]
+    r12 = [t.view(n_ch, -1, k).repeat(1, 1, 3).view(n_ch, -1).contiguous()
+           for t in (rlo, rhi)]
+    before = fused_window_moments.launches
+    got12 = fused_window_moments(whp, starts, *r12, n_real, gc_width=gc,
+                                 k=3 * k)
+    assert fused_window_moments.launches - before == 2, (
+        "fused K=12: one launch a row group")
+    _ROW_GROUP_LAUNCHES[1] += 2
+    want12 = fused_window_moments_torch(whp, starts, *r12, n_real,
+                                        gc_width=gc, k=3 * k)
+    assert torch.equal(got12[1], want12[1]), "fused K=12: principal rows"
+    g12, w12 = got12[0].view(-1, 3 * k, 5), want12[0].view(-1, 3 * k, 5)
+    for i, name in ((0, "sums"), (3, "vmax"), (4, "nn")):
+        assert torch.equal(g12[..., i], w12[..., i]), f"fused K=12: {name}"
+    # norms and dots against batch 0's f64 reference, repeated likewise
+    ref12 = [r.repeat(1, 3) for r in ref64[1:3]]
+    scale12 = torch.sqrt((ref12[0][:, 0:1] * ref12[0]).clamp(min=0))
+    gap12 = {}
+    for name, i, dist in (("normsq", 1, ulps),
+                          ("dots", 2, lambda a, b: ulps_at(a - b, scale12))):
+        to_ref = float(dist(g12[..., i], ref12[i - 1]).max())
+        assert to_ref <= MOMENT_ULPS, f"fused K=12: {name} {to_ref} ulp"
+        gap12[name] = to_ref
+    say(f"  fused kernel K = 12 (batch 0's windows three times, 2 row-group "
+        "launches): sums, vmax, nn and principal rows bit-equal to the plain "
+        f"version; norms and dots within {gap12} ulp of f64")
+    del got12, want12, r12
     kern_ms = time_ms(lambda: fused_window_moments(*args, gc_width=gc, k=k))
     plain_ms = time_ms(lambda: fused_window_moments_torch(
         *args, gc_width=gc, k=k), reps=3)
@@ -1376,7 +1741,7 @@ def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
     say(f"  strips: {n_img} batch-0 principal images bit-equal to the plain "
         f"version, first 3 equal to scipy {sc}")
     gen = torch.Generator(device=dev).manual_seed(13)
-    masks = _random_images(16, WS_SIDE * WS_SIDE, dev, gen)
+    masks = _random_images(4, WS_SIDE * WS_SIDE, dev, gen)
     _check_chaos_strips(masks, WS_SIDE, nlevels, "random masks")
     _check_chaos_strips(_seam_images(WS_SIDE, WS_SIDE, dev), WS_SIDE,
                         nlevels, "comb and spiral", n_scipy=4)
@@ -1388,7 +1753,7 @@ def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
     say(f"  strips: serpentine {WS_SIDE}x{WS_SIDE} (one path through every "
         f"row) {int(got[0])} = scipy {sc[0]}")
     # smooth images: large components in every tile and across every seam
-    _check_chaos_strips(blobs[:4], WS_SIDE, nlevels, "smooth blobs", n_scipy=2)
+    _check_chaos_strips(blobs[:2], WS_SIDE, nlevels, "smooth blobs", n_scipy=2)
     blob_ms = time_ms(lambda: chaos_count_sums_strips(
         blobs, WS_SIDE, WS_SIDE, nlevels), reps=3)
     say(f"  strips: 256 smooth blobs {WS_SIDE}x{WS_SIDE}: row-tile kernel "
@@ -1407,9 +1772,9 @@ def phase_whole_slide(dev, nlevels: int, ab=None) -> tuple[dict, dict]:
     del blobs
     # 2048x2048: 64 tiles of 32 rows, 262,144 seam nodes, past the merge's
     # shared memory: the global seam plane
-    big = _random_images(2, 4 * WS_SIDE * WS_SIDE, dev, gen)
+    big = _random_images(1, 4 * WS_SIDE * WS_SIDE, dev, gen)
     _check_chaos_strips(big, 2 * WS_SIDE, nlevels, "random masks",
-                        plane=True, n_scipy=2)
+                        plane=True, n_scipy=1)
     del big
     n_bytes = n_img * (p * 4 + nlevels * 4 + 4)
     # the byte floor: the union-find's compares and atomics are integer
@@ -1511,27 +1876,47 @@ def main() -> int:
         print("chip_smoke: the sm_distributed_tpu_torch package is not beside "
               "this script", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from sm_distributed_tpu_torch.models.msm_basic import _slice_table
 
+    took = {}                       # seconds from the start, by phase
+
+    def lap(name: str) -> None:
+        took[name] = round(time.perf_counter() - t_script, 1)
+
     _card, dev = phase_environment()
     phase_build()
+    lap("build")
     ab = OtherPort(opts.ab) if opts.ab else None
     ds, truth, search, ds_cfg = _setup_main_path()
     main = phase_main_path(ds, truth, search)
+    lap("main")
     backend = search.last_backend
     block, _theor, _n_valid = backend.image_block(
         _slice_table(search.last_table, 0, backend.batch))
     kernels = phase_kernels(dev, block, backend.n_real,
                             ds_cfg.image_generation.nlevels, ab)
+    lap("kernels")
     del block
     torch.cuda.empty_cache()
     for entry in kernels:
         entry["launches"] = main["launches"][entry["name"]]
+    job = phase_job_path(ds, truth, search, main)
+    lap("job")
+    for entry in kernels:
+        entry["job_launches"] = job["inproc_launches"][entry["name"]]
+    kernels[0]["row_group_launches"] = _ROW_GROUP_LAUNCHES[0]
+    kernels[1]["level_range_launches"] = _LEVEL_RANGE_LAUNCHES["smem"]
+    kernels[2]["level_range_launches"] = _LEVEL_RANGE_LAUNCHES["tiles"]
+    torch.cuda.empty_cache()
     phase_golden()
+    lap("golden")
     fused_entry, fused = phase_fused(ds, truth, search, ds_cfg, main, ab)
+    lap("fused")
     torch.cuda.empty_cache()
     cube = phase_cube_main(ds, truth, search, ds_cfg, main)
+    lap("cube")
     say("main path: " + json.dumps({
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
                              "n_ions", "n_peaks", "drift", "recall",
@@ -1540,6 +1925,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     strips_entry, slide = phase_whole_slide(
         dev, ds_cfg.image_generation.nlevels, ab)
+    lap("whole_slide")
+    say("job path: " + json.dumps({k: job[k] for k in (
+        "runs", "inproc_wall_s", "inproc_timings", "hbm", "phase_s",
+        "steps_s")}))
     say("fused path: " + json.dumps(fused))
     say("cube path, main dataset: " + json.dumps(cube))
     say("whole-slide path: " + json.dumps(slide))
@@ -1547,7 +1936,10 @@ def main() -> int:
     # whole-slide block of phase 8
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     slide["moments_max_abs_err"])
+    fused_entry["row_group_launches"] = _ROW_GROUP_LAUNCHES[1]
     kernels = kernels[:3] + [strips_entry, fused_entry]
+    say(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all; "
+        f"seconds from the start at the end of each phase {took}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -149,7 +149,7 @@ __device__ __forceinline__ int seam_below(int t, int lab, int ncols, int rows_t,
 __global__ void __launch_bounds__(SMEM_THREADS, 1)
 seam_merge_smem_kernel(const unsigned char* __restrict__ seam_m,
                        const unsigned int* __restrict__ rec,
-                       const int* __restrict__ tile_sum, float* __restrict__ out,
+                       const int* __restrict__ tile_sum, double* __restrict__ out,
                        int n, int nrows, int ncols, int rows_t, int tiles, int ss) {
     extern __shared__ __align__(16) unsigned char smem[];
     long long* red = (long long*)smem;
@@ -257,7 +257,7 @@ seam_merge_smem_kernel(const unsigned char* __restrict__ seam_m,
             __syncthreads();  // Kruskal order: each link on its own level
         }
         const long long s = chaos_block_sum(acc, red);
-        if (tid == 0) out[im] = (float)s;
+        if (tid == 0) out[im] = (double)s;
     }
 }
 
@@ -270,7 +270,7 @@ __global__ void __launch_bounds__(SMEM_THREADS, 1)
 seam_merge_plane_kernel(const unsigned char* __restrict__ seam_m,
                         const unsigned int* __restrict__ rec,
                         const int* __restrict__ tile_sum, int* __restrict__ gpar,
-                        float* __restrict__ out, int n, int nrows, int ncols,
+                        double* __restrict__ out, int n, int nrows, int ncols,
                         int rows_t, int tiles, int ss) {
     extern __shared__ __align__(16) unsigned char smem[];
     long long* red = (long long*)smem;
@@ -314,7 +314,7 @@ seam_merge_plane_kernel(const unsigned char* __restrict__ seam_m,
             __syncthreads();  // Kruskal order: each link on its own level
         }
         const long long s = chaos_block_sum(acc, red);
-        if (tid == 0) out[im] = (float)s;
+        if (tid == 0) out[im] = (double)s;
     }
 }
 
@@ -333,10 +333,12 @@ extern "C" int sm_chaos_seam_smem_bytes(int nodes) { return seam_smem_bytes(node
 // and at most 65,536 seam nodes.  Scratch, allocated by the caller: seam_m
 // (n * nodes) u8, rec (n * nodes) u32, tile_sum (n * tiles) i32, and
 // without seam_in_smem gpar (merge_grid * nodes) i32; nodes = tiles * ss.
+// `out` (n) f64 gets each image's exact count (it may pass 2^24, and
+// ops/chaos.py adds the counts of several level ranges before it rounds).
 // Returns cudaGetLastError() after each launch, 0 on success, and
 // cudaErrorInvalidValue for a plan or shape the kernels do not take.
 extern "C" int sm_chaos_tiles(const float* img, long long stride, const float* thr,
-                              float* out, unsigned char* seam_m, unsigned int* rec,
+                              double* out, unsigned char* seam_m, unsigned int* rec,
                               int* tile_sum, int* gpar, int n, int nrows, int ncols,
                               int nlevels, int rows_t, int seam_in_smem,
                               int merge_grid, void* stream) {

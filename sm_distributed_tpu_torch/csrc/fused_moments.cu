@@ -20,6 +20,14 @@
 // cen = v - sum/n_real for p < n_real, 0 past it (cen0: the ion's window 0),
 // and the principal rows principal[c, i, p] = v of window 0 of ion i.
 //
+// Row groups.  An ion has ktot windows (Wc = ipc * ktot); one launch takes
+// K <= MC_K_MAX of them: window 0 and windows first .. first+K-2.  Every
+// window's partials depend only on itself and window 0, so ions of more than
+// MC_K_MAX windows are computed by launches over groups that each carry
+// window 0 (ops/moments.py::moments_groups, as csrc/moments.cu); a group
+// with first > 1 writes neither window 0's partials nor the principal row,
+// which the first group (first = 1) owns.
+//
 // Bound on the H100: bytes.  Each band row the windows cover is read once
 // (2.1 GB for 2048 ions of 4 windows at 65536 pixels), each principal row
 // written once (0.54 GB): ~0.8 ms at 3.35 TB/s; a few f32 and f64 operations
@@ -96,7 +104,7 @@ template <int K, bool RESIDENT>
 __global__ void __launch_bounds__(MC_THREADS, 3)
 fused_cluster_kernel(const float* whp, long long ld, int cols, const int* starts,
                      const int* rlo, const int* rhi, float* partials, float* principal, int wc,
-                     int p, int n_real, int gc_width, int slice, int vec) {
+                     int p, int n_real, int gc_width, int slice, int vec, int ktot, int first) {
     __shared__ McScratch sc;
     __shared__ long long win_off[K];       // each window's first band row, in floats
     __shared__ int win_rows[K];            // and its band row count
@@ -105,9 +113,12 @@ fused_cluster_kernel(const float* whp, long long ld, int cols, const int* starts
     mc_cluster_start();
     const int n_cta = (int)cluster.num_blocks();
     const int ion = blockIdx.x / n_cta;   // c * ipc + i: the plan's ion order
-    const int ipc = wc / K;
+    const int ipc = wc / ktot;
     const int c = ion / ipc;
-    const int w0 = (ion % ipc) * K;        // the ion's first window in its chunk
+    const int w0 = (ion % ipc) * ktot;     // the ion's first window in its chunk
+    // local window r of this launch: the ion's window 0, then first .. first+K-2
+    auto woff = [&](int r) { return r ? first - 1 + r : 0; };
+    const bool owns0 = first == 1;         // window 0's partials, principal row
     const int a = (int)cluster.block_rank() * slice;
     const int len = max(0, min(slice, p - a));
     const int row = mc_row_floats(slice);
@@ -118,7 +129,7 @@ fused_cluster_kernel(const float* whp, long long ld, int cols, const int* starts
         const int start = starts[c];
         const int start_eff = min(start, cols - (gc_width + 2));
         const int shift = start - start_eff;
-        const int w = c * wc + w0 + r;
+        const int w = c * wc + w0 + woff(r);
         const int g0 = max(rlo[w] + shift + 1, 0);
         const int g1 = min(rhi[w] + shift, gc_width + 1);
         win_off[r] = g1 >= g0 ? (long long)(start_eff + g0) * ld : 0;
@@ -149,7 +160,7 @@ fused_cluster_kernel(const float* whp, long long ld, int cols, const int* starts
                     if (j < len4) {
                         const float4 v = vs[u];
                         if (RESIDENT) reinterpret_cast<float4*>(data + r * row)[j] = v;
-                        if (r == 0) reinterpret_cast<float4*>(prow)[j] = v;
+                        if (r == 0 && owns0) reinterpret_cast<float4*>(prow)[j] = v;
                         sr = __dadd_rn(__dadd_rn(__dadd_rn(__dadd_rn(sr, v.x), v.y), v.z), v.w);
                         mr = fmaxf(mr, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
                         cr += (v.x > 0.0f) + (v.y > 0.0f) + (v.z > 0.0f) + (v.w > 0.0f);
@@ -160,7 +171,7 @@ fused_cluster_kernel(const float* whp, long long ld, int cols, const int* starts
             for (int j = threadIdx.x; j < len; j += MC_THREADS) {
                 const float v = window1(src, nrow, ld, j);
                 if (RESIDENT) data[r * row + j] = v;
-                if (r == 0) prow[j] = v;
+                if (r == 0 && owns0) prow[j] = v;
                 sr = __dadd_rn(sr, v);
                 mr = fmaxf(mr, v);
                 cr += (v > 0.0f);
@@ -225,9 +236,9 @@ fused_cluster_kernel(const float* whp, long long ld, int cols, const int* starts
     mc_block_sum<K>(ns, sc.ns, sc);
     mc_block_sum<K>(dt, sc.dt, sc);
 
-    if (mc_cluster_push_centered<K>(cluster, sc) && threadIdx.x < K) {
+    if (mc_cluster_push_centered<K>(cluster, sc) && threadIdx.x < K && (threadIdx.x || owns0)) {
         const int r = threadIdx.x;
-        float* o = partials + ((size_t)c * wc + w0 + r) * 5;
+        float* o = partials + ((size_t)c * wc + w0 + woff(r)) * 5;
         o[0] = __double2float_rn(sc.tot_s[r]);
         o[1] = __double2float_rn(mc_rank_total(sc.pns, n_cta, r));
         o[2] = __double2float_rn(mc_rank_total(sc.pdt, n_cta, r));
@@ -240,13 +251,13 @@ template <bool RESIDENT>
 static int launch(int k, int n_ions, int cluster, int smem, cudaStream_t stream, const float* whp,
                   long long ld, int cols, const int* starts, const int* rlo, const int* rhi,
                   float* partials, float* principal, int wc, int p, int n_real, int gc_width,
-                  int slice, int vec) {
+                  int slice, int vec, int ktot, int first) {
     switch (k) {
 #define FUSED_CASE(KK)                                                                        \
     case KK:                                                                                  \
         return mc_launch(fused_cluster_kernel<KK, RESIDENT>, n_ions, cluster, smem, stream,  \
                          whp, ld, cols, starts, rlo, rhi, partials, principal, wc, p, n_real, \
-                         gc_width, slice, vec);
+                         gc_width, slice, vec, ktot, first);
         FUSED_CASE(1) FUSED_CASE(2) FUSED_CASE(3) FUSED_CASE(4)
         FUSED_CASE(5) FUSED_CASE(6) FUSED_CASE(7) FUSED_CASE(8)
 #undef FUSED_CASE
@@ -255,8 +266,9 @@ static int launch(int k, int n_ions, int cluster, int smem, cudaStream_t stream,
 }
 
 // C entry point (bound with ctypes).  `partials` is (C, wc, 5) f32 and
-// `principal` (C * wc / k, p) f32; one cluster per ion, planned by
-// ops/moments.py::moments_plan (cluster, slice, resident, smem_bytes).
+// `principal` (C * wc / ktot, p) f32; one cluster per ion over its window 0
+// and windows first .. first+k-2, planned by ops/moments.py::moments_plan
+// (cluster, slice, resident, smem_bytes) for k windows.
 // `vec` says the histogram rows and the principal rows may be read and
 // written in 16-byte units (ld, P and slice multiples of 4, both bases
 // 16-byte aligned).  Returns cudaGetLastError() after the launch, 0 on
@@ -264,23 +276,23 @@ static int launch(int k, int n_ions, int cluster, int smem, cudaStream_t stream,
 // take; MC_CLUSTER_UNSCHEDULABLE when no cluster of the plan's shape fits.
 extern "C" int sm_fused_moments(const float* whp, long long ld, int cols, const int* starts,
                                 const int* rlo, const int* rhi, float* partials,
-                                float* principal, int n_chunks, int wc, int k, int p,
-                                int n_real, int gc_width, int cluster, int slice, int resident,
-                                int smem_bytes, int vec, void* stream) {
+                                float* principal, int n_chunks, int wc, int k, int ktot,
+                                int first, int p, int n_real, int gc_width, int cluster,
+                                int slice, int resident, int smem_bytes, int vec, void* stream) {
     if (n_chunks <= 0) return 0;
-    if (k <= 0 || k > MC_K_MAX || wc % k != 0 || p <= 0 || n_real <= 0 || n_real > p ||
-        cols < gc_width + 2 || !mc_valid_cluster(cluster) || !mc_valid_slices(p, cluster, slice) ||
+    if (k <= 0 || k > MC_K_MAX || first < 1 || ktot < first + k - 1 || wc % ktot != 0 ||
+        p <= 0 || n_real <= 0 || n_real > p || cols < gc_width + 2 || !mc_valid_cluster(cluster) || !mc_valid_slices(p, cluster, slice) ||
         (long long)smem_bytes != mc_smem_bytes(k, slice, resident) ||
         (vec && ((p & 3) || (ld & 3) || (cluster > 1 && (slice & 3)) || ((uintptr_t)whp & 15) ||
                  ((uintptr_t)principal & 15))))
         return (int)cudaErrorInvalidValue;
-    const int n_ions = n_chunks * (wc / k);
+    const int n_ions = n_chunks * (wc / ktot);
     cudaStream_t st = (cudaStream_t)stream;
     return resident
         ? launch<true>(k, n_ions, cluster, smem_bytes, st, whp, ld, cols, starts, rlo, rhi, partials,
-                       principal, wc, p, n_real, gc_width, slice, vec)
+                       principal, wc, p, n_real, gc_width, slice, vec, ktot, first)
         : launch<false>(k, n_ions, cluster, smem_bytes, st, whp, ld, cols, starts, rlo, rhi,
-                        partials, principal, wc, p, n_real, gc_width, slice, vec);
+                        partials, principal, wc, p, n_real, gc_width, slice, vec, ktot, first);
 }
 
 extern "C" int sm_fused_moments_k_max(void) { return MC_K_MAX; }

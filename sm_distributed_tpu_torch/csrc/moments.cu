@@ -13,6 +13,13 @@
 // with mean[r] = sum[r] / n (n = n_real when masked, else P; one IEEE
 // division) and c[r, p] = x[r, p] - mean[r] for p < n, 0 past it.
 //
+// Row groups.  An ion has ktot rows; one launch takes K <= MC_K_MAX of them:
+// row 0 and rows first .. first+K-2.  Every output of row r depends only on
+// rows r and 0 (the dot pairs each row with row 0; max and count are row 0's),
+// so ions with more than MC_K_MAX rows are computed by launches over groups
+// that each carry row 0 (ops/moments.py::moments_groups); a group with
+// first > 1 does not write row 0, which the first group (first = 1) owns.
+//
 // Bound on the H100: bytes.  The arithmetic is ~6 flops per element against
 // 4 bytes read, far below what the card needs before compute limits it, so
 // the floor is one read of N*K*P*4 bytes at 3.35 TB/s (0.64 ms at (2048, 4,
@@ -64,7 +71,8 @@
 
 template <int K, bool RESIDENT>
 __global__ void __launch_bounds__(MC_THREADS, 3)
-moments_cluster_kernel(const float* img, float* out, int p, int n, int slice, int vec) {
+moments_cluster_kernel(const float* img, float* out, int p, int n, int slice, int vec, int ktot,
+                       int first) {
     __shared__ McScratch sc;
     extern __shared__ __align__(16) unsigned char dyn[];
     cg::cluster_group cluster = cg::this_cluster();
@@ -73,7 +81,9 @@ moments_cluster_kernel(const float* img, float* out, int p, int n, int slice, in
     const int ion = blockIdx.x / n_cta;
     const int a = (int)cluster.block_rank() * slice;        // the slice's first pixel
     const int len = max(0, min(slice, p - a));
-    const float* base = img + (size_t)ion * K * p + a;      // row r at base + r * p
+    const float* base = img + (size_t)ion * ktot * p + a;   // the ion's row 0
+    // local row r of this launch: the ion's row 0, then rows first .. first+K-2
+    auto roff = [&](int r) -> size_t { return (size_t)(r ? first - 1 + r : 0) * p; };
     const int row = mc_row_floats(slice);
     uint64_t* bar = reinterpret_cast<uint64_t*>(dyn);
     float* data = reinterpret_cast<float*>(dyn + MC_BARRIER_BYTES);   // row r at data + r * row
@@ -110,7 +120,7 @@ moments_cluster_kernel(const float* img, float* out, int p, int n, int slice, in
                 mc_mbar_expect_tx(&bar[st], (uint32_t)(K * cl * 4));
 #pragma unroll
                 for (int r = 0; r < K; ++r)
-                    mc_bulk_g2s(data + r * row + c0, base + (size_t)r * p + c0, (uint32_t)(cl * 4),
+                    mc_bulk_g2s(data + r * row + c0, base + roff(r) + c0, (uint32_t)(cl * 4),
                                 &bar[st]);
             }
         }
@@ -129,7 +139,7 @@ moments_cluster_kernel(const float* img, float* out, int p, int n, int slice, in
         for (int j = threadIdx.x; j < len4; j += MC_THREADS) {
             float4 v[K];
 #pragma unroll
-            for (int r = 0; r < K; ++r) v[r] = __ldg(reinterpret_cast<const float4*>(base + (size_t)r * p) + j);
+            for (int r = 0; r < K; ++r) v[r] = __ldg(reinterpret_cast<const float4*>(base + roff(r)) + j);
 #pragma unroll
             for (int r = 0; r < K; ++r) take4(r, v[r]);
         }
@@ -137,7 +147,7 @@ moments_cluster_kernel(const float* img, float* out, int p, int n, int slice, in
         for (int j = threadIdx.x; j < len; j += MC_THREADS) {
 #pragma unroll
             for (int r = 0; r < K; ++r) {
-                const float v = __ldg(base + (size_t)r * p + j);
+                const float v = __ldg(base + roff(r) + j);
                 if (RESIDENT) data[r * row + j] = v;
                 take1(r, v);
             }
@@ -167,7 +177,7 @@ moments_cluster_kernel(const float* img, float* out, int p, int n, int slice, in
             for (int r = 0; r < K; ++r) {
                 const float4 v = RESIDENT
                     ? reinterpret_cast<const float4*>(data + r * row)[j]
-                    : __ldg(reinterpret_cast<const float4*>(base + (size_t)r * p) + j);
+                    : __ldg(reinterpret_cast<const float4*>(base + roff(r)) + j);
                 const float xs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
                 for (int t = 0; t < 4; ++t)
@@ -190,7 +200,7 @@ moments_cluster_kernel(const float* img, float* out, int p, int n, int slice, in
             float c[K];
 #pragma unroll
             for (int r = 0; r < K; ++r) {
-                const float v = RESIDENT ? data[r * row + j] : __ldg(base + (size_t)r * p + j);
+                const float v = RESIDENT ? data[r * row + j] : __ldg(base + roff(r) + j);
                 c[r] = in ? __fsub_rn(v, mean[r]) : 0.0f;
             }
 #pragma unroll
@@ -203,9 +213,10 @@ moments_cluster_kernel(const float* img, float* out, int p, int n, int slice, in
     mc_block_sum<K>(ns, sc.ns, sc);
     mc_block_sum<K>(dt, sc.dt, sc);
 
-    if (mc_cluster_push_centered<K>(cluster, sc) && threadIdx.x < K) {
+    // a later row group (first > 1) leaves row 0's output to the first group
+    if (mc_cluster_push_centered<K>(cluster, sc) && threadIdx.x < K && (threadIdx.x || first == 1)) {
         const int r = threadIdx.x;
-        float* o = out + ((size_t)ion * K + r) * 5;
+        float* o = out + ((size_t)ion * ktot + (r ? first - 1 + r : 0)) * 5;
         o[0] = __double2float_rn(sc.tot_s[r]);
         o[1] = __double2float_rn(mc_rank_total(sc.pns, n_cta, r));
         o[2] = __double2float_rn(mc_rank_total(sc.pdt, n_cta, r));
@@ -228,12 +239,12 @@ static int active_clusters(int k, int cluster, int smem) {
 
 template <bool RESIDENT>
 static int launch(int k, const float* img, float* out, int n, int p, int n_mean, int cluster,
-                  int slice, int smem, int vec, cudaStream_t stream) {
+                  int slice, int smem, int vec, int ktot, int first, cudaStream_t stream) {
     switch (k) {
 #define MOMENTS_CASE(KK)                                                                  \
     case KK:                                                                              \
         return mc_launch(moments_cluster_kernel<KK, RESIDENT>, n, cluster, smem, stream,  \
-                         img, out, p, n_mean, slice, vec);
+                         img, out, p, n_mean, slice, vec, ktot, first);
         MOMENTS_CASE(1) MOMENTS_CASE(2) MOMENTS_CASE(3) MOMENTS_CASE(4)
         MOMENTS_CASE(5) MOMENTS_CASE(6) MOMENTS_CASE(7) MOMENTS_CASE(8)
 #undef MOMENTS_CASE
@@ -248,19 +259,22 @@ static int launch(int k, const float* img, float* out, int n, int p, int n_mean,
 // cudaErrorInvalidValue for an argument or plan the kernel does not take;
 // MC_CLUSTER_UNSCHEDULABLE when the occupancy API reports that no cluster
 // of the plan's shape fits on the device.
-extern "C" int sm_moments(const float* img, float* out, int n, int k, int p, int n_real,
-                          int masked, int vec, int cluster, int slice, int resident,
+extern "C" int sm_moments(const float* img, float* out, int n, int k, int ktot, int first, int p,
+                          int n_real, int masked, int vec, int cluster, int slice, int resident,
                           int smem_bytes, void* stream) {
     if (n <= 0) return 0;
-    if (k <= 0 || k > MC_K_MAX || p <= 0 || !mc_valid_cluster(cluster) ||
+    if (k <= 0 || k > MC_K_MAX || first < 1 || ktot < first + k - 1 ||
+        p <= 0 || !mc_valid_cluster(cluster) ||
         !mc_valid_slices(p, cluster, slice) || (masked && (n_real <= 0 || n_real > p)) ||
         (long long)smem_bytes != mc_smem_bytes(k, slice, resident) ||
         (vec && ((p & 3) || (cluster > 1 && (slice & 3)) || ((uintptr_t)img & 15))))
         return (int)cudaErrorInvalidValue;
     const int n_mean = masked ? n_real : p;
     return resident
-        ? launch<true>(k, img, out, n, p, n_mean, cluster, slice, smem_bytes, vec, (cudaStream_t)stream)
-        : launch<false>(k, img, out, n, p, n_mean, cluster, slice, smem_bytes, vec, (cudaStream_t)stream);
+        ? launch<true>(k, img, out, n, p, n_mean, cluster, slice, smem_bytes, vec, ktot, first,
+                       (cudaStream_t)stream)
+        : launch<false>(k, img, out, n, p, n_mean, cluster, slice, smem_bytes, vec, ktot, first,
+                        (cudaStream_t)stream);
 }
 
 extern "C" int sm_moments_k_max(void) { return MC_K_MAX; }

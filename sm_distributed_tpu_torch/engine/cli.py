@@ -1,0 +1,167 @@
+"""CLI entry point of the port: import a molecular DB, run a job, query.
+
+Port of ``sm_distributed_tpu/engine/cli.py``::
+
+    python -m sm_distributed_tpu_torch.engine.cli import-db CSV NAME VERSION \\
+        [--sm-config sm.json]
+
+    python -m sm_distributed_tpu_torch.engine.cli run DS_NAME INPUT.imzML \\
+        [--ds-id ID] [--ds-config ds.json] [--sm-config sm.json] \\
+        [--formulas-csv db.csv] [--profile DIR] [--clean]
+    # without --formulas-csv, formulas come from the molecular DB named in
+    # ds.json's "database" block (import it first with import-db)
+
+    python -m sm_distributed_tpu_torch.engine.cli search [--ds-id ID] \\
+        [--max-fdr 0.1] [--sm-config sm.json]
+
+``sm.json`` is the port's ``SMConfig``: jobs run on ``device`` ("cuda" by
+default; "cpu" runs the plain versions of the kernels).  The JAX package's
+``serve`` command (the annotation service) waits for the service port
+(ROADMAP queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from pathlib import Path
+
+from ..utils.config import DSConfig, SMConfig
+from ..utils.logger import init_logger, logger
+
+
+def _load_configs(args) -> SMConfig:
+    sm = (SMConfig.set_path(args.sm_config) if args.sm_config
+          else SMConfig.get_conf())
+    init_logger(sm.logs_dir or None, json_logs=sm.logs.json)
+    from ..utils import tracing
+
+    tracing.configure(enabled=sm.tracing.enabled,
+                      ring_size=sm.tracing.ring_size)
+    if sm.failpoints and not os.environ.get("SM_FAILPOINTS"):
+        # config-file activation (the env always wins: it applied at import)
+        from ..utils import failpoints
+
+        failpoints.configure(sm.failpoints)
+        logger.warning("fault injection ACTIVE from config: %s",
+                       sm.failpoints)
+    return sm
+
+
+def cmd_run(args) -> int:
+    sm_config = _load_configs(args)
+    ds_config = DSConfig.load(args.ds_config) if args.ds_config else DSConfig()
+    formulas = None
+    if args.formulas_csv:
+        from .moldb import MolecularDB
+        from .storage import JobLedger
+
+        db = MolecularDB(JobLedger(sm_config.storage.results_dir))
+        name = Path(args.formulas_csv).stem
+        db.import_csv(args.formulas_csv, name=name, version="cli")
+        formulas = db.formulas(name, "cli")
+    from ..utils import tracing
+    from .search_job import SearchJob
+
+    job = SearchJob(
+        ds_id=args.ds_id or args.ds_name,
+        ds_name=args.ds_name,
+        input_path=args.input_path,
+        ds_config=ds_config,
+        sm_config=sm_config,
+        formulas=formulas,
+        profile_dir=args.profile,
+    )
+    # an offline run gets an end-to-end trace, its root minted here
+    trace = (tracing.new_trace(job_id=job.ds_id, trace_dir=sm_config.trace_dir)
+             if sm_config.tracing.enabled else None)
+    t0 = time.time()
+    with tracing.attach(trace):
+        try:
+            bundle = job.run(clean=args.clean)
+        finally:
+            if trace is not None:
+                tracing.emit_span(trace, "submit", ts=t0,
+                                  dur=time.time() - t0,
+                                  span_id=trace.span_id, ds_id=job.ds_id,
+                                  entry="cli")
+                logger.info("trace written to %s", trace.file)
+    n_pass = int((bundle.annotations.fdr_level <= 0.1).sum())
+    logger.info("done: %d target ions scored, %d at FDR<=10%%",
+                len(bundle.annotations), n_pass)
+    return 0
+
+
+def cmd_import_db(args) -> int:
+    sm_config = _load_configs(args)
+    from .moldb import MolecularDB
+    from .storage import JobLedger
+
+    db = MolecularDB(JobLedger(sm_config.storage.results_dir))
+    n = db.import_csv(args.csv, args.name, args.version)
+    logger.info("imported %d molecules into %s/%s", n, args.name,
+                args.version)
+    return 0
+
+
+def cmd_search(args) -> int:
+    sm_config = _load_configs(args)
+    from .storage import AnnotationIndex, JobLedger
+
+    index = AnnotationIndex(JobLedger(sm_config.storage.results_dir))
+    df = index.search(ds_id=args.ds_id, sf=args.sf, max_fdr_level=args.max_fdr,
+                      mz_min=args.mz_min, mz_max=args.mz_max)
+    print(df.to_string(index=False) if not df.empty else "(no annotations)")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="sm-tpu-torch",
+        description="PyTorch/CUDA port of the sm-tpu annotation engine.",
+        epilog="The JAX package's 'serve' command (the annotation service) "
+               "is not in the port yet (ROADMAP queue 1 item 9).")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    run = sub.add_parser("run", help="run an annotation job")
+    run.add_argument("ds_name")
+    run.add_argument("input_path")
+    run.add_argument("--ds-id", default=None)
+    run.add_argument("--ds-config", default=None)
+    run.add_argument("--sm-config", default=None)
+    run.add_argument("--formulas-csv", default=None,
+                     help="molecules CSV; imported and used as the formula "
+                          "list")
+    run.add_argument("--profile", default=None,
+                     help="write a torch.profiler trace to this dir")
+    run.add_argument("--clean", action="store_true",
+                     help="remove the work dir afterwards")
+    run.set_defaults(fn=cmd_run)
+
+    imp = sub.add_parser("import-db", help="import a molecular DB CSV")
+    imp.add_argument("csv")
+    imp.add_argument("name")
+    imp.add_argument("version")
+    imp.add_argument("--sm-config", default=None)
+    imp.set_defaults(fn=cmd_import_db)
+
+    srch = sub.add_parser("search", help="query indexed annotations")
+    srch.add_argument("--ds-id", default=None)
+    srch.add_argument("--sf", default=None)
+    srch.add_argument("--max-fdr", type=float, default=None)
+    srch.add_argument("--mz-min", type=float, default=None)
+    srch.add_argument("--mz-max", type=float, default=None)
+    srch.add_argument("--sm-config", default=None)
+    srch.set_defaults(fn=cmd_search)
+    return ap
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

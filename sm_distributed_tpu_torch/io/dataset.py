@@ -162,6 +162,11 @@ class SpectralDataset:
     def row_lengths(self) -> np.ndarray:
         return np.diff(self.row_ptr)
 
+    def get_sample_area_mask(self) -> np.ndarray:
+        """(nrows, ncols) bool: the pixels that hold a spectrum (the
+        reference's ``Dataset.get_sample_area_mask``)."""
+        return self.mask
+
     def padded_cube(self, ints: np.ndarray | None = None
                     ) -> tuple[np.ndarray, np.ndarray]:
         """Dense (n_pixels, L) m/z + intensity cube for the m/z-chunked cube

@@ -1,23 +1,27 @@
 """MSM basic search: isotope patterns -> ion images -> metrics -> FDR.
 
-Port of ``sm_distributed_tpu/models/msm_basic.py`` for the library entry
-point::
+Port of ``sm_distributed_tpu/models/msm_basic.py``::
 
     ds = SpectralDataset.from_imzml(path)
     MSMBasicSearch(ds, formulas, ds_config, sm_config).search()
 
-Decoy selection and isotope patterns run on the host, formula batches are
-scored by the ``torch_cuda`` backend (``models/msm_torch.py``), and FDR runs
-on the host.  The JAX package's checkpoint groups, circuit breaker, OOM
-backoff, pattern prefetch and provisional partial results are not part of
-this port yet (ROADMAP queue 1 item 4).
+Decoy selection and isotope patterns run on the host (patterns through an
+``IsocalcWrapper`` whose on-disk shard cache ``isocalc_cache_dir`` keeps
+them across jobs), formula batches are scored by the ``torch_cuda`` backend
+(``models/msm_torch.py``), and FDR runs on the host.  ``IsotopePrefetch``
+starts decoys and pattern generation in the background; ``SearchJob``
+starts it before staging the input and hands it to the search.  A
+``CancelToken`` is checked between batch groups.
+
+Not in the port yet: checkpoint groups (``last_checkpoint`` stays None),
+the provisional FDR partial, OOM backoff, the fault taxonomy and the
+breaker (ROADMAP queue 1 item 2).
 """
 
 from __future__ import annotations
 
-import logging
+import threading
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -27,19 +31,9 @@ from ..io.dataset import SpectralDataset
 from ..ops import buckets as shape_buckets
 from ..ops.fdr import FDR, DecoyAssignment
 from ..ops.isocalc import IsocalcWrapper, IsotopePatternTable
+from ..utils import tracing
 from ..utils.config import DSConfig, SMConfig
-
-logger = logging.getLogger(__name__)
-
-
-@contextmanager
-def phase_timer(name: str, timings: dict[str, float]):
-    """Record the wall seconds of a phase into ``timings[name]``."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        timings[name] = time.perf_counter() - t0
+from ..utils.logger import logger, phase_timer
 
 
 def _slice_table(table: IsotopePatternTable, s: int, e: int
@@ -92,6 +86,80 @@ def make_backend(name: str, ds: SpectralDataset, ds_config: DSConfig,
     raise ValueError(f"unknown backend {name!r}")
 
 
+def make_isocalc(ds_config: DSConfig, sm_config: SMConfig,
+                 cache_dir: str | None) -> IsocalcWrapper:
+    """IsocalcWrapper wired to the engine's ``parallel.isocalc_*`` knobs."""
+    par = sm_config.parallel
+    return IsocalcWrapper(ds_config.isotope_generation, cache_dir=cache_dir,
+                          n_procs=par.isocalc_workers or None,
+                          chunk_size=par.isocalc_chunk)
+
+
+class IsotopePrefetch:
+    """Background decoy selection and isotope-pattern generation.
+
+    ``SearchJob`` starts this before staging and parsing the input, so
+    pattern generation overlaps them; everything here depends only on the
+    formula list and the configs.  ``result()`` joins the set-up thread
+    (decoy sampling, cache-shard load, stream start — generation keeps
+    running in the returned ``PatternStream``) and re-raises a set-up
+    failure; ``cancel()`` tears the stream down when the job dies before
+    consuming it."""
+
+    def __init__(self, formulas: list[str], ds_config: DSConfig,
+                 sm_config: SMConfig, cache_dir: str | None):
+        self.formulas = list(dict.fromkeys(formulas))
+        self.ds_config = ds_config
+        self.sm_config = sm_config
+        self.cache_dir = cache_dir
+        self.timings: dict[str, float] = {}
+        self.fdr: FDR | None = None
+        self.assignment: DecoyAssignment | None = None
+        self.isocalc: IsocalcWrapper | None = None
+        self.stream = None
+        self._error: BaseException | None = None
+        # thread hop: the caller's trace context goes along
+        self._trace = tracing.current()
+        self._thread = threading.Thread(
+            target=self._run, name="isotope-prefetch", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            with tracing.attach(self._trace), \
+                    tracing.span("isotope_prefetch_setup"):
+                self._setup()
+        except BaseException as exc:  # noqa: BLE001 — result() re-raises
+            self._error = exc
+
+    def _setup(self) -> None:
+        iso_cfg = self.ds_config.isotope_generation
+        fdr_cfg = self.sm_config.fdr
+        self.fdr = FDR(decoy_sample_size=fdr_cfg.decoy_sample_size,
+                       target_adducts=iso_cfg.adducts, seed=fdr_cfg.seed)
+        t0 = time.perf_counter()
+        self.assignment = self.fdr.decoy_adduct_selection(self.formulas)
+        self.pairs, self.flags = self.assignment.all_ion_tuples(
+            self.formulas, iso_cfg.adducts)
+        self.timings["decoy_selection"] = time.perf_counter() - t0
+        # wrapper construction loads the cache shards: in this thread too
+        self.isocalc = make_isocalc(self.ds_config, self.sm_config,
+                                    self.cache_dir)
+        self.stream = self.isocalc.stream_table(self.pairs, self.flags)
+
+    def result(self):
+        """(fdr, assignment, stream) — blocks on set-up only."""
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self.fdr, self.assignment, self.stream
+
+    def cancel(self) -> None:
+        self._thread.join()
+        if self.stream is not None:
+            self.stream.cancel()
+
+
 @dataclass
 class SearchResultsBundle:
     """Everything a search produces: annotated targets and every scored ion."""
@@ -110,19 +178,28 @@ class MSMBasicSearch:
                     "spectral", "msm"]
 
     def __init__(self, ds: SpectralDataset, formulas: list[str],
-                 ds_config: DSConfig, sm_config: SMConfig | None = None):
+                 ds_config: DSConfig, sm_config: SMConfig | None = None,
+                 isocalc_cache_dir: str | None = None,
+                 prefetch: IsotopePrefetch | None = None, cancel=None):
         self.ds = ds
         self.formulas = list(dict.fromkeys(formulas))  # dedup, keep order
         self.ds_config = ds_config
-        self.sm_config = sm_config or SMConfig()
-        par = self.sm_config.parallel
-        self.isocalc = IsocalcWrapper(ds_config.isotope_generation,
-                                      n_procs=par.isocalc_workers or None)
+        self.sm_config = sm_config or SMConfig.get_conf()
+        # decoys and generation already running (SearchJob's prefetch):
+        # search() consumes its stream instead of starting one
+        self.prefetch = prefetch
+        # utils/cancel.CancelToken or None: checked between batch groups
+        self.cancel = cancel
+        self.isocalc = None if prefetch is not None else make_isocalc(
+            ds_config, self.sm_config, isocalc_cache_dir)
         # the pad-to batch snapped to the lattice: slicing here and padding
         # in the backend use the same value
-        self._batch_eff = shape_buckets.effective_batch(par)
+        self._batch_eff = shape_buckets.effective_batch(self.sm_config.parallel)
+        # read by SearchJob to store ion images and m/z values
         self.last_table: IsotopePatternTable | None = None
         self.last_backend = None
+        # search checkpoints wait for ROADMAP queue 1 item 2
+        self.last_checkpoint = None
 
     def search(self) -> SearchResultsBundle:
         timings: dict[str, float] = {}
@@ -132,18 +209,32 @@ class MSMBasicSearch:
                 all_metrics=pd.DataFrame(columns=self._ALL_COLUMNS),
             )
         iso_cfg = self.ds_config.isotope_generation
-        fdr = FDR(decoy_sample_size=self.sm_config.fdr.decoy_sample_size,
-                  target_adducts=iso_cfg.adducts, seed=self.sm_config.fdr.seed)
-        with phase_timer("decoy_selection", timings):
-            assignment = fdr.decoy_adduct_selection(self.formulas)
-            pairs, flags = assignment.all_ion_tuples(
-                self.formulas, iso_cfg.adducts)
-        with phase_timer("isotope_patterns", timings):
-            table = self.isocalc.pattern_table(pairs, flags)
-            table = maybe_order_table(
-                table, self.sm_config.parallel.order_ions,
-                self.sm_config.parallel.formula_batch)
-        return self._score_and_rank(table, fdr, assignment, timings)
+        if self.prefetch is not None:
+            fdr, assignment, stream = self.prefetch.result()
+            self.isocalc = self.prefetch.isocalc
+            timings.update(self.prefetch.timings)
+        else:
+            fdr = FDR(decoy_sample_size=self.sm_config.fdr.decoy_sample_size,
+                      target_adducts=iso_cfg.adducts,
+                      seed=self.sm_config.fdr.seed)
+            with phase_timer("decoy_selection", timings):
+                assignment = fdr.decoy_adduct_selection(self.formulas)
+                pairs, flags = assignment.all_ion_tuples(
+                    self.formulas, iso_cfg.adducts)
+            stream = self.isocalc.stream_table(pairs, flags)
+        try:
+            # the device backend takes the whole table up front (window-union
+            # peak restriction, presizing), so it waits for the stream, as
+            # the JAX package's device backend does
+            with phase_timer("isotope_patterns", timings):
+                table = stream.result_table()
+                table = maybe_order_table(
+                    table, self.sm_config.parallel.order_ions,
+                    self.sm_config.parallel.formula_batch)
+            return self._score_and_rank(table, fdr, assignment, timings)
+        except BaseException:
+            stream.cancel()
+            raise
 
     def _score_and_rank(self, table: IsotopePatternTable, fdr: FDR,
                         assignment: DecoyAssignment,
@@ -167,6 +258,8 @@ class MSMBasicSearch:
             if len(groups) > 1:
                 backend.presize(_slice_table(table, s, e) for s, e in slices)
             for group in groups:
+                if self.cancel is not None:
+                    self.cancel.check("score")
                 outs = backend.score_batches(
                     [_slice_table(table, s, e) for s, e in group])
                 for (s, e), out in zip(group, outs):

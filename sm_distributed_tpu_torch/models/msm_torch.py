@@ -401,7 +401,7 @@ class TorchBackend:
             k=table.max_peaks, nrows=self._nrows_b, ncols=self.ds.ncols,
             nlevels=self.nlevels)
 
-    def image_block(self, table: IsotopePatternTable
+    def image_block(self, table: IsotopePatternTable, plan=None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(images, theor_ints, n_valid)`` of one padded batch, in the
         plan's ion order (the table's on the cube path), as its metrics
@@ -417,7 +417,7 @@ class TorchBackend:
                 d["r_lo_loc"], d["r_hi_loc"], d["inv"],
                 gc_width=d["gc_width"]).view(self.batch, k, -1)
         else:
-            d = self._device_plan(table)
+            d = self._device_plan(table, plan)
             imgs = extract_images_flat_banded(
                 self._px_s, self._in_s, d["pos"], d["starts"], d["r_lo_loc"],
                 d["r_hi_loc"], None, gc_width=d["gc_width"],
@@ -426,6 +426,32 @@ class TorchBackend:
                  < d["n_valid"][:, None])
         return (imgs.masked_fill_(~valid[:, :, None], 0.0), d["theor_ints"],
                 d["n_valid"])
+
+    def extract_ion_images(self, table: IsotopePatternTable) -> np.ndarray:
+        """(n_ions, K, n_pixels) f32 ion images of ``table``, in its ion
+        order, from the device extraction (``image_block``): the exact-pixel
+        prefix of the row-bucketed grid, divided by the intensity grid's
+        power-of-two scale (exact), the images of invalid isotope peaks
+        zero.  Bit-equal to the JAX backend's ``extract_ion_images`` and to
+        ``ops/imager_np`` (shared integer grids).  Tables longer than the
+        backend's batch are extracted batch by batch."""
+        from .msm_basic import _slice_table
+
+        n, b = table.n_ions, self.batch
+        if n > b:
+            return np.concatenate([
+                self.extract_ion_images(_slice_table(table, s, min(s + b, n)))
+                for s in range(0, n, b)])
+        if self.mz_chunk:
+            imgs, _theor, _n_valid = self.image_block(table)
+        else:
+            plan = self._flat_plan(table)
+            imgs, _theor, _n_valid = self.image_block(table, plan)
+            # the plan's ion order back to the table's
+            imgs = imgs[self._put(plan[5][3], torch.int64)]
+        out = imgs[:n, :, :self.ds.n_pixels].cpu().numpy()
+        out /= np.float32(self.int_scale)
+        return out
 
     @property
     def n_real(self) -> int | None:

@@ -22,19 +22,33 @@ bit-equal to ``scipy.ndimage.label``.
     Launches whose seam merge keeps its union-find in a global plane (more
     seam nodes than shared memory holds, e.g. 2048x2048) are also counted
     in ``chaos_count_sums_strips.seam_plane_launches``.
-  A kernel that fails to build or launch raises.
-- :func:`chaos_count_sums_torch` is the plain version of both kernels:
-  iterated 4-neighbour min-label propagation with pointer jumping, run to
-  its fixpoint, for any image size.
-
-Shapes for which the JAX package has no Pallas route (``"scan"``: past the
-packed budget and wider than the strip kernel's 8192 columns) raise
-``NotImplementedError`` on every device.
+  Shapes for which the JAX package has no Pallas route (``"scan"``: past
+  the packed budget and wider than the strip kernel's 8192 columns) take
+  the row-tile kernel too whenever :func:`tile_plan` fits one row in a tile
+  (at most 65,536 pixels a row; counted in
+  ``chaos_count_sums.tiled_launches``), else :func:`chaos_count_sums_scan`.
+  The kernels keep a level count in one byte, so they take at most
+  ``MAX_KERNEL_LEVELS`` thresholds a launch: more levels are launched over
+  consecutive ranges of the thresholds (:func:`level_ranges`) and the
+  per-range sums added, exactly (each is an integer).  Every counter counts
+  kernel launches, one per range.  A kernel that fails to build or launch
+  raises.
+- :func:`chaos_count_sums_scan` is the port of the JAX package's
+  associative-scan route (``ops/metrics_jax.py``, device code there, no
+  Pallas kernel): segmented running minima along rows and columns to a
+  fixpoint, level by level, in torch ops on the tensor's device.  It serves
+  images whose rows are wider than a tile (counted in
+  ``chaos_count_sums_scan.launches``).
+- :func:`chaos_count_sums_torch` is the plain version every route is held
+  to: iterated 4-neighbour min-label propagation with pointer jumping, run
+  to its fixpoint, for any image size.  A CPU tensor takes it on every
+  route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -49,6 +63,9 @@ _HALO = 8
 
 # the shared-memory kernel's labels are uint16: pixel indices 0..65535
 SMEM_MAX_PIXELS = 65536
+# the kernels' level counts are uint8: thresholds a launch (MAX_LEVELS of
+# csrc/chaos_smem.cuh)
+MAX_KERNEL_LEVELS = 255
 
 
 def _pack_geometry(nrows: int, ncols: int, lane_width: int,
@@ -167,13 +184,42 @@ def tile_plan(nrows: int, ncols: int, nlevels: int) -> TilePlan:
         plane_bytes=0 if in_smem else 4 * nodes)
 
 
-def _check_route(nrows: int, ncols: int) -> str:
-    route = chaos_route(nrows, ncols)
-    if route == "scan":
-        raise NotImplementedError(
-            f"{nrows}x{ncols} images take the JAX package's 'scan' chaos "
-            "route (no Pallas kernel fits them), which the port does not have")
-    return route
+def scan_variant(nrows: int, ncols: int, nlevels: int) -> str:
+    """The port's kernel for images on the JAX package's "scan" route:
+    ``"tiles"`` (the row-tile kernel) when :func:`tile_plan` fits one row in
+    a tile, else ``"scan"`` (:func:`chaos_count_sums_scan`)."""
+    try:
+        tile_plan(nrows, ncols, nlevels)
+    except ValueError:
+        return "scan"
+    return "tiles"
+
+
+def level_ranges(nlevels: int) -> list[tuple[int, int]]:
+    """Consecutive ranges ``[a, b)`` of at most MAX_KERNEL_LEVELS thresholds
+    that cover ``range(nlevels)``: one kernel launch each.  The count summed
+    over levels is additive over disjoint level ranges, and each range's
+    thresholds still rise, so a launch over ``thr[:, a:b]`` gives exactly
+    that range's share."""
+    if nlevels <= 0:
+        raise ValueError(f"level_ranges: nlevels={nlevels}")
+    return [(a, min(a + MAX_KERNEL_LEVELS, nlevels))
+            for a in range(0, nlevels, MAX_KERNEL_LEVELS)]
+
+
+def _over_level_ranges(launch, principal: torch.Tensor, thr: torch.Tensor,
+                       nrows: int, ncols: int, nlevels: int) -> torch.Tensor:
+    """``launch`` over each of :func:`level_ranges`, the shares added in f64
+    and rounded once to f32, as the plain version rounds its int64 total.
+    Each share is exact: the shared-memory kernel's f32 count stays below
+    2**24 (at most 32,768 components a level of 65,536 pixels, 255 levels),
+    and the row-tile kernel returns its count in f64."""
+    total = None
+    for a, b in level_ranges(nlevels):
+        part = launch(principal, thr[:, a:b].contiguous(), nrows, ncols,
+                      b - a).to(torch.float64)
+        total = part if total is None else total + part
+    return total.to(torch.float32)
 
 
 def chaos_thresholds(vmax: torch.Tensor, nlevels: int) -> torch.Tensor:
@@ -213,18 +259,82 @@ def _component_counts(mask: torch.Tensor) -> torch.Tensor:
     return ((lab == idx) & mask).sum(dim=(1, 2))
 
 
-def chaos_count_sums_torch(principal: torch.Tensor, nrows: int, ncols: int,
-                           nlevels: int) -> torch.Tensor:
-    """(N,) f32 per-image sums over levels of component counts, in plain
-    torch ops, for any image size."""
+def _sum_over_levels(principal: torch.Tensor, nrows: int, ncols: int,
+                     nlevels: int, counts) -> torch.Tensor:
+    """(N,) f32 sums over levels of ``counts`` (an (N, R, C) mask -> (N,)
+    int64 component counter) of each level's mask."""
     img = torch.clamp(principal, min=0.0)
     thr = chaos_thresholds(img.amax(dim=1), nlevels)
     n = img.shape[0]
     total = torch.zeros(n, dtype=torch.int64, device=img.device)
     img3 = img.reshape(n, nrows, ncols)
     for level in range(nlevels):
-        total += _component_counts(img3 > thr[:, level, None, None])
+        total += counts(img3 > thr[:, level, None, None])
     return total.to(torch.float32)
+
+
+def chaos_count_sums_torch(principal: torch.Tensor, nrows: int, ncols: int,
+                           nlevels: int) -> torch.Tensor:
+    """(N,) f32 per-image sums over levels of component counts, in plain
+    torch ops, for any image size."""
+    return _sum_over_levels(principal, nrows, ncols, nlevels,
+                            _component_counts)
+
+
+def _seg_min_scan(vals: torch.Tensor, resets: torch.Tensor, dim: int,
+                  reverse: bool, span: int) -> torch.Tensor:
+    """Segmented running minimum along ``dim``: the minimum restarts at every
+    ``resets`` position (mask boundaries), so labels flood only within
+    contiguous runs (``_seg_min_scan`` of ``ops/metrics_jax.py``).  A key
+    of (segments left, value) makes a plain ``cummin`` segmented: a later
+    segment's keys lie below every earlier one's (``span`` exceeds every
+    value)."""
+    if reverse:
+        vals, resets = vals.flip(dim), resets.flip(dim)
+    seg = torch.cumsum(resets.to(torch.int64), dim)
+    base = (vals.shape[dim] + 1 - seg) * span
+    out = torch.cummin(base + vals, dim).values - base
+    return out.flip(dim) if reverse else out
+
+
+def _scan_component_counts(mask: torch.Tensor) -> torch.Tensor:
+    """(N,) int64 4-connectivity component counts of an (N, R, C) mask by
+    the JAX package's scan route (``_cc_count``): labels start as pixel
+    indices, sweeps of segmented running minima along rows and columns,
+    both ways, run until nothing changes; a component keeps the smallest
+    index of its pixels, whose label is its own."""
+    n, r, c = mask.shape
+    big = r * c
+    iota = torch.arange(big, device=mask.device).view(1, r, c)
+    resets = ~mask
+
+    def sweep(lab):
+        lab = _seg_min_scan(lab, resets, 2, False, big + 1)
+        lab = _seg_min_scan(lab, resets, 2, True, big + 1)
+        lab = _seg_min_scan(lab, resets, 1, False, big + 1)
+        lab = _seg_min_scan(lab, resets, 1, True, big + 1)
+        return torch.where(mask, lab, big)
+
+    lab = torch.where(mask, iota, big)
+    while True:
+        new = sweep(lab)
+        if torch.equal(new, lab):
+            break
+        lab = new
+    return ((lab == iota) & mask).sum(dim=(1, 2))
+
+
+def chaos_count_sums_scan(principal: torch.Tensor, nrows: int, ncols: int,
+                          nlevels: int) -> torch.Tensor:
+    """(N,) f32 per-image sums over levels of component counts by the scan
+    route, in torch ops on the tensor's device (counted in
+    ``chaos_count_sums_scan.launches``): the route the JAX package takes,
+    as device code, for images no Pallas kernel fits; the port's wrapper
+    sends it images whose rows are wider than a row tile."""
+    out = _sum_over_levels(principal, nrows, ncols, nlevels,
+                           _scan_component_counts)
+    chaos_count_sums_scan.launches += 1
+    return out
 
 
 def _kernel_thresholds(principal: torch.Tensor, nrows: int, ncols: int,
@@ -256,8 +366,9 @@ def _launch_smem(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
         ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     if nlevels > lib.sm_chaos_max_levels():
-        raise ValueError(f"chaos kernel takes at most "
-                         f"{lib.sm_chaos_max_levels()} levels, got {nlevels}")
+        raise _build.KernelError(f"chaos kernel takes at most "
+                                 f"{lib.sm_chaos_max_levels()} levels a "
+                                 f"launch, got {nlevels}")
     out = torch.empty(n, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(fn(principal.data_ptr(), principal.stride(0), thr.data_ptr(),
@@ -268,11 +379,15 @@ def _launch_smem(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
 
 
 def _launch_tiles(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
-                  ncols: int, nlevels: int) -> torch.Tensor:
+                  ncols: int, nlevels: int, strips: bool = False
+                  ) -> torch.Tensor:
     """The row-tile kernel and the seam merge of ``csrc/chaos_strips.cu``
-    on the plan of :func:`tile_plan`; counts the launches whose seam merge
-    keeps its union-find in a global plane in
-    ``chaos_count_sums_strips.seam_plane_launches``."""
+    on the plan of :func:`tile_plan`, counted in
+    ``chaos_count_sums_strips.launches`` (``strips``, the strips route) or
+    ``chaos_count_sums.tiled_launches``; the launches whose seam merge keeps
+    its union-find in a global plane also in
+    ``chaos_count_sums_strips.seam_plane_launches``.  (N,) f64 exact
+    counts."""
     from ..kernels import _build
 
     n = principal.shape[0]
@@ -284,16 +399,17 @@ def _launch_tiles(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
         ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     if nlevels > lib.sm_chaos_tiles_max_levels():
-        raise ValueError(
+        raise _build.KernelError(
             f"row-tile chaos kernel takes at most "
-            f"{lib.sm_chaos_tiles_max_levels()} levels, got {nlevels}")
+            f"{lib.sm_chaos_tiles_max_levels()} levels a launch, got "
+            f"{nlevels}")
     if n * plan.tiles >= 2**31:
         raise ValueError(f"row-tile chaos kernel: {n} images of "
                          f"{plan.tiles} tiles past its grid limits")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid = max(1, min(n, sms))
     nodes = plan.seam_nodes
-    out = torch.empty(n, dtype=torch.float32, device=dev)
+    out = torch.empty(n, dtype=torch.float64, device=dev)
     seam_m = torch.empty(n * nodes, dtype=torch.uint8, device=dev)
     rec = torch.empty(n * nodes, dtype=torch.int32, device=dev)
     tile_sum = torch.empty(n * plan.tiles, dtype=torch.int32, device=dev)
@@ -307,6 +423,10 @@ def _launch_tiles(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
                     ncols, nlevels, plan.rows, int(plan.seam_in_smem), grid,
                     stream),
                  "row-tile chaos kernel launch")
+    if strips:
+        chaos_count_sums_strips.launches += 1
+    else:
+        chaos_count_sums.tiled_launches += 1
     if not plan.seam_in_smem:
         chaos_count_sums_strips.seam_plane_launches += 1
     return out
@@ -321,8 +441,10 @@ def chaos_count_sums(principal: torch.Tensor, nrows: int, ncols: int,
     :func:`packed_variant`: ``csrc/chaos.cu``'s shared-memory kernel
     (counted in ``chaos_count_sums.launches``) or the row-tile kernel
     (``chaos_count_sums.tiled_launches``), or
-    :func:`chaos_count_sums_strips`; anything else raises."""
-    route = _check_route(nrows, ncols)
+    :func:`chaos_count_sums_strips`; on the "scan" route the row-tile kernel
+    when one row fits a tile, else :func:`chaos_count_sums_scan`; any other
+    device raises."""
+    route = chaos_route(nrows, ncols)
     if principal.device.type == "cpu":
         return chaos_count_sums_torch(principal, nrows, ncols, nlevels)
     if principal.device.type != "cuda":
@@ -330,13 +452,13 @@ def chaos_count_sums(principal: torch.Tensor, nrows: int, ncols: int,
             f"chaos_count_sums: unsupported device {principal.device}")
     if route == "strips":
         return chaos_count_sums_strips(principal, nrows, ncols, nlevels)
+    if route == "scan" and scan_variant(nrows, ncols, nlevels) == "scan":
+        return chaos_count_sums_scan(principal, nrows, ncols, nlevels)
     thr = _kernel_thresholds(principal, nrows, ncols, nlevels,
                              "chaos_count_sums")
-    if packed_variant(nrows * ncols) == "smem":
-        return _launch_smem(principal, thr, nrows, ncols, nlevels)
-    out = _launch_tiles(principal, thr, nrows, ncols, nlevels)
-    chaos_count_sums.tiled_launches += 1
-    return out
+    launch = (_launch_smem if route == "packed"
+              and packed_variant(nrows * ncols) == "smem" else _launch_tiles)
+    return _over_level_ranges(launch, principal, thr, nrows, ncols, nlevels)
 
 
 def chaos_count_sums_strips(principal: torch.Tensor, nrows: int, ncols: int,
@@ -353,12 +475,12 @@ def chaos_count_sums_strips(principal: torch.Tensor, nrows: int, ncols: int,
             f"chaos_count_sums_strips: unsupported device {principal.device}")
     thr = _kernel_thresholds(principal, nrows, ncols, nlevels,
                              "chaos_count_sums_strips")
-    out = _launch_tiles(principal, thr, nrows, ncols, nlevels)
-    chaos_count_sums_strips.launches += 1
-    return out
+    return _over_level_ranges(functools.partial(_launch_tiles, strips=True),
+                              principal, thr, nrows, ncols, nlevels)
 
 
 chaos_count_sums.launches = 0
 chaos_count_sums.tiled_launches = 0
 chaos_count_sums_strips.launches = 0
 chaos_count_sums_strips.seam_plane_launches = 0
+chaos_count_sums_scan.launches = 0

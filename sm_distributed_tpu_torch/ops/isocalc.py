@@ -5,23 +5,44 @@ structure, gaussian blur at instrument resolution (``isocalc_sigma``,
 ``isocalc_pts_per_mz``), centroid detection and the top ``n_peaks``
 centroids per (formula, adduct), intensities normalized to max 100.  The
 per-pattern math (``fine_structure``, ``centroids``) is a copy and gives the
-same bits.  ``IsocalcWrapper`` keeps an in-memory cache and, for long
-work-lists, a spawn process pool; the JAX package's on-disk shard cache,
-pattern stream and device blur stage are not part of this port.
+same bits.
+
+Generation runs as the JAX package's ``PatternStream``: the missing
+(formula, adduct) work-list is cut into deterministic chunks, fanned out
+over a spawn process pool (inline for short lists, with a rebuild-then-
+inline retry ladder), and every completed chunk commits one CRC32-checked
+cache shard ``theor_peaks_<key>_<job>_c<ci>.npz`` under ``cache_dir`` and
+fills its rows of the table.  The parameter key and the shard format are
+the JAX package's, so a cache written by either package is read by the
+other.  Corrupt shards are skipped and unlinked; shards compact into one
+base file past 64.
+
+Not in the port yet: the device blur stage (``parallel.isocalc_device``,
+ROADMAP queue 1 item 8), and the service's disk-budget gate on cache
+writes and its generation metrics (item 9).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 import threading
+import time
+import zipfile
+import zlib
 from dataclasses import dataclass
 from functools import lru_cache
+from pathlib import Path
 
 import numpy as np
 
 from . import elements
 from .formula import FormulaError, apply_adduct, parse_formula
+from ..utils import tracing
 from ..utils.config import IsotopeGenerationConfig
+from ..utils.failpoints import failpoint, record_recovery, register_failpoint
+from ..utils.logger import logger
 
 # fine-structure pruning: drop states below this relative abundance
 _PRUNE_ABUNDANCE = 1e-10
@@ -269,33 +290,519 @@ class IsotopePatternTable:
         return self.mzs.shape[1]
 
 
+FP_ISO_WORKER = register_failpoint(
+    "isocalc.worker",
+    "per-chunk isotope-pattern compute (pool-worker crash / chunk retry)")
+FP_ISO_SHARD_SAVE = register_failpoint(
+    "isocalc.shard_save",
+    "between an isocalc cache shard's tmp savez and its os.replace")
+FP_ISO_SHARD_LOAD = register_failpoint(
+    "isocalc.shard_load",
+    "per isocalc cache shard read at wrapper init (I/O error path)")
+
 # pairs below this count are computed inline (pool startup isn't worth it)
 _PARALLEL_THRESHOLD = 256
-# (formula, adduct) pairs per pool task
-_CHUNK = 512
+# (formula, adduct) pairs per work chunk == per incremental cache shard;
+# serial and pooled generation use the same chunking, so shard boundaries
+# are identical.  SM_ISOCALC_CHUNK overrides.
+_DEFAULT_CHUNK = 2048
+# pool rebuild attempts after a worker crash before falling back to inline
+_POOL_ATTEMPTS = 2
 
 
-def _compute_chunk(args) -> list[tuple[np.ndarray, np.ndarray]]:
-    """Patterns of one chunk of pre-validated (sf, adduct) pairs (module
-    level so spawned pool workers can import it)."""
-    pairs, (charge, sigma, pts_per_mz, n_peaks) = args
-    return [centroids(apply_adduct(parse_formula(sf), adduct), charge, sigma,
-                      pts_per_mz, n_peaks)
-            for sf, adduct in pairs]
+def _chunk_size(configured: int = 0) -> int:
+    if configured > 0:
+        return configured
+    return max(1, int(os.environ.get("SM_ISOCALC_CHUNK", _DEFAULT_CHUNK)))
+
+
+def _pool_init(failpoint_spec: str | None) -> None:
+    """Spawned-worker initializer: arm the parent's programmatic failpoint
+    spec (env-var specs arrive via inheritance at import instead)."""
+    if failpoint_spec:
+        from ..utils import failpoints
+
+        failpoints.configure(failpoint_spec)
+
+
+def _compute_chunk(args):
+    """Compute one chunk of pre-validated (sf, adduct) pairs, in a spawned
+    pool worker or inline.  Returns ``(ci, outputs, trace_records)``, each
+    output ``(ion, mzs, ints)``; with a wire trace context the chunk's span
+    is captured (the worker has no sinks) and returned for the parent
+    process to emit."""
+    ci, pairs, params, wire = args
+    ctx = tracing.TraceContext.from_wire(wire)
+    if ctx is None:
+        return ci, _compute_chunk_body(pairs, params), []
+    with tracing.capture() as records:
+        with tracing.span("isocalc_chunk", ctx=ctx, ci=ci,
+                          n_pairs=len(pairs), worker_pid=os.getpid()):
+            out = _compute_chunk_body(pairs, params)
+    return ci, out, records
+
+
+def _compute_chunk_body(pairs, params):
+    failpoint(FP_ISO_WORKER)
+    charge, sigma, pts_per_mz, n_peaks = params
+    out = []
+    for sf, adduct in pairs:
+        counts = apply_adduct(parse_formula(sf), adduct)
+        mzs, ints = centroids(counts, charge, sigma, pts_per_mz, n_peaks)
+        out.append((f"{sf}{adduct}", mzs, ints))
+    return out
+
+
+class PatternStream:
+    """A running isotope-pattern generation (the JAX package's class).
+
+    The table's rows are fixed up front (duplicates dropped, first
+    occurrence kept; invalid chemistry dropped, as in the reference); cached
+    patterns fill their rows at once, and a generator thread generates the
+    missing ones chunk by chunk, committing each chunk's cache shard and
+    rows in chunk order (out-of-order pool completions wait), so the shard
+    sequence is the same in serial and pooled runs and a crash leaves a
+    clean prefix.  ``ready_rows`` is the filled prefix of the table.
+    """
+
+    def __init__(self, wrapper: "IsocalcWrapper",
+                 pairs: list[tuple[str, str]],
+                 flags: list[bool] | None):
+        self.wrapper = wrapper
+        if flags is None:
+            flags = [True] * len(pairs)
+        seen: set[tuple[str, str]] = set()
+        self.sfs: list[str] = []
+        self.adducts: list[str] = []
+        targets: list[bool] = []
+        for (sf, adduct), flag in zip(pairs, flags):
+            key = (sf, adduct)
+            if key in seen:
+                continue
+            seen.add(key)
+            try:
+                apply_adduct(parse_formula(sf), adduct)
+            except FormulaError:
+                continue
+            self.sfs.append(sf)
+            self.adducts.append(adduct)
+            targets.append(flag)
+        self.targets = np.array(targets, dtype=bool)
+        n = len(self.sfs)
+        k = wrapper.cfg.n_peaks
+        self.mzs = np.zeros((n, k))
+        self.ints = np.zeros((n, k))
+        self.n_valid = np.zeros(n, dtype=np.int32)
+        self._row_done = np.zeros(n, dtype=bool)
+        self._ready_rows = 0
+        self._cond = threading.Condition()
+        self._error: BaseException | None = None
+        self._cancel = threading.Event()
+        self.gen_seconds = 0.0
+        self.workers = 1
+        self.patterns_per_s = 0.0
+        self.cold_patterns = 0
+
+        self._row_of = {f"{sf}{ad}": i
+                        for i, (sf, ad) in enumerate(zip(self.sfs,
+                                                         self.adducts))}
+        missing: list[tuple[str, str]] = []
+        with wrapper._lock:
+            for sf, ad in zip(self.sfs, self.adducts):
+                hit = wrapper._cache.get(f"{sf}{ad}")
+                if hit is None:
+                    missing.append((sf, ad))
+                else:
+                    self._fill_row_locked(self._row_of[f"{sf}{ad}"], *hit)
+        self._advance_prefix_locked()
+        chunk = _chunk_size(wrapper.chunk_size)
+        self._chunks = [missing[s: s + chunk]
+                        for s in range(0, len(missing), chunk)]
+        self.n_missing = len(missing)
+        # deterministic job tag: chunk shards of the same missing set (a
+        # rerun after a crash) land on the same file names
+        self._job_tag = hashlib.sha256(
+            "\x00".join(f"{sf}{ad}" for sf, ad in missing).encode()
+        ).hexdigest()[:8]
+        # thread hop: the caller's trace context goes along
+        self._trace = tracing.current()
+        self._thread = threading.Thread(
+            target=self._run, name="isocalc-stream", daemon=True)
+        self._thread.start()
+
+    # -- consumer side -------------------------------------------------------
+
+    @property
+    def n_ions(self) -> int:
+        return len(self.sfs)
+
+    def ready_rows(self) -> int:
+        with self._cond:
+            return self._ready_rows
+
+    def wait_rows(self, n: int, timeout: float | None = None) -> int:
+        """Block until the first ``n`` table rows have patterns (or the
+        stream errors — re-raised here)."""
+        n = min(n, self.n_ions)
+        with self._cond:
+            self._cond.wait_for(
+                lambda: self._ready_rows >= n or self._error is not None,
+                timeout)
+            if self._error is not None:
+                raise self._error
+            return self._ready_rows
+
+    def table_view(self) -> "IsotopePatternTable":
+        """The final table over the stream's shared row arrays: valid up to
+        ``ready_rows()`` while generation runs, complete once it is done."""
+        return IsotopePatternTable(
+            sfs=self.sfs, adducts=self.adducts,
+            mzs=self.mzs, ints=self.ints,
+            n_valid=self.n_valid, targets=self.targets,
+        )
+
+    def result_table(self) -> "IsotopePatternTable":
+        """Block until generation completes; return the packed table."""
+        self._thread.join()
+        with self._cond:
+            if self._error is not None:
+                raise self._error
+        return self.table_view()
+
+    def cancel(self) -> None:
+        """Abort generation: stop submitting chunks, drop pending work,
+        join the generator thread."""
+        self._cancel.set()
+        self._thread.join()
+
+    # -- generation side -----------------------------------------------------
+
+    def _fill_row_locked(self, row: int, mzs: np.ndarray,
+                         ints: np.ndarray) -> None:
+        k = min(mzs.size, self.mzs.shape[1])
+        self.mzs[row, :k] = mzs[:k]
+        self.ints[row, :k] = ints[:k]
+        self.n_valid[row] = k
+        self._row_done[row] = True
+
+    def _advance_prefix_locked(self) -> None:
+        r = self._ready_rows
+        while r < self.n_ions and self._row_done[r]:
+            r += 1
+        self._ready_rows = r
+
+    def _run(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            if self._chunks:
+                with tracing.attach(self._trace), \
+                        tracing.span("isocalc_gen", missing=self.n_missing,
+                                     chunks=len(self._chunks)):
+                    self._generate()
+            with self.wrapper._lock:
+                self.wrapper._maybe_compact()
+        except BaseException as exc:  # noqa: BLE001 — consumer re-raises
+            with self._cond:
+                self._error = exc
+                self._cond.notify_all()
+            return
+        self.gen_seconds = time.perf_counter() - t0
+        if self.cold_patterns:
+            self.patterns_per_s = self.cold_patterns / max(
+                self.gen_seconds, 1e-9)
+        self.wrapper.last_stats = dict(
+            cold_patterns=self.cold_patterns,
+            seconds=round(self.gen_seconds, 3),
+            patterns_per_s=round(self.patterns_per_s, 2),
+            workers=self.workers,
+        )
+        with self._cond:
+            self._cond.notify_all()
+
+    def _deliver(self, ci: int, outputs: list, records: list | None) -> None:
+        """Commit one completed chunk: its cache shard, its table rows, the
+        prefix; emit the worker's captured trace spans."""
+        tracing.emit_records(records, tracing.current())
+        entries = {ion: (mzs, ints) for ion, mzs, ints in outputs}
+        self.wrapper._commit_chunk_shard(self._job_tag, ci, entries)
+        with self._cond:
+            for ion, (mzs, ints) in entries.items():
+                self._fill_row_locked(self._row_of[ion], mzs, ints)
+            self._advance_prefix_locked()
+            self._cond.notify_all()
+        self.cold_patterns += len(entries)
+        now = time.perf_counter()
+        if now - self._t_last_log >= 5.0 or ci == len(self._chunks) - 1:
+            rate = self.cold_patterns / max(now - self._t_gen0, 1e-9)
+            logger.info(
+                "isocalc: %d/%d patterns (%.1f patterns/s, %d workers)",
+                self.cold_patterns, self.n_missing, rate, self.workers)
+            self._t_last_log = now
+
+    def _generate(self) -> None:
+        self._t_gen0 = self._t_last_log = time.perf_counter()
+        wrapper = self.wrapper
+        n_procs = wrapper.n_procs or int(os.environ.get(
+            "SM_ISOCALC_PROCS", os.cpu_count() or 1))
+        params = wrapper._params()
+        use_pool = self.n_missing >= _PARALLEL_THRESHOLD and n_procs > 1
+        self.workers = n_procs if use_pool else 1
+        buffered: dict[int, tuple] = {}
+        next_ci = 0
+        ctx = tracing.current()
+        wire = ctx.to_wire() if ctx is not None else None
+
+        def commit_ready() -> None:
+            nonlocal next_ci
+            while next_ci in buffered:
+                outputs, records = buffered.pop(next_ci)
+                self._deliver(next_ci, outputs, records)
+                next_ci += 1
+
+        if not use_pool:
+            for ci, chunk in enumerate(self._chunks):
+                if self._cancel.is_set():
+                    return
+                _ci, outputs, records = _compute_chunk(
+                    (ci, chunk, params, wire))
+                buffered[ci] = (outputs, records)
+                commit_ready()
+            return
+
+        from concurrent.futures import ProcessPoolExecutor, as_completed
+        from concurrent.futures.process import BrokenProcessPool
+        from multiprocessing import get_context
+
+        from ..utils import failpoints
+
+        remaining = set(range(len(self._chunks)))
+        spec = failpoints.active_spec()
+        # spawn, not fork: the caller may hold CUDA state and threads
+        for attempt in range(_POOL_ATTEMPTS):
+            if not remaining or self._cancel.is_set():
+                break
+            ex = ProcessPoolExecutor(
+                max_workers=min(n_procs, len(remaining)),
+                mp_context=get_context("spawn"),
+                initializer=_pool_init, initargs=(spec,))
+            try:
+                futs = {ex.submit(_compute_chunk,
+                                  (ci, self._chunks[ci], params, wire)): ci
+                        for ci in sorted(remaining)}
+                for fut in as_completed(futs):
+                    ci = futs[fut]
+                    if self._cancel.is_set():
+                        return
+                    try:
+                        _ci, outputs, records = fut.result()
+                    except BrokenProcessPool:
+                        # a worker died: every pending future is poisoned —
+                        # rebuild the pool for what is left
+                        record_recovery("isocalc.pool_broken")
+                        logger.warning(
+                            "isocalc pool broken with %d chunks left "
+                            "(attempt %d); rebuilding",
+                            len(remaining), attempt + 1)
+                        break
+                    except Exception:
+                        record_recovery("isocalc.worker_retry")
+                        logger.warning("isocalc chunk %d failed in a worker; "
+                                       "will retry", ci, exc_info=True)
+                        continue
+                    remaining.discard(ci)
+                    buffered[ci] = (outputs, records)
+                    commit_ready()
+            finally:
+                ex.shutdown(wait=False, cancel_futures=True)
+        # inline fallback for what the pool did not finish
+        for ci in sorted(remaining):
+            if self._cancel.is_set():
+                return
+            record_recovery("isocalc.chunk_inline")
+            _ci, outputs, records = _compute_chunk(
+                (ci, self._chunks[ci], params, wire))
+            buffered[ci] = (outputs, records)
+            commit_ready()
 
 
 class IsocalcWrapper:
     """Same responsibility and knobs as the reference class of the same name.
 
-    ``n_procs`` caps the spawn process pool used for work-lists of at least
-    256 missing patterns (None = all cores); smaller lists compute inline.
-    Patterns are cached in memory per wrapper."""
+    ``cache_dir`` (optional) persists computed patterns per parameter set in
+    CRC32-checked shards, so only (formula, adduct) pairs missing from the
+    cache are computed; ``n_procs`` caps the spawn pool (None = all cores;
+    env ``SM_ISOCALC_PROCS``), ``chunk_size`` the pairs a chunk and shard
+    (0 = 2048; env ``SM_ISOCALC_CHUNK``).  Without ``cache_dir`` patterns
+    live in this wrapper's memory only."""
 
-    def __init__(self, cfg: IsotopeGenerationConfig, n_procs: int | None = None):
+    _COMPACT_SHARDS = 64
+
+    def __init__(self, cfg: IsotopeGenerationConfig,
+                 cache_dir: str | Path | None = None,
+                 n_procs: int | None = None, chunk_size: int = 0):
         self.cfg = cfg
+        self.cache_dir = Path(cache_dir) if cache_dir else None
         self.n_procs = n_procs
-        self._lock = threading.Lock()
+        self.chunk_size = chunk_size
+        self._lock = threading.RLock()
         self._cache: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        self._dirty: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        # stats of the last generation (workers, patterns/s)
+        self.last_stats: dict = {}
+        if self.cache_dir is not None:
+            self.cache_dir.mkdir(parents=True, exist_ok=True)
+            self._sweep_stale_tmps()
+            for path in self._shard_paths():
+                # a concurrent compactor may unlink a shard between the glob
+                # and the load; a crashed writer may leave a corrupt one
+                try:
+                    failpoint(FP_ISO_SHARD_LOAD, path=path)
+                    self._cache.update(self._load_shard(path))
+                except (zipfile.BadZipFile, ValueError, KeyError) as e:
+                    # corrupt: recompute, and unlink the file
+                    record_recovery("isocalc.corrupt_shard")
+                    logger.warning(
+                        "removing corrupt isocalc shard %s: %s", path, e)
+                    path.unlink(missing_ok=True)
+                except OSError as e:
+                    # possibly transient: skip but keep the file
+                    record_recovery("isocalc.unreadable_shard")
+                    logger.warning(
+                        "skipping unreadable isocalc shard %s: %s", path, e)
+
+    def _sweep_stale_tmps(self, max_age_s: float = 3600.0) -> None:
+        """Remove orphaned tmp files a crashed writer left behind (age-gated
+        so a live concurrent writer's tmp survives)."""
+        now = time.time()
+        for p in self.cache_dir.glob("tmp_*.npz"):
+            try:
+                if now - p.stat().st_mtime > max_age_s:
+                    p.unlink(missing_ok=True)
+            except OSError:
+                continue
+
+    @staticmethod
+    def _load_shard(path) -> dict:
+        """{ion: (mzs, ints)} from one cache shard: stacked arrays and a
+        CRC32 of the payload; shards without the crc member, and the legacy
+        per-ion-member layout, still read."""
+        out: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        with np.load(path, allow_pickle=False) as z:
+            if "ions" in z.files:
+                ions, lens = z["ions"], z["lens"]
+                mzs, ints = z["mzs"], z["ints"]
+                if "crc" in z.files and int(z["crc"]) != _entries_crc(
+                        lens, mzs, ints):
+                    raise ValueError("isocalc shard checksum mismatch")
+                for i, ion in enumerate(ions):
+                    ln = int(lens[i])
+                    out[str(ion)] = (mzs[i, :ln].copy(), ints[i, :ln].copy())
+            else:
+                for k in z.files:
+                    if k.endswith("/mzs"):
+                        ion = k[: -len("/mzs")]
+                        out[ion] = (z[k], z[ion + "/ints"])
+        return out
+
+    def _param_key(self) -> str:
+        """The JAX package's key of the host-computed patterns' parameters
+        (its device-blur patterns live under another key)."""
+        c = self.cfg
+        blob = json.dumps(
+            [c.charge, c.isocalc_sigma, c.isocalc_pts_per_mz, c.n_peaks],
+            sort_keys=True)
+        return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+    def _shard_paths(self) -> list[Path]:
+        return sorted(self.cache_dir.glob(
+            f"theor_peaks_{self._param_key()}*.npz"))
+
+    @staticmethod
+    def _stack_entries(entries: dict) -> dict[str, np.ndarray]:
+        """Pack {ion: (mzs, ints)} into stacked arrays + a CRC32 of the
+        payload."""
+        ions = list(entries)
+        width = max((entries[i][0].size for i in ions), default=1)
+        n = len(ions)
+        lens = np.zeros(n, dtype=np.int32)
+        mzs = np.zeros((n, width), dtype=np.float64)
+        ints = np.zeros((n, width), dtype=np.float64)
+        for i, ion in enumerate(ions):
+            m, t = entries[ion]
+            lens[i] = m.size
+            mzs[i, : m.size] = m
+            ints[i, : t.size] = t
+        return {"ions": np.array(ions), "lens": lens, "mzs": mzs, "ints": ints,
+                "crc": np.int64(_entries_crc(lens, mzs, ints))}
+
+    def _write_shard(self, shard: Path, entries: dict) -> None:
+        """tmp savez -> failpoint seam -> atomic rename.  tmp names take a
+        "tmp_" prefix so the constructor's "theor_peaks_*" glob never sees
+        a half-written file."""
+        import uuid
+
+        tmp = self.cache_dir / f"tmp_{uuid.uuid4().hex[:8]}.npz"
+        np.savez(tmp, **self._stack_entries(entries))
+        failpoint(FP_ISO_SHARD_SAVE, path=tmp)
+        os.replace(tmp, shard)
+
+    def _commit_chunk_shard(self, job_tag: str, ci: int,
+                            entries: dict) -> None:
+        """Commit one chunk's patterns: memory + one incremental shard with
+        a deterministic name."""
+        with self._lock:
+            self._cache.update(entries)
+        if self.cache_dir is None or not entries:
+            return
+        shard = self.cache_dir / (
+            f"theor_peaks_{self._param_key()}_{job_tag}_c{ci:05d}.npz")
+        with self._lock:
+            self._write_shard(shard, entries)
+
+    def _maybe_compact(self) -> None:
+        """Merge the shard files into one base file past the threshold
+        (caller holds the lock); from the files, so shards another process
+        wrote since this wrapper loaded are kept."""
+        import uuid
+
+        if self.cache_dir is None:
+            return
+        shards = self._shard_paths()
+        if len(shards) <= self._COMPACT_SHARDS:
+            return
+        merged: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        for path in shards:
+            try:
+                merged.update(self._load_shard(path))
+            except Exception as exc:
+                logger.debug("isocalc compact: skipping shard %s (%s)",
+                             path.name, exc)
+                continue
+        merged.update(self._cache)
+        base = self.cache_dir / f"theor_peaks_{self._param_key()}.npz"
+        tmp = self.cache_dir / f"tmp_{uuid.uuid4().hex[:8]}.npz"
+        np.savez(tmp, **self._stack_entries(merged))
+        # replace base before unlinking shards: a kill in between loses no
+        # entries
+        os.replace(tmp, base)
+        for s in shards:
+            if s != base:
+                s.unlink(missing_ok=True)
+
+    def save_cache(self) -> None:
+        """Persist entries from single-ion ``isotope_peaks`` calls as one
+        incremental shard.  Table generation commits chunk shards
+        instead."""
+        import uuid
+
+        with self._lock:
+            if self.cache_dir is None or not self._dirty:
+                return
+            shard = self.cache_dir / (
+                f"theor_peaks_{self._param_key()}_{uuid.uuid4().hex[:8]}.npz")
+            self._write_shard(shard, self._dirty)
+            self._dirty = {}
+            self._maybe_compact()
 
     def _params(self) -> tuple:
         c = self.cfg
@@ -317,69 +824,27 @@ class IsocalcWrapper:
         peaks = centroids(counts, *self._params())
         with self._lock:
             self._cache[ion] = peaks
+            self._dirty[ion] = peaks
         return peaks
 
-    def _compute_missing(self, missing: list[tuple[str, str]]) -> None:
-        chunks = [missing[s:s + _CHUNK] for s in range(0, len(missing), _CHUNK)]
-        params = self._params()
-        n_procs = self.n_procs or os.cpu_count() or 1
-        if len(missing) >= _PARALLEL_THRESHOLD and n_procs > 1:
-            from concurrent.futures import ProcessPoolExecutor
-            from multiprocessing import get_context
+    def stream_table(self, sf_adduct_pairs: list[tuple[str, str]],
+                     target_flags: list[bool] | None = None
+                     ) -> PatternStream:
+        """Start generation; returns a running ``PatternStream`` at once."""
+        return PatternStream(self, list(sf_adduct_pairs), target_flags)
 
-            # spawn, not fork: the caller may hold CUDA state and threads
-            with ProcessPoolExecutor(max_workers=min(n_procs, len(chunks)),
-                                     mp_context=get_context("spawn")) as ex:
-                results = list(ex.map(_compute_chunk,
-                                      [(c, params) for c in chunks]))
-        else:
-            results = [_compute_chunk((c, params)) for c in chunks]
-        with self._lock:
-            for chunk, peaks in zip(chunks, results):
-                for (sf, ad), pk in zip(chunk, peaks):
-                    self._cache[f"{sf}{ad}"] = pk
+    def pattern_table(self, sf_adduct_pairs: list[tuple[str, str]],
+                      target_flags: list[bool] | None = None
+                      ) -> IsotopePatternTable:
+        """Compute or load the patterns of all pairs and pack them into
+        fixed-shape arrays (duplicates keep their first occurrence, invalid
+        chemistry is dropped, as in the reference).  Blocking form of
+        ``stream_table``."""
+        return self.stream_table(sf_adduct_pairs, target_flags).result_table()
 
-    def pattern_table(
-        self,
-        sf_adduct_pairs: list[tuple[str, str]],
-        target_flags: list[bool] | None = None,
-    ) -> IsotopePatternTable:
-        """Compute the patterns of all pairs and pack them into fixed-shape
-        arrays.  Duplicate pairs keep their first occurrence and
-        invalid-chemistry ions are dropped, as in the reference."""
-        pairs = list(sf_adduct_pairs)
-        flags = [True] * len(pairs) if target_flags is None else target_flags
-        seen: set[tuple[str, str]] = set()
-        sfs: list[str] = []
-        adducts: list[str] = []
-        targets: list[bool] = []
-        for (sf, adduct), flag in zip(pairs, flags):
-            if (sf, adduct) in seen:
-                continue
-            seen.add((sf, adduct))
-            try:
-                apply_adduct(parse_formula(sf), adduct)
-            except FormulaError:
-                continue
-            sfs.append(sf)
-            adducts.append(adduct)
-            targets.append(flag)
-        with self._lock:
-            missing = [(sf, ad) for sf, ad in zip(sfs, adducts)
-                       if f"{sf}{ad}" not in self._cache]
-        if missing:
-            self._compute_missing(missing)
-        n, k = len(sfs), self.cfg.n_peaks
-        mzs = np.zeros((n, k))
-        ints = np.zeros((n, k))
-        n_valid = np.zeros(n, dtype=np.int32)
-        with self._lock:
-            for row, (sf, ad) in enumerate(zip(sfs, adducts)):
-                pk_mzs, pk_ints = self._cache[f"{sf}{ad}"]
-                m = min(pk_mzs.size, k)
-                mzs[row, :m] = pk_mzs[:m]
-                ints[row, :m] = pk_ints[:m]
-                n_valid[row] = m
-        return IsotopePatternTable(sfs=sfs, adducts=adducts, mzs=mzs,
-                                   ints=ints, n_valid=n_valid,
-                                   targets=np.array(targets, dtype=bool))
+
+def _entries_crc(lens: np.ndarray, mzs: np.ndarray, ints: np.ndarray) -> int:
+    """CRC32 over the stacked payload (shard integrity check)."""
+    crc = zlib.crc32(np.ascontiguousarray(lens).tobytes())
+    crc = zlib.crc32(np.ascontiguousarray(mzs).tobytes(), crc)
+    return zlib.crc32(np.ascontiguousarray(ints).tobytes(), crc)

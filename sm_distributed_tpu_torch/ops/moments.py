@@ -16,6 +16,10 @@ per ion the principal row's max and positive count.
   each CTA a contiguous pixel slice of all K rows, held in its shared
   memory when the ion's block fits the cluster ("resident") and read from
   global memory on both passes when it does not ("streaming").
+- :func:`moments_groups` splits ions of more than ``K_MAX`` rows into the
+  row groups the kernels take, one launch each: every output of row r
+  depends only on rows r and 0 (the centred dot pairs each row with row 0;
+  max and positive count are row 0's), so each group carries row 0.
 
 ``n_real`` (shape-bucket lattice): when the trailing pixels are zero rows
 added by ``ops/buckets.row_bucket``, the mean divides by the real pixel
@@ -124,28 +128,50 @@ def moments_plan(n: int, k: int, p: int) -> MomentsPlan:
                        moments_smem_bytes(k, n_slice, True))
 
 
+def moments_groups(k: int) -> list[tuple[int, int]]:
+    """The launches over an ion's ``k`` rows, as ``(first, width)``: a
+    launch takes ``width`` <= K_MAX rows, row 0 and rows ``first`` ..
+    ``first + width - 2``.  One launch ``(1, k)`` up to K_MAX rows; past it,
+    ``(1, K_MAX)`` and then groups of row 0 and up to K_MAX - 1 more rows,
+    so every row but row 0 is in exactly one group."""
+    if k <= 0:
+        raise ValueError(f"moments_groups: no groups for k={k}")
+    groups = [(1, min(k, K_MAX))]
+    row = K_MAX
+    while row < k:
+        width = 1 + min(K_MAX - 1, k - row)
+        groups.append((row, width))
+        row += width - 1
+    return groups
+
+
 def _launch(images: torch.Tensor, n_real: int | None) -> torch.Tensor:
     from ..kernels import _build
 
     n, k, p = images.shape
     lib = _build.load("moments")
     fn = lib.sm_moments
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10 + [
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    k_max = lib.sm_moments_k_max()
-    if k > k_max:
-        raise ValueError(f"moments kernel takes K <= {k_max} peaks, got {k}")
-    plan = moments_plan(n, k, p)
+    if lib.sm_moments_k_max() != K_MAX:
+        raise _build.KernelError(f"moments kernel takes K <= "
+                                 f"{lib.sm_moments_k_max()}, plan K_MAX={K_MAX}")
     out = torch.empty((n, k, 5), dtype=torch.float32, device=images.device)
     vec = int(p % 4 == 0 and images.data_ptr() % 16 == 0)
     masked = n_real is not None
     stream = torch.cuda.current_stream(images.device).cuda_stream
-    _build.check(fn(images.data_ptr(), out.data_ptr(), n, k, p,
-                    int(n_real) if masked else p, int(masked), vec,
-                    plan.cluster, plan.slice_len,
-                    int(plan.regime == "resident"), plan.smem_bytes, stream),
-                 f"moments kernel launch ({plan})")
+    groups = moments_groups(k)
+    for first, width in groups:
+        plan = moments_plan(n, width, p)
+        _build.check(fn(images.data_ptr(), out.data_ptr(), n, width, k, first,
+                        p, int(n_real) if masked else p, int(masked), vec,
+                        plan.cluster, plan.slice_len,
+                        int(plan.regime == "resident"), plan.smem_bytes,
+                        stream),
+                     f"moments kernel launch (rows {first}+{width - 1}, "
+                     f"{plan})")
+        batch_moments.launches += 1
     return out
 
 
@@ -153,8 +179,10 @@ def batch_moments(images: torch.Tensor, n_real: int | None = None
                   ) -> _Moments:
     """Moments of an (N, K, P) f32 image block.  CPU: the plain version.
     CUDA: the ``csrc/moments.cu`` kernel, one cluster per ion as
-    :func:`moments_plan` says (counted in ``batch_moments.launches``);
-    anything else raises, a cluster the device cannot schedule included."""
+    :func:`moments_plan` says, one launch per row group of
+    :func:`moments_groups` (one group up to K_MAX rows; each launch counted
+    in ``batch_moments.launches``); anything else raises, a cluster the
+    device cannot schedule included."""
     if images.device.type == "cpu":
         return batch_moments_torch(images, n_real)
     if images.device.type != "cuda":
@@ -168,7 +196,6 @@ def batch_moments(images: torch.Tensor, n_real: int | None = None
     if n_real is not None and not 0 < int(n_real) <= p:
         raise ValueError(f"n_real={n_real} outside (0, {p}]")
     out = _launch(images, n_real)
-    batch_moments.launches += 1
     return (out[:, :, 0], out[:, :, 1], out[:, :, 2], out[:, 0, 3],
             out[:, 0, 4])
 

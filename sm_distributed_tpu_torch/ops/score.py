@@ -18,8 +18,10 @@ then ``ops/moments``) is never written.
 - :func:`fused_window_moments` is the wrapper.  A CPU tensor goes to the
   plain version; a CUDA tensor goes to the hand-written kernel
   ``csrc/fused_moments.cu``, one thread-block cluster per ion planned by
-  ``ops/moments.moments_plan`` (counted in
-  ``fused_window_moments.launches``), or the call raises.
+  ``ops/moments.moments_plan``, one launch per row group of
+  ``ops/moments.moments_groups`` (one group up to ``K_MAX`` windows an ion;
+  each launch counted in ``fused_window_moments.launches``), or the call
+  raises.
 - :func:`fused_window_moments_torch` is the plain version: the plain
   chain's ``banded_images`` and ``batch_moments_torch``, rearranged into the
   partials and the principal rows.
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from .imager import banded_images
-from .moments import batch_moments_torch, moments_plan
+from .moments import K_MAX, batch_moments_torch, moments_groups, moments_plan
 
 
 def _moment_partials(x: torch.Tensor, n_real: int) -> torch.Tensor:
@@ -73,6 +75,9 @@ def fused_window_moments_torch(whp: torch.Tensor, starts, r_lo_loc:
 def _launch(whp: torch.Tensor, starts: torch.Tensor, r_lo_loc: torch.Tensor,
             r_hi_loc: torch.Tensor, n_real: int, gc_width: int, k: int
             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch per row group of ``ops/moments.moments_groups`` (window 0
+    and up to K_MAX - 1 more windows an ion; one group up to K_MAX), each
+    counted in ``fused_window_moments.launches``."""
     from ..kernels import _build
 
     cols, p = whp.shape
@@ -81,25 +86,30 @@ def _launch(whp: torch.Tensor, starts: torch.Tensor, r_lo_loc: torch.Tensor,
     lib = _build.load("fused_moments")
     fn = lib.sm_fused_moments
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + [
-        ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    k_max = lib.sm_fused_moments_k_max()
-    if k > k_max:
-        raise ValueError(f"fused kernel takes K <= {k_max} peaks, got {k}")
-    plan = moments_plan(n_chunks * (wc // k), k, p)
+    if lib.sm_fused_moments_k_max() != K_MAX:
+        raise _build.KernelError(f"fused kernel takes K <= "
+                                 f"{lib.sm_fused_moments_k_max()}, plan "
+                                 f"K_MAX={K_MAX}")
     partials = torch.empty((n_chunks, wc, 5), dtype=torch.float32, device=dev)
     principal = torch.empty((n_chunks, wc // k, p), dtype=torch.float32,
                             device=dev)
     vec = int(p % 4 == 0 and whp.stride(0) % 4 == 0
               and whp.data_ptr() % 16 == 0 and principal.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(fn(whp.data_ptr(), whp.stride(0), cols, starts.data_ptr(),
-                    r_lo_loc.data_ptr(), r_hi_loc.data_ptr(),
-                    partials.data_ptr(), principal.data_ptr(), n_chunks, wc,
-                    k, p, int(n_real), gc_width, plan.cluster, plan.slice_len,
-                    int(plan.regime == "resident"), plan.smem_bytes, vec,
-                    stream),
-                 f"fused window-moments kernel launch ({plan})")
+    for first, width in moments_groups(k):
+        plan = moments_plan(n_chunks * (wc // k), width, p)
+        _build.check(fn(whp.data_ptr(), whp.stride(0), cols, starts.data_ptr(),
+                        r_lo_loc.data_ptr(), r_hi_loc.data_ptr(),
+                        partials.data_ptr(), principal.data_ptr(), n_chunks,
+                        wc, width, k, first, p, int(n_real), gc_width,
+                        plan.cluster, plan.slice_len,
+                        int(plan.regime == "resident"), plan.smem_bytes, vec,
+                        stream),
+                     f"fused window-moments kernel launch (windows "
+                     f"{first}+{width - 1}, {plan})")
+        fused_window_moments.launches += 1
     return partials, principal
 
 
@@ -139,10 +149,8 @@ def fused_window_moments(whp: torch.Tensor, starts, r_lo_loc: torch.Tensor,
     if starts_d.shape != (n_chunks,):
         raise ValueError(f"fused_window_moments: {tuple(starts_d.shape)} "
                          f"starts for {n_chunks} chunks")
-    out = _launch(whp, starts_d, r_lo_loc, r_hi_loc, int(n_real), gc_width,
-                  k)
-    fused_window_moments.launches += 1
-    return out
+    return _launch(whp, starts_d, r_lo_loc, r_hi_loc, int(n_real), gc_width,
+                   k)
 
 
 fused_window_moments.launches = 0

@@ -1,33 +1,73 @@
-"""Configuration of the PyTorch port: the knobs its main path reads.
+"""Configuration of the PyTorch port.
 
-A port of ``sm_distributed_tpu/utils/config.py`` cut to this slice: the
-per-dataset ``DSConfig`` (database, isotope_generation, image_generation)
-with the same keys and defaults, and an ``SMConfig`` with ``backend``,
-``device``, ``fdr`` and the ``parallel`` knobs the scoring paths read.
-``from_dict`` rejects unknown keys, as the JAX package does.
+A port of ``sm_distributed_tpu/utils/config.py``: the per-dataset
+``DSConfig`` (database, isotope_generation, image_generation) with the same
+keys and defaults, and the engine's ``SMConfig`` with ``backend``,
+``device``, ``fdr``, the ``parallel`` knobs the scoring and isotope-pattern
+paths read, ``storage``, ``tracing``, ``logs``, ``work_dir``, ``logs_dir``
+and ``failpoints``, and the process-global instance of ``set_path`` /
+``get_conf``.  ``from_dict`` rejects unknown keys, as the JAX package does.
 
-A value this slice cannot honour raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.  ``"auto"`` for ``peak_compaction`` and
-``band_slice`` resolves to the plain variant, which the JAX package declares
-bit-exact against both (``models/msm_jax.py`` NUMERICS), so results do not
-change.
+A block or value the port does not have yet raises ``NotImplementedError``
+naming the ROADMAP item that brings it, rather than being dropped: the
+``service``, ``telemetry`` and ``resources`` blocks and the tracing
+retention knobs (item 9), a nonzero ``parallel.checkpoint_every`` (item 2),
+``parallel.isocalc_device="on"`` (item 8), the JAX package's mesh and
+multi-host knobs (item 7), its compile cache and dataset residency (item 9),
+and the values listed on each dataclass.  ``"auto"`` for
+``peak_compaction`` and ``band_slice`` resolves to the plain variant, which
+the JAX package declares bit-exact against both (``models/msm_jax.py``
+NUMERICS), so results do not change.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import tempfile
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any
+from typing import Any, ClassVar
 
 VALID_BACKENDS = ("torch_cuda",)
 
 
+# blocks and knobs of the JAX package's config the port does not have yet:
+# (dataclass, key) -> (ROADMAP item, the JAX package's default, which is
+# accepted); None as the default: any value raises
+_NOT_YET = {
+    ("SMConfig", "service"): ("queue 1 item 9", None),
+    ("SMConfig", "telemetry"): ("queue 1 item 9", None),
+    ("SMConfig", "resources"): ("queue 1 item 9", None),
+    ("TracingConfig", "retention_age_s"): ("queue 1 item 9", 0.0),
+    ("TracingConfig", "retention_max_bytes"): ("queue 1 item 9", 0),
+    ("ParallelConfig", "compile_cache_dir"): ("queue 1 item 9", ""),
+    ("ParallelConfig", "resident_datasets"): ("queue 1 item 9", 2),
+    ("ParallelConfig", "pixels_axis"): ("queue 1 item 7", -1),
+    ("ParallelConfig", "formulas_axis"): ("queue 1 item 7", 1),
+    ("ParallelConfig", "coordinator_address"): ("queue 1 item 7", ""),
+    ("ParallelConfig", "num_processes"): ("queue 1 item 7", 1),
+    ("ParallelConfig", "process_id"): ("queue 1 item 7", -1),
+    ("ParallelConfig", "init_retries"): ("queue 1 item 7", 5),
+    ("ParallelConfig", "init_backoff_s"): ("queue 1 item 7", 1.0),
+}
+
+
 def _from_dict(cls, d: dict[str, Any]):
     """Build a dataclass from a dict, recursing into dataclass fields and
-    rejecting unknown keys.  Keys starting with "__" are comments."""
+    rejecting unknown keys.  Keys starting with "__" are comments.  A key of
+    the JAX package's config the port does not have yet raises
+    ``NotImplementedError`` unless it holds the JAX package's default."""
     d = {k: v for k, v in d.items() if not k.startswith("__")}
+    for key in list(d):
+        entry = _NOT_YET.get((cls.__name__, key))
+        if entry is None:
+            continue
+        item, default = entry
+        if default is not None and d[key] == default:
+            del d[key]
+            continue
+        raise _not_in_slice(f"{cls.__name__} {key!r}", item)
     names = {f.name for f in dataclasses.fields(cls)}
     unknown = set(d) - names
     if unknown:
@@ -78,7 +118,7 @@ class ImageGenerationConfig:
             raise ValueError("image_generation: ppm/nlevels/q out of range")
         if self.do_preprocessing:
             raise _not_in_slice("image_generation.do_preprocessing=true "
-                                "(hot-spot clipping)", "queue 1 item 7")
+                                "(hot-spot clipping)", "queue 1 item 3")
 
 
 @dataclass(frozen=True)
@@ -115,11 +155,14 @@ class FDRConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The ``parallel`` knobs the scoring paths read (same names and
-    defaults as the JAX package).  ``mz_chunk > 0`` takes the m/z-chunked
-    cube path; ``fused_metrics="on"`` takes the fused window-moments kernel
-    on the flat path, while ``"auto"`` and ``"off"`` keep the plain
-    chain."""
+    """The ``parallel`` knobs the scoring and isotope-pattern paths read
+    (same names and defaults as the JAX package).  ``mz_chunk > 0`` takes
+    the m/z-chunked cube path; ``fused_metrics="on"`` takes the fused
+    window-moments kernel on the flat path, while ``"auto"`` and ``"off"``
+    keep the plain chain.  ``isocalc_workers`` (0 = all cores) and
+    ``isocalc_chunk`` (0 = the default chunk of 2048 pairs) size the
+    isotope-pattern pool and its cache shards; ``overlap_isocalc`` starts
+    pattern generation before the input is staged (``SearchJob``)."""
     formula_batch: int = 2048
     mz_chunk: int = 0
     peak_compaction: str = "auto"
@@ -128,8 +171,11 @@ class ParallelConfig:
     shape_buckets: str = "auto"
     cube_dtype: str = "f32"
     fused_metrics: str = "auto"
-    # isotope-pattern process pool: 0 = all cores
+    checkpoint_every: int = 0
     isocalc_workers: int = 0
+    isocalc_chunk: int = 0
+    isocalc_device: str = "off"
+    overlap_isocalc: str = "auto"
 
     def __post_init__(self):
         for knob, valid in (("order_ions", ("auto", "mz", "table")),
@@ -137,14 +183,18 @@ class ParallelConfig:
                             ("peak_compaction", ("auto", "on", "off")),
                             ("shape_buckets", ("auto", "on", "off")),
                             ("cube_dtype", ("f32", "bf16", "int8")),
-                            ("fused_metrics", ("auto", "on", "off"))):
+                            ("fused_metrics", ("auto", "on", "off")),
+                            ("isocalc_device", ("on", "off")),
+                            ("overlap_isocalc", ("auto", "on", "off"))):
             v = getattr(self, knob)
             if v not in valid:
                 raise ValueError(
                     f"parallel.{knob} must be one of {valid}, got {v!r}")
-        if self.formula_batch <= 0 or self.isocalc_workers < 0:
+        if self.formula_batch <= 0 or self.isocalc_workers < 0 \
+                or self.isocalc_chunk < 0 or self.checkpoint_every < 0:
             raise ValueError("parallel: formula_batch must be positive and "
-                             "isocalc_workers >= 0")
+                             "isocalc_workers, isocalc_chunk and "
+                             "checkpoint_every >= 0")
         if self.cube_dtype != "f32":
             raise _not_in_slice(f"parallel.cube_dtype={self.cube_dtype!r} "
                                 "(resident-cube compaction)", "queue 1 item 6")
@@ -153,22 +203,98 @@ class ParallelConfig:
                                 "queue 1 item 5")
         if self.band_slice == "on":
             raise _not_in_slice("parallel.band_slice='on'", "queue 1 item 5")
+        if self.checkpoint_every:
+            raise _not_in_slice(
+                f"parallel.checkpoint_every={self.checkpoint_every} "
+                "(search checkpoints)", "queue 1 item 2")
+        if self.isocalc_device == "on":
+            raise _not_in_slice("parallel.isocalc_device='on' (device "
+                                "isotope-pattern blur)", "queue 1 item 8")
+
+
+@dataclass(frozen=True)
+class StorageConfig:
+    """Where results land: parquet files, the sqlite ledger and index, and
+    the ion images (``npz``, sparse, or ``png``), under ``results_dir``."""
+    results_dir: str = "results"
+    store_images: bool = True
+    image_format: str = "npz"
+
+    def __post_init__(self):
+        if self.image_format not in ("npz", "png"):
+            raise ValueError("storage.image_format must be 'npz' or 'png', "
+                             f"got {self.image_format!r}")
+
+
+@dataclass(frozen=True)
+class TracingConfig:
+    """Job tracing (``utils/tracing.py``): per-job JSONL span logs under
+    ``dir`` ("" = ``<work_dir>/traces``) and the flight recorder's size."""
+    enabled: bool = True
+    dir: str = ""
+    ring_size: int = 2048
+
+    def __post_init__(self):
+        if self.ring_size <= 0:
+            raise ValueError("tracing.ring_size must be positive")
+
+
+@dataclass(frozen=True)
+class LogsConfig:
+    """``json: true`` logs one JSON object a line with the trace ids
+    (``utils/logger.py::JsonLogFormatter``)."""
+    json: bool = False
 
 
 @dataclass(frozen=True)
 class SMConfig:
     """Engine config of the port.  ``device`` defaults to the card: asking
     for ``cuda`` on a machine without one raises, nothing falls back to the
-    CPU.  Tests pass ``device="cpu"``."""
+    CPU.  Tests pass ``device="cpu"``.  ``work_dir`` defaults to
+    ``sm_tpu_work`` in the temporary directory, as the JAX package's
+    ``/tmp/sm_tpu_work``."""
     backend: str = "torch_cuda"
     device: str = "cuda"
     fdr: FDRConfig = field(default_factory=FDRConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    storage: StorageConfig = field(default_factory=StorageConfig)
+    tracing: TracingConfig = field(default_factory=TracingConfig)
+    logs: LogsConfig = field(default_factory=LogsConfig)
+    work_dir: str = field(default_factory=lambda: str(
+        Path(tempfile.gettempdir()) / "sm_tpu_work"))
+    logs_dir: str = ""
+    failpoints: str = ""
 
     def __post_init__(self):
         if self.backend not in VALID_BACKENDS:
             raise ValueError(
                 f"backend must be one of {VALID_BACKENDS}, got {self.backend!r}")
+
+    @property
+    def trace_dir(self) -> str:
+        """Resolved per-job trace-file directory (tracing.dir wins)."""
+        return self.tracing.dir or str(Path(self.work_dir) / "traces")
+
+    _instance: ClassVar["SMConfig | None"] = None
+
+    @staticmethod
+    def set_path(path: str | Path) -> "SMConfig":
+        """Load ``path`` as the process-global config."""
+        SMConfig._instance = _from_dict(SMConfig,
+                                        json.loads(Path(path).read_text()))
+        return SMConfig._instance
+
+    @staticmethod
+    def set(conf: "SMConfig") -> "SMConfig":
+        SMConfig._instance = conf
+        return conf
+
+    @staticmethod
+    def get_conf() -> "SMConfig":
+        """The process-global config (defaults until one is set)."""
+        if SMConfig._instance is None:
+            SMConfig._instance = SMConfig()
+        return SMConfig._instance
 
     @staticmethod
     def from_dict(d: dict[str, Any]) -> "SMConfig":
@@ -181,4 +307,7 @@ _DATACLASS_FIELDS = {
     ("DSConfig", "image_generation"): ImageGenerationConfig,
     ("SMConfig", "fdr"): FDRConfig,
     ("SMConfig", "parallel"): ParallelConfig,
+    ("SMConfig", "storage"): StorageConfig,
+    ("SMConfig", "tracing"): TracingConfig,
+    ("SMConfig", "logs"): LogsConfig,
 }

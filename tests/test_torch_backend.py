@@ -162,3 +162,64 @@ def test_matches_numpy_backend(fixtures, name):
     pd.testing.assert_frame_equal(_ranks(tt, got, fdr, assignment),
                                   _ranks(table, want, fdr, assignment))
     assert (got[:, 3] > 0).any()
+
+
+@pytest.fixture(scope="module")
+def ten_peaks(tmp_path_factory):
+    """The off-lattice fixture with ``n_peaks=10``: the JAX dataset, the ion
+    table, FDR, and the numpy oracle's and the JAX backend's metrics (built
+    once for both of the port's paths)."""
+    from sm_distributed_tpu.models.msm_basic import NumpyBackend
+    from sm_distributed_tpu.models.msm_jax import JaxBackend
+    from sm_distributed_tpu.ops.fdr import FDR
+    from sm_distributed_tpu.ops.isocalc import IsocalcWrapper
+    from sm_distributed_tpu.utils.config import (
+        DSConfig,
+        IsotopeGenerationConfig,
+        SMConfig,
+    )
+
+    path, truth = generate_synthetic_dataset(
+        tmp_path_factory.mktemp("ten_peaks"), **FIXTURES["offgrid9x11"])
+    jds = JDataset.from_imzml(path)
+    fdr = FDR(decoy_sample_size=5, target_adducts=ADDUCTS, seed=42)
+    assignment = fdr.decoy_adduct_selection(truth.formulas)
+    pairs, flags = assignment.all_ion_tuples(truth.formulas, ADDUCTS)
+    iso = {"adducts": list(ADDUCTS), "n_peaks": 10}
+    table = IsocalcWrapper(IsotopeGenerationConfig(**iso),
+                           n_procs=1).pattern_table(pairs, flags)
+    ds_dict = {"isotope_generation": iso}
+    oracle = _score(NumpyBackend(jds, DSConfig.from_dict(ds_dict)), table,
+                    512)
+    sm_dict = {"backend": "jax_tpu",
+               "parallel": {"formula_batch": 512,
+                            "compile_cache_dir": NO_XLA_CACHE}}
+    jb = JaxBackend(jds, DSConfig.from_dict(ds_dict),
+                    SMConfig.from_dict(sm_dict), restrict_table=table)
+    want = _score(jb, table, jb.batch)
+    return jds, table, fdr, assignment, ds_dict, oracle, want
+
+
+@pytest.mark.parametrize("fused", ["off", "on"])
+def test_matches_jax_backend_with_ten_peaks(ten_peaks, fused):
+    """``isotope_generation.n_peaks=10``: ions of more than the kernels'
+    8 rows, which the card scores in row groups (``ops/moments``
+    ``moments_groups``).  The port's backend (plain chain and fused path)
+    against the JAX backend and the numpy oracle on the same table: chaos
+    bit-equal, the other metrics within the contracts, FDR ranks
+    identical."""
+    jds, table, fdr, assignment, ds_dict, oracle, want = ten_peaks
+    assert table.max_peaks == 10 and table.n_valid.max() > 8
+    tb, tt = _torch(jds, table, {"parallel": {"formula_batch": 512,
+                                              "fused_metrics": fused}},
+                    ds_dict)
+    got = _score(tb, tt, tb.batch)
+    np.testing.assert_array_equal(got[:, 0], oracle[:, 0])
+    for col, comp in enumerate(CONTRACT):
+        to_oracle = ulp_distance(got[:, col], oracle[:, col])
+        assert to_oracle.max() <= CONTRACT[comp], comp
+        jax_to_oracle = ulp_distance(want[:, col], oracle[:, col])
+        assert (ulp_distance(got[:, col], want[:, col])
+                <= CONTRACT[comp] + jax_to_oracle).all(), comp
+    pd.testing.assert_frame_equal(_ranks(tt, got, fdr, assignment),
+                                  _ranks(table, want, fdr, assignment))

@@ -30,14 +30,18 @@ from sm_distributed_tpu.ops.chaos_pallas import (
 from sm_distributed_tpu.ops.chaos_pallas import chaos_route as jroute
 from sm_distributed_tpu.ops.metrics_jax import measure_of_chaos_batch as jchaos
 from sm_distributed_tpu_torch.ops.chaos import (
+    MAX_KERNEL_LEVELS,
     SMEM_MAX_PIXELS,
     chaos_count_sums,
+    chaos_count_sums_scan,
     chaos_count_sums_strips,
     chaos_count_sums_torch,
     chaos_route,
     chaos_smem_bytes,
     chaos_thresholds,
+    level_ranges,
     packed_variant,
+    scan_variant,
     seam_smem_bytes,
     tile_plan,
 )
@@ -176,9 +180,161 @@ def test_plain_matches_strip_kernel_interpret(name):
 
 
 def test_scan_shapes_raise():
+    """Shapes on the JAX package's "scan" route (no Pallas kernel fits them)
+    no longer raise: on the CPU the wrapper returns the plain version's
+    counts, equal to scipy, for any shape."""
     assert jroute(2, 100000) == chaos_route(2, 100000) == "scan"
-    with pytest.raises(NotImplementedError, match="scan"):
-        chaos_count_sums(torch.zeros((1, 2 * 100000)), 2, 100000, 4)
+    rng = np.random.default_rng(100000)
+    imgs = np.where(rng.random((1, 2 * 100000)) < 0.5,
+                    rng.random((1, 2 * 100000)), 0).astype(np.float32)
+    got = chaos_count_sums(torch.from_numpy(imgs), 2, 100000, 4)
+    assert got[0] == _scipy_count_sum(imgs[0].reshape(2, 100000), 4)
+
+
+@pytest.mark.parametrize("shape,route,variant", [
+    ((64, 16384), "scan", "tiles"),     # rows of 16,384: 4-row tiles
+    ((8, 36864), "packed", "tiles"),    # one-row tiles on the packed route
+    ((2, 70000), "scan", "scan"),       # a row wider than any tile
+    ((1, 100000), "scan", "scan"),
+    ((256, 256), "packed", "smem"),
+    ((512, 512), "packed", "tiles"),
+    ((1024, 1024), "strips", "tiles"),
+    ((9, 11), "packed", "smem"),
+])
+def test_route_chosen_for_each_shape(shape, route, variant):
+    """The route (the JAX package's rule) and the port's kernel on the card:
+    the shared-memory kernel, the row-tile kernel (packed images past 65,536
+    pixels, the strips route, and scan shapes whose rows fit a tile), or the
+    scan route's torch ops for rows wider than a tile."""
+    r, c = shape
+    assert chaos_route(r, c) == jroute(r, c) == route
+    if route == "packed" and packed_variant(r * c) == "smem":
+        got = "smem"
+    elif route == "scan":
+        got = scan_variant(r, c, 30)
+    else:
+        tile_plan(r, c, 30)
+        got = "tiles"
+    assert got == variant
+    if route == "scan" and variant == "tiles":
+        assert tile_plan(r, c, 30).rows == 65536 // c
+
+
+def _jax_scan_count_sums(imgs, nrows, ncols, nlevels):
+    """(N,) f32 sums over levels of the JAX package's scan-route component
+    counts (``metrics_jax._cc_count``) on the chaos thresholds."""
+    import jax
+    import jax.numpy as jnp
+
+    from sm_distributed_tpu.ops.metrics_jax import _cc_count
+
+    count = jax.jit(jax.vmap(lambda m: _cc_count(m, nrows, ncols)))
+    img = jnp.maximum(jnp.asarray(imgs), 0.0)
+    vmax = img.max(axis=1)
+    total = np.zeros(imgs.shape[0], np.int64)
+    for li in range(nlevels):
+        frac = np.float32(li) / np.float32(nlevels)
+        total += np.asarray(count(img > (vmax * frac)[:, None]))
+    return total.astype(np.float32)
+
+
+def test_scan_shape_counts_match_scipy():
+    """A 64x16384 random mask at 3 levels (the ROADMAP's probe shape):
+    the wrapper on the CPU and the scan route's torch ops equal scipy and
+    the JAX package's scan route (``_cc_count``) bit for bit."""
+    rng = np.random.default_rng(64)
+    imgs = np.where(rng.random((1, 64 * 16384)) < 0.45,
+                    rng.random((1, 64 * 16384)), 0).astype(np.float32)
+    want = _scipy_count_sum(imgs[0].reshape(64, 16384), 3)
+    assert _jax_scan_count_sums(imgs, 64, 16384, 3)[0] == want
+    x = torch.from_numpy(imgs)
+    assert chaos_count_sums(x, 64, 16384, 3)[0] == want
+    before = chaos_count_sums_scan.launches
+    assert chaos_count_sums_scan(x, 64, 16384, 3)[0] == want
+    assert chaos_count_sums_scan.launches == before + 1
+
+
+def test_roadmap_probe_input_no_longer_raises():
+    """``chaos_count_sums(torch.rand(1, 64*16384), 64, 16384, 3)``, the
+    ROADMAP's probe, returns scipy's count."""
+    torch.manual_seed(0)
+    x = torch.rand(1, 64 * 16384)
+    got = chaos_count_sums(x, 64, 16384, 3)
+    assert got[0] == _scipy_count_sum(x.numpy()[0].reshape(64, 16384), 3)
+
+
+@pytest.mark.parametrize("name", ["random9x11", "serpentine", "wide3x200"])
+def test_scan_route_matches_plain_and_jax_scan(name, monkeypatch):
+    """The scan route's torch ops equal the plain version and the JAX
+    package's scan route (``_cc_count`` summed over the same thresholds) bit
+    for bit, and the chaos score over them equals the JAX scan-route score
+    (``measure_of_chaos_batch(use_pallas=False)``)."""
+    (r, c), imgs, nlevels = {
+        "random9x11": ((9, 11), _random((9, 11), 4), 7),
+        "serpentine": ((16, 16), _serpentine().reshape(1, -1), 3),
+        "wide3x200": ((3, 200), _random((3, 200), 5, n=2), 5),
+    }[name]
+    x = torch.from_numpy(imgs)
+    got = chaos_count_sums_scan(x, r, c, nlevels).numpy()
+    np.testing.assert_array_equal(
+        got, chaos_count_sums_torch(x, r, c, nlevels).numpy())
+    np.testing.assert_array_equal(got, _jax_scan_count_sums(imgs, r, c,
+                                                            nlevels))
+    clamped = np.maximum(imgs, 0)
+    vmax = clamped.max(axis=1)
+    nn = (clamped > 0).sum(axis=1).astype(np.float32)
+    want = np.asarray(jchaos(imgs, r, c, nlevels, use_pallas=False,
+                             vmax=vmax, n_notnull=nn))
+    from sm_distributed_tpu_torch.ops import metrics as port_metrics
+
+    monkeypatch.setattr(port_metrics, "chaos_count_sums",
+                        chaos_count_sums_scan)
+    score = measure_of_chaos_batch(x, r, c, nlevels, torch.from_numpy(vmax),
+                                   torch.from_numpy(nn))
+    np.testing.assert_array_equal(score.numpy(), want)
+
+
+# ------------------------------------------------- more levels than a launch
+@pytest.mark.parametrize("nlevels,want", [
+    (1, [(0, 1)]), (255, [(0, 255)]), (256, [(0, 255), (255, 256)]),
+    (300, [(0, 255), (255, 300)]),
+    (511, [(0, 255), (255, 510), (510, 511)])])
+def test_level_ranges(nlevels, want):
+    assert level_ranges(nlevels) == want
+    assert MAX_KERNEL_LEVELS == 255
+
+
+def _model_over_ranges(model, imgs, nlevels, **kw):
+    """The wrapper's split: the kernel's model over each level range's
+    slice of the image's thresholds, the shares added."""
+    img = np.maximum(imgs.astype(np.float32), 0.0)
+    thr = chaos_thresholds(torch.from_numpy(img.max(axis=1)), nlevels).numpy()
+    total = np.zeros(imgs.shape[0], np.float64)
+    for a, b in level_ranges(nlevels):
+        total += model(imgs, b - a, np.ascontiguousarray(thr[:, a:b]), **kw)
+    return total.astype(np.float32)
+
+
+@pytest.mark.parametrize("nlevels", [256, 300, 511])
+def test_level_range_split_matches_plain(nlevels):
+    """More than 255 levels: the shared-memory kernel's model and the
+    row-tile kernel's model, each launched over consecutive ranges of at
+    most 255 thresholds, add up to the plain version's and scipy's
+    counts."""
+    imgs = np.concatenate([_random((9, 11), 7, n=3),
+                           _ramp(_serpentine(9, 11), 40, 8)])
+    plain = chaos_count_sums_torch(torch.from_numpy(imgs), 9, 11,
+                                   nlevels).numpy()
+    smem = _model_over_ranges(
+        lambda im, n, thr: _model_smem_kernel(im, 9, 11, n, thr=thr)[0],
+        imgs, nlevels)
+    np.testing.assert_array_equal(smem, plain)
+    tiles = _model_over_ranges(
+        lambda im, n, thr: _model_tiles(im, 9, 11, n, 3, thr=thr),
+        imgs, nlevels)
+    np.testing.assert_array_equal(tiles, plain)
+    sc = [_scipy_count_sum(im.reshape(9, 11), nlevels) for im in imgs]
+    np.testing.assert_array_equal(plain, np.asarray(sc, np.float32))
 
 
 # ------------------------------------------- the shared-memory packed kernel
@@ -245,7 +401,7 @@ def _model_union(par, a, b):
     return int(_model_link(par, a, b) is not None)
 
 
-def _model_smem_kernel(imgs, nrows, ncols, nlevels):
+def _model_smem_kernel(imgs, nrows, ncols, nlevels, thr=None):
     """A sequential model of ``csrc/chaos.cu::chaos_smem_kernel`` on (N, P)
     f32 images: per image, the level counts by binary search over the
     thresholds, the padded level plane (rows of round_up(ncols + 1, 4)
@@ -253,12 +409,15 @@ def _model_smem_kernel(imgs, nrows, ncols, nlevels):
     labels set for m > 0, then levels e = top .. 1, each linking the right
     and down edges whose byte-wise minimum is e by the kernel's union, and
     the count identity sum(m) - sum over joins of e.  Returns the (N,)
-    f32 sums and each image's final label plane."""
+    f32 sums and each image's final label plane.  ``thr``: the (N,
+    nlevels) thresholds the kernel is handed (default: the image's own)."""
     p_count = nrows * ncols
-    assert p_count <= SMEM_MAX_PIXELS
+    assert p_count <= SMEM_MAX_PIXELS and nlevels <= MAX_KERNEL_LEVELS
     img = np.maximum(imgs.astype(np.float32), 0.0)
-    vmax = torch.from_numpy(img.max(axis=1))
-    thr = chaos_thresholds(vmax, nlevels).numpy()
+    if thr is None:
+        vmax = torch.from_numpy(img.max(axis=1))
+        thr = chaos_thresholds(vmax, nlevels).numpy()
+    assert thr.shape == (img.shape[0], nlevels)
     row = (ncols + 4) & ~3
     words = nrows * row
     sums, planes = [], []
@@ -388,12 +547,16 @@ def _model_tile(m, rng):
     return acc, seam_m, rec
 
 
-def _model_tiles(imgs, nrows, ncols, nlevels, rows, seed=None):
+def _model_tiles(imgs, nrows, ncols, nlevels, rows, seed=None, thr=None):
     """The (N,) f32 sums of the row-tile kernel and the seam merge on (N, P)
-    f32 images cut into tiles of ``rows`` rows."""
+    f32 images cut into tiles of ``rows`` rows, with the (N, nlevels)
+    thresholds ``thr`` the kernel is handed (default: the image's own)."""
     rng = None if seed is None else np.random.default_rng(seed)
     img = np.maximum(imgs.astype(np.float32), 0.0)
-    thr = chaos_thresholds(torch.from_numpy(img.max(axis=1)), nlevels).numpy()
+    assert nlevels <= MAX_KERNEL_LEVELS
+    if thr is None:
+        thr = chaos_thresholds(torch.from_numpy(img.max(axis=1)),
+                               nlevels).numpy()
     tiles = -(-nrows // rows)
     slots = 2 * ncols if rows > 1 else ncols
     nodes = tiles * slots

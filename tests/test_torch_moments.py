@@ -28,9 +28,12 @@ from sm_distributed_tpu.ops.moments_pallas import (
     batch_moments_pallas_masked,
 )
 from sm_distributed_tpu_torch.ops.moments import (
+    K_MAX,
     SMEM_PER_BLOCK,
     STATIC_SMEM_RESERVE,
+    batch_moments,
     batch_moments_torch,
+    moments_groups,
     moments_plan,
     moments_smem_bytes,
     slice_len,
@@ -277,3 +280,135 @@ def test_cluster_model_sums_do_not_depend_on_the_split(cluster):
     for i in (0, 3, 4):
         np.testing.assert_array_equal(got[..., i], one[..., i])
     assert ulp_distance(got[..., 1], one[..., 1]).max() <= ULP
+
+
+# ------------------------------------------------ ions of more than K_MAX rows
+@pytest.mark.parametrize("k,want", [
+    (4, [(1, 4)]), (8, [(1, 8)]), (9, [(1, 8), (8, 2)]),
+    (12, [(1, 8), (8, 5)]), (16, [(1, 8), (8, 8), (15, 2)])])
+def test_moments_groups(k, want):
+    """Every group carries row 0 and at most K_MAX rows; every other row is
+    in exactly one group."""
+    groups = moments_groups(k)
+    assert groups == want
+    seen = []
+    for first, width in groups:
+        assert 1 <= width <= K_MAX
+        seen += list(range(first, first + width - 1))
+    assert sorted(seen) == list(range(1, k))
+
+
+@pytest.mark.parametrize("k", [9, 12, 16])
+@pytest.mark.parametrize("n,p,regime", [(2048, 65536, "resident"),
+                                         (256, 1048576, "streaming")])
+def test_moments_plan_of_each_group(k, n, p, regime):
+    """At the main shape each group's plan is resident (the group's block
+    held once in its cluster), at the whole-slide shape streaming with the
+    largest cluster; the first group's plan is the K_MAX-row plan."""
+    groups = moments_groups(k)
+    assert moments_plan(n, groups[0][1], p) == moments_plan(n, K_MAX, p)
+    for first, width in groups:
+        plan = moments_plan(n, width, p)
+        assert plan.regime == regime
+        if regime == "resident":
+            assert plan.smem_bytes + STATIC_SMEM_RESERVE <= SMEM_PER_BLOCK
+            assert plan.smem_bytes >= 4 * width * plan.slice_len
+        else:
+            assert plan.cluster == 16
+
+
+def _model_grouped(img, n_real, cluster):
+    """The kernel's launches over ``moments_groups``: each group's model on
+    row 0 and the group's rows, its rows written back, row 0 from the first
+    group only."""
+    n, k, p = img.shape
+    out = np.zeros((n, k, 5), np.float32)
+    for first, width in moments_groups(k):
+        rows = [0] + list(range(first, first + width - 1))
+        part = _model_cluster_moments(np.ascontiguousarray(img[:, rows]),
+                                      n_real, cluster)
+        keep = slice(None) if first == 1 else slice(1, None)
+        out[:, np.array(rows)[keep]] = part[:, keep]
+    return out
+
+
+@pytest.mark.parametrize("k", [9, 12, 16])
+@pytest.mark.parametrize("n_real", [None, 700])
+def test_grouped_model_matches_plain_and_f64(k, n_real):
+    """The grouped launches' model is bit-equal to the plain version in
+    sums, max and counts on the integer grid, and its norms and dots sit
+    within ULP of the f64 reference, as one launch over all rows would."""
+    img = _block((5, k, 1024), 11 + k, n_real)
+    got = _model_grouped(img, n_real, 4)
+    cols = [got[..., 0], got[..., 1], got[..., 2], got[:, 0, 3],
+            got[:, 0, 4]]
+    plain = _port(img, n_real)
+    for i in (0, 3, 4):
+        np.testing.assert_array_equal(cols[i], plain[i])
+    _assert_within(cols, _f64(img, n_real), f"grouped K={k} vs f64")
+    # the first group's rows are exactly a K_MAX-row launch's
+    one = _model_cluster_moments(np.ascontiguousarray(img[:, :K_MAX]),
+                                 n_real, 4)
+    np.testing.assert_array_equal(got[:, :K_MAX], one)
+
+
+def test_wrapper_on_cpu_takes_any_k():
+    """On the CPU the wrapper is the plain version at any K, and counts no
+    launch."""
+    img = _block((3, 12, 300), 12)
+    before = batch_moments.launches
+    got = [t.numpy() for t in batch_moments(torch.from_numpy(img), 290)]
+    for a, b in zip(got, _port(img, 290)):
+        np.testing.assert_array_equal(a, b)
+    assert batch_moments.launches == before
+
+
+def _model_fused_grouped(whp, starts, r_lo, r_hi, n_real, gc_width, k):
+    """``csrc/fused_moments.cu``'s launches over ``moments_groups(k)``: in
+    each, ion i of chunk c reads its window 0 and windows first ..
+    first+width-2 at columns ``i * k + woff(r)`` of the rank bounds, and
+    writes their partials back there; a group with first > 1 writes neither
+    window 0's partials nor the principal row.  Each launch's per-ion work
+    is stood in by the plain version over those columns."""
+    from sm_distributed_tpu_torch.ops import score
+
+    n_chunks, wc = r_lo.shape
+    ipc = wc // k
+    partials = torch.full((n_chunks, wc, 5), float("nan"))
+    principal = torch.full((n_chunks, ipc, whp.shape[1]), float("nan"))
+    for first, width in moments_groups(k):
+        woff = [0] + list(range(first, first + width - 1))
+        cols = torch.tensor([i * k + w for i in range(ipc) for w in woff])
+        part, prin = score.fused_window_moments_torch(
+            whp, starts, r_lo[:, cols].contiguous(),
+            r_hi[:, cols].contiguous(), n_real, gc_width=gc_width, k=width)
+        owns0 = first == 1
+        for j, col in enumerate(cols.tolist()):
+            if j % width or owns0:
+                partials[:, col] = part[:, j]
+        if owns0:
+            principal.copy_(prin)
+    return partials, principal
+
+
+def test_fused_row_groups_match_plain():
+    """The fused kernel's row groups (window 0 carried by every group, its
+    partials and the principal rows written by the first): the model of
+    its launches over 12 windows an ion writes every partial and principal
+    row once, equal to the plain version over all 12 windows bit for bit."""
+    from sm_distributed_tpu_torch.ops import score
+
+    rng = np.random.default_rng(12)
+    k, ipc, n_chunks, p = 12, 3, 2, 40
+    whp = torch.from_numpy(rng.integers(0, 9, (30, p)).astype(np.float32))
+    starts = np.array([0, 7], np.int32)
+    r_lo = torch.from_numpy(
+        rng.integers(-1, 8, (n_chunks, ipc * k)).astype(np.int32))
+    r_hi = r_lo + torch.from_numpy(
+        rng.integers(0, 4, (n_chunks, ipc * k)).astype(np.int32))
+    assert moments_groups(k) == [(1, 8), (8, 5)]
+    got = _model_fused_grouped(whp, starts, r_lo, r_hi, 37, 12, k)
+    want = score.fused_window_moments_torch(whp, starts, r_lo, r_hi, 37,
+                                            gc_width=12, k=k)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
