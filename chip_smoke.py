@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives five paths (four of the library search and the job path),
+nvcc and drives seven paths (six of the library search and the job path),
 each with the kernel launch counts set to 0 just before it and read just
 after:
 
@@ -19,8 +19,10 @@ after:
   cross the tile seams, both chaos kernels at 300 levels (launched over
   level ranges of at most 255; a checkerboard whose range counts pass
   2**24), "scan" shapes (64x16384 on the row-tile
-  kernel, 2x70000 on the scan route's torch ops) and the moments kernel
-  at K = 12 (row groups);
+  kernel, 2x70000 on the scan route's torch ops), the moments kernel
+  at K = 12 (row groups) and hot-spot clipping of 64 ions against the
+  numpy oracle; phase 5 also reproduces the golden ``preprocessing``
+  section;
 - the job path (phase 3b): the README's Quickstart on the card — the main
   path's dataset written as an imzML/ibd pair and its formulas as a
   molecular-DB CSV, the port's CLI (``import-db``, ``run`` twice, with a
@@ -35,13 +37,24 @@ after:
 - the cube path at the main size (phase 7): the main path's dataset and
   ions with ``parallel.mz_chunk=512``, held ion by ion to the main path's
   results;
+- the preprocessed main path (phase 7b): the main path's dataset and ions
+  with ``image_generation.do_preprocessing``: its device peak, and batch
+  0's clipped block through the kernels against f64 and the plain chain;
 - the whole-slide path (phase 8): a 1024x1024 dataset on the m/z-chunked
   cube path (``parallel.mz_chunk=512``), whose chaos takes the row-tile
   kernel on the strips route, held against its plain version and scipy
   (also on a comb and a spiral across the tile seams, and on a 2048x2048
   image whose seam merge takes the global seam plane); its unmasked moments
   kernel and its metrics held against their plain versions and f64 on the
-  path's first batch.
+  path's first batch;
+- the ordered stream (phase 9): ``bench.py``'s ``scale`` case (256x256,
+  500 formulas +H with 20 decoys each: 10,500 ions in 6 batches, ordered
+  by m/z) at the shipped defaults, whose variant rule takes the band or
+  compact extraction, held bit-equal (FDR ranks identical) to the same
+  stream with both variants "off" and with compaction forced "on"; it
+  prints the variant counts, each batch's device ms by variant, the
+  histogram's host plan and device kernels (torch.profiler), the marginal
+  ns a slot the rule weighs, ions/s and the device peak.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -114,13 +127,26 @@ WS_NOISE_PEAKS = 200
 WS_FORMULAS = 12
 WS_PARALLEL = {"mz_chunk": 512, "formula_batch": 128}
 
+# the ordered stream (phase 9): bench.py's scale case as it stands — the
+# main path's 256x256 geometry with 500 formulas (60% present, seed 7), +H
+# only at 3 ppm, 20 decoys each: 10,500 ions in 6 batches of 2048, so the
+# shipped order_ions="auto" orders the ion table by m/z
+OS_FORMULAS = 500
+OS_DS = {"isotope_generation": {"adducts": ["+H"]},
+         "image_generation": {"ppm": 3.0}}
+OS_SM = {"fdr": {"decoy_sample_size": 20}}
+VARIANTS = ("plain", "band", "compact")
+
 # the golden fixture recipe of scripts/make_golden_report.py (GEN, SM, DS)
 GOLDEN_GEN = dict(nrows=32, ncols=32, formulas=None, present_fraction=0.6,
                   noise_peaks=200, mz_jitter_ppm=0.5, seed=7)
 GOLDEN_SM = {"fdr": {"decoy_sample_size": 20, "seed": 42},
              "parallel": {"formula_batch": 256}}
 GOLDEN_DS = {"image_generation": {"ppm": 3.0}}
-GOLDEN_SECTIONS = {"root": ("+H",), "multi_adduct": ("+H", "+Na", "+K")}
+# golden section -> (adducts, image_generation.do_preprocessing)
+GOLDEN_SECTIONS = {"root": (("+H",), False),
+                   "multi_adduct": (("+H", "+Na", "+K"), False),
+                   "preprocessing": (("+H",), True)}
 
 
 def say(msg: str) -> None:
@@ -467,8 +493,8 @@ def _check_chaos(images: torch.Tensor, nrows: int, ncols: int, nlevels: int,
         f"{', global seam plane' if plane else ''}"
         f"{f', {n_ranges} level ranges' if n_ranges > 1 else ''}): "
         f"{images.shape[0]} images "
-        f"{nrows}x{ncols}, {nlevels} levels, bit-equal to the plain version, "
-        f"first {n_scipy} equal to scipy {sc}")
+        f"{nrows}x{ncols}, {nlevels} levels, bit-equal to the plain version "
+        f"({plain_ms:.1f} ms), first {n_scipy} equal to scipy {sc}")
     return plain_ms
 
 
@@ -595,6 +621,30 @@ def _random_images(n: int, p: int, dev, gen) -> torch.Tensor:
     return torch.where(keep, vals, torch.zeros((), device=dev))
 
 
+def _check_hotspot(block: torch.Tensor) -> None:
+    """Hot-spot clipping (``ops/metrics.hotspot_clip_batch``, torch ops on
+    the card) of ``block``, at q = 99 and 50, bit-equal to the port's numpy
+    oracle image by image (``hotspot_clip``), its sort in ion groups."""
+    from sm_distributed_tpu_torch.ops.metrics import (
+        hotspot_clip,
+        hotspot_clip_batch,
+    )
+
+    host = block.cpu().numpy()
+    for q in (99.0, 50.0):
+        got = hotspot_clip_batch(block.clone(), q).cpu().numpy()
+        clip_ms = time_ms(lambda: hotspot_clip_batch(block.clone(), q),
+                          reps=3, warmup=1)
+        want = np.stack([[hotspot_clip(im, q) for im in ion] for ion in host])
+        assert want.dtype == np.float32
+        bad = int((got.view(np.uint32) != want.view(np.uint32)).sum())
+        assert bad == 0, f"hot-spot clip q={q}: {bad} pixels differ"
+        say(f"  hot-spot clip q={q:g}: {block.shape[0]} ions of the main "
+            f"block ({int((got < host).sum())} pixels clipped) bit-equal to "
+            f"the numpy oracle; {clip_ms:.3f} ms on the card with the "
+            "block's copy")
+
+
 def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
                   ab=None) -> list:
     """Kernels against their plain versions on the card, at the main path's
@@ -688,6 +738,8 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
         assert all(torch.equal(a, b) for i, (a, b) in
                    enumerate(zip(want, other)) if i in (0, 3, 4))
 
+    _check_hotspot(block[:64])
+
     # --- chaos (kernel 3, packed route): the shared-memory kernel up to
     # 65,536 pixels, the row-tile kernel of csrc/chaos_strips.cu above ---
     principal = block[:, 0, :]                 # the main path's strided view
@@ -697,7 +749,7 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
     _check_tile_layout((1, nlevels, 255))
     ch_plain_ms = _check_chaos(principal, side, side, nlevels,
                                "main-path principal", "smem")
-    _check_chaos(_random_images(256, side * side, dev, gen), side, side,
+    _check_chaos(_random_images(64, side * side, dev, gen), side, side,
                  nlevels, "random masks", "smem")
     edges = _edge_images(side, dev)
     _check_chaos(edges, side, side, nlevels, "edge images", "smem",
@@ -714,8 +766,8 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
     masks512 = _random_images(64, 512 * 512, dev, gen)
     g512_plain_ms = _check_chaos(masks512, 512, 512, nlevels, "random masks",
                                  "tiles")
-    up = principal[:64].reshape(64, side, side).repeat_interleave(
-        2, dim=1).repeat_interleave(2, dim=2).reshape(64, -1)
+    up = principal[:16].reshape(16, side, side).repeat_interleave(
+        2, dim=1).repeat_interleave(2, dim=2).reshape(16, -1)
     _check_chaos(up, 2 * side, 2 * side, nlevels, "principal upsampled 2x",
                  "tiles")
     _check_chaos(_random_images(8, 512 * 512, dev, gen), 512, 512, 255,
@@ -819,7 +871,8 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
         f"{MOMENT_ULPS} ulp of f64 and of the plain version beyond its own "
         "drift (sums/max/counts exact on the integer grid; K = 12 in row "
         "groups), both packed chaos kernels bit-equal to the plain version "
-        "and scipy (300 levels in level ranges; scan shapes)")
+        "and scipy (300 levels in level ranges; scan shapes), hot-spot "
+        "clipping bit-equal to the numpy oracle")
     return [
         {"name": "moments", "route": "cuda",
          "source": "sm_distributed_tpu_torch/csrc/moments.cu",
@@ -873,6 +926,7 @@ def phase_main_path(ds, truth, search) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    variants = dict(search.last_backend.variant_counts)
     peak = torch.cuda.max_memory_allocated()
     table = search.last_table
     n_batches = -(-table.n_ions // search.last_backend.batch)
@@ -882,8 +936,10 @@ def phase_main_path(ds, truth, search) -> dict:
         f"{search.last_backend.batch}; wall {wall:.3f} s; phases "
         + ", ".join(f"{k} {v:.3f} s" for k, v in tim.items())
         + f"; {table.n_ions / tim['score']:.1f} ions/s scored; peak device "
-        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}; variants "
+        f"{variants}")
     assert launches["moments"] > 0, "moments kernel never launched"
+    assert sum(variants.values()) == n_batches, variants
     assert launches["chaos"] == n_batches and launches["chaos_tiles"] == 0 \
         and launches["chaos_strips"] == 0, (
             f"chaos: the shared-memory kernel must run once a batch and the "
@@ -910,6 +966,7 @@ def phase_main_path(ds, truth, search) -> dict:
         "batch 0 ulp gaps (kernels-plain, kernels-f64, plain-f64) "
         f"{drift}")
     return {"launches": launches, "ions_per_s": table.n_ions / tim["score"],
+            "variant_counts": variants,
             "timings": tim, "peak_bytes": peak, "wall_s": wall,
             "n_ions": table.n_ions, "n_peaks": ds.n_peaks,
             "drift": drift, "recall": recall, "batch_ms": breakdown,
@@ -1249,10 +1306,12 @@ def phase_golden() -> None:
         path, truth = generate_synthetic_dataset(Path(td), **GOLDEN_GEN)
         ds = SpectralDataset.from_imzml(path)
     worst = 0.0
-    for key, adducts in GOLDEN_SECTIONS.items():
+    for key, (adducts, preprocessing) in GOLDEN_SECTIONS.items():
         section = golden if key == "root" else golden[key]
         ds_cfg = DSConfig.from_dict(
-            {**GOLDEN_DS, "isotope_generation": {"adducts": list(adducts)}})
+            {**GOLDEN_DS, "isotope_generation": {"adducts": list(adducts)},
+             "image_generation": {**GOLDEN_DS["image_generation"],
+                                  "do_preprocessing": preprocessing}})
         bundle = MSMBasicSearch(ds, truth.formulas, ds_cfg,
                                 SMConfig.from_dict(GOLDEN_SM)).search()
         got = {(r.sf, r.adduct): r for r in bundle.all_metrics.itertuples()}
@@ -1270,7 +1329,8 @@ def phase_golden() -> None:
         assert np.array_equal(ann.fdr.to_numpy(), [w["fdr"] for w in want])
         assert np.array_equal(ann.fdr_level.to_numpy(),
                               [w["fdr_level"] for w in want])
-    say(f"phase 5 golden: 32x32 spheroid root and multi_adduct match "
+    say(f"phase 5 golden: 32x32 spheroid root, multi_adduct and "
+        f"preprocessing (hot-spot clipping) match "
         f"golden_spheroid.json (annotation order and FDR arrays equal, "
         f"metrics within {worst:.2e} <= 1e-6)")
 
@@ -1565,6 +1625,88 @@ def phase_cube_main(ds, truth, search, ds_cfg, main: dict) -> dict:
             "launches": launches, "ulp_to_main": gaps}
 
 
+def phase_preprocessed(ds, truth, search, main: dict) -> dict:
+    """The main path's dataset and ions with hot-spot preprocessing
+    (``image_generation.do_preprocessing``), at the shipped defaults
+    otherwise: its device peak (the clip sorts the block in ion groups), and
+    batch 0's clipped block through the kernels against f64 (spatial,
+    spectral and msm within the contracts) and, on its first 256 ions, the
+    plain chain (chaos bit-equal).  The plain chain's own distance from f64
+    is reported, not
+    held: its f32 sums drift far on some clipped images (on an H100, up to
+    177 ulp in spatial and 253 in msm on the first batch, where the
+    kernels stay within 16 and 32 of f64).  There is
+    no other search to hold the rows to: the clip changes the metrics."""
+    from sm_distributed_tpu_torch.models.msm_basic import (
+        MSMBasicSearch,
+        _slice_table,
+    )
+    from sm_distributed_tpu_torch.ops.metrics import (
+        batch_metrics,
+        hotspot_clip_batch,
+    )
+    from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
+
+    t_start = time.perf_counter()
+    pre = MSMBasicSearch(ds, truth.formulas, DSConfig.from_dict(
+        {"image_generation": {"do_preprocessing": True}}),
+        SMConfig.from_dict({"fdr": {"decoy_sample_size": 20}}))
+    pre.isocalc = search.isocalc         # the main path's warm patterns
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    bundle = pre.search()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    table, backend = pre.last_table, pre.last_backend
+    variants = dict(backend.variant_counts)
+    n_batches = -(-table.n_ions // backend.batch)
+    tim = bundle.timings
+    say(f"  preprocessed main path: {table.n_ions} ions in {n_batches} "
+        f"batches; wall {wall:.3f} s; phases "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in tim.items())
+        + f"; {table.n_ions / tim['score']:.1f} ions/s scored; peak device "
+        f"memory {peak / 2**30:.2f} GiB (unclipped "
+        f"{main['peak_bytes'] / 2**30:.2f}); launches {launches}; variants "
+        f"{variants}")
+    assert launches["moments"] >= n_batches and \
+        launches["chaos"] == n_batches, launches
+    assert variants["fused"] == 0
+    rows = bundle.all_metrics[list(CONTRACT)].to_numpy()
+    t_b0 = _slice_table(table, 0, backend.batch)
+    assert np.array_equal(backend.score_batch(t_b0), rows[:t_b0.n_ions]), \
+        "re-scored preprocessed batch differs from the search's rows"
+    assert not np.array_equal(rows, main["bundle"].all_metrics[
+        list(CONTRACT)].to_numpy()), "the clip changed no metric"
+    imgs, theor, n_valid = backend.image_block(t_b0)
+    hotspot_clip_batch(imgs, backend.q)
+    to_f64, kern = _kernels_vs_f64(backend, imgs, theor, n_valid)
+    nrows, ncols = backend.grid
+    # the plain chaos version takes ~9 ms an image: 256 of the 2048
+    sub = slice(0, 256)
+    plain = batch_metrics(imgs[sub].clone(), theor[sub], n_valid[sub], nrows,
+                          ncols, backend.nlevels, n_real=backend.n_real,
+                          plain=True)
+    assert torch.equal(kern[sub, 0], plain[:, 0]), "chaos: kernels vs plain"
+    ref = _metrics_f64(imgs[sub], theor[sub], n_valid[sub], backend.n_real,
+                       kern[sub, 0])
+    plain_to_f64 = {comp: int(ulps(plain[:, col], ref[:, col]).max())
+                    for col, comp in list(enumerate(CONTRACT))[1:]}
+    del imgs, ref
+    say(f"phase 7b preprocessed main path: "
+        f"{time.perf_counter() - t_start:.1f} s; batch 0's clipped block: "
+        f"kernels' ulp gaps to f64 {to_f64}; first 256 ions: chaos "
+        f"bit-equal to the plain chain, whose ulp gaps to f64 are "
+        f"{plain_to_f64}")
+    return {"wall_s": wall, "timings": tim, "peak_bytes": peak,
+            "launches": launches, "ions_per_s": table.n_ions / tim["score"],
+            "variant_counts": variants,
+            "kernels_to_f64": to_f64, "plain_to_f64": plain_to_f64}
+
+
 def _kernels_vs_f64(backend, imgs, theor, n_valid) -> tuple[dict, torch.Tensor]:
     """One batch's metrics through the kernels against the f64 reference of
     the moments and epilogues (with the kernels' chaos, which is held to
@@ -1844,6 +1986,251 @@ def _check_chaos_strips(images: torch.Tensor, side: int, nlevels: int,
         f"version, first {n_scipy} equal to scipy {sc}")
 
 
+def _kernel_name(name: str) -> str:
+    """A device kernel's name without its return type, anonymous namespace,
+    template arguments and parameters."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", name, maxsplit=1)[0]
+
+
+def _device_kernels_ms(fn) -> dict:
+    """Device milliseconds of one call of ``fn`` by kernel name, from a
+    torch.profiler trace of the card (after a warm-up call); empty when the
+    trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if "CUDA" in str(e.device_type):
+            name = _kernel_name(e.name)
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _histograms(backend, table, plan) -> dict:
+    """The histogram step of one batch, by variant, as zero-argument calls:
+    the scratch's fixed cost alone (no peak slot), every resident slot
+    (plain), the band's slots (band) and the kept slots gathered then
+    scattered (compact), each with its slot count."""
+    from sm_distributed_tpu_torch.ops.imager import compact_peaks, flat_histogram
+
+    d = backend._device_plan(table, plan)
+    geo = dict(gc_width=d["gc_width"],
+               n_pixels=backend.grid[0] * backend.grid[1])
+    px, ints, pos = backend._px_s, backend._in_s, d["pos"]
+    b_lo, width = plan.band
+    run_pos, run_delta, n_b, pos_b = plan.runs
+    run_pos, run_delta, pos_b = (backend._put(a, torch.int64)
+                                 for a in (run_pos, run_delta, pos_b))
+    pos_band = torch.clamp(pos - b_lo, 0, width)
+
+    def compact():
+        px_b, in_b = compact_peaks(px, ints, run_pos, run_delta, n_b)
+        return flat_histogram(px_b, in_b, pos_b, **geo)
+
+    return {
+        "fixed": (0, lambda: flat_histogram(px[:0], ints[:0],
+                                            torch.zeros_like(pos), **geo)),
+        "plain": (px.numel(), lambda: flat_histogram(px, ints, pos, **geo)),
+        "band": (width, lambda: flat_histogram(
+            px[b_lo:b_lo + width], ints[b_lo:b_lo + width], pos_band,
+            **geo)),
+        "compact": (n_b, compact),
+    }
+
+
+def phase_ordered_stream() -> dict:
+    """Bench.py's ``scale`` case through ``MSMBasicSearch`` at the shipped
+    defaults: an m/z-ordered stream of 6 batches, whose variant rule may
+    take the band or compact extraction.  The same stream scored with both
+    modes "off" (plain; the first search, with the cold isotope patterns)
+    and with compaction forced "on" must give the same bits and FDR ranks;
+    each search's backend is dropped before the next, so each device peak
+    is its own.  Prints the variant counts, the per-batch device ms by
+    variant, the histogram's host plan and device kernels, the marginal ns
+    a slot of the scatter and of the compaction that the rule weighs
+    (``models/msm_torch.py``), ions/s and the device peak."""
+    from sm_distributed_tpu_torch.io.fixtures import (
+        expand_formula_list,
+        synthetic_dataset_arrays,
+    )
+    from sm_distributed_tpu_torch.models import msm_torch
+    from sm_distributed_tpu_torch.models.msm_basic import (
+        MSMBasicSearch,
+        _slice_table,
+    )
+    from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
+
+    t_start = time.perf_counter()
+    ds, truth = synthetic_dataset_arrays(
+        NROWS, NCOLS, formulas=expand_formula_list(OS_FORMULAS),
+        present_fraction=0.6, noise_peaks=NOISE_PEAKS, seed=7)
+    ds_cfg = DSConfig.from_dict(OS_DS)
+    t_ds = time.perf_counter() - t_start
+    runs = {}
+    isocalc = None
+    for label, parallel in (("off", {"band_slice": "off",
+                                     "peak_compaction": "off"}),
+                            ("compact", {"peak_compaction": "on"}),
+                            ("auto", {})):
+        search = MSMBasicSearch(ds, truth.formulas, ds_cfg, SMConfig.from_dict(
+            {**OS_SM, "parallel": parallel}))
+        if isocalc is not None:
+            search.isocalc = isocalc         # the first search's patterns
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        bundle = search.search()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        isocalc = search.isocalc
+        backend, table = search.last_backend, search.last_table
+        runs[label] = {
+            "bundle": bundle, "backend": backend, "table": table,
+            "wall_s": wall, "timings": bundle.timings,
+            "launches": read_launches(),
+            "variant_counts": dict(backend.variant_counts),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "ions_per_s": table.n_ions / bundle.timings["score"]}
+        r = runs[label]
+        say(f"  ordered stream, {label}: wall {wall:.3f} s; phases "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in r["timings"].items())
+            + f"; {r['ions_per_s']:.1f} ions/s scored; variants "
+            f"{r['variant_counts']}; peak device memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; launches {r['launches']}")
+        if label != "auto":
+            del search, backend, r["backend"]
+            torch.cuda.empty_cache()
+    auto = runs["auto"]
+    table, backend = auto["table"], auto["backend"]
+    n_batches = -(-table.n_ions // backend.batch)
+    assert n_batches >= 6 and bool(np.all(np.diff(table.mzs[:, 0]) >= 0)), \
+        "order_ions=auto must order a stream of 6 batches or more by m/z"
+    counts = auto["variant_counts"]
+    assert sum(counts.values()) == n_batches and counts["fused"] == 0, counts
+    assert counts["band"] + counts["compact"] > 0, (
+        f"no batch of the ordered stream left the plain variant: {counts}")
+    assert runs["off"]["variant_counts"]["plain"] == n_batches
+    assert runs["compact"]["variant_counts"]["compact"] == n_batches
+    for label, r in runs.items():
+        assert r["launches"]["moments"] >= n_batches, (label, r["launches"])
+        assert r["launches"]["chaos"] == n_batches, (label, r["launches"])
+    ref = auto["bundle"]
+    for label in ("off", "compact"):
+        got = runs[label]["bundle"]
+        a, b = ref.all_metrics, got.all_metrics
+        assert a.sf.tolist() == b.sf.tolist() and \
+            a.adduct.tolist() == b.adduct.tolist(), label
+        assert np.array_equal(a[list(CONTRACT)].to_numpy(),
+                              b[list(CONTRACT)].to_numpy()), (
+            f"{label}: metrics differ from the auto stream's")
+        ra, rb = ref.annotations, got.annotations
+        assert [(x.sf, x.adduct) for x in ra.itertuples()] == [
+            (x.sf, x.adduct) for x in rb.itertuples()], label
+        for col in ("msm", "fdr", "fdr_level"):
+            assert np.array_equal(ra[col].to_numpy(), rb[col].to_numpy()), (
+                label, col)
+    ann = ref.annotations
+    hits = set(ann[ann.fdr_level <= 0.1].sf)
+    recall = (sum(str(sf) in hits for sf in truth.present)
+              / len(truth.present))
+    assert recall >= 0.5, f"ordered stream recall {recall:.3f}"
+    # per batch: the plan, each variant's device ms for the whole batch,
+    # and its histogram's
+    batch_ms, hist_ms, slots, plan_ms, chosen = [], [], [], [], []
+    for s in range(0, table.n_ions, backend.batch):
+        t = _slice_table(table, s, min(s + backend.batch, table.n_ions))
+        t0 = time.perf_counter()
+        plan = backend._flat_plan(t)
+        plan_ms.append(1e3 * (time.perf_counter() - t0))
+        chosen.append(backend._variant_for(plan.runs, plan.band))
+        batch_ms.append({v: time_ms(lambda: backend._dispatch(t, plan, v),
+                                    reps=3, warmup=1) for v in VARIANTS})
+        calls = _histograms(backend, t, plan)
+        slots.append({v: n for v, (n, _fn) in calls.items()})
+        hist_ms.append({v: time_ms(fn, reps=5, warmup=1)
+                        for v, (_n, fn) in calls.items()})
+        del calls
+
+    def rate(v):
+        """ns a slot over the stream's slots of variant ``v``."""
+        return (1e6 * sum(h[v] - h["fixed"] for h in hist_ms)
+                / sum(n[v] for n in slots))
+
+    rates = {"scatter_ns_per_slot": rate("plain"),
+             "band_ns_per_slot": rate("band"),
+             "compact_ns_per_slot": rate("compact"),
+             "in_code": {"SCATTER_NS_PER_SLOT": msm_torch.SCATTER_NS_PER_SLOT,
+                         "COMPACT_NS_PER_SLOT": msm_torch.COMPACT_NS_PER_SLOT}}
+    for i, (b, h, n) in enumerate(zip(batch_ms, hist_ms, slots)):
+        say(f"  batch {i} ({chosen[i]}): device ms " + ", ".join(
+            f"{v} {b[v]:.3f}" for v in VARIANTS) + "; histogram ms "
+            + ", ".join(f"{v} {h[v]:.3f} ({n[v]} slots)" for v in h)
+            + f"; host plan {plan_ms[i]:.3f} ms")
+    # the stream again on the warm auto backend, as score_batches runs it
+    # (plan every batch, enqueue every batch, fetch), by the rule and
+    # forced plain, in turns: host walls that the search's score phase
+    # holds besides its presize pass
+    batches = [_slice_table(table, s, min(s + backend.batch, table.n_ions))
+               for s in range(0, table.n_ions, backend.batch)]
+
+    def stream_wall(variant):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plans = [backend._flat_plan(t) for t in batches]
+        outs = [backend._dispatch(t, pl, variant)
+                for t, pl in zip(batches, plans)]
+        for o in outs:
+            o.cpu()
+        return time.perf_counter() - t0
+
+    walls = {"auto": [], "plain": []}
+    for _ in range(3):
+        for v in ("auto", "plain", "plain", "auto"):
+            walls[v].append(stream_wall(None if v == "auto" else v))
+    say("  the stream again on the warm backend, s (rule, forced plain; "
+        "in turns): " + json.dumps(walls))
+    # the histogram split: host plan (above) and the device kernels of the
+    # plain histogram of batch 0 (torch.profiler)
+    t0_table = _slice_table(table, 0, backend.batch)
+    plan0 = backend._flat_plan(t0_table)
+    split = {v: _device_kernels_ms(fn) for v, (_n, fn) in
+             _histograms(backend, t0_table, plan0).items()
+             if v in ("plain", chosen[0])}
+    say("  batch 0 histogram device kernels, ms (torch.profiler): "
+        + json.dumps({v: {k: round(x, 3) for k, x in list(ks.items())[:4]}
+                      for v, ks in split.items()}))
+    say(f"  marginal ns a slot over the stream (histogram ms less the "
+        f"scratch's fixed cost, over the slots): plain scatter "
+        f"{rates['scatter_ns_per_slot']:.4f}, band scatter "
+        f"{rates['band_ns_per_slot']:.4f}, compact gather + scatter "
+        f"{rates['compact_ns_per_slot']:.4f}; the rule uses "
+        f"{rates['in_code']}")
+    off = runs["off"]
+    say(f"phase 9 ordered stream: {time.perf_counter() - t_start:.1f} s "
+        f"(dataset {t_ds:.1f} s); {table.n_ions} ions in {n_batches} "
+        f"batches; variants {counts}; {auto['ions_per_s']:.1f} ions/s at "
+        f"auto against {off['ions_per_s']:.1f} forced plain; bit-equal "
+        "to the plain and the forced-compact streams, FDR ranks identical; "
+        f"recall {recall:.3f}")
+    return {"n_ions": table.n_ions, "n_batches": n_batches,
+            "n_peaks": ds.n_peaks, "resident_slots": slots[0]["plain"],
+            "variant_counts": counts, "chosen": chosen,
+            "runs": {k: {x: r[x] for x in (
+                "wall_s", "timings", "ions_per_s", "variant_counts",
+                "peak_bytes", "launches")} for k, r in runs.items()},
+            "batch_ms": batch_ms, "histogram_ms": hist_ms, "slots": slots,
+            "host_plan_ms": plan_ms, "histogram_kernels_ms": split,
+            "rates": rates, "recall": recall, "stream_walls_s": walls,
+            "phase_s": time.perf_counter() - t_start}
+
+
 class OtherPort:
     """The moments, fused and chaos wrappers of another checkout's port
     (``--ab DIR``), imported under the package name ``ab_port``: its kernels
@@ -1917,29 +2304,42 @@ def main() -> int:
     torch.cuda.empty_cache()
     cube = phase_cube_main(ds, truth, search, ds_cfg, main)
     lap("cube")
+    torch.cuda.empty_cache()
+    preprocessed = phase_preprocessed(ds, truth, search, main)
+    lap("preprocessed")
     say("main path: " + json.dumps({
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
                              "n_ions", "n_peaks", "drift", "recall",
-                             "batch_ms")}))
+                             "batch_ms", "variant_counts")}))
     del ds, truth, search, backend, main
     torch.cuda.empty_cache()
     strips_entry, slide = phase_whole_slide(
         dev, ds_cfg.image_generation.nlevels, ab)
     lap("whole_slide")
+    torch.cuda.empty_cache()
+    ordered = phase_ordered_stream()
+    lap("ordered_stream")
     say("job path: " + json.dumps({k: job[k] for k in (
         "runs", "inproc_wall_s", "inproc_timings", "hbm", "phase_s",
         "steps_s")}))
     say("fused path: " + json.dumps(fused))
     say("cube path, main dataset: " + json.dumps(cube))
+    say("preprocessed main path: " + json.dumps(preprocessed))
     say("whole-slide path: " + json.dumps(slide))
+    say("ordered stream: " + json.dumps(ordered))
     # the moments kernel's error: the largest over phase 4's blocks and the
     # whole-slide block of phase 8
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     slide["moments_max_abs_err"])
     fused_entry["row_group_launches"] = _ROW_GROUP_LAUNCHES[1]
     kernels = kernels[:3] + [strips_entry, fused_entry]
+    for entry in kernels:
+        entry["ordered_launches"] = ordered["runs"]["auto"]["launches"][
+            entry["name"]]
     say(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all; "
         f"seconds from the start at the end of each phase {took}")
+    say("ordered stream variants (phase 9, auto): "
+        + json.dumps(ordered["variant_counts"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,21 @@
 """PyTorch backend: ion-image extraction and MSM scoring on one device.
 
 Port of ``sm_distributed_tpu/models/msm_jax.py`` (``JaxBackend``), with
-three scorers:
+these scorers:
 
-- :func:`score_flat_plain` (``fused_score_fn_flat_banded``), the default:
-  resident m/z-sorted flat peaks, banded extraction (``ops/imager.py``),
-  then ``ops/metrics.batch_metrics``, whose moments and chaos steps are the
+- :func:`score_flat_plain` (``fused_score_fn_flat_banded``): resident
+  m/z-sorted flat peaks, banded extraction (``ops/imager.py``), then
+  ``ops/metrics.batch_metrics``, whose moments and chaos steps are the
   hand-written kernels on the card;
+- :func:`score_flat_sliced` and :func:`score_flat_compact`
+  (``fused_score_fn_flat_banded_sliced`` / ``_compact``): the same chain
+  over a subset of the resident peaks — the contiguous rank band the
+  batch's window union spans, or the peaks inside the union gathered on
+  the device.  ``TorchBackend._variant_for`` picks plain, band or compact
+  for each batch with the JAX package's rule and the card's per-slot
+  rates; all three give the same bits;
 - :func:`score_flat_fused` (``fused_score_fn_flat_fused``) with
-  ``parallel.fused_metrics="on"``: the same histogram, then the fused
+  ``parallel.fused_metrics="on"``: the plain histogram, then the fused
   window-moments kernel (``ops/score.py``), which writes only the moment
   partials and the principal rows, then
   ``ops/metrics.batch_metrics_from_partials``;
@@ -17,18 +24,23 @@ three scorers:
   extraction, whose scratch is bounded at (P, gc_width+2) — the path of
   whole-slide images, whose flat scratch no batch size fits.
 
+With ``image_generation.do_preprocessing`` every chain but the fused one
+hot-spot clips the image block before its moments; preprocessing never
+takes the fused kernel.
+
 Each formula batch is planned on the host (padded windows, bound ranks, the
-chunk plan).  On the flat paths the shape-bucket lattice is mirrored so the
-port scores exactly the padded shapes the JAX package does: image rows snap
-up to ``row_bucket(nrows)`` (zero rows, masked by the real pixel count),
-resident peak arrays pad to ``peak_bucket`` slots, and the pad-to batch
-snaps down to the lattice.  The cube path stays off the row lattice, as in
-the JAX package.
+chunk plan, the band and the compaction runs).  On the flat paths the
+shape-bucket lattice is mirrored so the port scores exactly the padded
+shapes the JAX package does: image rows snap up to ``row_bucket(nrows)``
+(zero rows, masked by the real pixel count), resident peak arrays pad to
+``peak_bucket`` slots, and the pad-to batch snaps down to the lattice.  The
+cube path stays off the row lattice, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import logging
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +49,9 @@ from ..io.dataset import SpectralDataset
 from ..ops import buckets as shape_buckets
 from ..ops.imager import (
     BAND_WINDOWS,
+    batch_peak_band,
+    batch_peak_runs,
+    compact_peaks,
     extract_images_flat_banded,
     extract_images_mz_chunked,
     flat_bound_ranks,
@@ -98,6 +113,8 @@ def score_flat_plain(
     nrows: int,
     ncols: int,
     nlevels: int,
+    do_preprocessing: bool = False,
+    q: float = 99.0,
 ) -> torch.Tensor:
     """(b, 4) metrics of one padded batch, in the table's ion order — the
     port of ``fused_score_fn_flat_banded``.  The chunk plan is ion-major, so
@@ -107,8 +124,86 @@ def score_flat_plain(
         pixel_sorted, int_sorted, pos, starts, r_lo_loc, r_hi_loc, None,
         gc_width=gc_width, n_pixels=nrows * ncols)
     out = batch_metrics(imgs.view(b, k, -1), theor_ints, n_valid, nrows,
-                        ncols, nlevels, n_real=n_real)
+                        ncols, nlevels, n_real=n_real,
+                        do_preprocessing=do_preprocessing, q=q)
     return out[inv]
+
+
+def score_flat_sliced(
+    pixel_sorted: torch.Tensor,  # (N,) int64 resident pixel rows
+    int_sorted: torch.Tensor,    # (N,) f32 resident intensities
+    b_lo: int,                   # band start rank
+    width: int,                  # band width (peaks)
+    pos: torch.Tensor,           # (G,) int64 source-space bound ranks
+    starts: np.ndarray,
+    r_lo_loc: torch.Tensor,
+    r_hi_loc: torch.Tensor,
+    inv: torch.Tensor,
+    theor_ints: torch.Tensor,
+    n_valid: torch.Tensor,
+    n_real: int | None,
+    *,
+    gc_width: int,
+    b: int,
+    k: int,
+    nrows: int,
+    ncols: int,
+    nlevels: int,
+    do_preprocessing: bool = False,
+    q: float = 99.0,
+) -> torch.Tensor:
+    """:func:`score_flat_plain` over the contiguous band ``[b_lo, b_lo +
+    width)`` of the resident peaks — the port of
+    ``fused_score_fn_flat_banded_sliced``.  The band is a view, and the
+    bound ranks are shifted into it on the device with bounds outside it
+    clipped (``clip(pos - b_lo, 0, width)``): peaks of the band outside
+    every window land in gap bins of zero membership, and bounds below the
+    band are batch-padding zeros, ranked below every real window, exactly
+    as the full histogram treats them — images and metrics are
+    bit-identical to the plain variant's."""
+    pos_b = torch.clamp(pos - b_lo, 0, width)
+    return score_flat_plain(
+        pixel_sorted[b_lo:b_lo + width], int_sorted[b_lo:b_lo + width],
+        pos_b, starts, r_lo_loc, r_hi_loc, inv, theor_ints, n_valid, n_real,
+        gc_width=gc_width, b=b, k=k, nrows=nrows, ncols=ncols,
+        nlevels=nlevels, do_preprocessing=do_preprocessing, q=q)
+
+
+def score_flat_compact(
+    pixel_sorted: torch.Tensor,  # (N,) int64 resident pixel rows
+    int_sorted: torch.Tensor,    # (N,) f32 resident intensities
+    run_pos: torch.Tensor,       # (R,) int64 kept-space run starts
+    run_delta: torch.Tensor,     # (R,) int64 source-offset jumps
+    n_b: int,                    # kept peaks this batch
+    pos_b: torch.Tensor,         # (G,) int64 kept-space bound ranks
+    starts: np.ndarray,
+    r_lo_loc: torch.Tensor,
+    r_hi_loc: torch.Tensor,
+    inv: torch.Tensor,
+    theor_ints: torch.Tensor,
+    n_valid: torch.Tensor,
+    n_real: int | None,
+    *,
+    gc_width: int,
+    b: int,
+    k: int,
+    nrows: int,
+    ncols: int,
+    nlevels: int,
+    do_preprocessing: bool = False,
+    q: float = 99.0,
+) -> torch.Tensor:
+    """:func:`score_flat_plain` over the batch's kept peaks only, gathered
+    on the device by ``compact_peaks`` — the port of
+    ``fused_score_fn_flat_banded_compact``.  The kept peaks are exactly
+    those inside some window of the batch, so the (pixel, bin, intensity)
+    hit multiset, and every image and metric bit, is the plain variant's."""
+    px_b, in_b = compact_peaks(pixel_sorted, int_sorted, run_pos, run_delta,
+                               n_b)
+    return score_flat_plain(
+        px_b, in_b, pos_b, starts, r_lo_loc, r_hi_loc, inv, theor_ints,
+        n_valid, n_real, gc_width=gc_width, b=b, k=k, nrows=nrows,
+        ncols=ncols, nlevels=nlevels, do_preprocessing=do_preprocessing, q=q)
 
 
 def score_flat_fused(
@@ -165,6 +260,8 @@ def score_chunked(
     nrows: int,
     ncols: int,
     nlevels: int,
+    do_preprocessing: bool = False,
+    q: float = 99.0,
 ) -> torch.Tensor:
     """(b, 4) metrics of one padded batch on the m/z-chunked cube path, in
     the table's ion order — the port of ``fused_score_fn_chunked``.  The
@@ -174,13 +271,43 @@ def score_chunked(
         gc_width=gc_width)
     imgs = imgs.view(b, k, -1)[:, :, :nrows * ncols]
     return batch_metrics(imgs, theor_ints, n_valid, nrows, ncols, nlevels,
-                         n_real=None)
+                         n_real=None, do_preprocessing=do_preprocessing, q=q)
+
+
+class FlatPlan(NamedTuple):
+    """Host plan of one flat-path batch."""
+    grid: np.ndarray         # (G,) sorted window bounds
+    r_lo: np.ndarray         # (G/2,) lo bound ranks
+    r_hi: np.ndarray         # (G/2,) hi bound ranks
+    ints_p: np.ndarray       # (b, k) padded theoretical intensities
+    nv_p: np.ndarray         # (b,) padded valid peak counts
+    chunks: tuple            # ion_window_chunks(...)
+    pos: np.ndarray          # (G,) bound ranks among the resident peaks
+    b_eff: int               # static batch size of this batch
+    runs: tuple | None       # batch_peak_runs(...), unless compaction is off
+    band: tuple | None       # batch_peak_band(...), unless band_slice is off
+
+
+# the card's per-slot costs of the histogram step, which the variant rule
+# weighs: the scatter-add of one peak slot, and the device gather of one
+# kept slot (compact_peaks) plus its scatter-add.  Measured by
+# chip_smoke.py phase 9 on an m/z-ordered 6-batch stream (bench.py's scale
+# case), as the histogram's device ms less the scratch's fixed cost over
+# the band's slots and over the kept slots, on NVIDIA H100 80GB HBM3,
+# 700.00 W.  A plain histogram's slots cost more there (1.54 ns): on CUDA
+# the accumulate sorts its indices and reduces each cell's duplicates in
+# turn, and an ordered batch's slots outside its windows pile into the
+# bins below its first and above its last bound.  So the plain estimate is
+# a floor, reached when a batch keeps nearly every resident peak, which is
+# where the rule can pick plain.
+SCATTER_NS_PER_SLOT = 0.43
+COMPACT_NS_PER_SLOT = 0.47
 
 
 class TorchBackend:
     """Scorer selected by ``SMConfig.backend == 'torch_cuda'``: the flat path
-    (plain chain, or the fused kernel with ``fused_metrics="on"``), or the
-    cube path with ``mz_chunk > 0``."""
+    (the plain, band or compact chain, or the fused kernel with
+    ``fused_metrics="on"``), or the cube path with ``mz_chunk > 0``."""
 
     name = "torch_cuda"
 
@@ -202,6 +329,8 @@ class TorchBackend:
         img_cfg = ds_config.image_generation
         self.ppm = img_cfg.ppm
         self.nlevels = img_cfg.nlevels
+        self.do_preprocessing = img_cfg.do_preprocessing
+        self.q = img_cfg.q
         self._nrows_b = (shape_buckets.row_bucket(ds.nrows)
                          if self._buckets else ds.nrows)
         self._n_pix_b = self._nrows_b * ds.ncols
@@ -214,9 +343,23 @@ class TorchBackend:
         else:
             self._init_flat(ds, ds_config, restrict_table)
         # "on" takes the fused kernel; "auto" keeps the plain chain on every
-        # device until the fused kernel beats it on the card (ROADMAP)
-        self._fused = sm_config.parallel.fused_metrics == "on"
-        # sticky chunk band widths: grow to the max seen in a stream
+        # device until the fused kernel beats it on the card (ROADMAP);
+        # hot-spot clipping needs the image block, so it never fuses
+        self._fused = (sm_config.parallel.fused_metrics == "on"
+                       and not self.do_preprocessing)
+        self._compaction = sm_config.parallel.peak_compaction
+        self._band_mode = sm_config.parallel.band_slice
+        # batches this backend scored by each flat variant (a search builds
+        # its own backend, so the counts are the search's)
+        self.variant_counts = dict.fromkeys(
+            ("plain", "band", "compact", "fused"), 0)
+        # sticky chunk band widths: grow to the max seen in a stream.  The
+        # JAX package also keeps sticky compaction capacities (_n_keep,
+        # _r_pad) and grows them to a stream-wide fixpoint, because its
+        # static shapes pad every compact batch and its variant estimate
+        # charges the padding; eager torch pads nothing and the estimate
+        # charges the exact band width and kept count, so neither exists
+        # here and every batch's choice depends on that batch alone
         self._gc_width = 0
         self._gc_tail = 0
 
@@ -317,9 +460,10 @@ class TorchBackend:
         grid, r_lo, r_hi = window_rank_grid(lo_p, hi_p)
         return grid, r_lo, r_hi, ints_p, nv_p
 
-    def _flat_plan(self, table: IsotopePatternTable):
-        """Host plan of one batch: (grid, r_lo, r_hi, ints_p, nv_p, chunks,
-        pos, b_eff)."""
+    def _flat_plan(self, table: IsotopePatternTable) -> FlatPlan:
+        """Host plan of one batch: padded windows, the ion-major chunk plan,
+        bound ranks, and (unless their mode is "off") the compaction runs
+        and the peak band."""
         b_eff = self._batch_for(table.n_ions)
         grid, r_lo, r_hi, ints_p, nv_p = self._padded_windows(table, b_eff)
         k_eff = max(1, table.max_peaks)
@@ -327,11 +471,41 @@ class TorchBackend:
             r_lo, r_hi, b_eff, k_eff,
             ions_per_chunk_for(b_eff, k_eff, BAND_WINDOWS))
         pos = flat_bound_ranks(self._mz_host, grid)
-        return grid, r_lo, r_hi, ints_p, nv_p, chunks, pos, b_eff
+        runs, band = None, None
+        if self._compaction != "off" or self._band_mode != "off":
+            lo_q, hi_q = quantize_window(table.mzs, self.ppm)
+            if self._compaction != "off":
+                runs = batch_peak_runs(self._mz_host, lo_q, hi_q, pos)
+            if self._band_mode != "off":
+                band = batch_peak_band(self._mz_host, lo_q, hi_q)
+        return FlatPlan(grid, r_lo, r_hi, ints_p, nv_p, chunks, pos, b_eff,
+                        runs, band)
 
-    def _grow_from_plan(self, plan) -> None:
-        gc = plan[5][4]
-        if plan[7] == self.batch:
+    def _variant_for(self, runs, band) -> str:
+        """The extraction variant of one batch: "band" (scatter the
+        contiguous band of the resident peaks), "compact" (gather the
+        batch's kept peaks, then scatter) or "plain" (scatter every
+        resident peak) — the JAX package's rule.  "on" forces a variant,
+        band first; otherwise the least estimated histogram cost wins, at
+        the card's per-slot rates (``SCATTER_NS_PER_SLOT``,
+        ``COMPACT_NS_PER_SLOT``).  Those rates are not the JAX package's,
+        so the port may pick another variant than it does for the same
+        batch; every variant gives the same bits."""
+        if self._band_mode == "on" and band is not None:
+            return "band"
+        if self._compaction == "on" and runs is not None:
+            return "compact"
+        n = int(self._mz_host.size)
+        est = {"plain": SCATTER_NS_PER_SLOT * n}
+        if runs is not None:
+            est["compact"] = COMPACT_NS_PER_SLOT * runs[2]
+        if band is not None and band[1] < n:
+            est["band"] = SCATTER_NS_PER_SLOT * band[1]
+        return min(est, key=est.get)
+
+    def _grow_from_plan(self, plan: FlatPlan) -> None:
+        gc = plan.chunks[4]
+        if plan.b_eff == self.batch:
             self._gc_width = max(self._gc_width, gc)
         else:
             self._gc_tail = max(self._gc_tail, gc)
@@ -345,22 +519,23 @@ class TorchBackend:
         for t in tables:
             self._grow_from_plan(self._flat_plan(t))
 
-    def _device_plan(self, table: IsotopePatternTable, plan=None) -> dict:
+    def _device_plan(self, table: IsotopePatternTable,
+                     plan: FlatPlan | None = None) -> dict:
         """One batch's plan with its per-batch arrays on the device: bound
         ranks, chunk plan, ion un-permutation and the plan-sorted side
         inputs, at the sticky band width."""
         if plan is None:
             plan = self._flat_plan(table)
-        _grid, _r_lo, _r_hi, ints_p, nv_p, chunks, pos, b_eff = plan
-        starts, r_lo_loc, r_hi_loc, inv, _gc_width, order = chunks
+        starts, r_lo_loc, r_hi_loc, inv, _gc_width, order = plan.chunks
         self._grow_from_plan(plan)
         put = self._put
         return dict(
-            pos=put(pos, torch.int64), starts=starts, r_lo_loc=put(r_lo_loc),
-            r_hi_loc=put(r_hi_loc), inv=put(inv, torch.int64),
-            theor_ints=put(ints_p[order]), n_valid=put(nv_p[order]),
-            gc_width=(self._gc_width if b_eff == self.batch
-                      else self._gc_tail), b=b_eff)
+            pos=put(plan.pos, torch.int64), starts=starts,
+            r_lo_loc=put(r_lo_loc), r_hi_loc=put(r_hi_loc),
+            inv=put(inv, torch.int64), theor_ints=put(plan.ints_p[order]),
+            n_valid=put(plan.nv_p[order]),
+            gc_width=(self._gc_width if plan.b_eff == self.batch
+                      else self._gc_tail), b=plan.b_eff)
 
     def _put(self, a: np.ndarray, dtype: torch.dtype | None = None
              ) -> torch.Tensor:
@@ -380,10 +555,15 @@ class TorchBackend:
                     theor_ints=put(ints_p), n_valid=put(nv_p),
                     gc_width=gc_width)
 
-    def _dispatch(self, table: IsotopePatternTable, plan=None
+    def _dispatch(self, table: IsotopePatternTable,
+                  plan: FlatPlan | None = None, variant: str | None = None
                   ) -> torch.Tensor:
         """Enqueue one padded batch on the device; returns its (b, 4)
-        metrics (on the device, not synchronised)."""
+        metrics (on the device, not synchronised).  On the flat path the
+        batch takes ``variant`` when given (a variant whose mode is "off"
+        has no host plan and raises), else the fused kernel with
+        ``fused_metrics="on"`` whatever the rule picks, as in the JAX
+        package, else the rule's variant."""
         if self.mz_chunk:
             d = self._cube_plan(table)
             return score_chunked(
@@ -391,24 +571,54 @@ class TorchBackend:
                 d["r_lo_loc"], d["r_hi_loc"], d["inv"], d["theor_ints"],
                 d["n_valid"], gc_width=d["gc_width"], b=self.batch,
                 k=table.max_peaks, nrows=self._nrows_b, ncols=self.ds.ncols,
-                nlevels=self.nlevels)
+                nlevels=self.nlevels, do_preprocessing=self.do_preprocessing,
+                q=self.q)
+        if plan is None:
+            plan = self._flat_plan(table)
+        if variant is None:
+            variant = ("fused" if self._fused
+                       else self._variant_for(plan.runs, plan.band))
         d = self._device_plan(table, plan)
-        score = score_flat_fused if self._fused else score_flat_plain
-        return score(
-            self._px_s, self._in_s, d["pos"], d["starts"], d["r_lo_loc"],
-            d["r_hi_loc"], d["inv"], d["theor_ints"], d["n_valid"],
-            self._n_real, gc_width=d["gc_width"], b=d["b"],
-            k=table.max_peaks, nrows=self._nrows_b, ncols=self.ds.ncols,
-            nlevels=self.nlevels)
+        statics = dict(gc_width=d["gc_width"], b=d["b"], k=table.max_peaks,
+                       nrows=self._nrows_b, ncols=self.ds.ncols,
+                       nlevels=self.nlevels)
+        tail = (d["starts"], d["r_lo_loc"], d["r_hi_loc"], d["inv"],
+                d["theor_ints"], d["n_valid"], self._n_real)
+        if variant == "fused":
+            out = score_flat_fused(self._px_s, self._in_s, d["pos"], *tail,
+                                   **statics)
+        elif variant == "plain":
+            out = score_flat_plain(
+                self._px_s, self._in_s, d["pos"], *tail, **statics,
+                do_preprocessing=self.do_preprocessing, q=self.q)
+        elif variant == "band" and plan.band is not None:
+            b_lo, width = plan.band
+            out = score_flat_sliced(
+                self._px_s, self._in_s, b_lo, width, d["pos"], *tail,
+                **statics, do_preprocessing=self.do_preprocessing, q=self.q)
+        elif variant == "compact" and plan.runs is not None:
+            run_pos, run_delta, n_b, pos_b = plan.runs
+            out = score_flat_compact(
+                self._px_s, self._in_s, self._put(run_pos, torch.int64),
+                self._put(run_delta, torch.int64), n_b,
+                self._put(pos_b, torch.int64), *tail, **statics,
+                do_preprocessing=self.do_preprocessing, q=self.q)
+        else:
+            raise ValueError(f"flat variant {variant!r} is not planned for "
+                             "this backend")
+        self.variant_counts[variant] += 1
+        return out
 
-    def image_block(self, table: IsotopePatternTable, plan=None
+    def image_block(self, table: IsotopePatternTable,
+                    plan: FlatPlan | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(images, theor_ints, n_valid)`` of one padded batch, in the
         plan's ion order (the table's on the cube path), as its metrics
         receive them: the (b, k, P) image block with the images of invalid
         isotope peaks zeroed (P is the row-bucketed pixel count, ``n_real``
         the real one), the (b, k) theoretical intensities and the (b,)
-        valid peak counts."""
+        valid peak counts.  Extraction takes the plain variant and the
+        images are not hot-spot clipped, as in the JAX package's export."""
         k = table.max_peaks
         if self.mz_chunk:
             d = self._cube_plan(table)
@@ -448,7 +658,7 @@ class TorchBackend:
             plan = self._flat_plan(table)
             imgs, _theor, _n_valid = self.image_block(table, plan)
             # the plan's ion order back to the table's
-            imgs = imgs[self._put(plan[5][3], torch.int64)]
+            imgs = imgs[self._put(plan.chunks[3], torch.int64)]
         out = imgs[:n, :, :self.ds.n_pixels].cpu().numpy()
         out /= np.float32(self.int_scale)
         return out

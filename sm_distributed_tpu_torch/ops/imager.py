@@ -18,11 +18,25 @@ path's device step in torch:
 cube against the batch's bound grid, then per chunk a scatter-add into a
 ``(P, gc_width+2)`` scratch and one membership matmul.
 
+The flat path's histogram may take a subset of the resident peaks, as the
+JAX package's extraction variants do: the contiguous rank band a batch's
+window union spans (``batch_peak_band``; the band variant scatters the
+slice ``px_s[b_lo:b_lo + width]`` with its bound ranks shifted by
+``b_lo``), or the peaks inside the union only (``batch_peak_runs``, then
+``compact_peaks`` gathers them on the device).  Unlike the JAX package,
+nothing is padded to a fixed capacity: eager torch needs no static shapes,
+so the band is a view of exactly ``width`` slots (no ``band_bucket``
+ladder, no clamp of its start) and the compaction gathers exactly ``n_b``
+slots (no pad slots pointed at an out-of-range pixel, which a CUDA
+``index_put_`` would fault on rather than drop).  ``band_bucket`` comes
+with the sharded path, where a fixed capacity is still needed.
+
 Exactness: intensities sit on the shared integer grid with every
 per-(pixel, window) sum below 2**24, so the scatter's atomics and the
-matmul's accumulation are exact in f32 in any order — images are bit-equal
-to the JAX package's, provided the matmul runs in full f32 (no TF32; the
-backend sets and checks this).
+matmul's accumulation are exact in f32 in any order, and over any subset
+of the peaks that keeps every in-window one — images are bit-equal to the
+JAX package's, provided the matmul runs in full f32 (no TF32; the backend
+sets and checks this).
 """
 
 from __future__ import annotations
@@ -163,6 +177,85 @@ def merged_window_bounds(lo_q: np.ndarray, hi_q: np.ndarray) -> np.ndarray:
     starts = lo[new]
     ends = run_hi[np.concatenate([new[1:], [True]])]
     return np.stack([starts, ends], axis=1).ravel().astype(np.int32)
+
+
+def batch_peak_band(mz_host: np.ndarray, lo_q: np.ndarray,
+                    hi_q: np.ndarray) -> tuple[int, int]:
+    """Host-side: the CONTIGUOUS rank band [start, start+width) of the
+    sorted resident peaks spanned by a batch's window union.  For an
+    m/z-ordered ion table every batch's union is m/z-localized, so the band
+    is narrow; extraction can then scatter a slice of the resident arrays
+    directly (no per-run gather) — see
+    models/msm_torch.py::score_flat_sliced."""
+    flat = merged_window_bounds(lo_q, hi_q)
+    if flat.size == 0:
+        return 0, 0
+    cuts = np.searchsorted(
+        mz_host, np.array([flat[0], flat[-1]], dtype=mz_host.dtype),
+        side="left")
+    return int(cuts[0]), int(cuts[1] - cuts[0])
+
+
+def batch_peak_runs(
+    mz_host: np.ndarray,   # (N,) int32 sorted quantized m/z (resident peaks)
+    lo_q: np.ndarray,      # batch window lo bounds (any shape)
+    hi_q: np.ndarray,      # batch window hi bounds
+    pos: np.ndarray,       # (G,) int32 source-space bound ranks (flat_bound_ranks)
+) -> tuple[np.ndarray, np.ndarray, int, np.ndarray]:
+    """Host-side compaction plan: (run_kept_start (R,) i32, run_delta (R,) i32,
+    n_b, pos_b (G,) i32).
+
+    The batch's windows merge into disjoint m/z intervals that cut the
+    sorted peaks into contiguous kept RUNS.  ``run_kept_start`` is each
+    run's first index in kept space, ``run_delta`` the jump in (source -
+    kept) offset at that index; ``pos_b`` re-bases the grid bound ranks to
+    kept space: #kept peaks strictly below the bound."""
+    flat = merged_window_bounds(lo_q, hi_q)
+    cuts = np.searchsorted(mz_host, flat.astype(mz_host.dtype), side="left")
+    starts, ends = cuts[0::2].astype(np.int64), cuts[1::2].astype(np.int64)
+    lens = ends - starts
+    keep = lens > 0
+    starts, lens = starts[keep], lens[keep]
+    if starts.size == 0:     # batch with no real windows (all padding)
+        return (np.zeros(0, np.int32), np.zeros(0, np.int32), 0,
+                np.zeros(np.asarray(pos).shape, np.int32))
+    kept_start = np.zeros(starts.size + 1, dtype=np.int64)
+    np.cumsum(lens, out=kept_start[1:])
+    n_b = int(kept_start[-1])
+    # kept rank of a source rank s: walk back to the last run starting <= s;
+    # clamp inside the run (bounds between runs — possible only for empty
+    # padding windows — snap to the nearest run edge, which keeps their
+    # windows empty in kept space)
+    r = np.searchsorted(starts, pos, side="right") - 1
+    rc = np.clip(r, 0, None)
+    pos_b = np.where(
+        r < 0, 0,
+        kept_start[rc] + np.clip(pos - starts[rc], 0, lens[rc]))
+    offsets = starts - kept_start[:-1]
+    run_delta = np.diff(offsets, prepend=0)
+    return (kept_start[:-1].astype(np.int32), run_delta.astype(np.int32),
+            n_b, pos_b.astype(np.int32))
+
+
+def compact_peaks(
+    px_s: torch.Tensor,       # (N,) int64 resident pixel rows
+    in_s: torch.Tensor,       # (N,) f32 resident intensities
+    run_pos: torch.Tensor,    # (R,) int64 kept-space run starts (< n_b)
+    run_delta: torch.Tensor,  # (R,) int64 source-offset jumps
+    n_b: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device-side gather of a batch's kept peak slots: (px_b, in_b), both
+    (n_b,).  The source index of kept slot j is j plus the running sum of
+    the run jumps at or before j: one ``index_add_`` of the jumps into an
+    (n_b,) delta array, a ``cumsum``, then the gather.  Every run starts
+    below ``n_b``, so no index leaves its array (the JAX package instead
+    pads to a fixed capacity and drops the pad slots' scatter)."""
+    dev = px_s.device
+    d = torch.zeros(n_b, dtype=torch.int64, device=dev)
+    d.index_add_(0, run_pos, run_delta)
+    src = torch.arange(n_b, dtype=torch.int64, device=dev) + torch.cumsum(
+        d, dim=0)
+    return px_s[src], in_s[src]
 
 
 def window_union_member(mz_q: np.ndarray, flat_bounds: np.ndarray) -> np.ndarray:

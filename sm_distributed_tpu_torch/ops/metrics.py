@@ -5,17 +5,101 @@ Port of ``sm_distributed_tpu/ops/metrics_jax.py`` (``batch_metrics``,
 (``ops/moments.py``, or the fused kernel's partials from ``ops/score.py``)
 feeds the chaos thresholds and the correlation and pattern-match epilogues;
 chaos counts come from ``ops/chaos.py``.  On the card those are the
-hand-written kernels; on the CPU their plain versions.
+hand-written kernels; on the CPU their plain versions.  With
+``image_generation.do_preprocessing`` the block is hot-spot clipped first
+(``hotspot_clip_batch``, torch ops), bit-identical to the numpy oracle's
+cutoff, of which this module keeps its own copy
+(``hotspot_percentile_f32``, ``hotspot_clip``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .chaos import chaos_count_sums, chaos_count_sums_torch
 from .moments import batch_moments, batch_moments_torch
 
 _TINY = 1e-30   # the JAX package's np.float32(1e-30) denominators floor
+
+# bytes of sort scratch (values and int64 indices) hot-spot clipping may
+# hold at once: the block is sorted in groups of ions within it
+HOTSPOT_SORT_BYTES = 1 << 29
+
+
+def hotspot_percentile_f32(pos_sorted: np.ndarray, q: float) -> np.float32:
+    """q-th linear-interpolated percentile of the sorted positive pixels,
+    as a fixed sequence of SINGLE f32 operations: the cross-backend
+    definition of the hot-spot cutoff (the JAX package's
+    ``ops/metrics_np.py``, copied).  Every step is exact in f32 (floor, a
+    fraction below 2**23, a difference of grid integers) or one correctly
+    rounded IEEE op."""
+    m = pos_sorted.size
+    t = np.float32(q) / np.float32(100.0)
+    pos = t * np.float32(m - 1)                   # one rounded mul
+    lo = np.floor(pos)                            # exact
+    frac = np.float32(pos - lo)                   # exact (pos < 2**23)
+    i_lo = int(lo)
+    v_lo = np.float32(pos_sorted[i_lo])
+    v_hi = np.float32(pos_sorted[min(i_lo + 1, m - 1)])
+    prod = np.float32(v_hi - v_lo) * frac         # exact diff, one mul
+    return v_lo + prod                            # one rounded add
+
+
+def hotspot_clip(img: np.ndarray, q: float = 99.0) -> np.ndarray:
+    """Hot-spot removal of one image (numpy): clip at the q-th percentile
+    of the positive pixels; no-op on empty images."""
+    pos = np.sort(img[img > 0])
+    if pos.size == 0:
+        return img
+    return np.minimum(img, hotspot_percentile_f32(pos, q))
+
+
+def hotspot_clip_batch(images: torch.Tensor, q: float) -> torch.Tensor:
+    """Hot-spot removal of an (N, K, P) block IN PLACE, bit-identical to
+    ``hotspot_percentile_f32``: each (ion, peak) image is clipped at the
+    q-th linear-interpolated percentile of its positive pixels; images with
+    no positive pixel pass through.  Returns ``images``.
+
+    Each row is sorted ascending: the positives occupy its top m slots
+    (zeros and lattice pads sort below them), so the interpolation base
+    sits at index (P - m) + floor(pos).  Three hazards, each of which flips
+    clipped-pixel bits:
+
+    - FMA: the cutoff is ``v_lo + ((v_hi - v_lo) * frac)`` as separate
+      ops, each one rounded kernel; never ``torch.addcmul``, ``torch.lerp``
+      (which rounds differently) or ``torch.compile``, any of which may
+      contract the multiply-add;
+    - the index offset (P - m) + floor(pos) stays in integer arithmetic
+      (folded into the float position it would round);
+    - memory: ``torch.sort`` returns int64 indices beside the values, 12
+      bytes a pixel; a (2048, 4, 65536) block sorted whole would add 6.4
+      GB, so ions are sorted in groups of at most ``HOTSPOT_SORT_BYTES``
+      of scratch."""
+    n, k, p = images.shape
+    # the JAX package's host f32 constant: t = f32(q) / f32(100)
+    t = torch.tensor(np.float32(q) / np.float32(100.0), dtype=torch.float32,
+                     device=images.device)
+    inf = torch.tensor(float("inf"), dtype=images.dtype, device=images.device)
+    step = max(1, HOTSPOT_SORT_BYTES // max(1, 12 * k * p))
+    for s in range(0, n, step):
+        block = images[s:s + step]
+        srt = torch.sort(block, dim=-1).values
+        m = (block > 0).sum(dim=-1)                        # int64
+        pos = t * torch.clamp(m - 1, min=0).to(torch.float32)   # one mul
+        lo = torch.floor(pos)                              # exact
+        frac = (pos - lo)[..., None]                       # exact
+        i_lo = (p - m) + lo.to(torch.int64)                # integer index
+        i_hi = torch.clamp(i_lo + 1, max=p - 1)
+        v_lo = torch.gather(srt, -1, torch.clamp(i_lo, 0, p - 1)[..., None])
+        v_hi = torch.gather(srt, -1, i_hi[..., None])
+        del srt
+        prod = (v_hi - v_lo) * frac                        # exact diff, mul
+        cutoff = v_lo + prod                               # one rounded add
+        # an image with no positive pixel keeps its values: min(x, inf)
+        cutoff = torch.where((m > 0)[..., None], cutoff, inf)
+        torch.minimum(block, cutoff, out=block)
+    return images
 
 
 def measure_of_chaos_batch(principal: torch.Tensor, nrows: int, ncols: int,
@@ -73,7 +157,8 @@ def isotope_pattern_match_batch(totals: torch.Tensor, theor: torch.Tensor,
 def batch_metrics(images: torch.Tensor, theor_ints: torch.Tensor,
                   n_valid: torch.Tensor, nrows: int, ncols: int,
                   nlevels: int = 30, n_real: int | None = None,
-                  plain: bool = False) -> torch.Tensor:
+                  plain: bool = False, do_preprocessing: bool = False,
+                  q: float = 99.0) -> torch.Tensor:
     """(N, 4) of (chaos, spatial, spectral, msm) for an (N, K, nrows*ncols)
     image block.
 
@@ -86,7 +171,8 @@ def batch_metrics(images: torch.Tensor, theor_ints: torch.Tensor,
     The images of invalid isotope peaks are zeroed IN PLACE (the JAX
     package's ``where(valid, images, 0)``): the block is a per-batch
     transient of several GB at full size, and a masked copy would double
-    it.
+    it.  With ``do_preprocessing`` the masked block is then hot-spot
+    clipped at percentile ``q``, in place too (``hotspot_clip_batch``).
 
     ``plain`` runs the plain versions of the moments and chaos steps on
     any device instead of the kernels: the chain the kernels are held
@@ -95,6 +181,8 @@ def batch_metrics(images: torch.Tensor, theor_ints: torch.Tensor,
     valid = (torch.arange(k, device=images.device)[None, :]
              < n_valid[:, None])
     images.masked_fill_(~valid[:, :, None], 0.0)
+    if do_preprocessing:
+        hotspot_clip_batch(images, q)
     moments = batch_moments_torch if plain else batch_moments
     sums, normsq, dots, vmax, n_notnull = moments(images, n_real)
     return _msm_rows(images[:, 0, :], sums, normsq, dots, vmax, n_notnull,

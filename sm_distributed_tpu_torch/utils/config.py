@@ -14,10 +14,12 @@ naming the ROADMAP item that brings it, rather than being dropped: the
 retention knobs (item 9), a nonzero ``parallel.checkpoint_every`` (item 2),
 ``parallel.isocalc_device="on"`` (item 8), the JAX package's mesh and
 multi-host knobs (item 7), its compile cache and dataset residency (item 9),
-and the values listed on each dataclass.  ``"auto"`` for
-``peak_compaction`` and ``band_slice`` resolves to the plain variant, which
-the JAX package declares bit-exact against both (``models/msm_jax.py``
-NUMERICS), so results do not change.
+and the values listed on each dataclass.  ``peak_compaction`` and
+``band_slice`` take every value the JAX package does: ``"auto"`` lets the
+backend pick the plain, band or compact variant for each batch by its
+estimated cost on the card, ``"on"`` forces one (band first), ``"off"``
+leaves it out; the variants give the same bits.  ``do_preprocessing``
+(hot-spot clipping) is accepted too.
 """
 
 from __future__ import annotations
@@ -116,9 +118,6 @@ class ImageGenerationConfig:
     def __post_init__(self):
         if self.ppm <= 0 or self.nlevels <= 0 or not (0 < self.q <= 100):
             raise ValueError("image_generation: ppm/nlevels/q out of range")
-        if self.do_preprocessing:
-            raise _not_in_slice("image_generation.do_preprocessing=true "
-                                "(hot-spot clipping)", "queue 1 item 3")
 
 
 @dataclass(frozen=True)
@@ -158,8 +157,9 @@ class ParallelConfig:
     """The ``parallel`` knobs the scoring and isotope-pattern paths read
     (same names and defaults as the JAX package).  ``mz_chunk > 0`` takes
     the m/z-chunked cube path; ``fused_metrics="on"`` takes the fused
-    window-moments kernel on the flat path, while ``"auto"`` and ``"off"``
-    keep the plain chain.  ``isocalc_workers`` (0 = all cores) and
+    window-moments kernel on the flat path (not with hot-spot clipping),
+    while ``"auto"`` and ``"off"`` keep the unfused chain, whose variant
+    ``peak_compaction`` and ``band_slice`` choose.  ``isocalc_workers`` (0 = all cores) and
     ``isocalc_chunk`` (0 = the default chunk of 2048 pairs) size the
     isotope-pattern pool and its cache shards; ``overlap_isocalc`` starts
     pattern generation before the input is staged (``SearchJob``)."""
@@ -198,11 +198,6 @@ class ParallelConfig:
         if self.cube_dtype != "f32":
             raise _not_in_slice(f"parallel.cube_dtype={self.cube_dtype!r} "
                                 "(resident-cube compaction)", "queue 1 item 6")
-        if self.peak_compaction == "on":
-            raise _not_in_slice("parallel.peak_compaction='on'",
-                                "queue 1 item 5")
-        if self.band_slice == "on":
-            raise _not_in_slice("parallel.band_slice='on'", "queue 1 item 5")
         if self.checkpoint_every:
             raise _not_in_slice(
                 f"parallel.checkpoint_every={self.checkpoint_every} "

@@ -174,7 +174,8 @@ def test_plain_matches_jax_plain_chain(fixtures, name, buckets):
     n_real = tb.n_real if tb.n_real is not None else n_pix
     for s in range(0, min(jt.n_ions, 192), tb.batch):
         t = _slice_table(jt, s, min(s + tb.batch, jt.n_ions))
-        _grid, _lo, _hi, _ints, _nv, chunks, pos, b_eff = tb._flat_plan(t)
+        plan = tb._flat_plan(t)
+        chunks, pos, b_eff = plan.chunks, plan.pos, plan.b_eff
         starts, r_lo_loc, r_hi_loc, _inv, gc, _order = chunks
         k = t.max_peaks
         imgs = np.asarray(jextract(
@@ -278,7 +279,8 @@ def test_cluster_model_matches_plain_chain(fixtures, name, cluster):
     n_pix = tb._n_pix_b
     n_real = tb.n_real if tb.n_real is not None else n_pix
     t = _slice_table(jt, 0, min(tb.batch, jt.n_ions))
-    _grid, _lo, _hi, _ints, _nv, chunks, pos, b_eff = tb._flat_plan(t)
+    plan = tb._flat_plan(t)
+    chunks, pos, b_eff = plan.chunks, plan.pos, plan.b_eff
     starts, r_lo_loc, r_hi_loc, _inv, gc, _order = chunks
     k = t.max_peaks
     wh = flat_histogram(tb._px_s, tb._in_s,

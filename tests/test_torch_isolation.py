@@ -159,9 +159,6 @@ def test_fused_wrapper_on_cpu_uses_plain_version():
 @pytest.mark.parametrize("section,knob,value", [
     ("parallel", "cube_dtype", "bf16"),
     ("parallel", "cube_dtype", "int8"),
-    ("parallel", "peak_compaction", "on"),
-    ("parallel", "band_slice", "on"),
-    ("image_generation", "do_preprocessing", True),
 ])
 def test_values_outside_the_slice_raise(section, knob, value):
     from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
@@ -178,10 +175,16 @@ def test_values_outside_the_slice_raise(section, knob, value):
     ("fused_metrics", "auto"), ("fused_metrics", "off"),
     ("peak_compaction", "auto"), ("peak_compaction", "off"),
     ("band_slice", "auto"), ("band_slice", "off"),
+    ("peak_compaction", "on"), ("band_slice", "on"),
+    ("do_preprocessing", True),
 ])
 def test_values_inside_the_slice_are_accepted(knob, value):
-    from sm_distributed_tpu_torch.utils.config import SMConfig
+    from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
 
+    if knob == "do_preprocessing":
+        ds = DSConfig.from_dict({"image_generation": {knob: value}})
+        assert ds.image_generation.do_preprocessing is True
+        return
     sm = SMConfig.from_dict({"parallel": {knob: value}})
     assert getattr(sm.parallel, knob) == value
     assert sm.backend == "torch_cuda" and sm.device == "cuda"
