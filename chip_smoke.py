@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives seven paths (six of the library search and the job path),
-each with the kernel launch counts set to 0 just before it and read just
-after:
+nvcc and drives eight paths (seven of the library search and the job
+path), each with the kernel launch counts set to 0 just before it and read
+just after:
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -54,7 +54,26 @@ after:
   stream with both variants "off" and with compaction forced "on"; it
   prints the variant counts, each batch's device ms by variant, the
   histogram's host plan and device kernels (torch.profiler), the marginal
-  ns a slot the rule weighs, ions/s and the device peak.
+  ns a slot the rule weighs, ions/s and the device peak;
+- resilience and compact cubes (phase 10, run after phase 7b on the main
+  path's dataset and ions, its lines stamped with the card's name and power
+  limit): a search with ``checkpoint_every=1`` killed before its third
+  group by the ``device.score_batch`` failpoint and resumed from its two
+  shards (one batch scored, bit-equal to phase 3); a real CUDA OOM under
+  ``torch.cuda.set_per_process_memory_fraction``, at a cap between the
+  device peaks measured at batches of 2048 and 1024, backed off to a
+  smaller batch with the same bits, then a search starting at the learned
+  batch; on the first 10 formulas, a transient and three sticky injected
+  chip faults, the third opening the breaker and failing with
+  ``DeviceUnavailableError`` (the port never moves device work to the
+  host), a search refused while it is open, and a half-open probe that
+  closes it; and bf16 / int8 resident cubes (bf16 also fused), each
+  bit-equal to an f32 search on the host-expanded cube, with resident
+  bytes, peaks and the FDR ranks that moved.  Step 10.1's searches run the
+  port's own set-up; the later ones share the dataset's global m/z sort,
+  so their walls leave it out.  Each new path's kernels are held against
+  their plain versions, and after every phase the script checks that the
+  breaker is closed and that the only refused jobs are phase 10's.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -625,10 +644,8 @@ def _check_hotspot(block: torch.Tensor) -> None:
     """Hot-spot clipping (``ops/metrics.hotspot_clip_batch``, torch ops on
     the card) of ``block``, at q = 99 and 50, bit-equal to the port's numpy
     oracle image by image (``hotspot_clip``), its sort in ion groups."""
-    from sm_distributed_tpu_torch.ops.metrics import (
-        hotspot_clip,
-        hotspot_clip_batch,
-    )
+    from sm_distributed_tpu_torch.ops.metrics import hotspot_clip_batch
+    from sm_distributed_tpu_torch.ops.metrics_np import hotspot_clip
 
     host = block.cpu().numpy()
     for q in (99.0, 50.0):
@@ -1259,9 +1276,10 @@ def _metrics_f64(imgs, theor, n_valid, n_real, chaos) -> torch.Tensor:
                        dim=1)
 
 
-def _kernels_vs_plain_chain(backend, table) -> dict:
+def _kernels_vs_plain_chain(backend, table, ions: int | None = None) -> dict:
     """One batch's metrics through the kernels and through the plain chain,
-    on the same image block, under the component contracts, ion by ion:
+    on the same image block (its first ``ions`` ions when given), under the
+    component contracts, ion by ion:
     chaos bit-equal; for spatial, spectral and msm the kernels within the
     ulp contract of the f64 reference, and within the contract of the plain
     chain plus the plain chain's own distance from the reference at that
@@ -1270,6 +1288,8 @@ def _kernels_vs_plain_chain(backend, table) -> dict:
     from sm_distributed_tpu_torch.ops.metrics import batch_metrics
 
     imgs, theor, n_valid = backend.image_block(table)
+    if ions is not None:
+        imgs, theor, n_valid = imgs[:ions], theor[:ions], n_valid[:ions]
     nrows, ncols = backend.grid
     kern = batch_metrics(imgs.clone(), theor, n_valid, nrows, ncols,
                          backend.nlevels, n_real=backend.n_real)
@@ -1396,11 +1416,13 @@ def _histogram_block(backend, table) -> tuple:
     (cols, P) histogram rows (P row-bucketed), the host chunk offsets, the
     device rank bounds at the sticky band width and the real pixel count."""
     from sm_distributed_tpu_torch.ops.imager import flat_histogram
+    from sm_distributed_tpu_torch.ops.quantize import expand_cube_range
 
     d = backend._device_plan(table)
     n_pix = backend.grid[0] * backend.grid[1]
-    wh = flat_histogram(backend._px_s, backend._in_s, d["pos"],
-                        gc_width=d["gc_width"], n_pixels=n_pix)
+    wh = flat_histogram(backend._px_s,
+                        expand_cube_range(backend._in_s, backend._scales),
+                        d["pos"], gc_width=d["gc_width"], n_pixels=n_pix)
     return (wh[:, :n_pix], d["starts"], d["r_lo_loc"], d["r_hi_loc"],
             backend.n_real or n_pix, d["gc_width"])
 
@@ -2231,6 +2253,500 @@ def phase_ordered_stream() -> dict:
             "phase_s": time.perf_counter() - t_start}
 
 
+# ------------------------------------------------ phase 10: resilience
+# the formulas of the breaker runs: a cut depth, since the breaker's
+# transitions do not depend on it
+BREAKER_FORMULAS = 10
+# ions of each new path's first batch whose metrics go through the kernels
+# and their plain versions (plain chaos takes ~9 ms an image at 256x256)
+PLAIN_IONS = 64
+
+
+def _breaker_closed(refused: int, after: str) -> None:
+    """The process's device breaker closed, and exactly ``refused`` jobs
+    refused on it so far (step 10.3's): no path met a device fault that
+    the script did not inject."""
+    from sm_distributed_tpu_torch.models import breaker
+
+    snap = breaker.get_device_breaker().snapshot()
+    assert snap["state"] == "closed", f"after {after}: breaker {snap}"
+    n = breaker.refused_count()
+    assert n == refused, (
+        f"after {after}: {n} refused jobs, expected {refused}")
+
+
+class _SortedLayoutOnce:
+    """Phase 10's searches after step 10.1 all score the main dataset: its
+    global m/z sort (``prepare_flat_sorted_arrays``, a deterministic
+    function of the dataset and ppm) is taken once and handed to each
+    backend, which still restricts, pads, compacts and uploads its own
+    resident arrays.  Keeps the phase's many searches within its time; the
+    walls of those searches leave the sort out (step 10.1's searches run
+    the port's own set-up, sort included).  The sort is taken on entry,
+    outside every timed search."""
+
+    def __init__(self, ds, ppm: float):
+        self._ds, self._ppm = ds, ppm
+
+    def __enter__(self):
+        from sm_distributed_tpu_torch.models import msm_torch
+
+        self._mod, self._orig = msm_torch, msm_torch.prepare_flat_sorted_arrays
+        memo = {(id(self._ds), self._ppm): self._orig(self._ds, self._ppm)}
+
+        def once(ds, ppm):
+            key = (id(ds), ppm)
+            if key not in memo:
+                memo[key] = self._orig(ds, ppm)
+            return memo[key]
+
+        msm_torch.prepare_flat_sorted_arrays = once
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.prepare_flat_sorted_arrays = self._orig
+        return False
+
+
+def _search_run(search) -> tuple:
+    """(bundle, wall seconds, launches, device peak bytes) of one search,
+    the launch counts set to 0 just before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    bundle = search.search()
+    torch.cuda.synchronize()
+    return (bundle, time.perf_counter() - t0, read_launches(),
+            torch.cuda.max_memory_allocated())
+
+
+def _refused_run(search) -> tuple:
+    """(wall seconds, launches, the error) of one search that must fail
+    with ``DeviceUnavailableError``, the launch counts set to 0 just before
+    it."""
+    from sm_distributed_tpu_torch.models.breaker import DeviceUnavailableError
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        search.search()
+    except DeviceUnavailableError as exc:
+        err = exc
+    else:
+        raise AssertionError("the search was not refused")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, read_launches(), err
+
+
+def _bit_equal(bundle, ref, label: str) -> None:
+    import pandas as pd
+
+    pd.testing.assert_frame_equal(bundle.annotations, ref.annotations,
+                                  check_exact=True, obj=f"{label} annotations")
+    pd.testing.assert_frame_equal(bundle.all_metrics, ref.all_metrics,
+                                  check_exact=True, obj=f"{label} metrics")
+
+
+def _ranks_differing(bundle, ref) -> dict:
+    """Between two searches of the same ions: the annotations whose
+    position in the ranked order differs, and those whose fdr differs."""
+    a, r = bundle.annotations, ref.annotations
+    keys_a = list(zip(a.sf, a.adduct))
+    keys_r = list(zip(r.sf, r.adduct))
+    fdr_a = dict(zip(keys_a, a.fdr))
+    return {"position": sum(x != y for x, y in zip(keys_a, keys_r)),
+            "fdr": sum(fdr_a[k] != f for k, f in zip(keys_r, r.fdr)),
+            "of": len(keys_r)}
+
+
+def _check_fused(backend, table) -> dict:
+    """The fused kernel against its plain version on one batch's
+    histogram: principal rows, sums, vmax and nn bit-equal; norms and dots
+    within MOMENT_ULPS of f64."""
+    from sm_distributed_tpu_torch.ops.imager import banded_images
+    from sm_distributed_tpu_torch.ops.moments import batch_moments_torch
+    from sm_distributed_tpu_torch.ops.score import (
+        fused_window_moments,
+        fused_window_moments_torch,
+    )
+
+    k = table.max_peaks
+    whp, starts, rlo, rhi, n_real, gc = _histogram_block(backend, table)
+    args = (whp, starts, rlo, rhi, n_real)
+    got = fused_window_moments(*args, gc_width=gc, k=k)
+    want = fused_window_moments_torch(*args, gc_width=gc, k=k)
+    block = banded_images(whp, starts, rlo, rhi, gc_width=gc).view(
+        -1, k, whp.shape[1])
+    ref64 = [r.float() for r in batch_moments_torch(block.double(), n_real)]
+    del block
+    assert torch.equal(got[1], want[1]), "fused: principal rows differ"
+    gp, wp = got[0].view(-1, k, 5), want[0].view(-1, k, 5)
+    for i, name in ((0, "sums"), (3, "vmax"), (4, "nn")):
+        assert torch.equal(gp[..., i], wp[..., i]), f"fused: {name} differ"
+    scale = torch.sqrt((ref64[1][:, 0:1] * ref64[1]).clamp(min=0))
+    gaps = {}
+    for name, i, dist in (("normsq", 1, ulps),
+                          ("dots", 2, lambda a, b: ulps_at(a - b, scale))):
+        to_ref = float(dist(gp[..., i], ref64[i]).max())
+        assert to_ref <= MOMENT_ULPS, f"fused: {name} {to_ref} ulp from f64"
+        gaps[name] = to_ref
+    return gaps
+
+
+def _variant_costs(backend, table) -> dict:
+    """One batch forced through each flat variant: the transient device
+    bytes (the peak over what is allocated before it) and the device ms
+    (CUDA events, median of 3).  A compact cube expands the band's or the
+    gathered slots, or the whole cube for plain and fused."""
+    plan = backend._flat_plan(table)
+    out = {}
+    for v in ("plain", "band", "compact", "fused"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        backend._dispatch(table, plan, v)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        ms = time_ms(lambda: backend._dispatch(table, plan, v), reps=3,
+                     warmup=1)
+        out[v] = {"transient_bytes": extra, "ms": ms}
+    return out
+
+
+def _kernels_held(backend, table) -> dict:
+    """The path's kernels against their plain versions on the first
+    ``PLAIN_IONS`` ions of one batch (the fused kernel on the whole batch's
+    histogram when the backend fuses)."""
+    if backend._fused:
+        return {"fused_to_f64": _check_fused(backend, table)}
+    return {"kernels_plain_f64": _kernels_vs_plain_chain(
+        backend, table, ions=PLAIN_IONS)}
+
+
+def phase_resilience(card: str, ds, truth, search, ds_cfg, main: dict
+                     ) -> dict:
+    """Phase 10: checkpoint and resume, a real CUDA OOM backed off from,
+    the breaker and the fault taxonomy by injection, and bf16 / int8
+    resident cubes, on the main path's dataset and ions.  Every line
+    carries the card's name and power limit.  Returns each path's launch
+    counts and the figures the summary prints."""
+    import gc as pygc
+
+    from sm_distributed_tpu_torch.models import breaker, oom
+    from sm_distributed_tpu_torch.models.breaker import DeviceUnavailableError
+    from sm_distributed_tpu_torch.models.msm_basic import (
+        MSMBasicSearch,
+        _slice_table,
+    )
+    from sm_distributed_tpu_torch.ops.quantize import (
+        compact_cube,
+        expand_cube,
+    )
+    from sm_distributed_tpu_torch.utils import failpoints
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    t_phase = time.perf_counter()
+    ref = main["bundle"]
+    out = {"launches": {}}
+
+    def make(formulas=None, checkpoint_dir=None, **blocks):
+        s = MSMBasicSearch(
+            ds, truth.formulas if formulas is None else formulas, ds_cfg,
+            SMConfig.from_dict({"fdr": {"decoy_sample_size": 20}, **blocks}),
+            checkpoint_dir=checkpoint_dir)
+        s.isocalc = search.isocalc     # the main path's warm patterns
+        return s
+
+    def line(msg: str) -> None:
+        say(f"  [{card}] {msg}")
+
+    # -- 1. checkpoint and resume: the port's own set-up, sort included
+    t0 = time.perf_counter()
+    par = {"checkpoint_every": 1}
+    with tempfile.TemporaryDirectory() as td:
+        ck = Path(td)
+        failpoints.configure("device.score_batch=raise:RuntimeError@3")
+        try:
+            make(checkpoint_dir=td, parallel=par).search()
+            raise AssertionError("the killed search did not die")
+        except RuntimeError as exc:
+            assert "device.score_batch" in str(exc), exc
+        finally:
+            failpoints.configure(None)
+        shards = sorted(ck.glob("msm_search.p0.g*.ckpt.npz"))
+        assert len(shards) == 2, shards
+        resumed = make(checkpoint_dir=td, parallel=par)
+        bundle, wall, launches, peak = _search_run(resumed)
+        n_groups = len(shards) + 1
+        assert launches["moments"] == 1 and launches["chaos"] == 1, (
+            f"the resumed search must score 1 of {n_groups} groups: "
+            f"{launches}")
+        _bit_equal(bundle, ref, "resumed search")
+        resumed.last_checkpoint.finalize()
+        assert not list(ck.glob("msm_search.p0.g*")), "shards left"
+    table = resumed.last_table
+    held = _kernels_held(resumed.last_backend,
+                         _slice_table(table, 4096, table.n_ions))
+    out["launches"]["resume"] = launches
+    out["resume"] = {"groups": n_groups, "rescored_groups": 1,
+                     "wall_s": wall, "peak_bytes": peak, **held}
+    line(f"10.1 checkpoint and resume: killed before group 2 of "
+         f"{n_groups} (device.score_batch), 2 durable shards; the rerun "
+         f"resumed 2 groups and scored 1 batch (launches {launches}), "
+         f"wall {wall:.3f} s with its full set-up (backend set-up "
+         f"{bundle.timings['backend_setup']:.3f} s, the global m/z sort "
+         f"included; score {bundle.timings['score']:.3f} s), bit-equal "
+         f"to phase 3; shards removed by finalize(); kernels vs plain on "
+         f"{PLAIN_IONS} ions {json.dumps(held)} "
+         f"({time.perf_counter() - t0:.1f} s)")
+    out["resume"]["setup_s"] = bundle.timings["backend_setup"]
+    out["resume"]["score_s"] = bundle.timings["score"]
+    _breaker_closed(0, "10.1")
+
+    with _SortedLayoutOnce(ds, ds_cfg.image_generation.ppm):
+
+        # -- 2. a real CUDA OOM ------------------------------------------
+        t0 = time.perf_counter()
+        backend = resumed.last_backend
+        b0 = _slice_table(table, 0, 2048)
+        pygc.collect()
+        torch.cuda.empty_cache()
+        peaks = {}
+        for batch in (2048, 1024):
+            backend.shrink_batch(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            backend.score_batches([_slice_table(b0, 0, batch)])
+            torch.cuda.synchronize()
+            peaks[batch] = torch.cuda.max_memory_allocated()
+        del backend, resumed, bundle
+        pygc.collect()
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(0).total_memory
+        gap = peaks[2048] - peaks[1024]
+        assert gap > (512 << 20), (
+            f"no memory fraction separates a batch of 2048 "
+            f"({peaks[2048]} B at peak) from one of 1024 ({peaks[1024]} B)")
+        cap = peaks[1024] + gap // 2
+        key = oom.shape_key(ds.n_pixels, "torch_cuda", None)
+        oom.reset()
+        torch.cuda.set_per_process_memory_fraction(cap / total, 0)
+        try:
+            first = make()
+            bundle, wall, launches, peak = _search_run(first)
+            events = oom.snapshot()
+            converged = oom.safe_batch_for(key)
+            assert events["events"] >= 1, "no CUDA OOM was raised"
+            assert converged is not None and converged <= 1024, converged
+            _bit_equal(bundle, ref, "OOM backoff search")
+            _breaker_closed(0, "10.2 OOM search")
+            out["launches"]["oom"] = launches
+            second = make()
+            bundle2, wall2, launches2, peak2 = _search_run(second)
+            assert second._batch_eff == converged, second._batch_eff
+            assert oom.snapshot()["events"] == events["events"], (
+                "the second search on the shape raised an OOM")
+            _bit_equal(bundle2, ref, "search at the learned batch")
+            out["launches"]["oom_learned"] = launches2
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, 0)
+            oom.reset()
+        held = _kernels_held(second.last_backend,
+                             _slice_table(table, 0, converged))
+        del first, second, bundle, bundle2
+        out["oom"] = {"cap_bytes": cap, "total_bytes": total,
+                      "fraction": cap / total,
+                      "peak_2048_bytes": peaks[2048],
+                      "peak_1024_bytes": peaks[1024],
+                      "converged_batch": converged,
+                      "oom_events": events["events"],
+                      "wall_s": wall, "peak_bytes": peak,
+                      "learned_wall_s": wall2, "learned_peak_bytes": peak2,
+                      **held}
+        line(f"10.2 CUDA OOM: peaks {peaks[2048]} B at a batch of 2048 and "
+             f"{peaks[1024]} B at 1024; cap {cap} B (fraction "
+             f"{cap / total:.6f} of {total} B); the search raised "
+             f"{events['events']} OOM(s), logged oom_backoff and converged "
+             f"to a batch of {converged}, wall {wall:.3f} s (set-up on the "
+             f"shared sort), peak {peak} B, "
+             f"bit-equal to phase 3, breaker closed, none refused "
+             f"(launches {launches}); a second search started at "
+             f"{converged}, raised no OOM, wall {wall2:.3f} s, bit-equal; "
+             f"kernels vs plain {json.dumps(held)}; fraction restored to "
+             f"1.0 ({time.perf_counter() - t0:.1f} s)")
+        _breaker_closed(0, "10.2")
+
+        # -- 3. breaker and taxonomy, by injection -----------------------
+        t0 = time.perf_counter()
+        few = truth.formulas[:BREAKER_FORMULAS]
+        svc = {"service": {"breaker_cooldown_s": 0.0}}
+        device_ref, wall_ref, launches_ref, _ = _search_run(make(few, **svc))
+        n_ions = len(device_ref.all_metrics)
+        out["launches"]["breaker_device"] = launches_ref
+        snap0 = breaker.get_device_breaker().snapshot()
+        failpoints.configure("backend.chip_fault=raise:TimeoutError")
+        try:
+            make(few, **svc).search()
+            raise AssertionError("the transient fault did not raise")
+        except TimeoutError:
+            pass
+        finally:
+            failpoints.configure(None)
+        snap = breaker.get_device_breaker().snapshot()
+        assert snap["failures"] == snap0["failures"] == 0 \
+            and snap["state"] == "closed", snap
+        line(f"10.3 breaker runs: the main dataset's first {len(few)} "
+             f"formulas, {n_ions} ions a run, walls with set-up on the "
+             f"shared sort; the device search wall "
+             f"{wall_ref:.3f} s; backend.chip_fault=raise:TimeoutError "
+             "raised, breaker count unchanged (transient)")
+        failpoints.configure("backend.chip_fault=raise:RuntimeError")
+        try:
+            for i in (1, 2):
+                try:
+                    make(few, **svc).search()
+                    raise AssertionError(f"sticky fault {i} did not raise")
+                except DeviceUnavailableError:
+                    raise AssertionError(
+                        f"sticky fault {i} opened the breaker early")
+                except RuntimeError as exc:
+                    assert "backend.chip_fault" in str(exc), exc
+                snap = breaker.get_device_breaker().snapshot()
+                assert snap["failures"] == i and snap["state"] == "closed"
+            third = make(few, **svc)
+            wall_open, launches_open, err = _refused_run(third)
+        finally:
+            failpoints.configure(None)
+        assert "backend.chip_fault" in str(err.__cause__), err.__cause__
+        assert breaker.get_device_breaker().state == "open"
+        assert breaker.refused_count() == 1
+        assert third.last_backend.name == "torch_cuda"
+        assert all(v == 0 for v in launches_open.values()), launches_open
+        out["launches"]["sticky_open"] = launches_open
+        line(f"10.3 sticky: two raise:RuntimeError searches raised (breaker "
+             f"count 1, 2); the third opened the breaker and failed with "
+             f"DeviceUnavailableError (refused 1, nothing scored on the "
+             f"host): wall {wall_open:.3f} s, launches {launches_open}")
+        refused = make(few, service={"breaker_cooldown_s": 3600.0})
+        wall_refused, launches_refused, err = _refused_run(refused)
+        assert breaker.get_device_breaker().state == "open"
+        assert breaker.refused_count() == 2 and refused.last_backend is None
+        assert all(v == 0 for v in launches_refused.values()), \
+            launches_refused
+        out["launches"]["refused"] = launches_refused
+        line(f"10.3 open: a search within the cooldown was refused before "
+             f"any device work (refused 2): wall {wall_refused:.3f} s, "
+             f"launches {launches_refused}")
+        probe = make(few, **svc)
+        probed, wall_probe, launches_probe, _ = _search_run(probe)
+        transitions = [t for _, _, t in
+                       breaker.get_device_breaker().transitions]
+        assert transitions[-3:] == ["open", "half_open", "closed"], \
+            transitions
+        assert probe.last_backend.name == "torch_cuda"
+        _bit_equal(probed, device_ref, "half-open probe")
+        out["launches"]["probe"] = launches_probe
+        out["breaker"] = {"formulas": len(few), "ions": n_ions,
+                          "device_wall_s": wall_ref,
+                          "opened_wall_s": wall_open,
+                          "refused_wall_s": wall_refused,
+                          "probe_wall_s": wall_probe}
+        line(f"10.3 half-open: after breaker_cooldown_s 0 the next search "
+             f"probed the card, closed the breaker and is bit-equal to the "
+             f"device search (wall {wall_probe:.3f} s, launches "
+             f"{launches_probe}); a real sticky CUDA error is not provoked: "
+             "it would poison the process's CUDA context for every later "
+             f"phase ({time.perf_counter() - t0:.1f} s)")
+        _breaker_closed(2, "10.3")
+
+        # -- 5. compact resident cubes -----------------------------------
+        t0 = time.perf_counter()
+        twin = search.last_backend           # phase 3's f32 backend
+        f32_codes = twin._in_s
+        out["cubes"] = {}
+        host = f32_codes.cpu().numpy()
+        for label, dtype, fused in (("f32", "f32", "auto"),
+                                    ("bf16", "bf16", "auto"),
+                                    ("int8", "int8", "auto"),
+                                    ("bf16_fused", "bf16", "on")):
+            run = make(parallel={"cube_dtype": dtype, "fused_metrics": fused})
+            bundle, wall, launches, peak = _search_run(run)
+            backend = run.last_backend
+            assert backend.cube_dtype == dtype
+            assert torch.equal(backend._px_s, twin._px_s), \
+                "the compact search's resident slots differ from phase 3's"
+            variants = dict(backend.variant_counts)
+            # the f32 search on the host-expanded cube: phase 3's backend
+            # with its intensities swapped, every batch rescored
+            codes, scales = compact_cube(host, dtype)
+            twin._in_s = torch.from_numpy(
+                expand_cube(codes, scales).copy()).to(f32_codes.device)
+            try:
+                rows = []
+                for s in range(0, run.last_table.n_ions, twin.batch):
+                    t = _slice_table(run.last_table, s,
+                                     min(s + twin.batch,
+                                         run.last_table.n_ions))
+                    o = twin._dispatch(t, twin._flat_plan(t),
+                                       "fused" if fused == "on" else None)
+                    rows.append(o[:t.n_ions].cpu().numpy().astype(np.float64))
+            finally:
+                twin._in_s = f32_codes
+            got_rows = bundle.all_metrics[list(CONTRACT)].to_numpy()
+            assert np.array_equal(got_rows, np.concatenate(rows)), (
+                f"{label}: not bit-equal to the f32 search on the "
+                "host-expanded cube")
+            n_b = -(-run.last_table.n_ions // backend.batch)
+            if fused == "on":
+                assert launches["fused_window_moments"] == n_b and \
+                    launches["moments"] == 0, launches
+            else:
+                assert launches["moments"] == n_b and \
+                    launches["fused_window_moments"] == 0, launches
+            assert launches["chaos"] == n_b, launches
+            t_b0 = _slice_table(run.last_table, 0, backend.batch)
+            held = _kernels_held(backend, t_b0)
+            costs = {} if fused == "on" else _variant_costs(backend, t_b0)
+            differ = _ranks_differing(bundle, ref)
+            rb = dict(backend.resident_bytes)
+            out["launches"][label] = launches
+            out["cubes"][label] = {
+                "resident_bytes": rb, "resident_total": sum(rb.values()),
+                "peak_bytes": peak, "score_s": bundle.timings["score"],
+                "wall_s": wall, "variants": variants,
+                "batch0_by_variant": costs,
+                "fdr_ranks_differing_from_f32": differ, **held}
+            line(f"10.5 cube_dtype={dtype} fused_metrics={fused}: resident "
+                 f"intensity {rb['intensity']} B (f32 "
+                 f"{twin.resident_bytes['intensity']} B) + scales "
+                 f"{rb['scales']} B, resident total {sum(rb.values())} B; "
+                 f"peak {peak} B; score {bundle.timings['score']:.3f} s; "
+                 f"variants {variants}; launches {launches}; bit-equal to "
+                 f"the f32 search on the host-expanded cube; annotations "
+                 f"whose rank position / fdr differ from phase 3's unrounded "
+                 f"f32 search: {differ['position']} / {differ['fdr']} of "
+                 f"{differ['of']}; kernels vs plain "
+                 f"{json.dumps(held)}")
+            if costs:
+                line(f"10.5 cube_dtype={dtype}, batch 0 by variant "
+                     "(transient device bytes over what is allocated "
+                     "before it, device ms): " + ", ".join(
+                         f"{v} {c['transient_bytes']} B {c['ms']:.3f} ms"
+                         for v, c in costs.items()))
+            del run, backend, bundle
+            torch.cuda.empty_cache()
+        assert out["cubes"]["bf16"]["resident_bytes"]["intensity"] * 2 == \
+            twin.resident_bytes["intensity"], "bf16 must halve the intensities"
+        _breaker_closed(2, "10.5")
+        line(f"10.5 compact cubes: {time.perf_counter() - t0:.1f} s")
+    took = time.perf_counter() - t_phase
+    out["seconds"] = took
+    say(f"phase 10 resilience and compact cubes [{card}]: {took:.1f} s")
+    return out
+
+
 class OtherPort:
     """The moments, fused and chaos wrappers of another checkout's port
     (``--ab DIR``), imported under the package name ``ab_port``: its kernels
@@ -2272,13 +2788,14 @@ def main() -> int:
     def lap(name: str) -> None:
         took[name] = round(time.perf_counter() - t_script, 1)
 
-    _card, dev = phase_environment()
+    card, dev = phase_environment()
     phase_build()
     lap("build")
     ab = OtherPort(opts.ab) if opts.ab else None
     ds, truth, search, ds_cfg = _setup_main_path()
     main = phase_main_path(ds, truth, search)
     lap("main")
+    _breaker_closed(0, "phase 3")
     backend = search.last_backend
     block, _theor, _n_valid = backend.image_block(
         _slice_table(search.last_table, 0, backend.batch))
@@ -2291,6 +2808,7 @@ def main() -> int:
         entry["launches"] = main["launches"][entry["name"]]
     job = phase_job_path(ds, truth, search, main)
     lap("job")
+    _breaker_closed(0, "phase 3b")
     for entry in kernels:
         entry["job_launches"] = job["inproc_launches"][entry["name"]]
     kernels[0]["row_group_launches"] = _ROW_GROUP_LAUNCHES[0]
@@ -2299,14 +2817,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_golden()
     lap("golden")
+    _breaker_closed(0, "phase 5")
     fused_entry, fused = phase_fused(ds, truth, search, ds_cfg, main, ab)
     lap("fused")
+    _breaker_closed(0, "phase 6")
     torch.cuda.empty_cache()
     cube = phase_cube_main(ds, truth, search, ds_cfg, main)
     lap("cube")
+    _breaker_closed(0, "phase 7")
     torch.cuda.empty_cache()
     preprocessed = phase_preprocessed(ds, truth, search, main)
     lap("preprocessed")
+    _breaker_closed(0, "phase 7b")
+    torch.cuda.empty_cache()
+    resilience = phase_resilience(card, ds, truth, search, ds_cfg, main)
+    lap("resilience")
     say("main path: " + json.dumps({
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
                              "n_ions", "n_peaks", "drift", "recall",
@@ -2316,9 +2841,11 @@ def main() -> int:
     strips_entry, slide = phase_whole_slide(
         dev, ds_cfg.image_generation.nlevels, ab)
     lap("whole_slide")
+    _breaker_closed(2, "phase 8")
     torch.cuda.empty_cache()
     ordered = phase_ordered_stream()
     lap("ordered_stream")
+    _breaker_closed(2, "phase 9")
     say("job path: " + json.dumps({k: job[k] for k in (
         "runs", "inproc_wall_s", "inproc_timings", "hbm", "phase_s",
         "steps_s")}))
@@ -2327,6 +2854,8 @@ def main() -> int:
     say("preprocessed main path: " + json.dumps(preprocessed))
     say("whole-slide path: " + json.dumps(slide))
     say("ordered stream: " + json.dumps(ordered))
+    say(f"resilience and compact cubes [{card}]: " + json.dumps(
+        {k: v for k, v in resilience.items() if k != "launches"}))
     # the moments kernel's error: the largest over phase 4's blocks and the
     # whole-slide block of phase 8
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
@@ -2336,6 +2865,13 @@ def main() -> int:
     for entry in kernels:
         entry["ordered_launches"] = ordered["runs"]["auto"]["launches"][
             entry["name"]]
+        entry["resilience_launches"] = {
+            path: counts[entry["name"]]
+            for path, counts in resilience["launches"].items()}
+    _breaker_closed(2, "the script")
+    say(f"  [{card}] 10.4 no host fallback: after every phase the device "
+        "breaker was closed, the two refused jobs are step 10.3's, and no "
+        "search moved device work to the host (the port has no such path)")
     say(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all; "
         f"seconds from the start at the end of each phase {took}")
     say("ordered stream variants (phase 9, auto): "

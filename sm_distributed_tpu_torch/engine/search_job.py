@@ -9,12 +9,15 @@ ledger.  ``run()`` goes through, in turn:
    not "off"), so decoys and pattern generation overlap the input steps;
 3. staging through the work dir (``stage_input``) and
    ``SpectralDataset.from_imzml`` (``read_dataset``);
-4. ``MSMBasicSearch.search()`` on the ``torch_cuda`` backend, with the
-   pattern cache under ``<work_dir>/isocalc_cache``;
+4. ``MSMBasicSearch.search()`` on the configured backend (``torch_cuda``
+   by default), with the pattern cache under ``<work_dir>/isocalc_cache``
+   and the search's checkpoint shards in the job's work dir, so a rerun of
+   a killed job resumes from its last durable batch group;
 5. the results store (``store_results``): the ion images of annotations at
    FDR <= 0.5, taken off the device (``TorchBackend.extract_ion_images``),
-   then parquet, the sqlite index and the read segment;
-6. the ledger's FINISHED row.
+   or from the search's numpy extraction when the config names
+   ``numpy_ref``, then parquet, the sqlite index and the read segment;
+6. the ledger's FINISHED row, then the checkpoint shards are removed.
 
 Failure contract: any exception marks the job FAILED with its traceback,
 removes this job's index rows (earlier jobs' rows stay queryable), keeps
@@ -23,7 +26,7 @@ writes a ``torch.profiler`` trace of the search there.
 
 The service's hooks wait for the service port (ROADMAP queue 1 item 9):
 dataset residency across jobs, the device token, the replica fence and
-streamed partial results.
+streamed partial results to the job record.
 """
 
 from __future__ import annotations
@@ -128,8 +131,9 @@ class SearchJob:
             with tracing.span("device_hold"):
                 search = MSMBasicSearch(
                     ds, formulas, self.ds_config, self.sm_config,
-                    isocalc_cache_dir=cache_dir, prefetch=prefetch,
-                    cancel=self.cancel)
+                    isocalc_cache_dir=cache_dir,
+                    checkpoint_dir=str(self.work_dir.path),
+                    prefetch=prefetch, cancel=self.cancel)
                 prefetch = None   # ownership passed: search() consumes it
                 bundle = search.search()
                 if search.isocalc is not None:
@@ -159,6 +163,16 @@ class SearchJob:
                 if self.last_hbm.get("hbm_peak_bytes") is not None:
                     tracing.event("hbm_job_peak", **self.last_hbm)
             self.ledger.finish_job(job_id)
+            if search.last_checkpoint is not None:
+                # only after results are durably stored: a storage failure
+                # above must leave the checkpoint for the rerun to resume
+                # from; and a failed cleanup must not FAIL a finished job
+                try:
+                    search.last_checkpoint.finalize()
+                except OSError:
+                    logger.warning(
+                        "could not remove search checkpoint shards under %s",
+                        search.last_checkpoint.dir, exc_info=True)
             logger.info("job %d FINISHED (%d annotations)", job_id,
                         len(bundle.annotations))
             succeeded = True
@@ -230,7 +244,8 @@ class SearchJob:
         """Persist the ion images of annotations at FDR <= 0.5, taken off
         the device extraction (``TorchBackend.extract_ion_images``, bit-equal
         to the JAX package's and to the numpy extraction) rather than
-        re-extracted on the host."""
+        re-extracted on the host; on ``numpy_ref``, the search's own sorted
+        view extracts them (``NumpyBackend.extract_ion_images``)."""
         table = search.last_table
         if table is None or bundle.annotations.empty:
             return

@@ -1,0 +1,166 @@
+"""Device-backend circuit breaker.
+
+Port of ``sm_distributed_tpu/models/breaker.py``'s state machine.  The
+breaker wraps the device scoring seam in ``MSMBasicSearch._score_group``:
+
+- **closed**: device scoring as normal; each cleanly scored group counts as
+  a success and resets the consecutive-error count;
+- **open**: after ``service.breaker_threshold`` consecutive sticky device
+  faults (``models/faults.py``; OOM, transient and program faults never
+  count).  A ``torch_cuda`` job is refused with
+  :class:`DeviceUnavailableError`, loudly: logged and counted
+  (:func:`refused_count`), the job left FAILED for the caller's retry
+  policy.  The port never moves device work to the host: the JAX package's
+  degrade to the numpy oracle is not ported, and ``numpy_ref`` scores only
+  when the config names it;
+- **half-open**: once ``service.breaker_cooldown_s`` has elapsed, the next
+  job's device build is allowed through as a probe.  A clean group closes
+  the breaker; another device fault re-opens it and restarts the cooldown.
+
+One card, one process-wide breaker (the ``"*"`` singleton).  The JAX
+package's per-device registry and its lease view come with the multi-GPU
+device pool (ROADMAP queue 1 item 7); the ``sm_breaker_*`` metrics export
+with the service port (item 9).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+from ..utils import tracing
+from ..utils.logger import logger
+
+STATE_CLOSED = "closed"
+STATE_OPEN = "open"
+STATE_HALF_OPEN = "half_open"
+
+# the process-wide breaker's label
+GLOBAL_LABEL = "*"
+
+
+class DeviceUnavailableError(RuntimeError):
+    """The device breaker is open: a ``torch_cuda`` job cannot score now.
+    Raised instead of moving the work to the host; the caller's retry
+    policy runs the job again after the cooldown."""
+
+
+class CircuitBreaker:
+    """Consecutive-failure breaker with half-open recovery probes."""
+
+    def __init__(self, threshold: int = 3, cooldown_s: float = 30.0,
+                 label: str = GLOBAL_LABEL):
+        self.threshold = int(threshold)
+        self.cooldown_s = float(cooldown_s)
+        self.label = str(label)
+        self._lock = threading.Lock()
+        self._state = STATE_CLOSED
+        self._failures = 0
+        self._opened_at = 0.0
+        # (monotonic time, from, to) — bounded history for probes/tests
+        self.transitions: list[tuple[float, str, str]] = []
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def _transition_locked(self, to: str) -> None:
+        # callers hold self._lock
+        if self._state == to:
+            return
+        self.transitions.append((time.monotonic(), self._state, to))
+        if len(self.transitions) > 256:
+            del self.transitions[:-256]
+        logger.warning("device breaker[%s]: %s -> %s (%d consecutive "
+                       "failures)", self.label, self._state, to,
+                       self._failures)
+        tracing.event("breaker", device=self.label, from_state=self._state,
+                      to_state=to, failures=self._failures)
+        self._state = to
+
+    def allow_device(self) -> bool:
+        """May the next job use the device backend?  In OPEN state this
+        flips to HALF_OPEN once the cooldown has elapsed and admits that one
+        caller as the recovery probe."""
+        with self._lock:
+            if self._state == STATE_CLOSED or self._state == STATE_HALF_OPEN:
+                return True
+            if time.monotonic() - self._opened_at >= self.cooldown_s:
+                self._transition_locked(STATE_HALF_OPEN)
+                return True
+            return False
+
+    def record_success(self) -> None:
+        """A device scoring group completed cleanly."""
+        with self._lock:
+            self._failures = 0
+            if self._state != STATE_CLOSED:
+                self._transition_locked(STATE_CLOSED)
+
+    def record_failure(self) -> bool:
+        """A sticky device fault occurred; returns True when the breaker is
+        now open (the caller refuses the job)."""
+        with self._lock:
+            self._failures += 1
+            if self._state == STATE_HALF_OPEN or (
+                    self._state == STATE_CLOSED
+                    and self._failures >= self.threshold):
+                self._opened_at = time.monotonic()
+                self._transition_locked(STATE_OPEN)
+            elif self._state == STATE_OPEN:
+                self._opened_at = time.monotonic()
+            return self._state == STATE_OPEN
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"state": self._state, "failures": self._failures,
+                    "threshold": self.threshold,
+                    "cooldown_s": self.cooldown_s}
+
+
+# ------------------------------------------------------- process singleton
+_lock = threading.Lock()
+_breaker: CircuitBreaker | None = None
+_refused = 0
+
+
+def get_device_breaker(service_cfg=None) -> CircuitBreaker:
+    """The process-wide device breaker.  ``service_cfg`` (a
+    ``ServiceConfig``) refreshes its thresholds in place; the state machine
+    is untouched."""
+    global _breaker
+    with _lock:
+        if _breaker is None:
+            _breaker = CircuitBreaker()
+        if service_cfg is not None:
+            _breaker.threshold = int(service_cfg.breaker_threshold)
+            _breaker.cooldown_s = float(service_cfg.breaker_cooldown_s)
+        return _breaker
+
+
+def reset_device_breaker() -> None:
+    """A fresh breaker and a zero refused count (tests)."""
+    global _breaker, _refused
+    with _lock:
+        _breaker = None
+        _refused = 0
+
+
+def refuse_device(reason: str) -> DeviceUnavailableError:
+    """Count, log and trace one refused ``torch_cuda`` job; returns the
+    error for the caller to raise."""
+    global _refused
+    with _lock:
+        _refused += 1
+    logger.error("device breaker open: %s; the job fails for the retry "
+                 "policy (the port does not move device work to the host)",
+                 reason)
+    tracing.event("device_refused", reason=reason[:300])
+    return DeviceUnavailableError(f"device breaker open: {reason}")
+
+
+def refused_count() -> int:
+    """``torch_cuda`` jobs this process refused on an open breaker."""
+    with _lock:
+        return _refused

@@ -28,6 +28,14 @@ With ``image_generation.do_preprocessing`` every chain but the fused one
 hot-spot clips the image block before its moments; preprocessing never
 takes the fused kernel.
 
+With ``parallel.cube_dtype`` "bf16" or "int8" the flat path's resident
+intensities are compact (``ops/quantize.compact_cube``: half or a quarter
+of the f32 bytes, int8 with one power-of-two scale a ``QTILE`` slots) and
+each scorer expands to f32 only the slots its batch reads: the band's
+slots, the gathered slots, or the whole cube for the plain and fused
+variants.  Expansion is exact, so images equal those of the f32 cube
+rounded the same way.  The cube path stays f32, as in the JAX package.
+
 Each formula batch is planned on the host (padded windows, bound ranks, the
 chunk plan, the band and the compaction runs).  On the flat paths the
 shape-bucket lattice is mirrored so the port scores exactly the padded
@@ -67,7 +75,14 @@ from ..ops.imager import (
 from ..ops.isocalc import IsotopePatternTable
 from ..ops.metrics import batch_metrics, batch_metrics_from_partials
 from ..ops.score import fused_window_moments
-from ..ops.quantize import MZ_PAD_Q, quantize_window
+from ..ops.quantize import (
+    MZ_PAD_Q,
+    QTILE,
+    compact_cube,
+    cube_to_device,
+    expand_cube_range,
+    quantize_window,
+)
 from ..utils.config import DSConfig, SMConfig
 
 logger = logging.getLogger(__name__)
@@ -115,13 +130,17 @@ def score_flat_plain(
     nlevels: int,
     do_preprocessing: bool = False,
     q: float = 99.0,
+    scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(b, 4) metrics of one padded batch, in the table's ion order — the
     port of ``fused_score_fn_flat_banded``.  The chunk plan is ion-major, so
     extraction emits the (b, k, P) block directly and only the metric rows
-    are un-permuted by ``inv``."""
+    are un-permuted by ``inv``.  A compact ``int_sorted`` (bf16, or int8
+    with its tile ``scales``) is expanded to f32 whole: the plain histogram
+    reads every resident slot."""
     imgs = extract_images_flat_banded(
-        pixel_sorted, int_sorted, pos, starts, r_lo_loc, r_hi_loc, None,
+        pixel_sorted, expand_cube_range(int_sorted, scales), pos, starts,
+        r_lo_loc, r_hi_loc, None,
         gc_width=gc_width, n_pixels=nrows * ncols)
     out = batch_metrics(imgs.view(b, k, -1), theor_ints, n_valid, nrows,
                         ncols, nlevels, n_real=n_real,
@@ -151,6 +170,7 @@ def score_flat_sliced(
     nlevels: int,
     do_preprocessing: bool = False,
     q: float = 99.0,
+    scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """:func:`score_flat_plain` over the contiguous band ``[b_lo, b_lo +
     width)`` of the resident peaks — the port of
@@ -160,10 +180,12 @@ def score_flat_sliced(
     every window land in gap bins of zero membership, and bounds below the
     band are batch-padding zeros, ranked below every real window, exactly
     as the full histogram treats them — images and metrics are
-    bit-identical to the plain variant's."""
+    bit-identical to the plain variant's.  A compact cube expands the
+    band's slots only, each int8 slot by the scale of its absolute tile."""
     pos_b = torch.clamp(pos - b_lo, 0, width)
     return score_flat_plain(
-        pixel_sorted[b_lo:b_lo + width], int_sorted[b_lo:b_lo + width],
+        pixel_sorted[b_lo:b_lo + width],
+        expand_cube_range(int_sorted, scales, b_lo, b_lo + width),
         pos_b, starts, r_lo_loc, r_hi_loc, inv, theor_ints, n_valid, n_real,
         gc_width=gc_width, b=b, k=k, nrows=nrows, ncols=ncols,
         nlevels=nlevels, do_preprocessing=do_preprocessing, q=q)
@@ -192,14 +214,17 @@ def score_flat_compact(
     nlevels: int,
     do_preprocessing: bool = False,
     q: float = 99.0,
+    scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """:func:`score_flat_plain` over the batch's kept peaks only, gathered
     on the device by ``compact_peaks`` — the port of
     ``fused_score_fn_flat_banded_compact``.  The kept peaks are exactly
     those inside some window of the batch, so the (pixel, bin, intensity)
-    hit multiset, and every image and metric bit, is the plain variant's."""
+    hit multiset, and every image and metric bit, is the plain variant's.
+    A compact cube expands the gathered slots only, with their gathered
+    tile scales."""
     px_b, in_b = compact_peaks(pixel_sorted, int_sorted, run_pos, run_delta,
-                               n_b)
+                               n_b, scales)
     return score_flat_plain(
         px_b, in_b, pos_b, starts, r_lo_loc, r_hi_loc, inv, theor_ints,
         n_valid, n_real, gc_width=gc_width, b=b, k=k, nrows=nrows,
@@ -224,15 +249,17 @@ def score_flat_fused(
     nrows: int,
     ncols: int,
     nlevels: int,
+    scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(b, 4) metrics of one padded batch through the fused window-moments
     kernel, in the table's ion order — the port of
-    ``fused_score_fn_flat_fused``.  The histogram is the plain path's; the
-    kernel reads exactly the band rows the plain path's matmuls read, and
-    the metric rows are un-permuted by ``inv``."""
+    ``fused_score_fn_flat_fused``.  The histogram is the plain path's (a
+    compact cube expands whole); the kernel reads exactly the band rows the
+    plain path's matmuls read, and the metric rows are un-permuted by
+    ``inv``."""
     n_pix = nrows * ncols
-    wh = flat_histogram(pixel_sorted, int_sorted, pos, gc_width=gc_width,
-                        n_pixels=n_pix)
+    wh = flat_histogram(pixel_sorted, expand_cube_range(int_sorted, scales),
+                        pos, gc_width=gc_width, n_pixels=n_pix)
     partials, principal = fused_window_moments(
         wh[:, :n_pix], starts, r_lo_loc, r_hi_loc,
         n_pix if n_real is None else n_real, gc_width=gc_width, k=k)
@@ -338,10 +365,17 @@ class TorchBackend:
         self._n_real = ds.n_pixels if self._buckets else None
         self.int_scale = ds.intensity_quantization(self.ppm)[1]
         self.mz_chunk = max(0, sm_config.parallel.mz_chunk)
+        # the resident flat intensity cube's dtype (parallel.cube_dtype) and
+        # its int8 tile scales; the cube path stays f32, as in the JAX
+        # package
+        self.cube_dtype = "f32"
+        self._scales = None
+        # bytes of each resident array: pixel rows, intensities, scales
+        self.resident_bytes: dict[str, int] = {}
         if self.mz_chunk:
             self._init_cube(ds, restrict_table)
         else:
-            self._init_flat(ds, ds_config, restrict_table)
+            self._init_flat(ds, ds_config, sm_config, restrict_table)
         # "on" takes the fused kernel; "auto" keeps the plain chain on every
         # device until the fused kernel beats it on the card (ROADMAP);
         # hot-spot clipping needs the image block, so it never fuses
@@ -374,6 +408,8 @@ class TorchBackend:
         mz_q, int_cube = prepare_cube_arrays(ds, ppm=self.ppm)
         self._mz_q = torch.from_numpy(mz_q).to(self.device)
         self._ints = torch.from_numpy(int_cube).to(self.device)
+        self.resident_bytes = {"mz": self._mz_q.nbytes,
+                               "intensity": self._ints.nbytes, "scales": 0}
         logger.info("torch_cuda cube resident: %s int32 + %s f32 on %s",
                     tuple(mz_q.shape), tuple(int_cube.shape), self.device)
         self._nrows_b = ds.nrows
@@ -381,8 +417,12 @@ class TorchBackend:
         self._n_real = None
 
     def _init_flat(self, ds: SpectralDataset, ds_config: DSConfig,
+                   sm_config: SMConfig,
                    restrict_table: IsotopePatternTable | None) -> None:
-        """The m/z-sorted flat peaks, resident and lattice-padded."""
+        """The m/z-sorted flat peaks, resident and lattice-padded, the
+        intensities in ``parallel.cube_dtype``: bf16 halves, int8 (with one
+        f32 scale a QTILE slots) quarters the resident intensity array; each
+        scorer expands to f32 only the slots its batch reads."""
         # guard: the histogram scratch is (2BK+1, P+1) f32 — past a few GB
         # the device OOM is opaque, so fail early with guidance
         k_est = ds_config.isotope_generation.n_peaks
@@ -417,11 +457,30 @@ class TorchBackend:
                 px_s = np.concatenate(
                     [px_s, np.full(tail, ds.n_pixels, px_s.dtype)])
                 in_s = np.concatenate([in_s, np.zeros(tail, in_s.dtype)])
+        self.cube_dtype = sm_config.parallel.cube_dtype
+        if self.cube_dtype == "int8" and in_s.size % QTILE != 0:
+            # int8 tiles need QTILE-aligned slots, padded with the same
+            # zero-intensity overflow-row slots as the lattice pad (as the
+            # JAX package does; lattice points and the flat layout's
+            # 1024-slot rounding are already multiples of QTILE)
+            tail = -in_s.size % QTILE
+            mz_s = np.concatenate([mz_s, np.full(tail, MZ_PAD_Q, mz_s.dtype)])
+            px_s = np.concatenate(
+                [px_s, np.full(tail, ds.n_pixels, px_s.dtype)])
+            in_s = np.concatenate([in_s, np.zeros(tail, in_s.dtype)])
+        codes, scales = compact_cube(in_s, self.cube_dtype)
         self._mz_host = mz_s
         self._px_s = torch.from_numpy(px_s.astype(np.int64)).to(self.device)
-        self._in_s = torch.from_numpy(in_s).to(self.device)
-        logger.info("torch_cuda flat peaks resident: %d sorted peaks on %s",
-                    mz_s.size, self.device)
+        self._in_s = cube_to_device(codes, self.device)
+        if scales is not None:
+            self._scales = torch.from_numpy(scales).to(self.device)
+        self.resident_bytes = {
+            "pixel": self._px_s.nbytes, "intensity": self._in_s.nbytes,
+            "scales": 0 if scales is None else self._scales.nbytes}
+        logger.info(
+            "torch_cuda flat peaks resident: %d sorted peaks on %s; "
+            "cube_dtype=%s, bytes %s", mz_s.size, self.device,
+            self.cube_dtype, self.resident_bytes)
 
     def _batch_for(self, n: int) -> int:
         # the cube path and small formula batches keep one batch size
@@ -584,6 +643,7 @@ class TorchBackend:
                        nlevels=self.nlevels)
         tail = (d["starts"], d["r_lo_loc"], d["r_hi_loc"], d["inv"],
                 d["theor_ints"], d["n_valid"], self._n_real)
+        statics["scales"] = self._scales
         if variant == "fused":
             out = score_flat_fused(self._px_s, self._in_s, d["pos"], *tail,
                                    **statics)
@@ -629,7 +689,8 @@ class TorchBackend:
         else:
             d = self._device_plan(table, plan)
             imgs = extract_images_flat_banded(
-                self._px_s, self._in_s, d["pos"], d["starts"], d["r_lo_loc"],
+                self._px_s, expand_cube_range(self._in_s, self._scales),
+                d["pos"], d["starts"], d["r_lo_loc"],
                 d["r_hi_loc"], None, gc_width=d["gc_width"],
                 n_pixels=self._n_pix_b).view(d["b"], k, -1)
         valid = (torch.arange(k, device=self.device)[None, :]
@@ -679,17 +740,22 @@ class TorchBackend:
         out = self._dispatch(table)
         return out[:table.n_ions].cpu().numpy().astype(np.float64)
 
-    def score_batches(self, tables) -> list[np.ndarray]:
+    def score_batches(self, tables, cancel=None) -> list[np.ndarray]:
         """Score a list of batches: plan all first (pre-sizing the sticky
         band widths to the stream's max), enqueue every batch, then copy the
-        results to the host."""
+        results to the host.  ``cancel`` (a ``CancelToken``) is checked
+        between batches.  The copy stays here: a device error of any batch
+        surfaces at it, inside the caller's fault handling."""
         tables = list(tables)
-        if self.mz_chunk:
-            outs = [self._dispatch(t) for t in tables]
-        else:
-            plans = [self._flat_plan(t) for t in tables]
-            for plan in plans:
+        plans = ([None] * len(tables) if self.mz_chunk
+                 else [self._flat_plan(t) for t in tables])
+        for plan in plans:
+            if plan is not None:
                 self._grow_from_plan(plan)
-            outs = [self._dispatch(t, plan) for t, plan in zip(tables, plans)]
+        outs = []
+        for t, plan in zip(tables, plans):
+            if cancel is not None:
+                cancel.check("score_batch")
+            outs.append(self._dispatch(t, plan))
         return [o[:t.n_ions].cpu().numpy().astype(np.float64)
                 for o, t in zip(outs, tables)]

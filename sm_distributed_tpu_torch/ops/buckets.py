@@ -5,7 +5,8 @@ dataset-dependent shapes snap to the quarter-point ladder
 ``{1, 1.25, 1.5, 1.75} x 2^e`` so the port pads exactly as the JAX package
 does — resident peak arrays (``peak_bucket``), image rows (``row_bucket``,
 zero rows whose only effect, on the correlation mean, is masked by the real
-pixel count) and the pad-to batch (``batch_bucket_down``).  The JAX
+pixel count) and the pad-to batch (``batch_bucket_down``) — and keys the
+OOM safe-batch memory on the same buckets (``pixel_bucket``).  The JAX
 package's spec registry and manifest serve its compile cache primer and
 have no counterpart here.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 # cheaper than many tiny executables
 PEAK_FLOOR = 4096       # resident-peak arrays (slots are 8 bytes)
 ROW_FLOOR = 8           # image rows
+PIXEL_FLOOR = 64        # flat pixel counts (oom shape keys)
 
 
 def pow2ish(n: int, floor: int = 1) -> int:
@@ -74,6 +76,13 @@ def peak_bucket(n_peaks: int) -> int:
 def row_bucket(nrows: int) -> int:
     """Lattice row count for the image grid (columns stay exact)."""
     return pow2ish(nrows, ROW_FLOOR)
+
+
+def pixel_bucket(n_pixels: int) -> int:
+    """Lattice point for a flat pixel count: the granularity of the OOM
+    safe-batch ``shape_key``, so a learned batch transfers to every dataset
+    size sharing the bucket."""
+    return pow2ish(n_pixels, PIXEL_FLOOR)
 
 
 def batch_bucket_down(batch: int) -> int:

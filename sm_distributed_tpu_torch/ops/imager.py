@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..io.dataset import SpectralDataset
-from .quantize import MZ_PAD_Q, quantize_mz
+from .quantize import MZ_PAD_Q, expand_cube_at, quantize_mz
 
 # windows per band chunk in the flat-banded extraction (each chunk's
 # membership matmul covers ~2*BAND_WINDOWS grid columns)
@@ -239,23 +239,25 @@ def batch_peak_runs(
 
 def compact_peaks(
     px_s: torch.Tensor,       # (N,) int64 resident pixel rows
-    in_s: torch.Tensor,       # (N,) f32 resident intensities
+    in_s: torch.Tensor,       # (N,) resident intensities (f32, bf16, int8)
     run_pos: torch.Tensor,    # (R,) int64 kept-space run starts (< n_b)
     run_delta: torch.Tensor,  # (R,) int64 source-offset jumps
     n_b: int,
+    scales: torch.Tensor | None = None,  # (N/QTILE,) f32 int8 tile scales
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Device-side gather of a batch's kept peak slots: (px_b, in_b), both
-    (n_b,).  The source index of kept slot j is j plus the running sum of
-    the run jumps at or before j: one ``index_add_`` of the jumps into an
-    (n_b,) delta array, a ``cumsum``, then the gather.  Every run starts
-    below ``n_b``, so no index leaves its array (the JAX package instead
-    pads to a fixed capacity and drops the pad slots' scatter)."""
+    (n_b,), ``in_b`` in f32.  The source index of kept slot j is j plus the
+    running sum of the run jumps at or before j: one ``index_add_`` of the
+    jumps into an (n_b,) delta array, a ``cumsum``, then the gather (of a
+    compact cube's codes, expanded with their gathered tile scales).  Every
+    run starts below ``n_b``, so no index leaves its array (the JAX package
+    instead pads to a fixed capacity and drops the pad slots' scatter)."""
     dev = px_s.device
     d = torch.zeros(n_b, dtype=torch.int64, device=dev)
     d.index_add_(0, run_pos, run_delta)
     src = torch.arange(n_b, dtype=torch.int64, device=dev) + torch.cumsum(
         d, dim=0)
-    return px_s[src], in_s[src]
+    return px_s[src], expand_cube_at(in_s, scales, src)
 
 
 def window_union_member(mz_q: np.ndarray, flat_bounds: np.ndarray) -> np.ndarray:

@@ -290,6 +290,15 @@ class IsotopePatternTable:
         return self.mzs.shape[1]
 
 
+# Version salt for pairs-based checkpoint fingerprints (models/msm_basic.py
+# hashes it instead of the full pattern table when scoring overlaps
+# generation); the JAX package's value, so a checkpoint written by either
+# package resumes in the other.  BUMP THIS (in both packages) whenever
+# centroids()/fine_structure() change result bits: a stale value lets an old
+# mid-search checkpoint resume against silently different patterns.
+ISOCALC_PATTERN_VERSION = 1
+
+
 FP_ISO_WORKER = register_failpoint(
     "isocalc.worker",
     "per-chunk isotope-pattern compute (pool-worker crash / chunk retry)")

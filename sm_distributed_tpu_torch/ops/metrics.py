@@ -8,8 +8,8 @@ chaos counts come from ``ops/chaos.py``.  On the card those are the
 hand-written kernels; on the CPU their plain versions.  With
 ``image_generation.do_preprocessing`` the block is hot-spot clipped first
 (``hotspot_clip_batch``, torch ops), bit-identical to the numpy oracle's
-cutoff, of which this module keeps its own copy
-(``hotspot_percentile_f32``, ``hotspot_clip``).
+cutoff (``ops/metrics_np.py``: ``hotspot_percentile_f32``, ``hotspot_clip``,
+imported here).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .chaos import chaos_count_sums, chaos_count_sums_torch
+from .metrics_np import hotspot_clip, hotspot_percentile_f32  # noqa: F401
 from .moments import batch_moments, batch_moments_torch
 
 _TINY = 1e-30   # the JAX package's np.float32(1e-30) denominators floor
@@ -25,34 +26,6 @@ _TINY = 1e-30   # the JAX package's np.float32(1e-30) denominators floor
 # bytes of sort scratch (values and int64 indices) hot-spot clipping may
 # hold at once: the block is sorted in groups of ions within it
 HOTSPOT_SORT_BYTES = 1 << 29
-
-
-def hotspot_percentile_f32(pos_sorted: np.ndarray, q: float) -> np.float32:
-    """q-th linear-interpolated percentile of the sorted positive pixels,
-    as a fixed sequence of SINGLE f32 operations: the cross-backend
-    definition of the hot-spot cutoff (the JAX package's
-    ``ops/metrics_np.py``, copied).  Every step is exact in f32 (floor, a
-    fraction below 2**23, a difference of grid integers) or one correctly
-    rounded IEEE op."""
-    m = pos_sorted.size
-    t = np.float32(q) / np.float32(100.0)
-    pos = t * np.float32(m - 1)                   # one rounded mul
-    lo = np.floor(pos)                            # exact
-    frac = np.float32(pos - lo)                   # exact (pos < 2**23)
-    i_lo = int(lo)
-    v_lo = np.float32(pos_sorted[i_lo])
-    v_hi = np.float32(pos_sorted[min(i_lo + 1, m - 1)])
-    prod = np.float32(v_hi - v_lo) * frac         # exact diff, one mul
-    return v_lo + prod                            # one rounded add
-
-
-def hotspot_clip(img: np.ndarray, q: float = 99.0) -> np.ndarray:
-    """Hot-spot removal of one image (numpy): clip at the q-th percentile
-    of the positive pixels; no-op on empty images."""
-    pos = np.sort(img[img > 0])
-    if pos.size == 0:
-        return img
-    return np.minimum(img, hotspot_percentile_f32(pos, q))
 
 
 def hotspot_clip_batch(images: torch.Tensor, q: float) -> torch.Tensor:

@@ -2,24 +2,29 @@
 
 A port of ``sm_distributed_tpu/utils/config.py``: the per-dataset
 ``DSConfig`` (database, isotope_generation, image_generation) with the same
-keys and defaults, and the engine's ``SMConfig`` with ``backend``,
+keys and defaults, and the engine's ``SMConfig`` with ``backend``
+(``torch_cuda``, the default, or the host oracle ``numpy_ref``),
 ``device``, ``fdr``, the ``parallel`` knobs the scoring and isotope-pattern
-paths read, ``storage``, ``tracing``, ``logs``, ``work_dir``, ``logs_dir``
-and ``failpoints``, and the process-global instance of ``set_path`` /
-``get_conf``.  ``from_dict`` rejects unknown keys, as the JAX package does.
+paths read, the ``service`` block's three breaker knobs, ``storage``,
+``tracing``, ``logs``, ``work_dir``, ``logs_dir`` and ``failpoints``, and
+the process-global instance of ``set_path`` / ``get_conf``.  ``from_dict``
+rejects unknown keys, as the JAX package does.
 
 A block or value the port does not have yet raises ``NotImplementedError``
-naming the ROADMAP item that brings it, rather than being dropped: the
-``service``, ``telemetry`` and ``resources`` blocks and the tracing
-retention knobs (item 9), a nonzero ``parallel.checkpoint_every`` (item 2),
-``parallel.isocalc_device="on"`` (item 8), the JAX package's mesh and
-multi-host knobs (item 7), its compile cache and dataset residency (item 9),
-and the values listed on each dataclass.  ``peak_compaction`` and
+naming the ROADMAP item that brings it, rather than being dropped: every
+``service`` key but ``breaker_threshold``, ``breaker_cooldown_s`` and
+``breaker_degraded_batch``, the ``telemetry`` and ``resources`` blocks and
+the tracing retention knobs (item 9) unless they hold the JAX package's
+default, ``parallel.isocalc_device="on"`` (item 8), the JAX package's mesh
+and multi-host knobs (item 7), its compile cache and dataset residency
+(item 9), and the values listed on each dataclass.  ``peak_compaction`` and
 ``band_slice`` take every value the JAX package does: ``"auto"`` lets the
 backend pick the plain, band or compact variant for each batch by its
 estimated cost on the card, ``"on"`` forces one (band first), ``"off"``
 leaves it out; the variants give the same bits.  ``do_preprocessing``
-(hot-spot clipping) is accepted too.
+(hot-spot clipping), ``checkpoint_every`` (search checkpoint groups) and
+``cube_dtype`` (a bf16 or int8 resident intensity cube on the flat path)
+take every value the JAX package accepts.
 """
 
 from __future__ import annotations
@@ -31,14 +36,56 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, ClassVar
 
-VALID_BACKENDS = ("torch_cuda",)
+VALID_BACKENDS = ("numpy_ref", "torch_cuda")
 
+
+# the JAX package's ``service`` keys beside the breaker knobs, with their
+# defaults (nested blocks as dicts): the service port (ROADMAP queue 1 item
+# 9) brings them.  tests/test_torch_resilience.py holds this table equal to
+# the JAX package's ServiceConfig defaults
+_SERVICE_NOT_YET = {
+    "workers": 2, "poll_interval_s": 0.5, "job_timeout_s": 21600.0,
+    "max_attempts": 3, "backoff_base_s": 1.0, "backoff_max_s": 60.0,
+    "backoff_jitter": 0.1, "heartbeat_interval_s": 5.0,
+    "stale_after_s": 30.0, "drain_timeout_s": 30.0,
+    "http_host": "127.0.0.1", "http_port": 8685, "cancel_grace_s": 15.0,
+    "watchdog_interval_s": 5.0, "watchdog_stall_s": 0.0,
+    "quarantine_after": 8, "device_pool_size": 0, "devices_per_job": 1,
+    "device_pool_max_bypass": 64, "device_pool_hosts": 1,
+    "lease_reap_after_s": 300.0, "health_probe_on_lease": True,
+    "health_fault_quarantine": 3, "health_reprobe_after_s": 60.0,
+    "health_host_evict_fraction": 0.75, "host_watchdog_interval_s": 0.0,
+    "host_stale_after_s": 10.0, "replica_id": "r0", "replicas": 1,
+    "spool_shards": 8, "replica_heartbeat_interval_s": 2.0,
+    "replica_stale_after_s": 8.0, "takeover_interval_s": 2.0,
+    "admission": {"max_queue_depth": 512, "max_tenant_inflight": 128,
+                  "ewma_alpha": 0.2, "latency_shed_s": 0.0,
+                  "latency_resume_s": 0.0, "retry_after_s": 1.0},
+    "fleet": {"enabled": False, "min_replicas": 1, "max_replicas": 4,
+              "decide_interval_s": 5.0, "cooldown_s": 60.0,
+              "hysteresis_ticks": 2, "scale_up_burn": 1.0,
+              "scale_down_burn": 0.5, "queue_high_per_replica": 8.0,
+              "queue_low_per_replica": 1.0, "occupancy_high": 0.95,
+              "spawn_timeout_s": 30.0, "drain_timeout_s": 120.0},
+    "prime": {"enabled": False, "idle_after_s": 5.0, "interval_s": 30.0,
+              "max_specs_per_cycle": 0},
+    "read": {"enabled": True, "cache_max_bytes": 67108864,
+             "cache_max_entries": 1024, "cache_disk_max_bytes": 134217728,
+             "max_concurrent": 32, "retry_after_s": 1.0, "page_size": 100,
+             "page_size_max": 1000},
+    "stream": {"idle_timeout_s": 300.0, "poll_interval_s": 0.25,
+               "rescore_min_chunks": 1, "retention_age_s": 3600.0},
+    "fleetview": {"enabled": True, "scrape_timeout_s": 2.0,
+                  "cache_ttl_s": 1.0},
+}
 
 # blocks and knobs of the JAX package's config the port does not have yet:
 # (dataclass, key) -> (ROADMAP item, the JAX package's default, which is
-# accepted); None as the default: any value raises
+# accepted); None as the default: any value raises.  A nested block is
+# accepted when each key it gives holds its default.
 _NOT_YET = {
-    ("SMConfig", "service"): ("queue 1 item 9", None),
+    **{("ServiceConfig", k): ("queue 1 item 9", v)
+       for k, v in _SERVICE_NOT_YET.items()},
     ("SMConfig", "telemetry"): ("queue 1 item 9", None),
     ("SMConfig", "resources"): ("queue 1 item 9", None),
     ("TracingConfig", "retention_age_s"): ("queue 1 item 9", 0.0),
@@ -66,7 +113,7 @@ def _from_dict(cls, d: dict[str, Any]):
         if entry is None:
             continue
         item, default = entry
-        if default is not None and d[key] == default:
+        if default is not None and _holds_default(d[key], default):
             del d[key]
             continue
         raise _not_in_slice(f"{cls.__name__} {key!r}", item)
@@ -84,6 +131,16 @@ def _from_dict(cls, d: dict[str, Any]):
         else:
             kwargs[key] = val
     return cls(**kwargs)
+
+
+def _holds_default(value, default) -> bool:
+    """``value`` is ``default``, or, for a nested block, a dict each of
+    whose keys holds its default."""
+    if isinstance(default, dict):
+        return isinstance(value, dict) and all(
+            k in default and _holds_default(v, default[k])
+            for k, v in value.items())
+    return value == default
 
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -159,10 +216,17 @@ class ParallelConfig:
     the m/z-chunked cube path; ``fused_metrics="on"`` takes the fused
     window-moments kernel on the flat path (not with hot-spot clipping),
     while ``"auto"`` and ``"off"`` keep the unfused chain, whose variant
-    ``peak_compaction`` and ``band_slice`` choose.  ``isocalc_workers`` (0 = all cores) and
-    ``isocalc_chunk`` (0 = the default chunk of 2048 pairs) size the
-    isotope-pattern pool and its cache shards; ``overlap_isocalc`` starts
-    pattern generation before the input is staged (``SearchJob``)."""
+    ``peak_compaction`` and ``band_slice`` choose.  ``cube_dtype`` ("bf16",
+    "int8") keeps the flat path's resident intensities compact, expanded
+    to f32 per batch where the batch reads them; the cube path
+    (``mz_chunk > 0``) stays f32.  ``checkpoint_every > 0`` groups batches
+    into checkpoint groups of that many (the leading group one batch) when
+    the search has a checkpoint directory.  ``isocalc_workers`` (0 = all
+    cores) and ``isocalc_chunk`` (0 = the default chunk of 2048 pairs) size
+    the isotope-pattern pool and its cache shards; ``overlap_isocalc``
+    starts pattern generation before the input is staged (``SearchJob``)
+    and, on the ``numpy_ref`` backend, scores batches as their patterns
+    land."""
     formula_batch: int = 2048
     mz_chunk: int = 0
     peak_compaction: str = "auto"
@@ -195,16 +259,28 @@ class ParallelConfig:
             raise ValueError("parallel: formula_batch must be positive and "
                              "isocalc_workers, isocalc_chunk and "
                              "checkpoint_every >= 0")
-        if self.cube_dtype != "f32":
-            raise _not_in_slice(f"parallel.cube_dtype={self.cube_dtype!r} "
-                                "(resident-cube compaction)", "queue 1 item 6")
-        if self.checkpoint_every:
-            raise _not_in_slice(
-                f"parallel.checkpoint_every={self.checkpoint_every} "
-                "(search checkpoints)", "queue 1 item 2")
         if self.isocalc_device == "on":
             raise _not_in_slice("parallel.isocalc_device='on' (device "
                                 "isotope-pattern blur)", "queue 1 item 8")
+
+
+@dataclass(frozen=True)
+class ServiceConfig:
+    """The ``service`` block's device-breaker knobs (``models/breaker.py``):
+    consecutive sticky device faults before the breaker opens, and the open
+    -> half-open probe delay.  ``breaker_degraded_batch`` (the JAX
+    package's numpy formula batch while the breaker is open) is accepted
+    and validated so the JAX package's configs load, and read nowhere: the
+    port refuses a job on an open breaker instead of moving it to the host.
+    The block's other keys raise until the service port."""
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 30.0
+    breaker_degraded_batch: int = 512
+
+    def __post_init__(self):
+        if self.breaker_threshold <= 0 or self.breaker_cooldown_s < 0 or \
+                self.breaker_degraded_batch <= 0:
+            raise ValueError("service: breaker knobs out of range")
 
 
 @dataclass(frozen=True)
@@ -252,6 +328,7 @@ class SMConfig:
     device: str = "cuda"
     fdr: FDRConfig = field(default_factory=FDRConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    service: ServiceConfig = field(default_factory=ServiceConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
     logs: LogsConfig = field(default_factory=LogsConfig)
@@ -302,6 +379,7 @@ _DATACLASS_FIELDS = {
     ("DSConfig", "image_generation"): ImageGenerationConfig,
     ("SMConfig", "fdr"): FDRConfig,
     ("SMConfig", "parallel"): ParallelConfig,
+    ("SMConfig", "service"): ServiceConfig,
     ("SMConfig", "storage"): StorageConfig,
     ("SMConfig", "tracing"): TracingConfig,
     ("SMConfig", "logs"): LogsConfig,

@@ -521,11 +521,11 @@ def test_isotope_prefetch_matches_plain_search(tmp_path):
 
 # ------------------------------------------------------------- config, utils
 @pytest.mark.parametrize("d,item", [
-    ({"service": {"workers": 2}}, "item 9"),
+    ({"service": {"workers": 4}}, "item 9"),
     ({"telemetry": {}}, "item 9"),
     ({"resources": {"disk_budget_bytes": 1}}, "item 9"),
     ({"tracing": {"retention_age_s": 60.0}}, "item 9"),
-    ({"parallel": {"checkpoint_every": 2}}, "item 2"),
+    ({"parallel": {"num_processes": 2}}, "item 7"),
     ({"parallel": {"isocalc_device": "on"}}, "item 8"),
     ({"parallel": {"pixels_axis": 2}}, "item 7"),
     ({"parallel": {"compile_cache_dir": "/x"}}, "item 9"),

@@ -157,15 +157,15 @@ def test_fused_wrapper_on_cpu_uses_plain_version():
 
 
 @pytest.mark.parametrize("section,knob,value", [
-    ("parallel", "cube_dtype", "bf16"),
-    ("parallel", "cube_dtype", "int8"),
+    ("parallel", "isocalc_device", "on"),
+    ("service", "http_port", 0),
 ])
 def test_values_outside_the_slice_raise(section, knob, value):
     from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if section == "parallel":
-            SMConfig.from_dict({"parallel": {knob: value}})
+        if section in ("parallel", "service"):
+            SMConfig.from_dict({section: {knob: value}})
         else:
             DSConfig.from_dict({section: {knob: value}})
 
@@ -177,6 +177,8 @@ def test_values_outside_the_slice_raise(section, knob, value):
     ("band_slice", "auto"), ("band_slice", "off"),
     ("peak_compaction", "on"), ("band_slice", "on"),
     ("do_preprocessing", True),
+    ("cube_dtype", "bf16"), ("cube_dtype", "int8"),
+    ("checkpoint_every", 3),
 ])
 def test_values_inside_the_slice_are_accepted(knob, value):
     from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
