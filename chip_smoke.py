@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives eight paths (seven of the library search and the job
-path), each with the kernel launch counts set to 0 just before it and read
-just after:
+nvcc and drives nine paths (seven of the library search, the job path and
+the service), each with the kernel launch counts set to 0 just before it
+and read just after:
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -73,7 +73,20 @@ just after:
   port's own set-up; the later ones share the dataset's global m/z sort,
   so their walls leave it out.  Each new path's kernels are held against
   their plain versions, and after every phase the script checks that the
-  breaker is closed and that the only refused jobs are phase 10's.
+  breaker is closed and that the only refused jobs are phase 10's;
+- the annotation service (phase 11, after phase 10): the port's
+  ``AnnotationService`` in process with 2 workers, 2 resident datasets,
+  an ephemeral admin port and the lease-time health probe, its launch
+  counts reset before it starts: job A on phase 3b's imzML of the main
+  path's dataset and ions, then job B, the same, which must hit the
+  residency (no parse, no backend set-up), both stored bit-equal to phase
+  3; job C with a missing input, dead-lettered after 2 attempts with its
+  traceback; job D deleted while it waits, cancelled; ``/debug/devices``,
+  ``/debug/events`` (the probe a copy round-trip on the card),
+  ``/metrics`` and ``/slo`` read; then ``serve`` as a subprocess with a
+  good and a bad job, ``/healthz`` 200 and SIGTERM -> exit 0.  With more
+  than one card it first holds every kernel on ``cuda:1``, launched from a
+  worker thread, bit-equal to ``cuda:0``.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -91,8 +104,9 @@ this, other), on the same inputs: chaos on the 512x512 masks, the main
 path's principal images and the whole-slide batch's.
 
 One line per phase; any failure raises and exits non-zero.  The line before
-the last is a JSON object with each kernel's launches on its path, its error
-against the plain version and its times; the last line is
+the last is a JSON object with each kernel's launches on its path (phase
+11's jobs A and B in ``service_launches``), its error against the plain
+version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
 """
@@ -1048,7 +1062,7 @@ def _same_frame(got, want, what: str) -> None:
                 f"{what}: column {col} differs")
 
 
-def phase_job_path(ds, truth, search, main: dict) -> dict:
+def phase_job_path(ds, truth, search, main: dict, tmp: Path) -> dict:
     """The README's Quickstart on the card: the main path's dataset written
     as an imzML/ibd pair, its formulas as a molecular-DB CSV, then the
     port's CLI as subprocesses — ``import-db``, ``run`` with a cold and then
@@ -1058,7 +1072,8 @@ def phase_job_path(ds, truth, search, main: dict) -> dict:
     annotations and all metrics bit-equal with identical FDR ranks, the
     ledger's job rows FINISHED, the search output listing the annotations
     at FDR <= 0.1, and the stored ion images bit-equal to the device image
-    block's rows."""
+    block's rows.  The imzML and the work dir stay in ``tmp`` for phase
+    11."""
     from sm_distributed_tpu_torch.engine.search_job import SearchJob
     from sm_distributed_tpu_torch.engine.storage import (
         JobLedger,
@@ -1070,153 +1085,149 @@ def phase_job_path(ds, truth, search, main: dict) -> dict:
     from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
 
     t_start = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_job_") as tmp:
-        tmp = Path(tmp)
-        # the dataset as an imzML/ibd pair, read back array by array
-        t0 = time.perf_counter()
-        imzml = tmp / "main_path.imzML"
-        rp = ds.row_ptr
-        with ImzMLWriter(imzml) as wr:
-            for i in range(ds.n_pixels):
-                r, c = divmod(i, ds.ncols)
-                wr.add_spectrum(c + 1, r + 1, ds.mzs_flat[rp[i]:rp[i + 1]],
-                                ds.ints_flat[rp[i]:rp[i + 1]])
-        t_write = time.perf_counter() - t0
-        back = SpectralDataset.from_imzml(imzml)
-        assert (back.nrows, back.ncols) == (ds.nrows, ds.ncols)
-        for f in ("pixel_inds", "mask", "mzs_flat", "ints_flat", "row_ptr"):
-            a, b = getattr(back, f), getattr(ds, f)
-            assert a.dtype == b.dtype and np.array_equal(a, b), (
-                f"imzML round trip: {f} differs")
-        del back
-        (tmp / "formulas.csv").write_text(
-            "id,formula\n" + "".join(f"m{i},{sf}\n" for i, sf in
-                                     enumerate(truth.formulas)))
-        sm_json, ds_json = tmp / "sm.json", tmp / "ds.json"
-        sm_json.write_text(json.dumps({
-            "device": "cuda", "work_dir": str(tmp / "work"),
-            "fdr": {"decoy_sample_size": 20},
-            "storage": {"results_dir": str(tmp / "results"),
-                        "store_images": True, "image_format": "npz"}}))
-        ds_json.write_text(json.dumps(
-            {"database": {"name": "main_path", "version": "1"}}))
-        cfg = ["--sm-config", str(sm_json)]
-        steps = {"write_imzml": t_write,
-                 "read_back": time.perf_counter() - t0 - t_write}
-        t0 = time.perf_counter()
-        _cli(["import-db", str(tmp / "formulas.csv"), "main_path", "1", *cfg],
-             "import-db")
-        steps["import_db"] = time.perf_counter() - t0
-        runs = {}
-        res = tmp / "results" / "main"
-        from sm_distributed_tpu_torch.utils.tracing import read_trace
+    # the dataset as an imzML/ibd pair, read back array by array
+    t0 = time.perf_counter()
+    imzml = tmp / "main_path.imzML"
+    rp = ds.row_ptr
+    with ImzMLWriter(imzml) as wr:
+        for i in range(ds.n_pixels):
+            r, c = divmod(i, ds.ncols)
+            wr.add_spectrum(c + 1, r + 1, ds.mzs_flat[rp[i]:rp[i + 1]],
+                            ds.ints_flat[rp[i]:rp[i + 1]])
+    t_write = time.perf_counter() - t0
+    back = SpectralDataset.from_imzml(imzml)
+    assert (back.nrows, back.ncols) == (ds.nrows, ds.ncols)
+    for f in ("pixel_inds", "mask", "mzs_flat", "ints_flat", "row_ptr"):
+        a, b = getattr(back, f), getattr(ds, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), (
+            f"imzML round trip: {f} differs")
+    del back
+    (tmp / "formulas.csv").write_text(
+        "id,formula\n" + "".join(f"m{i},{sf}\n" for i, sf in
+                                 enumerate(truth.formulas)))
+    sm_json, ds_json = tmp / "sm.json", tmp / "ds.json"
+    sm_json.write_text(json.dumps({
+        "device": "cuda", "work_dir": str(tmp / "work"),
+        "fdr": {"decoy_sample_size": 20},
+        "storage": {"results_dir": str(tmp / "results"),
+                    "store_images": True, "image_format": "npz"}}))
+    ds_json.write_text(json.dumps(
+        {"database": {"name": "main_path", "version": "1"}}))
+    cfg = ["--sm-config", str(sm_json)]
+    steps = {"write_imzml": t_write,
+             "read_back": time.perf_counter() - t0 - t_write}
+    t0 = time.perf_counter()
+    _cli(["import-db", str(tmp / "formulas.csv"), "main_path", "1", *cfg],
+         "import-db")
+    steps["import_db"] = time.perf_counter() - t0
+    runs = {}
+    res = tmp / "results" / "main"
+    from sm_distributed_tpu_torch.utils.tracing import read_trace
 
-        for label in ("cold", "warm"):
-            t0 = time.perf_counter()
-            out = _cli(["run", "main path", str(imzml), "--ds-id", "main",
-                        "--ds-config", str(ds_json), *cfg],
-                       f"run ({label} isotope patterns)")
-            steps[f"run_{label}"] = time.perf_counter() - t0
-            spans = {r["name"]: r["dur"] for r in read_trace(out["trace"])
-                     if r.get("kind") == "span"}
-            # decoy selection runs in the prefetch thread: its time is in
-            # the stored timings, not in the log's phase lines
-            tim = {**json.loads((res / "timings.json").read_text()),
-                   **out["phases"]}
-            runs[label] = {
-                "wall_s": out["wall_s"],
-                "phases": {k: tim.get(k) for k in JOB_PHASES},
-                "to_first_log_s": out["to_first_log_s"],
-                "after_last_log_s": out["after_last_log_s"],
-                # pattern generation and the prefetch's set-up (decoys,
-                # cache-shard load, stream start), from the job's trace
-                "isocalc_gen_s": spans.get("isocalc_gen"),
-                "prefetch_setup_s": spans.get("isotope_prefetch_setup")}
-            say(f"  job run, {label} isotope patterns: wall "
-                f"{out['wall_s']:.3f} s (the CLI process; "
-                f"{out['to_first_log_s']:.3f} s to its first log line, "
-                f"{out['after_last_log_s']:.3f} s after its last); phases "
-                + ", ".join(f"{k} {v:.3f} s" for k, v in
-                            runs[label]["phases"].items() if v is not None)
-                + f"; trace: isocalc_gen {spans.get('isocalc_gen')}, "
-                f"isotope_prefetch_setup "
-                f"{spans.get('isotope_prefetch_setup')}")
+    for label in ("cold", "warm"):
         t0 = time.perf_counter()
-        out = _cli(["search", "--ds-id", "main", "--max-fdr", "0.1", *cfg],
-                   "search")["stdout"]
-        steps["search"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        import pandas as pd
+        out = _cli(["run", "main path", str(imzml), "--ds-id", "main",
+                    "--ds-config", str(ds_json), *cfg],
+                   f"run ({label} isotope patterns)")
+        steps[f"run_{label}"] = time.perf_counter() - t0
+        spans = {r["name"]: r["dur"] for r in read_trace(out["trace"])
+                 if r.get("kind") == "span"}
+        # decoy selection runs in the prefetch thread: its time is in
+        # the stored timings, not in the log's phase lines
+        tim = {**json.loads((res / "timings.json").read_text()),
+               **out["phases"]}
+        runs[label] = {
+            "wall_s": out["wall_s"],
+            "phases": {k: tim.get(k) for k in JOB_PHASES},
+            "to_first_log_s": out["to_first_log_s"],
+            "after_last_log_s": out["after_last_log_s"],
+            # pattern generation and the prefetch's set-up (decoys,
+            # cache-shard load, stream start), from the job's trace
+            "isocalc_gen_s": spans.get("isocalc_gen"),
+            "prefetch_setup_s": spans.get("isotope_prefetch_setup")}
+        say(f"  job run, {label} isotope patterns: wall "
+            f"{out['wall_s']:.3f} s (the CLI process; "
+            f"{out['to_first_log_s']:.3f} s to its first log line, "
+            f"{out['after_last_log_s']:.3f} s after its last); phases "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in
+                        runs[label]["phases"].items() if v is not None)
+            + f"; trace: isocalc_gen {spans.get('isocalc_gen')}, "
+            f"isotope_prefetch_setup "
+            f"{spans.get('isotope_prefetch_setup')}")
+    t0 = time.perf_counter()
+    out = _cli(["search", "--ds-id", "main", "--max-fdr", "0.1", *cfg],
+               "search")["stdout"]
+    steps["search"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    import pandas as pd
 
-        ann = pd.read_parquet(res / "annotations.parquet")
-        ref = main["bundle"]
-        _same_frame(ann, ref.annotations.reset_index(drop=True),
-                    "stored annotations")
-        _same_frame(pd.read_parquet(res / "all_metrics.parquet"),
-                    ref.all_metrics.reset_index(drop=True),
-                    "stored all_metrics")
-        jobs = JobLedger(tmp / "results").jobs("main")
-        assert list(jobs.status) == ["FINISHED", "FINISHED"], jobs
-        passed = ann[ann.fdr_level <= 0.1]
-        lines = [ln.split() for ln in out.strip().splitlines()[1:]]
-        assert sorted((ln[2], ln[3]) for ln in lines) == sorted(
-            zip(passed.sf, passed.adduct)), "search output"
-        # the stored ion images against the device image block's rows
-        stored, ions = SearchResultsStore.load_ion_images(
-            res / "ion_images.npz")
-        backend, table = search.last_backend, search.last_table
-        row_of = {ion: i for i, ion in enumerate(zip(table.sfs,
-                                                     table.adducts))}
-        idx = [row_of[ion] for ion in ions]
-        sub = type(table)(
-            sfs=[table.sfs[i] for i in idx],
-            adducts=[table.adducts[i] for i in idx], mzs=table.mzs[idx],
-            ints=table.ints[idx], n_valid=table.n_valid[idx],
-            targets=table.targets[idx])
-        plan = backend._flat_plan(sub)
-        block, _t, _nv = backend.image_block(sub, plan)
-        order = plan[5][5]                  # block row j is ion order[j]
-        real = np.nonzero(order < sub.n_ions)[0]
-        dev_imgs = (block[torch.from_numpy(real).to(block.device), :,
-                          :ds.n_pixels] / np.float32(backend.int_scale))
-        want = torch.from_numpy(
-            stored.reshape(len(ions), stored.shape[1], -1)[order[real]])
-        assert torch.equal(dev_imgs.cpu(), want), "stored ion images"
-        steps["hold_results"] = time.perf_counter() - t0
-        say(f"  stored results: {len(ann)} annotations and "
-            f"{len(ref.all_metrics)} ions bit-equal to phase 3's (FDR ranks "
-            f"identical); ledger rows FINISHED; search lists the "
-            f"{len(passed)} annotations at FDR <= 0.1; {len(ions)} stored ion "
-            "image sets bit-equal to the device image block")
-        # one SearchJob in-process: the kernels it launches, its device peak
-        t0 = time.perf_counter()
-        sm_cfg = SMConfig.from_dict(json.loads(sm_json.read_text()))
-        job = SearchJob("main_inproc", "main path", imzml,
-                        DSConfig.load(ds_json), sm_cfg)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t_job = time.perf_counter()
-        bundle = job.run()
-        torch.cuda.synchronize()
-        inproc_wall = time.perf_counter() - t_job
-        launches = read_launches()
-        n_batches = -(-table.n_ions // backend.batch)
-        assert launches["moments"] == n_batches and \
-            launches["chaos"] == n_batches, launches
-        assert launches["chaos_tiles"] == 0 and launches["chaos_strips"] == 0 \
-            and launches["fused_window_moments"] == 0, launches
-        _same_frame(bundle.annotations.reset_index(drop=True),
-                    ref.annotations.reset_index(drop=True),
-                    "in-process job annotations")
-        hbm = job.last_hbm
-        steps["in_process"] = time.perf_counter() - t0
-        say(f"  in-process SearchJob (warm patterns): wall {inproc_wall:.3f} "
-            "s; phases " + ", ".join(f"{k} {v:.3f} s" for k, v in
-                                     bundle.timings.items())
-            + f"; launches {launches}; device peak {hbm}")
-        t0 = time.perf_counter()
-    steps["cleanup"] = time.perf_counter() - t0
+    ann = pd.read_parquet(res / "annotations.parquet")
+    ref = main["bundle"]
+    _same_frame(ann, ref.annotations.reset_index(drop=True),
+                "stored annotations")
+    _same_frame(pd.read_parquet(res / "all_metrics.parquet"),
+                ref.all_metrics.reset_index(drop=True),
+                "stored all_metrics")
+    jobs = JobLedger(tmp / "results").jobs("main")
+    assert list(jobs.status) == ["FINISHED", "FINISHED"], jobs
+    passed = ann[ann.fdr_level <= 0.1]
+    lines = [ln.split() for ln in out.strip().splitlines()[1:]]
+    assert sorted((ln[2], ln[3]) for ln in lines) == sorted(
+        zip(passed.sf, passed.adduct)), "search output"
+    # the stored ion images against the device image block's rows
+    stored, ions = SearchResultsStore.load_ion_images(
+        res / "ion_images.npz")
+    backend, table = search.last_backend, search.last_table
+    row_of = {ion: i for i, ion in enumerate(zip(table.sfs,
+                                                 table.adducts))}
+    idx = [row_of[ion] for ion in ions]
+    sub = type(table)(
+        sfs=[table.sfs[i] for i in idx],
+        adducts=[table.adducts[i] for i in idx], mzs=table.mzs[idx],
+        ints=table.ints[idx], n_valid=table.n_valid[idx],
+        targets=table.targets[idx])
+    plan = backend._flat_plan(sub)
+    block, _t, _nv = backend.image_block(sub, plan)
+    order = plan[5][5]                  # block row j is ion order[j]
+    real = np.nonzero(order < sub.n_ions)[0]
+    dev_imgs = (block[torch.from_numpy(real).to(block.device), :,
+                      :ds.n_pixels] / np.float32(backend.int_scale))
+    want = torch.from_numpy(
+        stored.reshape(len(ions), stored.shape[1], -1)[order[real]])
+    assert torch.equal(dev_imgs.cpu(), want), "stored ion images"
+    steps["hold_results"] = time.perf_counter() - t0
+    say(f"  stored results: {len(ann)} annotations and "
+        f"{len(ref.all_metrics)} ions bit-equal to phase 3's (FDR ranks "
+        f"identical); ledger rows FINISHED; search lists the "
+        f"{len(passed)} annotations at FDR <= 0.1; {len(ions)} stored ion "
+        "image sets bit-equal to the device image block")
+    # one SearchJob in-process: the kernels it launches, its device peak
+    t0 = time.perf_counter()
+    sm_cfg = SMConfig.from_dict(json.loads(sm_json.read_text()))
+    job = SearchJob("main_inproc", "main path", imzml,
+                    DSConfig.load(ds_json), sm_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_job = time.perf_counter()
+    bundle = job.run()
+    torch.cuda.synchronize()
+    inproc_wall = time.perf_counter() - t_job
+    launches = read_launches()
+    n_batches = -(-table.n_ions // backend.batch)
+    assert launches["moments"] == n_batches and \
+        launches["chaos"] == n_batches, launches
+    assert launches["chaos_tiles"] == 0 and launches["chaos_strips"] == 0 \
+        and launches["fused_window_moments"] == 0, launches
+    _same_frame(bundle.annotations.reset_index(drop=True),
+                ref.annotations.reset_index(drop=True),
+                "in-process job annotations")
+    hbm = job.last_hbm
+    steps["in_process"] = time.perf_counter() - t0
+    say(f"  in-process SearchJob (warm patterns): wall {inproc_wall:.3f} "
+        "s; phases " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                 bundle.timings.items())
+        + f"; launches {launches}; device peak {hbm}")
     took = time.perf_counter() - t_start
     say(f"phase 3b job path: {took:.1f} s (steps, s: "
         + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()) + "); "
@@ -2747,6 +2758,347 @@ def phase_resilience(card: str, ds, truth, search, ds_cfg, main: dict
     return out
 
 
+# --------------------------------------------------------- phase 11 service
+SERVICE_SM = {"device": "cuda", "fdr": {"decoy_sample_size": 20},
+              "parallel": {"resident_datasets": 2},
+              "service": {"workers": 2, "http_port": 0,
+                          "health_probe_on_lease": True,
+                          "poll_interval_s": 0.05, "backoff_base_s": 0.2,
+                          "backoff_jitter": 0.0, "heartbeat_interval_s": 1.0},
+              "telemetry": {"sample_interval_s": 0.5}}
+
+
+def _http(base: str, path: str, method: str = "GET", body=None):
+    """One admin-API request; returns (status, body as JSON or text)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, method=method,
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            status, raw = r.status, r.read()
+    except urllib.error.HTTPError as exc:
+        status, raw = exc.code, exc.read()
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw.decode()
+
+
+def _wait_jobs(base: str, ids, timeout_s: float) -> dict:
+    """Poll ``/jobs`` until every id is terminal; returns their records."""
+    terminal = ("done", "failed", "cancelled", "quarantined")
+    deadline = time.time() + timeout_s
+    while True:
+        rows = {j["msg_id"]: j for j in _http(base, "/jobs")[1]}
+        if all(rows.get(i, {}).get("state") in terminal for i in ids):
+            return {i: rows[i] for i in ids}
+        assert time.time() < deadline, (
+            f"jobs not terminal after {timeout_s} s: "
+            f"{ {i: rows.get(i, {}).get('state') for i in ids} }")
+        time.sleep(0.2)
+
+
+def _second_device_check() -> str:
+    """Each kernel once on ``cuda:1`` from a worker thread (whose current
+    device is 0), held bit-equal to the same inputs on ``cuda:0``."""
+    import threading
+
+    from sm_distributed_tpu_torch.ops.chaos import (
+        chaos_count_sums,
+        chaos_count_sums_strips,
+    )
+    from sm_distributed_tpu_torch.ops.moments import batch_moments
+    from sm_distributed_tpu_torch.ops.score import fused_window_moments
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        return (f"kernels on a second device: not run, there is {n} CUDA "
+                "device")
+    gen = torch.Generator().manual_seed(11)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, dtype=torch.float32)
+
+    r_lo = torch.randint(-1, 6, (2, 8), generator=gen, dtype=torch.int32)
+    r_hi = r_lo + torch.randint(0, 3, (2, 8), generator=gen,
+                                dtype=torch.int32)
+    cases = {
+        "moments": (lambda x: batch_moments(x, 4000), (rand(64, 4, 4096),)),
+        "chaos": (lambda x: chaos_count_sums(x, 256, 256, 30),
+                  (rand(32, 256 * 256),)),
+        "chaos_tiles": (lambda x: chaos_count_sums(x, 512, 512, 30),
+                        (rand(8, 512 * 512),)),
+        "chaos_strips": (lambda x: chaos_count_sums_strips(x, 1024, 1024,
+                                                           30),
+                         (rand(4, 1024 * 1024),)),
+        "fused_window_moments": (
+            lambda w, lo, hi: fused_window_moments(
+                w, np.array([0, 10], np.int32), lo, hi, 4000, gc_width=16,
+                k=4),
+            (torch.floor(rand(40, 4096) * 9), r_lo, r_hi)),
+    }
+    for name, (fn, args) in cases.items():
+        want = fn(*(a.to("cuda:0") for a in args))
+        out: list = []
+
+        def worker(fn=fn, args=args, out=out):
+            try:
+                out.append(fn(*(a.to("cuda:1") for a in args)))
+            except BaseException as exc:  # noqa: BLE001 — raised below
+                out.append(exc)
+
+        t = threading.Thread(target=worker)
+        t.start()
+        t.join(timeout=600)
+        assert not t.is_alive() and out, f"{name}: worker on cuda:1 hung"
+        if isinstance(out[0], BaseException):
+            raise out[0]
+        got = out[0] if isinstance(out[0], tuple) else (out[0],)
+        ref = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, ref):
+            assert a.device.index == 1, (name, a.device)
+            assert torch.equal(a.cpu(), b.cpu()), \
+                f"{name}: cuda:1 from a worker thread differs from cuda:0"
+    return (f"kernels on a second device: {sorted(cases)} on cuda:1 from a "
+            "worker thread bit-equal to cuda:0")
+
+
+def _serve_subprocess(tmp: Path) -> dict:
+    """Phase 11b: ``serve`` as a subprocess, one good and one bad job, the
+    ephemeral port read from its log line, ``GET /healthz`` 200, SIGTERM ->
+    exit 0 with ``running/`` empty and the dead letter's traceback."""
+    import os
+    import signal
+    import threading
+
+    from sm_distributed_tpu_torch.engine.daemon import QueuePublisher
+    from sm_distributed_tpu_torch.io.fixtures import generate_synthetic_dataset
+
+    path, truth = generate_synthetic_dataset(
+        tmp / "small", nrows=32, ncols=32, present_fraction=0.6,
+        noise_peaks=50, seed=3)
+    sm_json = tmp / "serve.json"
+    sm_json.write_text(json.dumps({
+        **SERVICE_SM, "work_dir": str(tmp / "serve_work"),
+        "storage": {"results_dir": str(tmp / "serve_results")}}))
+    pub = QueuePublisher(tmp / "serve_q")
+    pub.publish({"ds_id": "small", "msg_id": "good",
+                 "input_path": str(path), "formulas": truth.formulas[:10]})
+    pub.publish({"ds_id": "gone", "msg_id": "bad",
+                 "input_path": str(tmp / "missing.imzML"),
+                 "formulas": truth.formulas[:1],
+                 "service": {"max_attempts": 2}})
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sm_distributed_tpu_torch.engine.cli",
+         "serve", str(tmp / "serve_q"), "--sm-config", str(sm_json)],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        env=env)
+    lines: list[str] = []
+    found = threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if "admin API on http://" in line:
+                found.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        assert found.wait(180), "serve: no admin API line\n" + \
+            "".join(lines[-40:])
+        base = re.search(r"admin API on (http://[\d.]+:\d+)",
+                         "".join(lines)).group(1)
+        status, health = _http(base, "/healthz")
+        t_health = time.perf_counter() - t0
+        assert status == 200 and health["status"] == "ok", health
+        rows = _wait_jobs(base, ("good", "bad"), 300)
+        assert rows["good"]["state"] == "done", rows
+        assert rows["bad"]["state"] == "failed", rows
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=30)
+    assert rc == 0, f"serve exited {rc} on SIGTERM\n" + "".join(lines[-40:])
+    root = tmp / "serve_q" / "sm_annotate"
+    assert not list(root.glob("running/*")), "serve left running/ claims"
+    dead = json.loads((root / "failed" / "bad.json").read_text())
+    assert dead["attempts"] == 2 and "Traceback" in dead["traceback"], dead
+    return {"to_healthz_s": t_health,
+            "wall_s": time.perf_counter() - t0, "exit": rc}
+
+
+def phase_service(card: str, tmp: Path, truth, main: dict) -> dict:
+    """Phase 11: the annotation service on the card.  11a: the port's
+    ``AnnotationService`` in process (2 workers, 2 resident datasets, an
+    ephemeral port, the lease-time probe on), the launch counts reset just
+    before it starts: job A on the main path's dataset (phase 3b's imzML)
+    and ions, then job B, the same, a residency hit with no parse and no
+    backend set-up, both stored bit-equal to phase 3; job C with a missing
+    input dead-lettered after 2 attempts with its traceback; job D deleted
+    while it waits or runs, cancelled.  11b: ``serve`` as a subprocess."""
+    import pandas as pd
+
+    from sm_distributed_tpu_torch.engine.daemon import annotate_callback
+    from sm_distributed_tpu_torch.engine.residency import DatasetResidency
+    from sm_distributed_tpu_torch.service import AnnotationService
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    t_phase = time.perf_counter()
+    say("  11.0 " + _second_device_check())
+    imzml = tmp / "main_path.imzML"
+    ref = main["bundle"]
+    sm = SMConfig.from_dict({
+        **SERVICE_SM,
+        # phase 3b's work dir: its isotope-pattern cache is warm
+        "work_dir": str(tmp / "work"),
+        "storage": {"results_dir": str(tmp / "service_results")}})
+    residency = DatasetResidency(max_datasets=2, max_backends=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    service = AnnotationService(
+        tmp / "service_q", annotate_callback(sm, residency=residency),
+        sm_config=sm, residency=residency)
+    service.start()
+    per_job = {}
+    try:
+        base = "http://%s:%d" % service.api.address
+        status, _ = _http(base, "/healthz")
+        to_health = time.perf_counter() - t0
+        assert status == 200
+        res = tmp / "service_results" / "svc_main"
+        job = {"ds_id": "svc_main", "input_path": str(imzml),
+               "formulas": list(truth.formulas)}
+        ids = {}
+        _, ids["A"] = _http(base, "/submit", "POST", job)
+        _, ids["C"] = _http(base, "/submit", "POST", {
+            "ds_id": "svc_missing", "input_path": str(tmp / "none.imzML"),
+            "formulas": list(truth.formulas[:1]),
+            "service": {"max_attempts": 2}})
+        _, ids["D"] = _http(base, "/submit", "POST",
+                            {**job, "ds_id": "svc_deleted"})
+        status, out = _http(base, f"/jobs/{ids['D']['msg_id']}", "DELETE")
+        assert status in (200, 202), (status, out)
+        ids = {k: v["msg_id"] for k, v in ids.items()}
+        rows = _wait_jobs(base, list(ids.values()), 900)
+        launches_a = read_launches()
+        stored_a = {name: pd.read_parquet(res / f"{name}.parquet")
+                    for name in ("annotations", "all_metrics")}
+        timings_a = json.loads((res / "timings.json").read_text())
+        _, out = _http(base, "/submit", "POST", job)
+        ids["B"] = out["msg_id"]
+        rows.update(_wait_jobs(base, [ids["B"]], 900))
+        launches = read_launches()
+        launches_b = {k: launches[k] - launches_a[k] for k in launches}
+        timings_b = json.loads((res / "timings.json").read_text())
+        for label, stored in (("A", stored_a), ("B", {
+                name: pd.read_parquet(res / f"{name}.parquet")
+                for name in ("annotations", "all_metrics")})):
+            _same_frame(stored["annotations"],
+                        ref.annotations.reset_index(drop=True),
+                        f"job {label} annotations")
+            _same_frame(stored["all_metrics"],
+                        ref.all_metrics.reset_index(drop=True),
+                        f"job {label} all_metrics")
+        states = {k: rows[v]["state"] for k, v in ids.items()}
+        assert states == {"A": "done", "B": "done", "C": "failed",
+                          "D": "cancelled"}, states
+        dead = json.loads((tmp / "service_q" / "sm_annotate" / "failed" /
+                           f"{ids['C']}.json").read_text())
+        assert dead["attempts"] == 2 and "Traceback" in dead["traceback"]
+        assert residency.stats == {"dataset_hits": 1, "dataset_misses": 1,
+                                   "backend_hits": 1, "backend_misses": 1}, \
+            residency.stats
+        n_batches = -(-main["n_ions"] // 2048)
+        for label, ln in (("A", launches_a), ("B", launches_b)):
+            assert ln["moments"] == n_batches and \
+                ln["chaos"] == n_batches, (label, ln)
+            assert ln["chaos_tiles"] == ln["chaos_strips"] == \
+                ln["fused_window_moments"] == 0, (label, ln)
+        # the probe: a copy round-trip on a real device
+        _, devices = _http(base, "/debug/devices")
+        assert devices["size"] == torch.cuda.device_count(), devices
+        _, events = _http(base, "/debug/events?n=5000")
+        probes = [e for e in events if e.get("name") == "device_probe"]
+        assert probes and all(e["attrs"]["how"] == "device" and
+                              e["attrs"]["ok"] for e in probes), probes
+        assert devices["breakers"]["*"]["state"] == "closed", devices
+        _, text = _http(base, "/metrics")
+        for line in ('sm_jobs_total{state="done"} 2',
+                     'sm_jobs_total{state="failed"} 1',
+                     'sm_jobs_cancelled_total{reason="user"} 1',
+                     'sm_phase_seconds_count{phase="score"} 2',
+                     'sm_breaker_state{device="*"} 0'):
+            assert line in text, f"/metrics lacks {line!r}"
+        hbm = [float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith("sm_device_hbm_bytes_in_use{")]
+        assert hbm and max(hbm) > 0, "no device memory gauge above 0"
+        _, slo = _http(base, "/slo")
+        for label, msg_id in ids.items():
+            row = rows[msg_id]
+            _, trace = _http(base, f"/jobs/{msg_id}/trace?raw=1")
+            recs = trace.get("records", []) if isinstance(trace, dict) \
+                else []
+            submit = [r["ts"] for r in recs if r.get("name") == "submit"]
+            first = [r["ts"] for r in recs
+                     if r.get("name") == "first_annotation"]
+            # the store's span: the stored timings are written inside it
+            store = [r["dur"] for r in recs if r.get("kind") == "span"
+                     and r.get("name") == "store_results"]
+            per_job[label] = {
+                "state": row["state"], "attempts": row["attempts"],
+                "queue_wait_s": (row["started_at"] - row["published_at"]
+                                 if row["started_at"] else None),
+                "wall_s": (row["finished_at"] - row["started_at"]
+                           if row["started_at"] else None),
+                "to_first_annotation_s": (min(first) - min(submit)
+                                          if first and submit else None),
+                "store_results": store[-1] if store else None}
+        for label, tim in (("A", timings_a), ("B", timings_b)):
+            per_job[label].update({k: tim[k] for k in JOB_PHASES
+                                   if k in tim})
+    finally:
+        assert service.shutdown(), "service did not drain"
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(0)
+    _breaker_closed(2, "phase 11a")
+    for label in "ABCD":
+        say(f"  [{card}] 11a job {label}: " + json.dumps(per_job[label]))
+    say(f"  [{card}] 11a A against B: parse (read_dataset) "
+        f"{per_job['A']['read_dataset']:.3f} -> "
+        f"{per_job['B']['read_dataset']:.3f} s, backend set-up "
+        f"{per_job['A']['backend_setup']:.3f} -> "
+        f"{per_job['B']['backend_setup']:.3f} s; residency "
+        f"{residency.stats}; launches A {launches_a}, B {launches_b}; "
+        f"start to /healthz {to_health:.3f} s; device peak {peak} B; "
+        f"/slo first_annotation {slo['slos']['first_annotation']}")
+    sub = _serve_subprocess(tmp)
+    say(f"  [{card}] 11b serve subprocess: /healthz 200 after "
+        f"{sub['to_healthz_s']:.3f} s, a good and a bad job terminal, "
+        f"SIGTERM -> exit 0, running/ empty, dead letter with its traceback "
+        f"({sub['wall_s']:.1f} s)")
+    took = time.perf_counter() - t_phase
+    say(f"phase 11 service: {took:.1f} s; A and B stored bit-equal to "
+        "phase 3, B a residency hit, C dead-lettered, D cancelled, probe a "
+        "device round-trip, serve exits 0 on SIGTERM")
+    return {"jobs": per_job, "launches": {"A": launches_a, "B": launches_b},
+            "to_healthz_s": to_health, "peak_bytes": peak,
+            "residency": residency.stats, "serve": sub, "phase_s": took}
+
+
 class OtherPort:
     """The moments, fused and chaos wrappers of another checkout's port
     (``--ab DIR``), imported under the package name ``ab_port``: its kernels
@@ -2806,7 +3158,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for entry in kernels:
         entry["launches"] = main["launches"][entry["name"]]
-    job = phase_job_path(ds, truth, search, main)
+    # phase 3b's imzML and work dir serve phase 11 too
+    job_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_job_")
+    job = phase_job_path(ds, truth, search, main, Path(job_dir.name))
     lap("job")
     _breaker_closed(0, "phase 3b")
     for entry in kernels:
@@ -2832,6 +3186,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     resilience = phase_resilience(card, ds, truth, search, ds_cfg, main)
     lap("resilience")
+    torch.cuda.empty_cache()
+    service = phase_service(card, Path(job_dir.name), truth, main)
+    lap("service")
+    job_dir.cleanup()
     say("main path: " + json.dumps({
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
                              "n_ions", "n_peaks", "drift", "recall",
@@ -2856,6 +3214,8 @@ def main() -> int:
     say("ordered stream: " + json.dumps(ordered))
     say(f"resilience and compact cubes [{card}]: " + json.dumps(
         {k: v for k, v in resilience.items() if k != "launches"}))
+    say(f"service [{card}]: " + json.dumps(
+        {k: v for k, v in service.items() if k != "launches"}))
     # the moments kernel's error: the largest over phase 4's blocks and the
     # whole-slide block of phase 8
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
@@ -2868,6 +3228,9 @@ def main() -> int:
         entry["resilience_launches"] = {
             path: counts[entry["name"]]
             for path, counts in resilience["launches"].items()}
+        entry["service_launches"] = {
+            job: counts[entry["name"]]
+            for job, counts in service["launches"].items()}
     _breaker_closed(2, "the script")
     say(f"  [{card}] 10.4 no host fallback: after every phase the device "
         "breaker was closed, the two refused jobs are step 10.3's, and no "

@@ -14,10 +14,17 @@ Port of ``sm_distributed_tpu/engine/cli.py``::
     python -m sm_distributed_tpu_torch.engine.cli search [--ds-id ID] \\
         [--max-fdr 0.1] [--sm-config sm.json]
 
+    python -m sm_distributed_tpu_torch.engine.cli serve QUEUE_DIR \\
+        [--sm-config sm.json] [--workers N] [--port P] [--host H] \\
+        [--replica-id ID] [--replicas N] [--shards N] [--max-jobs N] \\
+        [--idle-timeout S] [--no-api]
+
 ``sm.json`` is the port's ``SMConfig``: jobs run on ``device`` ("cuda" by
-default; "cpu" runs the plain versions of the kernels).  The JAX package's
-``serve`` command (the annotation service) waits for the service port
-(ROADMAP queue 1 item 9).
+default; "cpu" runs the plain versions of the kernels).  ``serve`` runs the
+annotation service (``sm_distributed_tpu_torch.service``): the concurrent
+spool scheduler, its jobs on the device pool's chips, and the admin API.
+The JAX package's ``serve --fleet`` (the elastic fleet controller) is
+ROADMAP queue 1 item 9b.
 """
 
 from __future__ import annotations
@@ -117,12 +124,60 @@ def cmd_search(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """Run the annotation service: concurrent scheduler + admin API over a
+    spool queue directory (sm_distributed_tpu_torch.service)."""
+    import dataclasses
+
+    sm_config = _load_configs(args)
+    overrides = {}
+    if args.workers is not None:
+        overrides["workers"] = args.workers
+    if args.port is not None:
+        overrides["http_port"] = args.port
+    if args.host is not None:
+        overrides["http_host"] = args.host
+    if args.replica_id is not None:
+        overrides["replica_id"] = args.replica_id
+    if args.replicas is not None:
+        overrides["replicas"] = args.replicas
+    if args.shards is not None:
+        overrides["spool_shards"] = args.shards
+    if overrides:
+        sm_config = dataclasses.replace(
+            sm_config,
+            service=dataclasses.replace(sm_config.service, **overrides))
+        SMConfig.set(sm_config)
+    from ..service import AnnotationService
+    from .daemon import annotate_callback
+
+    residency = None
+    if sm_config.parallel.resident_datasets > 0:
+        from .residency import DatasetResidency
+
+        n = sm_config.parallel.resident_datasets
+        residency = DatasetResidency(max_datasets=n, max_backends=n)
+    service = AnnotationService(
+        args.queue_dir,
+        annotate_callback(sm_config, residency=residency),
+        sm_config=sm_config,
+        residency=residency,
+        with_api=not args.no_api,
+    )
+    service.install_signal_handlers()
+    service.start()
+    if service.api is not None:
+        host, port = service.api.address
+        logger.info("serve: admin API on http://%s:%d "
+                    "(/healthz /metrics /jobs POST /submit)", host, port)
+    return service.run_forever(max_terminal=args.max_jobs,
+                               idle_timeout_s=args.idle_timeout)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="sm-tpu-torch",
-        description="PyTorch/CUDA port of the sm-tpu annotation engine.",
-        epilog="The JAX package's 'serve' command (the annotation service) "
-               "is not in the port yet (ROADMAP queue 1 item 9).")
+        description="PyTorch/CUDA port of the sm-tpu annotation engine.")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     run = sub.add_parser("run", help="run an annotation job")
@@ -155,6 +210,33 @@ def build_parser() -> argparse.ArgumentParser:
     srch.add_argument("--mz-max", type=float, default=None)
     srch.add_argument("--sm-config", default=None)
     srch.set_defaults(fn=cmd_search)
+
+    srv = sub.add_parser(
+        "serve", help="run the annotation service (scheduler + admin API)")
+    srv.add_argument("queue_dir", help="spool queue directory")
+    srv.add_argument("--sm-config", default=None)
+    srv.add_argument("--workers", type=int, default=None,
+                     help="override service.workers")
+    srv.add_argument("--host", default=None, help="override service.http_host")
+    srv.add_argument("--port", type=int, default=None,
+                     help="override service.http_port (0 = ephemeral)")
+    srv.add_argument("--replica-id", default=None,
+                     help="this scheduler replica's identity (default r0); "
+                          "run N processes with distinct ids over ONE spool "
+                          "to scale out")
+    srv.add_argument("--replicas", type=int, default=None,
+                     help="expected replica count (informational; the live "
+                          "set comes from registry heartbeats)")
+    srv.add_argument("--shards", type=int, default=None,
+                     help="override service.spool_shards (logical spool "
+                          "partitions; must match across replicas)")
+    srv.add_argument("--no-api", action="store_true",
+                     help="run the scheduler without the admin API")
+    srv.add_argument("--max-jobs", type=int, default=None,
+                     help="exit after N jobs reach a terminal state")
+    srv.add_argument("--idle-timeout", type=float, default=None,
+                     help="exit after the spool stays empty this many seconds")
+    srv.set_defaults(fn=cmd_serve)
     return ap
 
 

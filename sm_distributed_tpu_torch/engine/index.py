@@ -9,8 +9,8 @@ the previous complete segment or the new one.  ``Segment`` and
 ``load_segment`` read one back.
 
 The reference's ``SegmentReader`` (listing, filtered and keyset-paginated
-queries, cohorts) and its cursors wait for the read path of the service
-port (ROADMAP queue 1 item 9).
+queries, cohorts) and its cursors wait for the service's read path
+(ROADMAP queue 1 item 9b).
 """
 
 from __future__ import annotations

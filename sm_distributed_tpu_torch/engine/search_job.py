@@ -24,14 +24,20 @@ removes this job's index rows (earlier jobs' rows stay queryable), keeps
 the work dir (staged input, for the rerun) and re-raises.  ``profile_dir``
 writes a ``torch.profiler`` trace of the search there.
 
-The service's hooks wait for the service port (ROADMAP queue 1 item 9):
-dataset residency across jobs, the device token, the replica fence and
-streamed partial results to the job record.
+The service's hooks, as in the JAX package: ``residency`` (an
+``engine/residency.DatasetResidency`` shared across jobs) keeps parsed
+datasets and set-up backends resident; ``device_token`` (the scheduler's
+device-pool lease) is held, cancellably, from the backend set-up through
+the store, and its chip is the search's device; ``fence`` is called before
+results become durable and before the ledger commit; ``on_partial``
+receives the search's provisional annotations.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import traceback
 from pathlib import Path
 
@@ -44,7 +50,7 @@ from ..models.msm_basic import (
     SearchResultsBundle,
 )
 from ..utils import devicemem, tracing
-from ..utils.cancel import JobCancelledError
+from ..utils.cancel import JobCancelledError, hold_cancellable
 from ..utils.config import DSConfig, SMConfig
 from ..utils.logger import logger, phase_timer
 from .moldb import MolecularDB
@@ -64,7 +70,11 @@ class SearchJob:
         sm_config: SMConfig | None = None,
         formulas: list[str] | None = None,
         profile_dir: str | None = None,
+        residency=None,
+        device_token=None,
         cancel=None,
+        fence=None,
+        on_partial=None,
     ):
         self.ds_id = ds_id
         self.ds_name = ds_name
@@ -76,9 +86,27 @@ class SearchJob:
         self.sm_config = sm_config or SMConfig.get_conf()
         self.formulas = formulas      # explicit list overrides the mol DB
         self.profile_dir = profile_dir
+        # service mode: parsed datasets and set-up backends shared across
+        # jobs (engine/residency.DatasetResidency)
+        self.residency = residency
+        # the scheduler's device-pool lease (Lock-protocol compatible, so a
+        # plain threading.Lock works too): the device-bound set-up, search
+        # and store run under it while staging and parsing overlap across
+        # jobs; its one chip is the search's device
+        self.device_token = device_token
         # utils/cancel.CancelToken or None: checked at phase boundaries
         # here and between batch groups in the search
         self.cancel = cancel
+        # multi-replica fence gate (service/leases.py): raises
+        # FenceRejectedError when a peer replica fenced this job's claim
+        # out; called before results become durable and before the ledger
+        # commit, the two writes a split-brain takeover would double
+        self.fence = fence
+        # provisional annotations of the search's first scored group: kept
+        # in ``last_partial`` and forwarded to ``on_partial`` (the service's
+        # job record)
+        self.on_partial = on_partial
+        self.last_partial: dict = {}
         self.ledger = JobLedger(self.sm_config.storage.results_dir)
         # generation stats and device-memory high-water mark of the last
         # completed run; the byte fields are None without a CUDA device
@@ -126,14 +154,30 @@ class SearchJob:
             ds = self._prepare_dataset(timings)
             logger.info("dataset %s: %dx%d px, %d peaks", self.ds_id,
                         ds.nrows, ds.ncols, ds.n_peaks)
-            if self.profile_dir:
-                prof = self._start_profile()
-            with tracing.span("device_hold"):
+            if self.device_token is None and self.cancel is None:
+                token = contextlib.nullcontext()
+            else:
+                # a cancelled job must not sit in the device queue; the
+                # `with` exit releases the lease on the cancel's unwind
+                token = hold_cancellable(self.device_token, self.cancel)
+            # the device_hold span covers the lease's wait and hold; the
+            # acquired event marks the boundary between them
+            with tracing.span("device_hold"), token:
+                lease_devs = getattr(self.device_token, "devices", None)
+                tracing.event(
+                    "device_token_acquired",
+                    **({"devices": [int(i) for i in lease_devs]}
+                       if lease_devs else {}))
+                if self.profile_dir:
+                    prof = self._start_profile()
                 search = MSMBasicSearch(
                     ds, formulas, self.ds_config, self.sm_config,
                     isocalc_cache_dir=cache_dir,
                     checkpoint_dir=str(self.work_dir.path),
-                    prefetch=prefetch, cancel=self.cancel)
+                    backend_cache=self.residency,
+                    prefetch=prefetch, cancel=self.cancel,
+                    device_indices=lease_devs,
+                    partial_observer=self._note_partial)
                 prefetch = None   # ownership passed: search() consumes it
                 bundle = search.search()
                 if search.isocalc is not None:
@@ -142,9 +186,12 @@ class SearchJob:
                     self._stop_profile(prof)
                     prof = None
                 bundle.timings.update(timings)
-                # the last gate before results become durable: a cancelled
-                # job stores nothing partial
+                # the last gates before results become durable: a cancelled
+                # job, or one whose claim a peer replica took over, stores
+                # nothing
                 self._check("store_results")
+                if self.fence is not None:
+                    self.fence()
                 with phase_timer("store_results", bundle.timings):
                     table = search.last_table
                     ion_mzs = {
@@ -158,10 +205,17 @@ class SearchJob:
                         self._store_annotation_images(ds, search, bundle)
                     self.store.store(self.ds_id, job_id, bundle, ion_mzs)
                 # the device high-water mark while this job's tensors are
-                # still resident
+                # still resident.  A reading, never a reset: the allocator's
+                # peak is per device and shared by every worker of the
+                # process, so whoever owns the measurement window (a
+                # benchmark script, between jobs) resets it
                 self.last_hbm = devicemem.hbm_summary()
                 if self.last_hbm.get("hbm_peak_bytes") is not None:
                     tracing.event("hbm_job_peak", **self.last_hbm)
+            if self.fence is not None:
+                # ledger-commit fence: a stale replica must not flip the job
+                # row FINISHED under the takeover replica's run
+                self.fence()
             self.ledger.finish_job(job_id)
             if search.last_checkpoint is not None:
                 # only after results are durably stored: a storage failure
@@ -206,6 +260,18 @@ class SearchJob:
                 logger.info("job failed: keeping work dir %s for resume",
                             self.work_dir.path)
 
+    def _note_partial(self, payload: dict) -> None:
+        """Provisional annotations landed: keep the latest payload and
+        forward it to ``on_partial`` (a consumer's failure never fails the
+        job)."""
+        self.last_partial = dict(payload or {})
+        if self.on_partial is None:
+            return
+        try:
+            self.on_partial(self.last_partial)
+        except Exception:
+            logger.warning("on_partial consumer failed", exc_info=True)
+
     def _start_profile(self):
         """A ``torch.profiler`` capture of the search (CPU activity, and
         CUDA activity on a CUDA device), written to ``profile_dir`` when
@@ -234,9 +300,21 @@ class SearchJob:
             self.work_dir.copy_input_data(self.input_path)
         self._check("stage_input")
         with phase_timer("read_dataset", timings):
-            ds = SpectralDataset.from_imzml(self.work_dir.imzml_path())
+            ds = self._read_dataset()
         self._check("read_dataset")
         return ds
+
+    def _read_dataset(self) -> SpectralDataset:
+        """Parse the staged imzML, or reuse the residency's copy, keyed on
+        the staging manifest so a restaged different input misses."""
+        path = self.work_dir.imzml_path()
+        if self.residency is None:
+            return SpectralDataset.from_imzml(path)
+        manifest = self.work_dir.file("input.manifest.json")
+        content = manifest.read_text() if manifest.exists() else str(path)
+        key = (self.ds_id, hashlib.sha256(content.encode()).hexdigest())
+        return self.residency.dataset(
+            key, lambda: SpectralDataset.from_imzml(path))
 
     def _store_annotation_images(self, ds: SpectralDataset,
                                  search: MSMBasicSearch,

@@ -14,9 +14,9 @@ is read by the other:
   ``index_ds`` / ``delete_ds`` / ``search``.
 
 Everything lives under ``StorageConfig.results_dir``; all writers are
-idempotent per (ds_id, job_id), so a failed job can simply be re-run.  The
-service's disk-budget preflight before a store waits for the service port
-(ROADMAP queue 1 item 9).
+idempotent per (ds_id, job_id), so a failed job can simply be re-run.  A
+store passes the disk governor's preflight first (``service/resources.py``;
+a no-op outside the service).
 """
 
 from __future__ import annotations
@@ -271,6 +271,14 @@ class SearchResultsStore:
         index never references annotations that are not on disk.
         """
         d = self.ds_dir(ds_id)
+        # disk-budget preflight (service/resources.py): deny the store up
+        # front, before any tmp write, when the headroom floor would be
+        # breached; a rough estimate, refined by the GC rescan
+        from ..service import resources as _resources
+
+        _resources.preflight(
+            "storage.results_store",
+            256 * (len(bundle.annotations) + len(bundle.all_metrics)) + 8192)
         # sweep tmp debris a crashed previous store left behind: the rerun
         # overwrites the same names, but a FAILED-then-abandoned dataset
         # must not leak .tmp files forever

@@ -12,17 +12,28 @@ Every C entry point returns ``cudaGetLastError()`` after its launch (or
 ``CLUSTER_UNSCHEDULABLE`` when the occupancy API says its thread-block
 cluster does not fit the device); the Python wrappers raise
 :class:`KernelError` when that is not 0.
+
+The CUDA side keys its cached SM counts, ``cudaFuncSetAttribute`` and
+occupancy queries on the *current* device, which CUDA keeps per host
+thread, while a wrapper passes its tensor's stream.  Every launch function
+therefore runs under :func:`on_tensor_device`: its tensor's device is
+current for the load, the first-use build and the launch, whatever thread
+calls it (the service runs each job in its own thread, on its lease's
+device).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -123,6 +134,16 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _lock:
         return _load_locked(name)
+
+
+def on_tensor_device(launch):
+    """Decorate a launch function ``launch(t, ...)``: it runs with ``t``'s
+    CUDA device as the calling thread's current device."""
+    @functools.wraps(launch)
+    def guarded(t, *args, **kwargs):
+        with torch.cuda.device(t.device):
+            return launch(t, *args, **kwargs)
+    return guarded
 
 
 def check(err: int, what: str) -> None:

@@ -17,10 +17,12 @@ breaker wraps the device scoring seam in ``MSMBasicSearch._score_group``:
   job's device build is allowed through as a probe.  A clean group closes
   the breaker; another device fault re-opens it and restarts the cooldown.
 
-One card, one process-wide breaker (the ``"*"`` singleton).  The JAX
-package's per-device registry and its lease view come with the multi-GPU
-device pool (ROADMAP queue 1 item 7); the ``sm_breaker_*`` metrics export
-with the service port (item 9).
+One card, one process-wide breaker (the ``"*"`` singleton): a one-chip
+service lease answers to it too.  The JAX package's per-device registry and
+its lease view come with multi-GPU (ROADMAP queue 1 item 7).  The service
+exports ``sm_breaker_state{device=}``, ``sm_breaker_transitions_total`` and
+``sm_breaker_refused_total`` (``attach_metrics``); the last stands where the
+JAX package counts ``sm_breaker_degraded_total``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ STATE_HALF_OPEN = "half_open"
 
 # the process-wide breaker's label
 GLOBAL_LABEL = "*"
+_STATE_CODE = {STATE_CLOSED: 0, STATE_HALF_OPEN: 1, STATE_OPEN: 2}
 
 
 class DeviceUnavailableError(RuntimeError):
@@ -78,6 +81,7 @@ class CircuitBreaker:
         tracing.event("breaker", device=self.label, from_state=self._state,
                       to_state=to, failures=self._failures)
         self._state = to
+        _export_state(to, self.label)
 
     def allow_device(self) -> bool:
         """May the next job use the device backend?  In OPEN state this
@@ -123,6 +127,7 @@ class CircuitBreaker:
 _lock = threading.Lock()
 _breaker: CircuitBreaker | None = None
 _refused = 0
+_metrics = None
 
 
 def get_device_breaker(service_cfg=None) -> CircuitBreaker:
@@ -139,12 +144,59 @@ def get_device_breaker(service_cfg=None) -> CircuitBreaker:
         return _breaker
 
 
+def breakers_snapshot() -> dict:
+    """{label: snapshot} of the breaker, when this process touched it (the
+    ``GET /debug/devices`` body's breaker half)."""
+    with _lock:
+        b = _breaker
+    return {b.label: b.snapshot()} if b is not None else {}
+
+
 def reset_device_breaker() -> None:
-    """A fresh breaker and a zero refused count (tests)."""
-    global _breaker, _refused
+    """A fresh breaker, a zero refused count and no metrics (tests)."""
+    global _breaker, _refused, _metrics
     with _lock:
         _breaker = None
         _refused = 0
+        _metrics = None
+
+
+def _export_state(state: str, label: str) -> None:
+    m = _metrics
+    if m is None:
+        return
+    m.gauge("sm_breaker_state",
+            "Device breaker state (0=closed, 1=half_open, 2=open), per "
+            "chip ('*' = the un-leased process breaker)",
+            ("device",)).labels(device=label).set(_STATE_CODE[state])
+    m.counter("sm_breaker_transitions_total",
+              "Device breaker state transitions, by chip and destination",
+              ("device", "to")).labels(device=label, to=state).inc()
+
+
+def attach_metrics(registry) -> None:
+    """Export the breaker through a service ``MetricsRegistry``:
+    ``sm_breaker_state{device=}``, ``sm_breaker_transitions_total{device=,
+    to=}`` and ``sm_breaker_refused_total`` (refusals before attachment are
+    backfilled)."""
+    global _metrics
+    with _lock:
+        _metrics = registry
+        b = _breaker
+        refused = _refused
+    g = registry.gauge(
+        "sm_breaker_state",
+        "Device breaker state (0=closed, 1=half_open, 2=open), per chip "
+        "('*' = the un-leased process breaker)", ("device",))
+    b = b or CircuitBreaker()
+    g.labels(device=b.label).set(_STATE_CODE[b.state])
+    registry.counter(
+        "sm_breaker_transitions_total",
+        "Device breaker state transitions, by chip and destination",
+        ("device", "to"))
+    registry.counter(
+        "sm_breaker_refused_total",
+        "torch_cuda jobs refused on an open device breaker").inc(refused)
 
 
 def refuse_device(reason: str) -> DeviceUnavailableError:
@@ -153,6 +205,10 @@ def refuse_device(reason: str) -> DeviceUnavailableError:
     global _refused
     with _lock:
         _refused += 1
+        m = _metrics
+    if m is not None:
+        m.counter("sm_breaker_refused_total",
+                  "torch_cuda jobs refused on an open device breaker").inc()
     logger.error("device breaker open: %s; the job fails for the retry "
                  "policy (the port does not move device work to the host)",
                  reason)

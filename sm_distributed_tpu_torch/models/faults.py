@@ -40,17 +40,22 @@ injection markers), and program for the rest.  The JAX package's
 taxonomy, where everything that is neither OOM nor transient is sticky,
 classifies the program faults above as sticky.
 
-The JAX package's health-tracker hook (``set_fault_listener``,
-``report_device_fault`` / ``report_device_ok``) comes with the device pool
-of the service port, and the ``sm_device_faults_total`` export with it
-(ROADMAP queue 1 item 9); ``_score_group`` stamps each classified fault on
-the job trace meanwhile.
+``_score_group`` reports every classified non-OOM fault through
+:func:`report_device_fault` (the job trace, ``sm_device_faults_total{kind=}``
+and, for transient and sticky faults, the service's health tracker, which
+:func:`set_fault_listener` subscribes) and every clean device group through
+:func:`report_device_ok`.  A program fault never reaches the health tracker:
+it says nothing about the chip.
 """
 
 from __future__ import annotations
 
+import threading
+
 from ..kernels._build import KernelError
+from ..utils import tracing
 from ..utils.failpoints import register_failpoint
+from ..utils.logger import logger
 from . import oom
 
 FAULT_OOM = "oom"
@@ -141,3 +146,88 @@ def is_injected(exc: BaseException) -> bool:
     """Was ``exc`` raised by a device-fault failpoint?"""
     text = str(exc)
     return any(m in text for m in INJECTED_MARKERS)
+
+
+# ------------------------------------------------------- listener + metrics
+_lock = threading.Lock()
+_listener = None                       # the service's HealthTracker
+_metrics = None
+
+
+def set_fault_listener(listener) -> None:
+    """Subscribe a health tracker (``service/health.py``): it receives every
+    transient or sticky device fault as ``report_fault(devices, kind,
+    error)`` and every clean device group as ``report_ok(devices)``.  One
+    listener per process (the last registration wins: the live scheduler's
+    pool)."""
+    global _listener
+    with _lock:
+        _listener = listener
+
+
+def clear_fault_listener(listener=None) -> None:
+    """Detach.  With ``listener`` given, only when it is still the
+    registered one: a newer scheduler's registration survives an older
+    service's teardown."""
+    global _listener
+    with _lock:
+        if listener is None or _listener is listener:
+            _listener = None
+
+
+def report_device_fault(devices, kind: str, error: BaseException | str) -> None:
+    """A classified fault at the scoring seam.  ``devices`` is the job's
+    lease chip tuple (None for un-leased runs: nothing to attribute).
+    Stamps the job trace, exports ``sm_device_faults_total{kind=}`` and
+    dispatches transient and sticky faults to the health listener."""
+    err = str(error)
+    tracing.event("device_fault", kind=kind, error=err[:300],
+                  **({"devices": [int(d) for d in devices]}
+                     if devices else {}))
+    m = _metrics
+    if m is not None:
+        m.counter("sm_device_faults_total",
+                  "Classified device faults at the scoring seam, by kind",
+                  ("kind",)).labels(kind=kind).inc()
+    with _lock:
+        listener = _listener
+    if listener is None or not devices or kind == FAULT_PROGRAM:
+        return
+    try:
+        listener.report_fault(tuple(int(d) for d in devices), kind, err)
+    except Exception:
+        logger.warning("device-fault listener %r failed", listener,
+                       exc_info=True)
+
+
+def report_device_ok(devices) -> None:
+    """A clean device scoring group: clears the lease chips' suspect state
+    and fault counters (a quarantine is only undone by a re-probe)."""
+    with _lock:
+        listener = _listener
+    if listener is None or not devices:
+        return
+    try:
+        listener.report_ok(tuple(int(d) for d in devices))
+    except Exception:
+        logger.warning("device-fault listener %r failed", listener,
+                       exc_info=True)
+
+
+def attach_metrics(registry) -> None:
+    """Export ``sm_device_faults_total{kind=}`` through a service
+    ``MetricsRegistry``."""
+    global _metrics
+    with _lock:
+        _metrics = registry
+    registry.counter("sm_device_faults_total",
+                     "Classified device faults at the scoring seam, by kind",
+                     ("kind",))
+
+
+def reset() -> None:
+    """Detach the listener and the metrics (tests)."""
+    global _listener, _metrics
+    with _lock:
+        _listener = None
+        _metrics = None

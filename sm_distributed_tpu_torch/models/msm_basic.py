@@ -37,11 +37,15 @@ Resilience, as in the JAX package:
 - **cancellation**: a ``CancelToken`` is checked between batch groups and
   between batches.
 
-Not in the port yet: the multi-host resume agreement and the multi-GPU
-device lease (``device_indices``; ROADMAP queue 1 item 7); the backend
-residency cache (``backend_cache``), the disk-budget preflight, streamed
-partial annotations (``partial_observer``) and the first-annotation
-observers (item 9).
+Service hooks, as in the JAX package: ``backend_cache`` (an
+``engine/residency.DatasetResidency``) keeps set-up backends resident across
+jobs, a backend whose device met a sticky fault is evicted from it;
+``device_indices`` is the job's device-pool lease, one chip ``i`` meaning
+``cuda:i``; ``partial_observer`` receives provisional annotations over the
+first scored group; the first-annotation observers hear when the first
+FDR-rankable metrics exist; checkpoint shards pass the disk governor's
+preflight.  Not in the port yet: the multi-host resume agreement and leases
+of more than one chip (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -100,9 +104,30 @@ FP_DEVICE_ERROR = register_failpoint(
 _PARTITION_VERSION = 2
 
 
-# The JAX package's first-annotation observers (a service hook called when
-# the first group's metrics land) come with the service port (ROADMAP queue
-# 1 item 9); the search stamps a ``first_annotation`` trace event meanwhile.
+# First-annotation observers: called once per search when the first
+# group's metrics land, the earliest moment FDR-rankable results exist.  The
+# service's SLOTracker subscribes without this module importing the service.
+_first_annotation_observers: list = []
+
+
+def add_first_annotation_observer(fn) -> None:
+    if fn not in _first_annotation_observers:
+        _first_annotation_observers.append(fn)
+
+
+def remove_first_annotation_observer(fn) -> None:
+    if fn in _first_annotation_observers:
+        _first_annotation_observers.remove(fn)
+
+
+def _notify_first_annotation() -> None:
+    """Exception-safe dispatch (observability never fails the search)."""
+    for fn in list(_first_annotation_observers):
+        try:
+            fn()
+        except Exception:
+            logger.warning("first-annotation observer %r failed", fn,
+                           exc_info=True)
 
 
 def _slice_table(table: IsotopePatternTable, s: int, e: int
@@ -200,16 +225,36 @@ class NumpyBackend:
 
 
 def make_backend(name: str, ds: SpectralDataset, ds_config: DSConfig,
-                 sm_config: SMConfig, table: IsotopePatternTable | None = None):
+                 sm_config: SMConfig, table: IsotopePatternTable | None = None,
+                 device_indices=None):
     """The scoring backend named ``name``.  ``table`` (the search's full ion
-    table) lets the device backend drop dataset peaks outside every window."""
+    table) lets the device backend drop dataset peaks outside every window;
+    ``device_indices`` (see :func:`lease_device`) picks its device."""
     if name == "numpy_ref":
         return NumpyBackend(ds, ds_config)
     if name == "torch_cuda":
         from .msm_torch import TorchBackend
 
-        return TorchBackend(ds, ds_config, sm_config, restrict_table=table)
+        return TorchBackend(ds, ds_config, sm_config, restrict_table=table,
+                            device=lease_device(sm_config.device,
+                                                device_indices))
     raise ValueError(f"unknown backend {name!r}")
+
+
+def lease_device(device: str, device_indices=None) -> str:
+    """The torch device of a device-pool lease: chip ``i`` of a ``cuda``
+    config is ``cuda:i``; a ``cpu`` config stays on the CPU (the pool's
+    chips are then simulated).  A lease of more than one chip raises:
+    sharding over several cards is ROADMAP queue 1 item 7."""
+    if not device_indices:
+        return device
+    if len(device_indices) > 1:
+        raise NotImplementedError(
+            f"a lease of {len(device_indices)} chips is not in the PyTorch "
+            "port yet (queue 1 item 7 of ROADMAP.md: multi-GPU)")
+    if str(device).split(":")[0] != "cuda":
+        return device
+    return f"cuda:{int(device_indices[0])}"
 
 
 def make_isocalc(ds_config: DSConfig, sm_config: SMConfig,
@@ -355,8 +400,12 @@ class SearchCheckpoint:
              row_ranges: list[tuple[int, int]]) -> None:
         s, e = row_ranges[gi]
         rows = np.ascontiguousarray(metrics[s:e])
-        # the JAX package's disk-budget preflight before the write comes
-        # with the service port (ROADMAP queue 1 item 9)
+        # disk-budget preflight (service/resources.py): a full disk fails the
+        # shard BEFORE a torn write, with headroom reserved for the seams
+        # below this one.  No-op outside the service.
+        from ..service import resources as _resources
+
+        _resources.preflight("ckpt.shard_write", rows.nbytes + 4096)
         tmp = self._shard(gi).with_suffix(".tmp.npz")  # same dir -> atomic
         np.savez(tmp, fingerprint=np.str_(self.fingerprint),
                  rows=rows, n_groups=n_groups,
@@ -391,19 +440,33 @@ class MSMBasicSearch:
                  ds_config: DSConfig, sm_config: SMConfig | None = None,
                  isocalc_cache_dir: str | None = None,
                  checkpoint_dir: str | None = None,
-                 prefetch: IsotopePrefetch | None = None, cancel=None):
+                 backend_cache=None,
+                 prefetch: IsotopePrefetch | None = None, cancel=None,
+                 device_indices=None, partial_observer=None):
         self.ds = ds
         self.formulas = list(dict.fromkeys(formulas))  # dedup, keep order
         self.ds_config = ds_config
         self.sm_config = sm_config or SMConfig.get_conf()
         # checkpoint shards land here when parallel.checkpoint_every > 0
         self.checkpoint_dir = checkpoint_dir
+        # service mode (engine/residency.DatasetResidency): reuse a set-up
+        # backend across jobs when the search fingerprint, the
+        # backend-shaping knobs and the lease's device all match
+        self.backend_cache = backend_cache
+        self._backend_key = None
         # decoys and generation already running (SearchJob's prefetch):
         # search() consumes its stream instead of starting one
         self.prefetch = prefetch
         # utils/cancel.CancelToken or None: checked between batch groups
         # and between batches
         self.cancel = cancel
+        # the job's device-pool lease (one chip; lease_device checks)
+        self.device_indices = (tuple(int(i) for i in device_indices)
+                               if device_indices else None)
+        lease_device(self.sm_config.device, self.device_indices)
+        # provisional annotations over the first scored group go here (the
+        # service's job record); None = no consumer
+        self.partial_observer = partial_observer
         self.isocalc = None if prefetch is not None else make_isocalc(
             ds_config, self.sm_config, isocalc_cache_dir)
         # read by SearchJob to store ion images and m/z values, and to
@@ -478,7 +541,8 @@ class MSMBasicSearch:
     def _oom_key(self) -> str:
         """Safe-batch registry key: what a batch's device footprint depends
         on (models/oom.py), keyed on the pixel bucket."""
-        return oom.shape_key(self.ds.n_pixels, self.sm_config.backend)
+        return oom.shape_key(self.ds.n_pixels, self.sm_config.backend,
+                             self.device_indices)
 
     @staticmethod
     def _capped_slices(slices: list[tuple[int, int]],
@@ -561,14 +625,14 @@ class MSMBasicSearch:
                 if not use_device:
                     raise             # a host-backend bug is not a device fault
                 kind = faults.classify(exc)
+                if kind != faults.FAULT_OOM:
+                    faults.report_device_fault(self.device_indices, kind, exc)
                 if kind == faults.FAULT_PROGRAM:
                     logger.error(
                         "program fault while scoring (a kernel or the code, "
                         "not the device: no breaker count): %s", exc)
                     raise
                 if kind != faults.FAULT_OOM:
-                    tracing.event("device_fault", kind=kind,
-                                  error=str(exc)[:300])
                     if kind == faults.FAULT_TRANSIENT:
                         logger.warning(
                             "transient device fault while scoring — "
@@ -579,6 +643,9 @@ class MSMBasicSearch:
                     logger.warning(
                         "sticky device fault while scoring (breaker %s "
                         "after it): %s", breaker.state, exc)
+                    if self._backend_key is not None:
+                        # its tensors may live in a dead context
+                        self.backend_cache.evict_backend(self._backend_key)
                     if not now_open:
                         raise         # below threshold: the retry policy
                                       # probes the device again
@@ -590,10 +657,12 @@ class MSMBasicSearch:
                 if not new_cap:
                     raise             # single-ion batch still OOMs: no breaker
             else:
-                # a cleanly scored device group closes a half-open probe and
-                # resets the consecutive-error count
+                # a cleanly scored device group closes a half-open probe,
+                # resets the consecutive-error count and clears the lease
+                # chip's suspect state
                 if use_device:
                     breaker.record_success()
+                    faults.report_device_ok(self.device_indices)
                 break
             # out of the except block: the failed attempt's frames are gone
             oom_cap = new_cap
@@ -605,6 +674,56 @@ class MSMBasicSearch:
             oom.record_safe_batch(self._oom_key(), oom_cap)
         for (s, e), out in zip(slices, outs):
             metrics[s:e] = out
+
+    def _emit_partial(self, fdr: FDR, assignment: DecoyAssignment,
+                      table: IsotopePatternTable, metrics: np.ndarray,
+                      n_scored: int, gi: int) -> None:
+        """Provisional annotations over the scored prefix: rank the first
+        ``n_scored`` ions' msm through the real FDR estimator (the decoy set
+        is the prefix's: provisional by construction, converging to the
+        final ranking as groups land) and publish a small summary to the
+        job trace and the ``partial_observer`` (the service threads it into
+        the job record's ``partial`` field).  Best-effort: a failure here
+        degrades to no preview, never a failed search."""
+        if n_scored >= table.n_ions or n_scored <= 0:
+            return                    # single group: final results imminent
+        if self.partial_observer is None and not tracing.enabled():
+            return
+        try:
+            sub = pd.DataFrame({
+                "sf": table.sfs[:n_scored],
+                "adduct": table.adducts[:n_scored],
+                "msm": metrics[:n_scored, 3],
+            })
+            ann = fdr.estimate_fdr(sub, assignment)
+            top = ann.sort_values("msm", ascending=False).head(5)
+            payload = {
+                "provisional": True,
+                "group": int(gi),
+                "n_scored": int(n_scored),
+                "n_ions": int(table.n_ions),
+                "annotations": int(len(ann)),
+                "fdr_10pct": int((ann["fdr"] <= 0.1).sum()),
+                "top": [
+                    {"sf": str(r.sf), "adduct": str(r.adduct),
+                     "msm": round(float(r.msm), 6),
+                     "fdr": round(float(r.fdr), 6)}
+                    for r in top.itertuples()
+                ],
+            }
+        except Exception:
+            logger.warning("provisional partial annotations failed",
+                           exc_info=True)
+            return
+        tracing.event("partial_annotations",
+                      **{k: v for k, v in payload.items() if k != "top"})
+        obs = self.partial_observer
+        if obs is not None:
+            try:
+                obs(payload)
+            except Exception:
+                logger.warning("partial-results observer %r failed", obs,
+                               exc_info=True)
 
     def search(self) -> SearchResultsBundle:
         timings: dict[str, float] = {}
@@ -693,10 +812,25 @@ class MSMBasicSearch:
                 "oom: starting at learned safe batch %d (config %d) for %s",
                 safe, self._batch_eff, self._oom_key())
             self._batch_eff = safe
+        def build():
+            return make_backend(self.sm_config.backend, self.ds,
+                                self.ds_config, self.sm_config, table=table,
+                                device_indices=self.device_indices)
+
         with phase_timer("backend_setup", timings):
-            backend = make_backend(self.sm_config.backend, self.ds,
-                                   self.ds_config, self.sm_config,
-                                   table=table)
+            if self.backend_cache is not None:
+                fingerprint = (self._fingerprint_pairs(table) if overlap
+                               else self._fingerprint(table))
+                # a backend is pinned to its lease's device: a resident one
+                # must never serve a job holding another chip
+                self._backend_key = (
+                    self.sm_config.backend, fingerprint, par.mz_chunk,
+                    par.peak_compaction, par.band_slice, par.order_ions,
+                    par.cube_dtype, par.fused_metrics,
+                    lease_device(self.sm_config.device, self.device_indices))
+                backend = self.backend_cache.backend(self._backend_key, build)
+            else:
+                backend = build()
         self.last_backend = backend
         batch = self._batch_eff
         if batch < max(1, par.formula_batch) and \
@@ -749,8 +883,13 @@ class MSMBasicSearch:
                     self._score_group(backend, table, metrics, group,
                                       breaker, use_device)
                 if not first_scored:
+                    # the first FDR-rankable metrics of this search exist
+                    # now: the submit -> first-annotation SLI's stop clock
                     first_scored = True
                     tracing.event("first_annotation", group=gi)
+                    _notify_first_annotation()
+                    self._emit_partial(fdr, assignment, table, metrics,
+                                       row_ranges[gi][1], gi)
                 if ckpt is not None:
                     with tracing.span("checkpoint_save", group=gi):
                         ckpt.save(metrics, gi, len(groups), row_ranges)
@@ -759,6 +898,10 @@ class MSMBasicSearch:
             # results are durably stored.  A leftover checkpoint is harmless
             # (fingerprint-guarded).
             self.last_checkpoint = ckpt
+            if not first_scored:
+                # fully resumed from a checkpoint: the first annotations
+                # were there at once
+                _notify_first_annotation()
             if overlap:
                 # join generation and surface any late stream error
                 stream.result_table()

@@ -20,8 +20,9 @@ vocabulary to treat it so:
 
 ``torch.OutOfMemoryError`` is a ``RuntimeError``: a classifier must test for
 OOM before anything that treats a ``RuntimeError`` as a device fault
-(``models/faults.py::classify`` does).  The service's ``sm_oom_*`` metrics
-export waits for the service port (ROADMAP queue 1 item 9).
+(``models/faults.py::classify`` does).  The service exports the
+``sm_oom_*`` family (``attach_metrics``) and shows the registry on ``GET
+/debug/resources``.
 
 The registry is process-global plain state under one leaf lock: a
 performance memo, not a correctness mechanism; losing it on restart only
@@ -103,12 +104,19 @@ class _GuardedRegistry:
 
 
 _registry = _GuardedRegistry()
+_metrics = None
+_metrics_lock = threading.Lock()
 
 
 def record_oom_event(where: str, error: str) -> None:
     """An OOM was classified at the scoring seam (before any retry)."""
     _registry.record_event()
     tracing.event("oom", where=where, error=error[:300])
+    m = _metrics
+    if m is not None:
+        m.counter("sm_oom_events_total",
+                  "Device/host memory-exhaustion errors classified at the "
+                  "scoring seam").inc()
 
 
 def record_safe_batch(key: str, batch: int) -> None:
@@ -117,6 +125,12 @@ def record_safe_batch(key: str, batch: int) -> None:
     _registry.record_safe(key, batch)
     logger.warning("oom: learned safe batch %d for %s", batch, key)
     tracing.event("oom_safe_batch", key=key, batch=int(batch))
+    m = _metrics
+    if m is not None:
+        m.counter("sm_oom_recoveries_total",
+                  "OOM backoffs that converged to a fitting batch size").inc()
+        m.gauge("sm_oom_safe_batch",
+                "Most recently learned proven-safe formula batch").set(batch)
 
 
 def safe_batch_for(key: str) -> int | None:
@@ -124,10 +138,32 @@ def safe_batch_for(key: str) -> int | None:
 
 
 def snapshot() -> dict:
-    """Registry contents: OOM events, converged backoffs, safe batches."""
+    """Registry contents: OOM events, converged backoffs, safe batches
+    (``GET /debug/resources``)."""
     return _registry.snapshot()
 
 
 def reset() -> None:
     """Forget learned sizes and counts (tests)."""
     _registry.reset()
+
+
+def attach_metrics(registry) -> None:
+    """Export the ``sm_oom_*`` family through a service MetricsRegistry;
+    counts recorded before attachment are backfilled."""
+    global _metrics
+    with _metrics_lock:
+        _metrics = registry
+    snap = _registry.snapshot()
+    registry.counter(
+        "sm_oom_events_total",
+        "Device/host memory-exhaustion errors classified at the scoring "
+        "seam").inc(snap["events"])
+    registry.counter(
+        "sm_oom_recoveries_total",
+        "OOM backoffs that converged to a fitting batch size").inc(
+        snap["recoveries"])
+    g = registry.gauge("sm_oom_safe_batch",
+                       "Most recently learned proven-safe formula batch")
+    if snap["safe_batches"]:
+        g.set(list(snap["safe_batches"].values())[-1])

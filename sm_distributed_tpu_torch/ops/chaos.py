@@ -54,6 +54,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import _build
+
 # the JAX package's packed-kernel budgets (ops/chaos_pallas.py), in cells:
 # the routing decision is kept identical so the two packages agree on which
 # shapes each kernel serves
@@ -354,10 +356,9 @@ def _kernel_thresholds(principal: torch.Tensor, nrows: int, ncols: int,
     return chaos_thresholds(vmax, nlevels).contiguous()
 
 
+@_build.on_tensor_device
 def _launch_smem(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
                  ncols: int, nlevels: int) -> torch.Tensor:
-    from ..kernels import _build
-
     n = principal.shape[0]
     dev = principal.device
     lib = _build.load("chaos")
@@ -378,6 +379,7 @@ def _launch_smem(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
     return out
 
 
+@_build.on_tensor_device
 def _launch_tiles(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
                   ncols: int, nlevels: int, strips: bool = False
                   ) -> torch.Tensor:
@@ -388,8 +390,6 @@ def _launch_tiles(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
     its union-find in a global plane also in
     ``chaos_count_sums_strips.seam_plane_launches``.  (N,) f64 exact
     counts."""
-    from ..kernels import _build
-
     n = principal.shape[0]
     dev = principal.device
     plan = tile_plan(nrows, ncols, nlevels)

@@ -17,9 +17,11 @@ the JAX package's, so a cache written by either package is read by the
 other.  Corrupt shards are skipped and unlinked; shards compact into one
 base file past 64.
 
+Cache-shard writes pass the service's disk governor
+(``service/resources.py``): skipped under disk pressure, denied at the hard
+floor; the service exports the generation counters (``attach_metrics``).
 Not in the port yet: the device blur stage (``parallel.isocalc_device``,
-ROADMAP queue 1 item 8), and the service's disk-budget gate on cache
-writes and its generation metrics (item 9).
+ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -362,6 +364,48 @@ def _compute_chunk_body(pairs, params):
     return out
 
 
+# -- metrics hooks (the service's attach_metrics pattern) ---------------------
+
+_metrics_lock = threading.Lock()
+_metrics_registry = None
+_patterns_total = 0
+
+
+def attach_metrics(registry) -> None:
+    """Export generation counters through a service ``MetricsRegistry``:
+    ``sm_isocalc_patterns_total`` plus per-stream worker/rate gauges."""
+    global _metrics_registry
+    with _metrics_lock:
+        _metrics_registry = registry
+        total = _patterns_total
+    c = registry.counter("sm_isocalc_patterns_total",
+                         "Isotope patterns computed (cold, not cache hits)")
+    if total:
+        c.inc(total)
+
+
+def patterns_total() -> int:
+    """Monotone count of cold-computed patterns (service rate collector)."""
+    with _metrics_lock:
+        return _patterns_total
+
+
+def _count_patterns(n: int, workers: int, rate: float) -> None:
+    global _patterns_total
+    with _metrics_lock:
+        _patterns_total += n
+        reg = _metrics_registry
+    if reg is not None:
+        reg.counter("sm_isocalc_patterns_total",
+                    "Isotope patterns computed (cold, not cache hits)").inc(n)
+        reg.gauge("sm_isocalc_workers",
+                  "Process-pool size of the last isocalc generation"
+                  ).set(workers)
+        reg.gauge("sm_isocalc_patterns_per_s",
+                  "Throughput of the current/last isocalc generation"
+                  ).set(rate)
+
+
 class PatternStream:
     """A running isotope-pattern generation (the JAX package's class).
 
@@ -519,6 +563,7 @@ class PatternStream:
         if self.cold_patterns:
             self.patterns_per_s = self.cold_patterns / max(
                 self.gen_seconds, 1e-9)
+            _count_patterns(0, self.workers, self.patterns_per_s)
         self.wrapper.last_stats = dict(
             cold_patterns=self.cold_patterns,
             seconds=round(self.gen_seconds, 3),
@@ -547,6 +592,8 @@ class PatternStream:
                 "isocalc: %d/%d patterns (%.1f patterns/s, %d workers)",
                 self.cold_patterns, self.n_missing, rate, self.workers)
             self._t_last_log = now
+        _count_patterns(len(entries), self.workers, self.cold_patterns
+                        / max(now - self._t_gen0, 1e-9))
 
     def _generate(self) -> None:
         self._t_gen0 = self._t_last_log = time.perf_counter()
@@ -747,9 +794,18 @@ class IsocalcWrapper:
     def _write_shard(self, shard: Path, entries: dict) -> None:
         """tmp savez -> failpoint seam -> atomic rename.  tmp names take a
         "tmp_" prefix so the constructor's "theor_peaks_*" glob never sees
-        a half-written file."""
+        a half-written file.  Under disk pressure (``service/resources.py``)
+        a cache shard is an optional write: past the cache floor it is
+        skipped (the patterns stay in this process's memory and recompute
+        next time), and the preflight guards the hard floor."""
         import uuid
 
+        from ..service import resources as _resources
+
+        if not _resources.allow_cache():
+            return
+        est = sum(m.nbytes + t.nbytes for m, t in entries.values()) + 8192
+        _resources.preflight("isocalc.shard_save", est)
         tmp = self.cache_dir / f"tmp_{uuid.uuid4().hex[:8]}.npz"
         np.savez(tmp, **self._stack_entries(entries))
         failpoint(FP_ISO_SHARD_SAVE, path=tmp)
@@ -774,8 +830,10 @@ class IsocalcWrapper:
         wrote since this wrapper loaded are kept."""
         import uuid
 
-        if self.cache_dir is None:
-            return
+        from ..service import resources as _resources
+
+        if self.cache_dir is None or not _resources.allow_cache():
+            return                    # disk pressure: defer compaction too
         shards = self._shard_paths()
         if len(shards) <= self._COMPACT_SHARDS:
             return

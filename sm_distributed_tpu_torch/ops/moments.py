@@ -34,6 +34,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import _build
+
 _Moments = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor]
 
@@ -145,9 +147,8 @@ def moments_groups(k: int) -> list[tuple[int, int]]:
     return groups
 
 
+@_build.on_tensor_device
 def _launch(images: torch.Tensor, n_real: int | None) -> torch.Tensor:
-    from ..kernels import _build
-
     n, k, p = images.shape
     lib = _build.load("moments")
     fn = lib.sm_moments

@@ -42,6 +42,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..kernels import _build
 from .imager import banded_images
 from .moments import K_MAX, batch_moments_torch, moments_groups, moments_plan
 
@@ -72,14 +73,13 @@ def fused_window_moments_torch(whp: torch.Tensor, starts, r_lo_loc:
     return partials, x[:, 0, :].reshape(n_chunks, wc // k, p)
 
 
+@_build.on_tensor_device
 def _launch(whp: torch.Tensor, starts: torch.Tensor, r_lo_loc: torch.Tensor,
             r_hi_loc: torch.Tensor, n_real: int, gc_width: int, k: int
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch per row group of ``ops/moments.moments_groups`` (window 0
     and up to K_MAX - 1 more windows an ion; one group up to K_MAX), each
     counted in ``fused_window_moments.launches``."""
-    from ..kernels import _build
-
     cols, p = whp.shape
     n_chunks, wc = r_lo_loc.shape
     dev = whp.device

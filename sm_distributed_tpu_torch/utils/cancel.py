@@ -9,9 +9,9 @@ boundaries::
 so a cancelled job unwinds cooperatively: the ``with`` blocks release what
 they hold and no partial results are stored.  A token trips on ``cancel``
 (the first reason wins) or, lazily, once its absolute ``deadline_at`` has
-passed.  ``check()`` doubles as a progress touch.  The service's sources of
-cancellation (the per-attempt timeout, ``DELETE /jobs/<id>``, the stall
-watchdog) wait for the service port (ROADMAP queue 1 item 9).
+passed.  ``check()`` doubles as a progress touch.  The service's scheduler
+(``service/scheduler.py``) trips tokens on a per-attempt timeout, an
+operator's ``DELETE /jobs/<id>`` and its stall watchdog.
 """
 
 from __future__ import annotations
@@ -61,8 +61,12 @@ class CancelToken:
             return True
         return False
 
+    def deadline_exceeded(self) -> bool:
+        return self.deadline_at is not None and time.time() >= self.deadline_at
+
     def touch(self, phase: str = "") -> None:
-        """Progress heartbeat."""
+        """Progress heartbeat: the watchdog cancels attempts whose last
+        touch is older than ``service.watchdog_stall_s``."""
         self.last_progress = time.time()
         if phase:
             self.progress_phase = phase

@@ -5,26 +5,29 @@ A port of ``sm_distributed_tpu/utils/config.py``: the per-dataset
 keys and defaults, and the engine's ``SMConfig`` with ``backend``
 (``torch_cuda``, the default, or the host oracle ``numpy_ref``),
 ``device``, ``fdr``, the ``parallel`` knobs the scoring and isotope-pattern
-paths read, the ``service`` block's three breaker knobs, ``storage``,
-``tracing``, ``logs``, ``work_dir``, ``logs_dir`` and ``failpoints``, and
-the process-global instance of ``set_path`` / ``get_conf``.  ``from_dict``
-rejects unknown keys, as the JAX package does.
+paths read (``resident_datasets`` included), the ``service`` block of the
+annotation service (scheduler, device pool and health, replicas and leases,
+admission, breaker), ``telemetry``, ``resources``, ``storage``, ``tracing``
+(its retention knobs included), ``logs``, ``work_dir``, ``logs_dir`` and
+``failpoints``, and the process-global instance of ``set_path`` /
+``get_conf``.  ``from_dict`` rejects unknown keys, as the JAX package does.
 
 A block or value the port does not have yet raises ``NotImplementedError``
-naming the ROADMAP item that brings it, rather than being dropped: every
-``service`` key but ``breaker_threshold``, ``breaker_cooldown_s`` and
-``breaker_degraded_batch``, the ``telemetry`` and ``resources`` blocks and
-the tracing retention knobs (item 9) unless they hold the JAX package's
-default, ``parallel.isocalc_device="on"`` (item 8), the JAX package's mesh
-and multi-host knobs (item 7), its compile cache and dataset residency
-(item 9), and the values listed on each dataclass.  ``peak_compaction`` and
-``band_slice`` take every value the JAX package does: ``"auto"`` lets the
-backend pick the plain, band or compact variant for each batch by its
-estimated cost on the card, ``"on"`` forces one (band first), ``"off"``
-leaves it out; the variants give the same bits.  ``do_preprocessing``
-(hot-spot clipping), ``checkpoint_every`` (search checkpoint groups) and
-``cube_dtype`` (a bf16 or int8 resident intensity cube on the flat path)
-take every value the JAX package accepts.
+naming the ROADMAP item that brings it, rather than being dropped, unless
+it holds the JAX package's default: the ``service`` blocks ``fleet``,
+``prime`` and ``stream``, and ``read`` and ``fleetview``, which the JAX
+package enables by default and the port accepts only disabled (item 9b);
+``telemetry.profile`` and ``telemetry.retrace`` and
+``parallel.compile_cache_dir`` (item 9b); ``service.devices_per_job`` above
+1, ``parallel.isocalc_device="on"`` (item 8) and the JAX package's mesh and
+multi-host knobs (item 7); and the values listed on each dataclass.
+``peak_compaction`` and ``band_slice`` take every value the JAX package
+does: ``"auto"`` lets the backend pick the plain, band or compact variant
+for each batch by its estimated cost on the card, ``"on"`` forces one (band
+first), ``"off"`` leaves it out; the variants give the same bits.
+``do_preprocessing`` (hot-spot clipping), ``checkpoint_every`` (search
+checkpoint groups) and ``cube_dtype`` (a bf16 or int8 resident intensity
+cube on the flat path) take every value the JAX package accepts.
 """
 
 from __future__ import annotations
@@ -39,28 +42,11 @@ from typing import Any, ClassVar
 VALID_BACKENDS = ("numpy_ref", "torch_cuda")
 
 
-# the JAX package's ``service`` keys beside the breaker knobs, with their
-# defaults (nested blocks as dicts): the service port (ROADMAP queue 1 item
-# 9) brings them.  tests/test_torch_resilience.py holds this table equal to
-# the JAX package's ServiceConfig defaults
+# the JAX package's ``service`` blocks the port does not have yet, with
+# their defaults; ``read`` and ``fleetview`` are accepted only disabled (the
+# JAX package enables them by default).  tests/test_torch_resilience.py
+# holds this table equal to the JAX package's ServiceConfig defaults
 _SERVICE_NOT_YET = {
-    "workers": 2, "poll_interval_s": 0.5, "job_timeout_s": 21600.0,
-    "max_attempts": 3, "backoff_base_s": 1.0, "backoff_max_s": 60.0,
-    "backoff_jitter": 0.1, "heartbeat_interval_s": 5.0,
-    "stale_after_s": 30.0, "drain_timeout_s": 30.0,
-    "http_host": "127.0.0.1", "http_port": 8685, "cancel_grace_s": 15.0,
-    "watchdog_interval_s": 5.0, "watchdog_stall_s": 0.0,
-    "quarantine_after": 8, "device_pool_size": 0, "devices_per_job": 1,
-    "device_pool_max_bypass": 64, "device_pool_hosts": 1,
-    "lease_reap_after_s": 300.0, "health_probe_on_lease": True,
-    "health_fault_quarantine": 3, "health_reprobe_after_s": 60.0,
-    "health_host_evict_fraction": 0.75, "host_watchdog_interval_s": 0.0,
-    "host_stale_after_s": 10.0, "replica_id": "r0", "replicas": 1,
-    "spool_shards": 8, "replica_heartbeat_interval_s": 2.0,
-    "replica_stale_after_s": 8.0, "takeover_interval_s": 2.0,
-    "admission": {"max_queue_depth": 512, "max_tenant_inflight": 128,
-                  "ewma_alpha": 0.2, "latency_shed_s": 0.0,
-                  "latency_resume_s": 0.0, "retry_after_s": 1.0},
     "fleet": {"enabled": False, "min_replicas": 1, "max_replicas": 4,
               "decide_interval_s": 5.0, "cooldown_s": 60.0,
               "hysteresis_ticks": 2, "scale_up_burn": 1.0,
@@ -78,20 +64,26 @@ _SERVICE_NOT_YET = {
     "fleetview": {"enabled": True, "scrape_timeout_s": 2.0,
                   "cache_ttl_s": 1.0},
 }
+# what the port accepts of them: the JAX package's defaults, with the read
+# path and the fleet view disabled
+_SERVICE_ACCEPTED = {
+    **_SERVICE_NOT_YET,
+    "read": {**_SERVICE_NOT_YET["read"], "enabled": False},
+    "fleetview": {**_SERVICE_NOT_YET["fleetview"], "enabled": False},
+}
 
 # blocks and knobs of the JAX package's config the port does not have yet:
-# (dataclass, key) -> (ROADMAP item, the JAX package's default, which is
-# accepted); None as the default: any value raises.  A nested block is
-# accepted when each key it gives holds its default.
+# (dataclass, key) -> (ROADMAP item, the accepted value); None as the
+# value: any value raises.  A nested block is accepted when each key it
+# gives holds its accepted value.
 _NOT_YET = {
-    **{("ServiceConfig", k): ("queue 1 item 9", v)
-       for k, v in _SERVICE_NOT_YET.items()},
-    ("SMConfig", "telemetry"): ("queue 1 item 9", None),
-    ("SMConfig", "resources"): ("queue 1 item 9", None),
-    ("TracingConfig", "retention_age_s"): ("queue 1 item 9", 0.0),
-    ("TracingConfig", "retention_max_bytes"): ("queue 1 item 9", 0),
-    ("ParallelConfig", "compile_cache_dir"): ("queue 1 item 9", ""),
-    ("ParallelConfig", "resident_datasets"): ("queue 1 item 9", 2),
+    **{("ServiceConfig", k): ("queue 1 item 9b", v)
+       for k, v in _SERVICE_ACCEPTED.items()},
+    ("TelemetryConfig", "retrace"): ("queue 1 item 9b", True),
+    ("TelemetryConfig", "profile"): ("queue 1 item 9b", {
+        "enabled": True, "default_seconds": 2.0, "max_seconds": 30.0,
+        "dir": ""}),
+    ("ParallelConfig", "compile_cache_dir"): ("queue 1 item 9b", ""),
     ("ParallelConfig", "pixels_axis"): ("queue 1 item 7", -1),
     ("ParallelConfig", "formulas_axis"): ("queue 1 item 7", 1),
     ("ParallelConfig", "coordinator_address"): ("queue 1 item 7", ""),
@@ -106,7 +98,7 @@ def _from_dict(cls, d: dict[str, Any]):
     """Build a dataclass from a dict, recursing into dataclass fields and
     rejecting unknown keys.  Keys starting with "__" are comments.  A key of
     the JAX package's config the port does not have yet raises
-    ``NotImplementedError`` unless it holds the JAX package's default."""
+    ``NotImplementedError`` unless it holds its accepted value."""
     d = {k: v for k, v in d.items() if not k.startswith("__")}
     for key in list(d):
         entry = _NOT_YET.get((cls.__name__, key))
@@ -226,7 +218,9 @@ class ParallelConfig:
     the isotope-pattern pool and its cache shards; ``overlap_isocalc``
     starts pattern generation before the input is staged (``SearchJob``)
     and, on the ``numpy_ref`` backend, scores batches as their patterns
-    land."""
+    land.  ``resident_datasets`` is how many parsed datasets and set-up
+    backends the service keeps resident across jobs (LRU, 0 disables:
+    ``engine/residency.py``)."""
     formula_batch: int = 2048
     mz_chunk: int = 0
     peak_compaction: str = "auto"
@@ -240,6 +234,7 @@ class ParallelConfig:
     isocalc_chunk: int = 0
     isocalc_device: str = "off"
     overlap_isocalc: str = "auto"
+    resident_datasets: int = 2
 
     def __post_init__(self):
         for knob, valid in (("order_ions", ("auto", "mz", "table")),
@@ -255,32 +250,296 @@ class ParallelConfig:
                 raise ValueError(
                     f"parallel.{knob} must be one of {valid}, got {v!r}")
         if self.formula_batch <= 0 or self.isocalc_workers < 0 \
-                or self.isocalc_chunk < 0 or self.checkpoint_every < 0:
+                or self.isocalc_chunk < 0 or self.checkpoint_every < 0 \
+                or self.resident_datasets < 0:
             raise ValueError("parallel: formula_batch must be positive and "
-                             "isocalc_workers, isocalc_chunk and "
-                             "checkpoint_every >= 0")
+                             "isocalc_workers, isocalc_chunk, "
+                             "checkpoint_every and resident_datasets >= 0")
         if self.isocalc_device == "on":
             raise _not_in_slice("parallel.isocalc_device='on' (device "
                                 "isotope-pattern blur)", "queue 1 item 8")
 
 
 @dataclass(frozen=True)
-class ServiceConfig:
-    """The ``service`` block's device-breaker knobs (``models/breaker.py``):
-    consecutive sticky device faults before the breaker opens, and the open
-    -> half-open probe delay.  ``breaker_degraded_batch`` (the JAX
-    package's numpy formula batch while the breaker is open) is accepted
-    and validated so the JAX package's configs load, and read nowhere: the
-    port refuses a job on an open breaker instead of moving it to the host.
-    The block's other keys raise until the service port."""
-    breaker_threshold: int = 3
-    breaker_cooldown_s: float = 30.0
-    breaker_degraded_batch: int = 512
+class AdmissionConfig:
+    """Overload protection for ``POST /submit``.  A shed submit gets a structured 429/503 with a
+    ``Retry-After`` header instead of joining an unbounded backlog."""
+    max_queue_depth: int = 512           # admitted-but-not-terminal bound
+                                         # across all tenants; 0 = unlimited
+    max_tenant_inflight: int = 128       # per-tenant admitted-but-not-
+                                         # terminal bound; 0 = unlimited
+    ewma_alpha: float = 0.2              # weight of the newest job latency
+    latency_shed_s: float = 0.0          # EWMA job latency that starts
+                                         # shedding (503); 0 disables
+    latency_resume_s: float = 0.0        # hysteresis floor: resume accepting
+                                         # below this (0 = 0.75 * shed)
+    retry_after_s: float = 1.0           # Retry-After hint on shed responses
 
     def __post_init__(self):
+        if self.max_queue_depth < 0 or self.max_tenant_inflight < 0:
+            raise ValueError("admission: depth/quota bounds must be >= 0")
+        if not 0.0 < self.ewma_alpha <= 1.0:
+            raise ValueError("admission: ewma_alpha must be in (0, 1]")
+        if self.latency_shed_s < 0 or self.latency_resume_s < 0:
+            raise ValueError("admission: latency thresholds must be >= 0")
+        if self.retry_after_s < 0:
+            raise ValueError("admission: retry_after_s must be >= 0")
+
+    @property
+    def effective_resume_s(self) -> float:
+        return self.latency_resume_s or 0.75 * self.latency_shed_s
+
+
+
+@dataclass(frozen=True)
+class ServiceConfig:
+    """Annotation-service knobs (scheduler, failure policy, device pool and
+    health, replicas, admin API, admission, breaker), the JAX package's,
+    consumed by ``sm_distributed_tpu_torch.service`` (the ``serve`` CLI
+    command).  ``devices_per_job`` above 1 raises: leases of several cards
+    are ROADMAP queue 1 item 7.  The JAX package's ``fleet``, ``prime``,
+    ``read``, ``stream`` and ``fleetview`` blocks are accepted at their
+    defaults (``read`` and ``fleetview`` disabled) and held nowhere: their
+    modules are item 9b.  ``breaker_degraded_batch`` (the JAX package's
+    numpy batch while the breaker is open) is accepted, validated and read
+    nowhere: the port refuses a job on an open breaker instead of moving it
+    to the host."""
+    workers: int = 2                     # concurrent job slots (CPU phases
+                                         # overlap; device phases run under
+                                         # the job's device-pool lease)
+    poll_interval_s: float = 0.5         # pending/ scan cadence when idle
+    job_timeout_s: float = 21600.0       # per-attempt wall clock (6 h — the
+                                         # 80k-formula DESI job is 32-67 min)
+    max_attempts: int = 3                # attempts before dead-letter
+    backoff_base_s: float = 1.0          # retry delay = base * 2^(n-1) ...
+    backoff_max_s: float = 60.0          # ... capped here ...
+    backoff_jitter: float = 0.1          # ... times 1 + U[0, jitter]
+    heartbeat_interval_s: float = 5.0    # claim heartbeat touch cadence
+    stale_after_s: float = 30.0          # claims with no heartbeat this old
+                                         # are requeued by crash recovery
+    drain_timeout_s: float = 30.0        # graceful-shutdown wait for running
+    http_host: str = "127.0.0.1"         # admin API bind (healthz/metrics/
+    http_port: int = 8685                # jobs/submit); port 0 = ephemeral
+    # --- cooperative cancellation (utils/cancel.py) ---
+    cancel_grace_s: float = 15.0         # after a cancel is delivered, how
+                                         # long the worker waits for the
+                                         # attempt thread to unwind before
+                                         # declaring it abandoned
+    watchdog_interval_s: float = 5.0     # stall-watchdog scan cadence
+    watchdog_stall_s: float = 0.0        # cancel attempts whose progress
+                                         # heartbeat is older than this;
+                                         # 0 disables the watchdog
+    # --- poison-job quarantine ---
+    quarantine_after: int = 8            # claims without a terminal outcome
+                                         # before a message moves to
+                                         # quarantine/; 0 disables
+    # --- device pool (service/device_pool.py) ---
+    device_pool_size: int = 0            # chips the scheduler leases out;
+                                         # 0 = auto (the visible CUDA
+                                         # devices for torch_cuda on the
+                                         # card, else 1)
+    devices_per_job: int = 1             # chips a job claims by default; a
+                                         # per-submit "devices" field
+                                         # overrides.  1 = pack jobs onto
+                                         # distinct chips (above 1: item 7)
+    device_pool_max_bypass: int = 64     # grants that may jump a waiting
+                                         # larger lease before it seals the
+                                         # queue (anti-starvation for
+                                         # sub-mesh jobs under small-job
+                                         # traffic)
+    device_pool_hosts: int = 1           # host dimension of the pool (a
+                                         # host x chip topology, simulated
+                                         # on the CPU): the
+                                         # pool's chips split into this many
+                                         # equal failure domains; 1-host
+                                         # leases are preferred, a sub-mesh
+                                         # lease may span hosts and reports
+                                         # them (DeviceLease.hosts)
+    lease_reap_after_s: float = 300.0    # an abandoned (zombie) attempt's
+                                         # device lease is reclaimed when
+                                         # its thread exits, or forcibly
+                                         # after this TTL; 0 = wait for the
+                                         # thread forever
+    # --- per-chip device health (service/health.py) ---
+    health_probe_on_lease: bool = True   # probe every granted chip with a
+                                         # device round-trip before the job
+                                         # touches it (a torch copy to and
+                                         # from the card)
+    health_fault_quarantine: int = 3     # consecutive transient /
+                                         # unattributed-sticky strikes on a
+                                         # chip before it is quarantined
+                                         # (an attributed sticky fault
+                                         # quarantines immediately)
+    health_reprobe_after_s: float = 60.0 # quarantine -> half-open re-probe
+                                         # cooldown; a passing re-probe
+                                         # readmits the chip (0 = never
+                                         # re-probe)
+    health_host_evict_fraction: float = 0.75  # fraction of a host domain's
+                                         # chips quarantined at which the
+                                         # WHOLE host is evicted (>= 1.0
+                                         # disables host eviction)
+    # --- pod host watchdog (service/scheduler.py) ---
+    host_watchdog_interval_s: float = 0.0  # cadence of the per-host process-
+                                         # heartbeat scan; 0 disables the
+                                         # watchdog (single-process pods)
+    host_stale_after_s: float = 10.0     # a host whose EVERY process beat is
+                                         # older than this is evicted: its
+                                         # chips quarantine as one unit and
+                                         # in-flight attempts on them cancel
+                                         # into the normal retry path
+    # --- multi-replica scheduling (service/leases.py) ---
+    replica_id: str = "r0"               # this scheduler process's identity
+                                         # (serve --replica-id); leases and
+                                         # heartbeats carry it
+    replicas: int = 1                    # expected replica count (serve
+                                         # --replicas) — informational; the
+                                         # LIVE set comes from heartbeats
+    spool_shards: int = 8                # logical spool partitions; claims
+                                         # filter by crc32(msg_id) % shards
+                                         # and rendezvous-hash ownership
+    replica_heartbeat_interval_s: float = 2.0   # registry beat cadence
+    replica_stale_after_s: float = 8.0   # a peer whose beat is older drops
+                                         # from the alive set (its shards
+                                         # redistribute to survivors)
+    takeover_interval_s: float = 2.0     # takeover/orphan scan cadence
+    # --- device-backend circuit breaker (models/breaker.py) ---
+    breaker_threshold: int = 3           # consecutive device errors → open
+    breaker_cooldown_s: float = 30.0     # open → half-open probe delay
+    breaker_degraded_batch: int = 512    # read nowhere (see above)
+    admission: AdmissionConfig = field(default_factory=AdmissionConfig)
+
+    def __post_init__(self):
+        if self.workers <= 0 or self.max_attempts <= 0:
+            raise ValueError("service: workers/max_attempts must be positive")
+        if self.backoff_base_s < 0 or self.backoff_max_s < 0 or self.backoff_jitter < 0:
+            raise ValueError("service: backoff knobs must be non-negative")
+        if self.cancel_grace_s < 0 or self.watchdog_interval_s <= 0 or \
+                self.watchdog_stall_s < 0 or self.quarantine_after < 0:
+            raise ValueError("service: cancel/watchdog/quarantine knobs out of range")
         if self.breaker_threshold <= 0 or self.breaker_cooldown_s < 0 or \
                 self.breaker_degraded_batch <= 0:
             raise ValueError("service: breaker knobs out of range")
+        if self.device_pool_size < 0 or self.devices_per_job <= 0 or \
+                self.device_pool_max_bypass < 0:
+            raise ValueError("service: device-pool knobs out of range "
+                             "(device_pool_size >= 0, devices_per_job >= 1, "
+                             "device_pool_max_bypass >= 0)")
+        if self.device_pool_hosts <= 0 or self.lease_reap_after_s < 0:
+            raise ValueError("service: device_pool_hosts must be >= 1 and "
+                             "lease_reap_after_s >= 0")
+        if self.health_fault_quarantine < 1 or \
+                self.health_reprobe_after_s < 0 or \
+                not 0.0 < self.health_host_evict_fraction:
+            raise ValueError(
+                "service: health_fault_quarantine must be >= 1, "
+                "health_reprobe_after_s >= 0, and "
+                "health_host_evict_fraction > 0 (>= 1.0 disables eviction)")
+        if self.devices_per_job > 1:
+            raise _not_in_slice(f"service.devices_per_job="
+                                f"{self.devices_per_job}", "queue 1 item 7")
+        if self.host_watchdog_interval_s < 0 or self.host_stale_after_s <= 0:
+            raise ValueError("service: host_watchdog_interval_s must be >= 0 "
+                             "and host_stale_after_s positive")
+        if not self.replica_id or self.replicas <= 0 or self.spool_shards <= 0:
+            raise ValueError("service: replica_id must be non-empty and "
+                             "replicas/spool_shards positive")
+        if self.replica_heartbeat_interval_s <= 0 or \
+                self.replica_stale_after_s <= 0 or \
+                self.takeover_interval_s <= 0:
+            raise ValueError("service: replica heartbeat/staleness/takeover "
+                             "intervals must be positive")
+
+
+
+@dataclass(frozen=True)
+class TelemetryConfig:
+    """Quantitative telemetry (service/telemetry.py): the device-memory
+    monitor + metric-snapshot time-series ring behind ``GET
+    /debug/timeseries``, and the SLO objectives ``GET /slo`` reports
+    attainment/error-budget burn against.  The JAX package's ``retrace``
+    and ``profile`` (compile attribution, ``/debug/profile``) are accepted
+    at their defaults (ROADMAP queue 1 item 9b)."""
+    enabled: bool = True                 # start the sampling thread
+    sample_interval_s: float = 5.0       # device/occupancy sample cadence
+    timeseries_len: int = 720            # snapshot ring capacity (1 h @ 5 s)
+    # SLO objectives: latency threshold (seconds) + attainment target
+    # (fraction of jobs that must land under the threshold)
+    slo_queue_wait_s: float = 30.0       # submit -> first attempt start
+    slo_first_annotation_s: float = 120.0  # submit -> first scored group
+    slo_e2e_s: float = 600.0             # submit -> terminal outcome
+    slo_read_s: float = 0.25             # read request -> response
+    slo_stream_partial_s: float = 30.0   # stream chunk commit -> provisional
+                                         # partial served
+    slo_target: float = 0.99
+
+    def __post_init__(self):
+        if self.sample_interval_s <= 0 or self.timeseries_len <= 0:
+            raise ValueError(
+                "telemetry: sample_interval_s/timeseries_len must be positive")
+        if min(self.slo_queue_wait_s, self.slo_first_annotation_s,
+               self.slo_e2e_s, self.slo_read_s,
+               self.slo_stream_partial_s) <= 0:
+            raise ValueError("telemetry: SLO thresholds must be positive")
+        if not 0.0 < self.slo_target < 1.0:
+            raise ValueError("telemetry: slo_target must be in (0, 1)")
+
+
+@dataclass(frozen=True)
+class ResourcesConfig:
+    """Resource-exhaustion survival (service/resources.py): disk-budget
+    governor + bounded-retention GC.
+    The governor preflights every governed write seam and degrades in a
+    configured order as headroom shrinks — trace writes drop first
+    (remaining < trace_floor_bytes), then isocalc cache writes
+    (< cache_floor_bytes), then new submits shed with a structured 507
+    (< submit_floor_bytes); essential writes (checkpoints, results, spool)
+    are denied only when the floor itself would be breached."""
+    min_free_bytes: int = 0              # filesystem free-space reserve the
+                                         # governor protects (0 disables the
+                                         # statvfs constraint)
+    disk_budget_bytes: int = 0           # cap on bytes under the governed
+                                         # roots (work/results/queue);
+                                         # 0 = free-space constraint only
+    trace_floor_bytes: int = 32 << 20    # remaining headroom below which
+                                         # trace-file writes are dropped
+    cache_floor_bytes: int = 16 << 20    # ... below which isocalc cache
+                                         # shard writes are dropped
+    read_cache_floor_bytes: int = 12 << 20  # ... below which the JAX
+                                         # package's read-cache fills stop
+                                         # (the port has no read path)
+    submit_floor_bytes: int = 8 << 20    # ... below which POST /submit
+                                         # sheds with 507 + Retry-After
+    gc_interval_s: float = 30.0          # retention sweep + usage rescan
+                                         # cadence (scheduler replica loop)
+    done_retention_age_s: float = 0.0    # spool done/ messages older than
+                                         # this are removed (0 = keep)
+    failed_retention_age_s: float = 0.0  # dead-letter/quarantine evidence
+                                         # older than this is removed
+                                         # (0 = keep)
+    cache_retention_max_bytes: int = 0   # isocalc cache size cap — oldest
+                                         # shards removed first (0 = keep)
+    registry_retention_age_s: float = 3600.0  # crashed replicas' registry
+                                         # heartbeat files older than this
+                                         # are removed (they never retire)
+
+    def __post_init__(self):
+        if min(self.min_free_bytes, self.disk_budget_bytes,
+               self.cache_retention_max_bytes) < 0:
+            raise ValueError("resources: byte knobs must be >= 0")
+        if not (self.trace_floor_bytes >= self.cache_floor_bytes
+                >= self.read_cache_floor_bytes
+                >= self.submit_floor_bytes >= 0):
+            raise ValueError(
+                "resources: degrade floors must be ordered "
+                "trace_floor_bytes >= cache_floor_bytes >= "
+                "read_cache_floor_bytes >= submit_floor_bytes >= 0 "
+                "(traces drop first, then isocalc cache, then read-cache "
+                "fills, then submits)")
+        if self.gc_interval_s <= 0:
+            raise ValueError("resources.gc_interval_s must be positive")
+        if min(self.done_retention_age_s, self.failed_retention_age_s,
+               self.registry_retention_age_s) < 0:
+            raise ValueError("resources: retention ages must be >= 0")
 
 
 @dataclass(frozen=True)
@@ -300,14 +559,23 @@ class StorageConfig:
 @dataclass(frozen=True)
 class TracingConfig:
     """Job tracing (``utils/tracing.py``): per-job JSONL span logs under
-    ``dir`` ("" = ``<work_dir>/traces``) and the flight recorder's size."""
+    ``dir`` ("" = ``<work_dir>/traces``), their retention, and the flight
+    recorder's size."""
     enabled: bool = True
     dir: str = ""
     ring_size: int = 2048
+    # retention of the on-disk per-job trace files, enforced by the
+    # resource governor's GC sweep (service/resources.py): files older than
+    # retention_age_s go, and past retention_max_bytes the oldest first.
+    # 0 disables that dimension.
+    retention_age_s: float = 0.0
+    retention_max_bytes: int = 0
 
     def __post_init__(self):
         if self.ring_size <= 0:
             raise ValueError("tracing.ring_size must be positive")
+        if self.retention_age_s < 0 or self.retention_max_bytes < 0:
+            raise ValueError("tracing.retention_* must be >= 0")
 
 
 @dataclass(frozen=True)
@@ -331,6 +599,8 @@ class SMConfig:
     service: ServiceConfig = field(default_factory=ServiceConfig)
     storage: StorageConfig = field(default_factory=StorageConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    resources: ResourcesConfig = field(default_factory=ResourcesConfig)
     logs: LogsConfig = field(default_factory=LogsConfig)
     work_dir: str = field(default_factory=lambda: str(
         Path(tempfile.gettempdir()) / "sm_tpu_work"))
@@ -382,5 +652,8 @@ _DATACLASS_FIELDS = {
     ("SMConfig", "service"): ServiceConfig,
     ("SMConfig", "storage"): StorageConfig,
     ("SMConfig", "tracing"): TracingConfig,
+    ("SMConfig", "telemetry"): TelemetryConfig,
+    ("SMConfig", "resources"): ResourcesConfig,
     ("SMConfig", "logs"): LogsConfig,
+    ("ServiceConfig", "admission"): AdmissionConfig,
 }

@@ -37,9 +37,11 @@ Triggers (both deterministic):
 
 Every fired injection writes a ``FAILPOINT-FIRED name=... action=...`` line to
 stderr (before crashing, for ``crash``) and counts into ``injected_counts()``;
-recovery paths report themselves through ``record_recovery(event)``.  The
-service's metrics export (``attach_metrics``) waits for the service port
-(ROADMAP queue 1 item 9).
+recovery paths report themselves through ``record_recovery(event)``.  Both
+counter families are exported through an attached service
+``MetricsRegistry`` (``attach_metrics``) as
+``sm_failpoints_injected_total{name=}`` and
+``sm_recovery_events_total{event=}``.
 
 Zero overhead when disabled: ``failpoint()`` is a single global read + ``is
 None`` test before returning.
@@ -86,6 +88,7 @@ _lock = threading.RLock()
 _registry: dict[str, str] = {}          # name -> one-line description
 _injected: dict[str, int] = {}          # name -> fired count
 _recovered: dict[str, int] = {}         # event -> recovery-action count
+_metrics = None                         # attached MetricsRegistry (optional)
 
 # None = disabled; the failpoint() fast path is one read + None test
 _active: "dict[str, _Spec] | None" = None
@@ -222,12 +225,36 @@ def recovery_counts() -> dict[str, int]:
 
 
 def record_recovery(event: str, n: int = 1) -> None:
-    """Called by recovery paths (corrupt-shard skip, orphan-tmp sweep, ...)
-    so fault-injection runs can prove recovery actually engaged."""
+    """Called by recovery paths (corrupt-shard skip, orphan-tmp sweep, stale
+    requeue, ...) so fault-injection runs can prove recovery actually
+    engaged, and so the service exports ``sm_recovery_events_total``."""
     if n <= 0:
         return
     with _lock:
         _recovered[event] = _recovered.get(event, 0) + n
+        m = _metrics
+    if m is not None:
+        m.counter("sm_recovery_events_total",
+                  "Recovery actions taken, by event",
+                  ("event",)).labels(event=event).inc(n)
+
+
+def attach_metrics(registry) -> None:
+    """Export both counter families through a service ``MetricsRegistry``.
+    Counts recorded before attachment are backfilled."""
+    global _metrics
+    with _lock:
+        _metrics = registry
+        inj = dict(_injected)
+        rec = dict(_recovered)
+    fam = registry.counter("sm_failpoints_injected_total",
+                           "Faults injected by failpoint name", ("name",))
+    for name, n in inj.items():
+        fam.labels(name=name).inc(n)
+    fam_r = registry.counter("sm_recovery_events_total",
+                             "Recovery actions taken, by event", ("event",))
+    for event, n in rec.items():
+        fam_r.labels(event=event).inc(n)
 
 
 def _should_fire(spec: _Spec) -> bool:
@@ -252,6 +279,11 @@ def failpoint(name: str, path: str | os.PathLike | None = None) -> None:
         if not _should_fire(spec):
             return
         _injected[name] = _injected.get(name, 0) + 1
+        m = _metrics
+    if m is not None:
+        m.counter("sm_failpoints_injected_total",
+                  "Faults injected by failpoint name",
+                  ("name",)).labels(name=name).inc()
     sys.stderr.write(
         f"FAILPOINT-FIRED name={name} action={spec.action} "
         f"hit={spec.hits} path={path or ''}\n")

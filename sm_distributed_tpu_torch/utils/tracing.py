@@ -18,9 +18,11 @@ record).  The current span is ambient through a ``ContextVar``; a new
 thread attaches explicitly (``with attach(ctx):``).  ``span()``/``event()``
 with no context return at once.
 
-The service's parts wait for the service port (ROADMAP queue 1 item 9):
-replica and process identity on records, the disk-pressure write gate, and
-the Chrome trace export.
+For the service: the scheduler's replica and process identity are stamped
+on every record (``set_replica``, ``set_process``), the disk governor gates
+file writes (``set_file_gate``) and its GC drops cached handles before it
+unlinks an aged file (``close_file``), and ``GET /jobs/<id>/trace`` renders
+records as Chrome trace-event JSON (``to_chrome_trace``).
 """
 
 from __future__ import annotations
@@ -134,10 +136,63 @@ def enabled() -> bool:
     return _enabled
 
 
+# replica identity: stamped on every record this process emits, so a trace
+# continued across a takeover shows which replica ran each span
+_replica_id = ""
+
+
+def set_replica(replica_id: str) -> None:
+    """Set the process-wide replica id (service startup; "" disables)."""
+    global _replica_id
+    _replica_id = str(replica_id or "")
+
+
+def replica() -> str:
+    return _replica_id
+
+
+# pod process identity (process_id, host) stamped on every record
+_process_id = -1
+_host = ""
+
+
+def set_process(process_id: int, host: str = "") -> None:
+    """Set the pod identity stamped on every record (-1/"" disables)."""
+    global _process_id, _host
+    _process_id = int(process_id)
+    _host = str(host or "")
+
+
+def process() -> tuple[int, str]:
+    return _process_id, _host
+
+
+def _stamp(rec: dict) -> None:
+    if _replica_id:
+        rec["replica"] = _replica_id
+    if _process_id >= 0:
+        rec["process"] = _process_id
+    if _host:
+        rec["host"] = _host
+
+
 # --------------------------------------------------------------- file sink
 # cached append handles: one flushed line per record, no per-record open()
 _files_lock = threading.Lock()
 _files: dict[str, object] = {}
+
+# disk-pressure gate: the resource governor installs a callable consulted
+# before every FILE write, so under disk pressure trace writes are the first
+# thing dropped (ring records keep flowing).  None = always write.  The gate
+# must be cheap and non-raising; it is called outside _files_lock.
+_file_gate = None
+
+
+def set_file_gate(fn) -> None:
+    """Install (or clear, with ``None``) the trace-file write gate
+    (``ResourceGovernor.trace_gate``)."""
+    global _file_gate
+    _file_gate = fn
 
 
 def _file_handle_locked(path: str):
@@ -163,6 +218,17 @@ def close_files() -> None:
         _files.clear()
 
 
+def close_file(path: str | Path) -> None:
+    """Drop one cached append handle (the GC sweeper calls this before
+    unlinking an aged trace file, so a later append reopens instead of
+    writing to an unlinked inode)."""
+    with _files_lock:
+        f = _files.pop(str(path), None)
+        if f is not None:
+            with contextlib.suppress(OSError):
+                f.close()
+
+
 # reentrancy guard for the trace.append failpoint: a FIRED failpoint emits
 # its own "failpoint" trace event, which re-enters _emit
 _appending = threading.local()
@@ -174,7 +240,7 @@ def _emit(rec: dict, file: str) -> None:
         buf.append(rec)
         return
     flight_recorder.record(rec)
-    if file:
+    if file and (_file_gate is None or _file_gate()):
         line = json.dumps(rec, default=str) + "\n"
         try:
             # I/O faults here degrade to a lost trace line, never a failed job
@@ -230,6 +296,7 @@ def _base(ctx: TraceContext, name: str, kind: str) -> dict:
     }
     if ctx.job_id:
         rec["job_id"] = ctx.job_id
+    _stamp(rec)
     return rec
 
 
@@ -277,6 +344,7 @@ def emit_span(ctx: TraceContext, name: str, /, ts: float = 0.0,
     }
     if ctx.job_id:
         rec["job_id"] = ctx.job_id
+    _stamp(rec)
     if attrs:
         rec["attrs"] = attrs
     _emit(rec, ctx.file)
@@ -342,3 +410,46 @@ def read_trace(path: str | Path) -> list[dict]:
         if isinstance(rec, dict):
             out.append(rec)
     return out
+
+
+def to_chrome_trace(records: list[dict]) -> dict:
+    """Trace records as Chrome trace-event JSON (Perfetto-loadable): spans
+    become complete ``"X"`` events (µs timestamps), instants thread-scoped
+    ``"i"`` events; a ``torch_profile`` event surfaces the job's
+    ``torch.profiler`` trace dir in ``otherData``."""
+    events: list[dict] = []
+    other: dict = {}
+    pids = set()
+    for rec in records:
+        pid = int(rec.get("pid", 0))
+        pids.add(pid)
+        args = dict(rec.get("attrs") or {})
+        args["trace_id"] = rec.get("trace_id", "")
+        args["span_id"] = rec.get("span_id", "")
+        base = {
+            "name": str(rec.get("name", "")),
+            "cat": "span" if rec.get("kind") == "span" else "event",
+            "pid": pid, "tid": int(rec.get("tid", 0)),
+            "ts": round(float(rec.get("ts", 0.0)) * 1e6, 3),
+            "args": args,
+        }
+        if rec.get("kind") == "span":
+            base["ph"] = "X"
+            base["dur"] = round(float(rec.get("dur", 0.0)) * 1e6, 3)
+            if rec.get("parent_id"):
+                base["args"]["parent_id"] = rec["parent_id"]
+        else:
+            base["ph"] = "i"
+            base["s"] = "t"
+            if rec.get("name") == "torch_profile" and "dir" in args:
+                other["torch_profile_dir"] = args["dir"]
+        events.append(base)
+        if rec.get("trace_id") and "trace_id" not in other:
+            other["trace_id"] = rec["trace_id"]
+        if rec.get("job_id"):
+            other.setdefault("job_id", rec["job_id"])
+    for pid in sorted(pids):
+        events.append({"name": "process_name", "ph": "M", "pid": pid,
+                       "args": {"name": f"sm-tpu pid {pid}"}})
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "otherData": other}

@@ -521,10 +521,10 @@ def test_isotope_prefetch_matches_plain_search(tmp_path):
 
 # ------------------------------------------------------------- config, utils
 @pytest.mark.parametrize("d,item", [
-    ({"service": {"workers": 4}}, "item 9"),
-    ({"telemetry": {}}, "item 9"),
-    ({"resources": {"disk_budget_bytes": 1}}, "item 9"),
-    ({"tracing": {"retention_age_s": 60.0}}, "item 9"),
+    ({"service": {"fleet": {"enabled": True}}}, "item 9"),
+    ({"service": {"read": {"enabled": True}}}, "item 9"),
+    ({"telemetry": {"retrace": False}}, "item 9"),
+    ({"service": {"stream": {"idle_timeout_s": 60.0}}}, "item 9"),
     ({"parallel": {"num_processes": 2}}, "item 7"),
     ({"parallel": {"isocalc_device": "on"}}, "item 8"),
     ({"parallel": {"pixels_axis": 2}}, "item 7"),

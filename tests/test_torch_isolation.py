@@ -4,7 +4,8 @@ card by default with no CPU fallback.
 - importing every port module (and ``chip_smoke.py``) in a fresh process
   leaves ``jax`` and ``sm_distributed_tpu`` out of ``sys.modules``;
 - an AST scan of the port's sources finds no such import;
-- the backend and the search, at their default device, raise without a GPU;
+- the backend, the search and ``serve``, at their default device, raise
+  without a GPU;
 - kernel wrappers given CPU tensors take the plain version and leave their
   launch counters alone;
 - config values the port does not have raise ``NotImplementedError``.
@@ -101,6 +102,57 @@ def test_search_default_device_needs_a_gpu():
         MSMBasicSearch(ds, truth.formulas[:3], dc).search()
 
 
+def test_import_list_covers_the_service():
+    """The fresh-process import above takes every port module, the
+    service's and the daemon's included."""
+    mods = set(_port_modules())
+    for m in ("admission", "api", "device_pool", "health", "leases",
+              "metrics", "resources", "scheduler", "server", "telemetry"):
+        assert f"sm_distributed_tpu_torch.service.{m}" in mods
+    assert {"sm_distributed_tpu_torch.engine.daemon",
+            "sm_distributed_tpu_torch.engine.residency",
+            "sm_distributed_tpu_torch.parallel.distributed"} <= mods
+
+
+def test_serve_default_device_needs_a_gpu(tmp_path):
+    """``serve`` of a ``torch_cuda`` service without a card raises before it
+    builds a pool: no chip is answered "healthy" without a device, and no
+    job runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import json
+
+    from sm_distributed_tpu_torch.engine.cli import main
+    from sm_distributed_tpu_torch.engine.daemon import QueuePublisher
+    from sm_distributed_tpu_torch.service.device_pool import resolve_pool_size
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    sm_json = tmp_path / "sm.json"
+    sm_json.write_text(json.dumps({
+        "work_dir": str(tmp_path / "work"),
+        "storage": {"results_dir": str(tmp_path / "res")},
+        "service": {"http_port": 0}}))
+    QueuePublisher(tmp_path / "q").publish(
+        {"ds_id": "x", "input_path": str(tmp_path / "x.imzML")})
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["serve", str(tmp_path / "q"), "--sm-config", str(sm_json),
+                  "--max-jobs", "1"])
+    finally:
+        SMConfig._instance = None
+    root = tmp_path / "q" / "sm_annotate"
+    assert len(list(root.glob("pending/*.json"))) == 1
+    for device_pool_size in (0, 2):
+        cfg = SMConfig.from_dict(
+            {"service": {"device_pool_size": device_pool_size}}).service
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_pool_size(cfg, backend="torch_cuda", device="cuda")
+        assert resolve_pool_size(cfg, backend="torch_cuda",
+                                 device="cpu") == max(1, device_pool_size)
+        assert resolve_pool_size(cfg, backend="numpy_ref") == \
+            max(1, device_pool_size)
+
+
 def test_moments_wrapper_on_cpu_uses_plain_version():
     from sm_distributed_tpu_torch.ops.moments import (
         batch_moments,
@@ -158,7 +210,7 @@ def test_fused_wrapper_on_cpu_uses_plain_version():
 
 @pytest.mark.parametrize("section,knob,value", [
     ("parallel", "isocalc_device", "on"),
-    ("service", "http_port", 0),
+    ("service", "devices_per_job", 2),
 ])
 def test_values_outside_the_slice_raise(section, knob, value):
     from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig

@@ -668,25 +668,28 @@ def test_config_accepts_what_the_jax_package_accepts():
 
 
 def test_service_defaults_table_matches_jax():
-    """The port accepts a ``service`` key it does not have yet only at the
-    JAX package's default: its table of those defaults is the JAX
-    ServiceConfig's, key for key, nested blocks included."""
+    """Every ``service`` knob the port has defaults to the JAX package's
+    value, and the port accepts a block it does not have yet only at the
+    JAX package's default (``read`` and ``fleetview`` disabled): its table
+    of those defaults is the JAX ServiceConfig's, key for key."""
     import dataclasses
 
     from sm_distributed_tpu.utils.config import SMConfig as JSC
     from sm_distributed_tpu_torch.utils.config import _SERVICE_NOT_YET
 
     want = dataclasses.asdict(JSC().service)
-    for knob in ("breaker_threshold", "breaker_cooldown_s",
-                 "breaker_degraded_batch"):
-        assert getattr(SMConfig().service, knob) == want.pop(knob)
+    got = dataclasses.asdict(SMConfig().service)
+    for knob, value in got.items():
+        assert value == want.pop(knob), knob
     assert _SERVICE_NOT_YET == want
+    want["read"]["enabled"] = want["fleetview"]["enabled"] = False
     SMConfig.from_dict({"service": want})
 
 
 @pytest.mark.parametrize("service", [
-    {"workers": 4}, {"http_port": 0}, {"fleet": {"enabled": True}},
-    {"read": {"page_size": 7}}, {"device_pool_size": 2}])
+    {"read": {"enabled": True}}, {"fleetview": {"enabled": True}},
+    {"fleet": {"enabled": True}}, {"read": {"page_size": 7}},
+    {"stream": {"idle_timeout_s": 5.0}}, {"prime": {"enabled": True}}])
 def test_other_service_keys_raise_naming_item_9(service):
     with pytest.raises(NotImplementedError, match="item 9"):
         SMConfig.from_dict({"service": service})
