@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives nine paths (seven of the library search, the job path and
-the service), each with the kernel launch counts set to 0 just before it
-and read just after:
+nvcc and drives ten paths (seven of the library search, the job path, the
+service, and the service's read path and stream ingest), each with the
+kernel launch counts set to 0 just before it and read just after:
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -21,8 +21,10 @@ and read just after:
   2**24), "scan" shapes (64x16384 on the row-tile
   kernel, 2x70000 on the scan route's torch ops), the moments kernel
   at K = 12 (row groups) and hot-spot clipping of 64 ions against the
-  numpy oracle; phase 5 also reproduces the golden ``preprocessing``
-  section;
+  numpy oracle, and two host threads on one card launching the moments and
+  the fused kernels 200 times each with plans of different shared memory,
+  bit-equal with no ``KernelError`` (the launch set-up is made once per
+  device); phase 5 also reproduces the golden ``preprocessing`` section;
 - the job path (phase 3b): the README's Quickstart on the card — the main
   path's dataset written as an imzML/ibd pair and its formulas as a
   molecular-DB CSV, the port's CLI (``import-db``, ``run`` twice, with a
@@ -86,7 +88,20 @@ and read just after:
   ``/metrics`` and ``/slo`` read; then ``serve`` as a subprocess with a
   good and a bad job, ``/healthz`` 200 and SIGTERM -> exit 0.  With more
   than one card it first holds every kernel on ``cuda:1``, launched from a
-  worker thread, bit-equal to ``cuda:0``.
+  worker thread, bit-equal to ``cuda:0``;
+- the read path and stream ingest (phase 12, after phase 11, in a service
+  with its knobs over its results dir): ``/datasets``, cold and warm
+  (cache hit) ``/datasets/<id>/annotations`` equal to a pandas scan of the
+  stored parquet, every row once through cursors of 100, the top ion's
+  tile byte-equal to a direct render, a cohort, the ``read`` SLI, warm
+  p50/p99 printed; a ``mode: "stream"`` job over the main path's dataset
+  appended in chunks of 72, 104 and 80 image rows (prefixes off the row
+  lattice: real masked pads), each provisional re-score bit-equal to a
+  direct search over its prefix with moments and packed chaos launched,
+  the sealed stream bit-equal to phase 3, the phase's device peak under
+  2.5x the main path's; a 32x32 stream over HTTP (duplicate 200, conflict
+  409, empty finish 409) bit-equal to its batch run; and a stream that gets
+  no chunk dead-lettered with ``StreamIdleError``.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -101,12 +116,15 @@ also times the moments, fused and chaos kernels of another checkout of the
 repo at ``DIR`` (its ``sm_distributed_tpu_torch`` built from its own
 sources into its own ``build/``) against this one's, in turns (other, this,
 this, other), on the same inputs: chaos on the 512x512 masks, the main
-path's principal images and the whole-slide batch's.
+path's principal images and the whole-slide batch's; and in phase 4 runs
+the two-thread launch race three times on its kernels and prints its
+moments plans' occupancy beside this one's.
 
 One line per phase; any failure raises and exits non-zero.  The line before
 the last is a JSON object with each kernel's launches on its path (phase
-11's jobs A and B in ``service_launches``), its error against the plain
-version and its times; the last line is
+11's jobs A and B in ``service_launches``, phase 12's stream job, its
+re-scores and its sealed pass, in ``stream_launches``), its error against
+the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
 """
@@ -382,12 +400,13 @@ def _check_moments_layout() -> None:
                     k, sl, res)
 
 
-def active_clusters(k: int, plan) -> int:
+def active_clusters(k: int, plan, build=None) -> int:
     """Clusters of a moments plan's shape the card holds at once
-    (cudaOccupancyMaxActiveClusters, through csrc/moments.cu)."""
+    (cudaOccupancyMaxActiveClusters, through csrc/moments.cu); ``build``:
+    another checkout's ``kernels._build`` (``--ab``)."""
     from sm_distributed_tpu_torch.kernels import _build
 
-    fn = _build.load("moments").sm_moments_active_clusters
+    fn = (build or _build).load("moments").sm_moments_active_clusters
     fn.argtypes = [ctypes.c_int] * 4
     return fn(k, plan.cluster, plan.slice_len, int(plan.regime == "resident"))
 
@@ -676,6 +695,93 @@ def _check_hotspot(block: torch.Tensor) -> None:
             "block's copy")
 
 
+RACE_LAUNCHES = 200
+
+
+def launch_race(moments_mod, score_mod, dev) -> dict:
+    """Two host threads on one device, each on its own stream, launching
+    the moments kernel RACE_LAUNCHES times on a block whose plan differs in
+    shared memory from the other thread's (the same K = 4: 65,536 pixels,
+    16 CTAs x 4096 resident, against 20,000 pixels, 8 CTAs x 2500), and the
+    same for the fused kernel; each result held bit-equal to its
+    single-thread result, each ``KernelError`` counted.  ``moments_mod`` and
+    ``score_mod`` are ``ops.moments`` and ``ops.score`` of this port or of
+    another checkout's (``--ab``)."""
+    import threading
+
+    kernel_error = moments_mod._build.KernelError
+    gen = torch.Generator(device=dev).manual_seed(23)
+    k, gc = 4, 6
+
+    def grid(shape):
+        return (torch.randint(0, 256, shape, device=dev, generator=gen)
+                .float() * (torch.rand(shape, device=dev, generator=gen) < .3))
+
+    def fused_args(p):
+        n_chunks, wc, cols = 16, 8 * k, 64
+        whp = grid((cols, p))
+        starts = torch.randint(0, cols - gc - 2, (n_chunks,),
+                               generator=torch.Generator().manual_seed(p))
+        rlo = torch.randint(0, gc, (n_chunks, wc), device=dev,
+                            generator=gen, dtype=torch.int32)
+        rhi = (rlo + torch.randint(0, 3, (n_chunks, wc), device=dev,
+                                   generator=gen, dtype=torch.int32)
+               ).clamp(max=gc + 1)
+        return whp, starts.numpy(), rlo, rhi, p - 7
+
+    calls = []
+    for p in (65536, 20000):
+        x = grid((64, k, p))
+        args = fused_args(p)
+        calls.append((
+            lambda x=x: moments_mod.batch_moments(x, x.shape[2] - 100),
+            lambda a=args: score_mod.fused_window_moments(*a, gc_width=gc,
+                                                          k=k)))
+    plans = {p: moments_mod.moments_plan(64, k, p) for p in (65536, 20000)}
+    assert len({pl.smem_bytes for pl in plans.values()}) == 2, plans
+    want = [(mom(), fus()) for mom, fus in calls]
+    torch.cuda.synchronize(dev)
+    out = {"moments_kernel_errors": 0, "fused_kernel_errors": 0,
+           "moments_mismatches": 0, "fused_mismatches": 0}
+    lock = threading.Lock()
+    start = threading.Barrier(2)
+
+    def work(i):
+        mom, fus = calls[i]
+        want_m, want_f = want[i]
+        errs = {"moments": 0, "fused": 0}
+        bad = {"moments": torch.zeros((), dtype=torch.bool, device=dev),
+               "fused": torch.zeros((), dtype=torch.bool, device=dev)}
+        stream = torch.cuda.Stream(device=dev)
+        start.wait()
+        with torch.cuda.stream(stream):
+            for _ in range(RACE_LAUNCHES):
+                for name, fn, ref in (("moments", mom, want_m),
+                                      ("fused", fus, want_f)):
+                    try:
+                        got = fn()
+                    except kernel_error:
+                        errs[name] += 1
+                        continue
+                    for g, w in zip(got, ref):
+                        bad[name] |= (g != w).any()
+        stream.synchronize()
+        with lock:
+            for name in ("moments", "fused"):
+                out[f"{name}_kernel_errors"] += errs[name]
+                out[f"{name}_mismatches"] += int(bad[name])
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out["plans"] = {p: f"{pl.cluster} CTAs x {pl.slice_len} px "
+                       f"{pl.regime}, {pl.smem_bytes} B"
+                    for p, pl in plans.items()}
+    return out
+
+
 def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
                   ab=None) -> list:
     """Kernels against their plain versions on the card, at the main path's
@@ -768,6 +874,33 @@ def phase_kernels(dev, block: torch.Tensor, n_real, nlevels: int,
         other = ab.moments.batch_moments(block, n_real)
         assert all(torch.equal(a, b) for i, (a, b) in
                    enumerate(zip(want, other)) if i in (0, 3, 4))
+
+    race = launch_race(importlib.import_module(
+        "sm_distributed_tpu_torch.ops.moments"), importlib.import_module(
+        "sm_distributed_tpu_torch.ops.score"), dev)
+    say(f"  launch race: 2 host threads on {dev}, {RACE_LAUNCHES} launches "
+        f"each of the moments and the fused kernel, plans {race['plans']}: "
+        + json.dumps({k_: v for k_, v in race.items() if k_ != "plans"}))
+    assert race["moments_kernel_errors"] == race["fused_kernel_errors"] == 0 \
+        and race["moments_mismatches"] == race["fused_mismatches"] == 0, race
+    if ab is not None:
+        # the other checkout's launch set-up under the same two threads,
+        # three times, and its occupancy answers beside this one's
+        for run in range(3):
+            other = launch_race(ab.moments, ab.score, dev)
+            say(f"  launch race on {ab.root}'s kernels, run {run + 1}: "
+                + json.dumps({k_: v for k_, v in other.items()
+                              if k_ != "plans"}))
+        occ = {}
+        for shape in ((2048, 4, 65536), (2048, 4, 20480), (2048, 4, 49152),
+                      (128, 4, 1 << 20), (64, 4, 20000), (64, 8, 65536),
+                      (5, 3, 999), (256, 1, 65536)):
+            pl = moments_plan(*shape)
+            occ["x".join(map(str, shape))] = (
+                active_clusters(shape[1], pl, ab.moments._build),
+                active_clusters(shape[1], pl))
+        say(f"  active clusters (other, this) by (n, k, p): {occ}")
+        assert all(a == b for a, b in occ.values()), occ
 
     _check_hotspot(block[:64])
 
@@ -2992,6 +3125,11 @@ def phase_service(card: str, tmp: Path, truth, main: dict) -> dict:
                             {**job, "ds_id": "svc_deleted"})
         status, out = _http(base, f"/jobs/{ids['D']['msg_id']}", "DELETE")
         assert status in (200, 202), (status, out)
+        # a DELETE that finds D still in pending/ cancels it there and
+        # counts a user cancel; one that races the dispatcher's claim
+        # flags it, and the worker cancels it before its attempt, uncounted
+        # (as in the JAX package)
+        d_from_pending = out.get("state") == "cancelled"
         ids = {k: v["msg_id"] for k, v in ids.items()}
         rows = _wait_jobs(base, list(ids.values()), 900)
         launches_a = read_launches()
@@ -3039,9 +3177,11 @@ def phase_service(card: str, tmp: Path, truth, main: dict) -> dict:
         _, text = _http(base, "/metrics")
         for line in ('sm_jobs_total{state="done"} 2',
                      'sm_jobs_total{state="failed"} 1',
-                     'sm_jobs_cancelled_total{reason="user"} 1',
+                     'sm_jobs_total{state="cancelled"} 1',
                      'sm_phase_seconds_count{phase="score"} 2',
-                     'sm_breaker_state{device="*"} 0'):
+                     'sm_breaker_state{device="*"} 0') + ((
+                         'sm_jobs_cancelled_total{reason="user"} 1',)
+                         if d_from_pending else ()):
             assert line in text, f"/metrics lacks {line!r}"
         hbm = [float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
                if ln.startswith("sm_device_hbm_bytes_in_use{")]
@@ -3097,6 +3237,414 @@ def phase_service(card: str, tmp: Path, truth, main: dict) -> dict:
     return {"jobs": per_job, "launches": {"A": launches_a, "B": launches_b},
             "to_healthz_s": to_health, "peak_bytes": peak,
             "residency": residency.stats, "serve": sub, "phase_s": took}
+
+
+# ------------------------------------------- phase 12 read path and stream
+# image rows of the three chunks the main dataset streams in: the prefixes
+# have 72, 176 and 256 rows, the first two off the lattice's quarter ladder
+STREAM_ROWS = (72, 104, 80)
+WARM_READS = 20
+
+
+class _StreamSearches:
+    """Wraps ``MSMBasicSearch.search`` while phase 12 runs: every search the
+    service's jobs make is recorded (its kind, dataset, bundle, the launch
+    counts it made and the device memory allocated after it), under the
+    label the script sets.  Direct searches the script makes to compare
+    call ``direct`` and are not recorded."""
+
+    def __init__(self):
+        from sm_distributed_tpu_torch.models import msm_basic
+
+        self.cls = msm_basic.MSMBasicSearch
+        self.orig = self.cls.search
+        self.label = ""
+        self.records: list[dict] = []
+        rec = self
+
+        def search(search_self, *a, **kw):
+            before = read_launches()
+            bundle = rec.orig(search_self, *a, **kw)
+            after = read_launches()
+            torch.cuda.synchronize()
+            rec.records.append({
+                "label": rec.label,
+                "provisional": search_self.checkpoint_dir is None,
+                "ds": search_self.ds, "bundle": bundle,
+                "launches": {k: after[k] - before[k] for k in after},
+                "allocated": torch.cuda.memory_allocated(0)})
+            return bundle
+
+        self.cls.search = search
+
+    def direct(self, search):
+        return self.orig(search)
+
+    def close(self):
+        self.cls.search = self.orig
+
+
+def _stream_spectra(ds, rows: tuple[int, int]):
+    """(coords, spectra) of the main dataset's pixels in image rows
+    [rows[0], rows[1]), coords as (column, row)."""
+    pix = ds.pixel_inds
+    sel = np.nonzero((pix // ds.ncols >= rows[0])
+                     & (pix // ds.ncols < rows[1]))[0]
+    coords = np.stack([pix[sel] % ds.ncols, pix[sel] // ds.ncols], axis=1)
+    spectra = []
+    for i in sel:
+        lo, hi = ds.row_ptr[pix[i]], ds.row_ptr[pix[i] + 1]
+        spectra.append((ds.mzs_flat[lo:hi], ds.ints_flat[lo:hi]))
+    return coords, spectra
+
+
+def _wait_partial(base: str, msg_id: str, chunks: int, timeout_s: float):
+    """Poll ``/jobs/<id>`` until its provisional re-rank covers ``chunks``
+    chunks; returns the partial payload."""
+    deadline = time.time() + timeout_s
+    while True:
+        _, rec = _http(base, f"/jobs/{msg_id}")
+        part = rec.get("partial") or {}
+        if (part.get("stream") or {}).get("chunks", 0) >= chunks:
+            return part
+        assert rec.get("state") not in ("done", "failed", "cancelled"), rec
+        assert time.time() < deadline, f"no re-rank over {chunks} chunks"
+        time.sleep(0.1)
+
+
+def _read_path_checks(base: str, res: Path, ds_id: str) -> dict:
+    """12a: the read routes over a stored job, held to a pandas scan of its
+    parquet and a direct render of its stored images."""
+    import urllib.parse
+    import urllib.request
+
+    import pandas as pd
+
+    from sm_distributed_tpu_torch.engine.png import PngGenerator
+    from sm_distributed_tpu_torch.engine.storage import SearchResultsStore
+
+    status, listing = _http(base, "/datasets")
+    assert status == 200 and ds_id in [d["ds_id"]
+                                       for d in listing["datasets"]], listing
+    stored = pd.read_parquet(res / ds_id / "annotations.parquet")
+    scan = stored.sort_values(["msm", "sf", "adduct"], ascending=False)
+    want = [(r.sf, r.adduct, float(r.msm)) for r in scan.itertuples()]
+
+    def hits():
+        _, text = _http(base, "/metrics")
+        line = [ln for ln in text.splitlines() if ln.startswith(
+            'sm_read_cache_hits_total{kind="annotations"}')]
+        return float(line[0].rsplit(" ", 1)[1]) if line else 0.0
+
+    path = f"/datasets/{ds_id}/annotations"
+    t0 = time.perf_counter()
+    status, cold = _http(base, path)
+    cold_s = time.perf_counter() - t0
+    h0 = hits()
+    status_w, warm = _http(base, path)
+    assert status == status_w == 200 and warm == cold
+    assert hits() == h0 + 1, "warm read was not a cache hit"
+    first = [(r["sf"], r["adduct"], r["msm"]) for r in cold["rows"]]
+    assert first == want[:len(first)] and cold["total"] == len(want)
+    rows, cursor, pages = [], None, 0
+    while True:
+        q = "?limit=100" + (f"&cursor={cursor}" if cursor else "")
+        status, page = _http(base, path + q)
+        assert status == 200, page
+        rows += [(r["sf"], r["adduct"], r["msm"]) for r in page["rows"]]
+        pages += 1
+        cursor = page["next_cursor"]
+        if cursor is None:
+            break
+    assert rows == want, "paged rows differ from the parquet scan"
+    images, ions = SearchResultsStore.load_ion_images(
+        res / ds_id / "ion_images.npz")
+    top = want[0][:2]
+    i = [tuple(ion) for ion in ions].index(top)
+    ion = urllib.parse.quote(f"{top[0]}|{top[1]}")
+    with urllib.request.urlopen(f"{base}/datasets/{ds_id}/images/{ion}",
+                                timeout=30) as r:
+        assert r.status == 200 and r.headers["Content-Type"] == "image/png"
+        tile = r.read()
+    assert tile == PngGenerator().render(images[i, 0]), "tile bytes differ"
+    status, cohort = _http(base, "/annotations?sf=" +
+                           urllib.parse.quote(top[0]))
+    assert status == 200 and cohort["n_datasets"] >= 1 and any(
+        d["ds_id"] == ds_id for d in cohort["datasets"]), cohort
+    warm_s = []
+    for _ in range(WARM_READS):
+        t0 = time.perf_counter()
+        assert _http(base, path)[0] == 200
+        warm_s.append(time.perf_counter() - t0)
+    _, slo = _http(base, "/slo")
+    read_slo = slo["slos"]["read"]
+    assert read_slo["count"] >= WARM_READS + pages + 2, read_slo
+    q = statistics.quantiles(warm_s, n=100)
+    return {"rows": len(rows), "pages": pages, "cold_s": cold_s,
+            "warm_p50_s": q[49], "warm_p99_s": q[98],
+            "tile_bytes": len(tile), "read_slo": read_slo}
+
+
+def _small_http_stream(base: str, tmp: Path, res: Path) -> dict:
+    """12c: a 32x32 dataset (10 formulas) streamed over HTTP in two chunks
+    beside its batch job in the same service: a duplicate (200,
+    ``duplicate: true``), a conflict (409), a finish on an empty log (409
+    ``stream_empty``); the sealed stream bit-equal to the batch run."""
+    import pandas as pd
+
+    from sm_distributed_tpu_torch.io.fixtures import generate_synthetic_dataset
+    from sm_distributed_tpu_torch.io.imzml import ImzMLReader
+
+    path, truth = generate_synthetic_dataset(
+        tmp / "small12", nrows=32, ncols=32, present_fraction=0.6,
+        noise_peaks=50, seed=3)
+    formulas = list(truth.formulas[:10])
+    _, batch = _http(base, "/submit", "POST", {
+        "ds_id": "small12_batch", "input_path": str(path),
+        "formulas": formulas})
+    _, live = _http(base, "/submit", "POST", {
+        "ds_id": "small12_live", "mode": "stream", "formulas": formulas})
+    with ImzMLReader(path) as rd:
+        coords = rd.coordinates.tolist()
+        spectra = [rd.read_spectrum(i) for i in range(rd.n_spectra)]
+    half = len(coords) // 2
+    bodies = [{"seq": seq, "coords": coords[lo:hi],
+               "mzs": [m.tolist() for m, _ in spectra[lo:hi]],
+               "ints": [v.tolist() for _, v in spectra[lo:hi]]}
+              for seq, lo, hi in ((0, 0, half), (1, half, len(coords)))]
+    codes = {}
+    for body in bodies:
+        status, out = _http(base, "/datasets/small12_live/pixels", "POST",
+                            body)
+        assert status == 200 and not out["duplicate"], out
+        _wait_partial(base, live["msg_id"], body["seq"] + 1, 300)
+    status, out = _http(base, "/datasets/small12_live/pixels", "POST",
+                        bodies[0])
+    assert status == 200 and out["duplicate"] is True, out
+    codes["duplicate"] = status
+    conflict = dict(bodies[0], ints=[[v + 1.0 for v in row]
+                                     for row in bodies[0]["ints"]])
+    status, out = _http(base, "/datasets/small12_live/pixels", "POST",
+                        conflict)
+    assert status == 409 and out["reason"] == "chunk_conflict", out
+    codes["conflict"] = status
+    status, out = _http(base, "/datasets/small12_never/finish", "POST", {})
+    assert status == 409 and out["reason"] == "stream_empty", out
+    codes["empty_finish"] = status
+    status, out = _http(base, "/datasets/small12_live/finish", "POST", {})
+    assert status == 200 and out["finished"], out
+    rows = _wait_jobs(base, [batch["msg_id"], live["msg_id"]], 600)
+    assert all(r["state"] == "done" for r in rows.values()), rows
+    for name in ("annotations", "all_metrics"):
+        got, want = (pd.read_parquet(res / d / f"{name}.parquet")
+                     .sort_values(["sf", "adduct"]).reset_index(drop=True)
+                     for d in ("small12_live", "small12_batch"))
+        _same_frame(got, want, f"12c sealed stream {name}")
+    return codes
+
+
+def phase_read_stream(card: str, tmp: Path, ds, truth, main: dict) -> dict:
+    """Phase 12: the read path and live-acquisition stream ingest, in an
+    ``AnnotationService`` with phase 11's knobs over its results dir.
+
+    12a: the read routes over phase 11's stored job (``svc_main``).  12b: a
+    ``mode: "stream"`` job over the main path's dataset appended through
+    ``stream_ingest.append_chunk`` (the facade ``POST /datasets/<id>/
+    pixels`` calls) in chunks of 72, 104 and 80 image rows, each re-rank
+    awaited, then ``POST /datasets/<id>/finish``: every provisional
+    re-score bit-equal to a direct search over its prefix (phase 3's search
+    for the whole slide), the sealed stream bit-equal to phase 3, moments
+    and packed chaos launched on every re-score.  12c: a small stream over HTTP.  12d: a stream that gets no
+    chunk dead-letters with ``StreamIdleError``."""
+    import pandas as pd
+
+    from sm_distributed_tpu_torch.engine.daemon import annotate_callback
+    from sm_distributed_tpu_torch.engine.residency import DatasetResidency
+    from sm_distributed_tpu_torch.models.msm_basic import MSMBasicSearch
+    from sm_distributed_tpu_torch.ops.buckets import row_bucket
+    from sm_distributed_tpu_torch.service import AnnotationService
+    from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
+
+    t_phase = time.perf_counter()
+    ref = main["bundle"]
+    res = tmp / "service_results"
+    sm = SMConfig.from_dict({
+        **SERVICE_SM, "work_dir": str(tmp / "work"),
+        "storage": {"results_dir": str(res)},
+        "service": {**SERVICE_SM["service"],
+                    "stream": {"poll_interval_s": 0.05,
+                               "rescore_min_chunks": 1}}})
+    assert sm.service.read.enabled
+    residency = DatasetResidency(max_datasets=2, max_backends=2)
+    service = AnnotationService(
+        tmp / "read_stream_q", annotate_callback(sm, residency=residency),
+        sm_config=sm, residency=residency)
+    service.start()
+    searches = _StreamSearches()
+    try:
+        base = "http://%s:%d" % service.api.address
+        reads = _read_path_checks(base, res, "svc_main")
+        say(f"  [{card}] 12a read path over svc_main: {reads['rows']} rows "
+            f"in {reads['pages']} pages of 100 equal to the parquet scan, "
+            f"cold {reads['cold_s'] * 1e3:.3f} ms, warm a cache hit, "
+            f"{WARM_READS} warm reads p50 {reads['warm_p50_s'] * 1e3:.3f} ms "
+            f"p99 {reads['warm_p99_s'] * 1e3:.3f} ms (printed, not gated); "
+            f"top ion's tile {reads['tile_bytes']} B byte-equal to a direct "
+            f"render; cohort answers; /slo read {reads['read_slo']}")
+
+        # --- 12b: the main dataset as a live acquisition
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_stream = time.perf_counter()
+        _, sub = _http(base, "/submit", "POST", {
+            "ds_id": "svc_stream", "mode": "stream",
+            "formulas": list(truth.formulas)})
+        msg_id = sub["msg_id"]
+        searches.label = "12b"
+        reranks, edges = [], np.cumsum((0,) + STREAM_ROWS)
+        for seq in range(len(STREAM_ROWS)):
+            coords, spectra = _stream_spectra(ds, (edges[seq],
+                                                   edges[seq + 1]))
+            t0 = time.perf_counter()
+            out = service.stream_ingest.append_chunk(
+                "svc_stream", seq, coords, spectra)
+            append_s = time.perf_counter() - t0
+            assert out["committed"] and not out["duplicate"], out
+            part = _wait_partial(base, msg_id, seq + 1, 900)
+            rec = searches.records[-1]
+            assert rec["provisional"] and rec["label"] == "12b", rec["label"]
+            # the prefix the re-score assembled from the chunk log: its rows
+            # are the chunks' and the sealed pass's whole is held to the
+            # main dataset below
+            prefix = rec["ds"]
+            assert prefix.nrows == edges[seq + 1], prefix.nrows
+            if prefix.nrows == ds.nrows:
+                # the whole slide: phase 3's search is the direct search
+                for attr in ("mzs_flat", "ints_flat", "pixel_inds",
+                             "row_ptr", "mask"):
+                    assert np.array_equal(getattr(prefix, attr),
+                                          getattr(ds, attr)), attr
+                direct = ref
+            else:
+                direct = searches.direct(MSMBasicSearch(
+                    prefix, list(truth.formulas), DSConfig(), sm,
+                    isocalc_cache_dir=str(tmp / "work" / "isocalc_cache")))
+            for name in ("annotations", "all_metrics"):
+                _same_frame(getattr(rec["bundle"], name).reset_index(
+                    drop=True), getattr(direct, name).reset_index(drop=True),
+                    f"re-score over {edges[seq + 1]} rows: {name}")
+            ann = direct.annotations
+            top = ann.sort_values("msm", ascending=False).head(5)
+            assert part["n_scored"] == len(direct.all_metrics)
+            assert part["annotations"] == len(ann)
+            assert part["fdr_10pct"] == int((ann["fdr"] <= 0.1).sum())
+            assert part["top"] == [
+                {"sf": str(r.sf), "adduct": str(r.adduct),
+                 "msm": round(float(r.msm), 6),
+                 "fdr": round(float(r.fdr), 6)} for r in top.itertuples()]
+            ln = rec["launches"]
+            assert ln["moments"] > 0 and ln["chaos"] > 0, ln
+            tim = rec["bundle"].timings
+            reranks.append({
+                "rows": int(edges[seq + 1]), "pixels": int(prefix.n_pixels),
+                "padded_rows": row_bucket(prefix.nrows),
+                "padded_pixels": row_bucket(prefix.nrows) * prefix.ncols,
+                "append_s": append_s,
+                "commit_to_partial_s": part["stream"]["commit_to_partial_s"],
+                "backend_setup_s": tim.get("backend_setup"),
+                "score_s": tim.get("score"),
+                "launches": {k: v for k, v in ln.items() if v},
+                "allocated_after": rec["allocated"]})
+            del direct, prefix
+        status, out = _http(base, "/datasets/svc_stream/finish", "POST", {})
+        assert status == 200 and out["finished"], out
+        row = _wait_jobs(base, [msg_id], 900)[msg_id]
+        assert row["state"] == "done", row
+        stream_s = time.perf_counter() - t_stream
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(0)
+        final = [r for r in searches.records
+                 if r["label"] == "12b" and not r["provisional"]]
+        assert len(final) == 1
+        job = [r for r in searches.records if r["label"] == "12b"]
+        launches = {k: sum(r["launches"][k] for r in job)
+                    for k in job[0]["launches"]}
+        for name in ("annotations", "all_metrics"):
+            _same_frame(pd.read_parquet(res / "svc_stream" /
+                                        f"{name}.parquet"),
+                        getattr(ref, name).reset_index(drop=True),
+                        f"sealed stream {name} against phase 3")
+            _same_frame(pd.read_parquet(res / "svc_stream" /
+                                        f"{name}.parquet"),
+                        pd.read_parquet(res / "svc_main" / f"{name}.parquet"),
+                        f"sealed stream {name} against phase 11")
+        whole = final[0]["ds"]              # assembled from the chunk log
+        for attr in ("mzs_flat", "ints_flat", "pixel_inds", "row_ptr",
+                     "mask"):
+            assert np.array_equal(getattr(whole, attr), getattr(ds, attr)), \
+                attr
+        del whole
+        _, text = _http(base, "/metrics")
+        assert f"sm_stream_reranks_total {len(STREAM_ROWS)}" in text, [
+            ln for ln in text.splitlines() if "stream" in ln]
+        assert part["stream"]["rerank"] == len(STREAM_ROWS) >= 2
+        assert peak < 2.5 * main["peak_bytes"], (peak, main["peak_bytes"])
+        ftim = final[0]["bundle"].timings
+        say(f"  [{card}] 12b stream of the main dataset in chunks of "
+            f"{STREAM_ROWS} rows: each provisional re-score bit-equal to a "
+            f"direct search over its prefix; re-ranks " + json.dumps(reranks))
+        say(f"  [{card}] 12b sealed stream bit-equal to phase 3 and phase 11 "
+            f"(final pass: set-up {ftim.get('backend_setup'):.3f} s, score "
+            f"{ftim.get('score'):.3f} s); stream launches {launches}; "
+            f"sm_stream_reranks_total {len(STREAM_ROWS)}; device peak "
+            f"{peak} B ({peak / main['peak_bytes']:.2f}x the main path's); "
+            f"{stream_s:.1f} s from submit to done")
+
+        # --- 12c: a small stream over HTTP
+        searches.label = "12c"
+        codes = _small_http_stream(base, tmp, res)
+        say(f"  [{card}] 12c small HTTP stream (32x32, 10 formulas): codes "
+            f"{codes}, finish on an empty log 409 stream_empty, sealed "
+            "stream bit-equal to its batch run")
+    finally:
+        searches.close()
+        assert service.shutdown(), "service did not drain"
+
+    # --- 12d: an acquisition that never gets a chunk
+    idle_sm = SMConfig.from_dict({
+        **SERVICE_SM, "work_dir": str(tmp / "idle_work"),
+        "storage": {"results_dir": str(tmp / "idle_results")},
+        "service": {**SERVICE_SM["service"],
+                    "stream": {"idle_timeout_s": 5.0,
+                               "poll_interval_s": 0.05}}})
+    idle = AnnotationService(tmp / "idle_q", annotate_callback(idle_sm),
+                             sm_config=idle_sm)
+    idle.start()
+    try:
+        base = "http://%s:%d" % idle.api.address
+        _, sub = _http(base, "/submit", "POST", {
+            "ds_id": "silent", "mode": "stream",
+            "formulas": list(truth.formulas[:1])})
+        row = _wait_jobs(base, [sub["msg_id"]], 120)[sub["msg_id"]]
+        assert row["state"] == "cancelled" and row["attempts"] == 1, row
+        assert "stream idle" in row["error"], row
+        dead = json.loads((tmp / "idle_q" / "sm_annotate" / "failed" /
+                           f"{sub['msg_id']}.json").read_text())
+        assert dead.get("cancelled") is True, dead
+    finally:
+        assert idle.shutdown(), "idle service did not drain"
+    say(f"  [{card}] 12d a stream with no chunk for 5 s dead-lettered "
+        "(cancelled, 1 attempt, StreamIdleError)")
+    _breaker_closed(2, "phase 12")
+    took = time.perf_counter() - t_phase
+    say(f"phase 12 read path and stream: {took:.1f} s; reads exact, every "
+        "provisional re-score bit-equal to its prefix's direct search, the "
+        "sealed stream bit-equal to phase 3, the idle stream dead-lettered")
+    return {"reads": reads, "reranks": reranks, "launches": launches,
+            "final_timings": {k: ftim.get(k) for k in
+                              ("backend_setup", "score")},
+            "peak_bytes": peak, "stream_s": stream_s, "http": codes,
+            "phase_s": took}
 
 
 class OtherPort:
@@ -3189,6 +3737,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     service = phase_service(card, Path(job_dir.name), truth, main)
     lap("service")
+    torch.cuda.empty_cache()
+    stream = phase_read_stream(card, Path(job_dir.name), ds, truth, main)
+    lap("read_stream")
     job_dir.cleanup()
     say("main path: " + json.dumps({
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
@@ -3216,6 +3767,8 @@ def main() -> int:
         {k: v for k, v in resilience.items() if k != "launches"}))
     say(f"service [{card}]: " + json.dumps(
         {k: v for k, v in service.items() if k != "launches"}))
+    say(f"read path and stream [{card}]: " + json.dumps(
+        {k: v for k, v in stream.items() if k != "launches"}))
     # the moments kernel's error: the largest over phase 4's blocks and the
     # whole-slide block of phase 8
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
@@ -3231,6 +3784,7 @@ def main() -> int:
         entry["service_launches"] = {
             job: counts[entry["name"]]
             for job, counts in service["launches"].items()}
+        entry["stream_launches"] = stream["launches"][entry["name"]]
     _breaker_closed(2, "the script")
     say(f"  [{card}] 10.4 no host fallback: after every phase the device "
         "breaker was closed, the two refused jobs are step 10.3's, and no "

@@ -58,35 +58,23 @@ extern "C" int sm_chaos_smem_bytes(int nrows, int ncols, int nlevels) {
 // (more than 65,536 pixels, or more shared memory than the device's opt-in
 // limit per block).  The SM count and the opt-in limit are queried, and the
 // kernel's dynamic shared-memory attribute set to that limit, once per
-// device.
+// device under a mutex (smem_setup).
 extern "C" int sm_chaos_smem(const float* img, long long stride, const float* thr,
                              float* out, int n, int nrows, int ncols, int nlevels,
                              void* stream) {
-    static int sms[SMEM_MAX_DEVICES], optin[SMEM_MAX_DEVICES];
+    static SmemSetup setup;
     if (n <= 0) return 0;
     if (nlevels <= 0 || nlevels > MAX_LEVELS || nrows <= 0 || ncols <= 0 ||
         (long long)nrows * ncols > SMEM_MAX_PIXELS)
         return (int)cudaErrorInvalidValue;
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    static const void* const fns[] = {(const void*)chaos_smem_kernel};
+    int sms = 0, optin = 0;
+    const cudaError_t err = smem_setup(setup, fns, 1, &sms, &optin);
     if (err != cudaSuccess) return (int)err;
-    if (dev < 0 || dev >= SMEM_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-    if (optin[dev] == 0) {
-        int s = 0, o = 0;
-        err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(chaos_smem_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, o);
-        if (err != cudaSuccess) return (int)err;
-        sms[dev] = s;
-        optin[dev] = o;
-    }
     const int bytes = chaos_block_smem_bytes(nrows, ncols, nlevels);
-    if (bytes > optin[dev]) return (int)cudaErrorInvalidValue;
+    if (bytes > optin) return (int)cudaErrorInvalidValue;
     const int vec4 = ((uintptr_t)img % 16 == 0) && stride % 4 == 0 && ncols % 4 == 0;
-    const int grid = n < sms[dev] ? n : sms[dev];
+    const int grid = n < sms ? n : sms;
     chaos_smem_kernel<<<grid, SMEM_THREADS, bytes, (cudaStream_t)stream>>>(
         img, stride, thr, out, n, nrows, ncols, nlevels, vec4);
     return (int)cudaGetLastError();

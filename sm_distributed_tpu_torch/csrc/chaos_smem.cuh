@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #define SMEM_THREADS 1024
 #define SMEM_WARPS (SMEM_THREADS / 32)
 #define SMEM_MAX_PIXELS 65536
@@ -69,6 +71,40 @@
 // the 16,640 words of a 256x256 image, 16,448 of a 64x1024 tile and 16,392
 // of an 8x8192 tile
 #define SMEM_SLOTS 17
+
+// The per-device launch set-up of a C entry point's kernels: the device's SM
+// count and opt-in shared memory per block, and each kernel's dynamic
+// shared-memory limit set to that opt-in, made once per device.  The set-up
+// and every read of it take the mutex, so a concurrent first launch never
+// sees the opt-in filled before the SM count (a grid of 0).
+struct SmemSetup {
+    std::mutex mu;
+    int sms[SMEM_MAX_DEVICES] = {};
+    int optin[SMEM_MAX_DEVICES] = {};
+};
+
+__host__ inline cudaError_t smem_setup(SmemSetup& s, const void* const* fns, int n_fns,
+                                       int* sms, int* optin) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= SMEM_MAX_DEVICES) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(s.mu);
+    if (s.optin[dev] == 0) {
+        int n = 0, o = 0;
+        err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        for (int i = 0; err == cudaSuccess && i < n_fns; ++i)
+            err = cudaFuncSetAttribute(fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, o);
+        if (err != cudaSuccess) return err;
+        s.sms[dev] = n;
+        s.optin[dev] = o;
+    }
+    *sms = s.sms[dev];
+    *optin = s.optin[dev];
+    return cudaSuccess;
+}
 
 __host__ __device__ __forceinline__ int round16(int b) { return (b + 15) & ~15; }
 // bytes of one padded lev row: at least one zero byte after the last pixel

@@ -342,7 +342,7 @@ extern "C" int sm_chaos_tiles(const float* img, long long stride, const float* t
                               int* tile_sum, int* gpar, int n, int nrows, int ncols,
                               int nlevels, int rows_t, int seam_in_smem,
                               int merge_grid, void* stream) {
-    static int sms[SMEM_MAX_DEVICES], optin[SMEM_MAX_DEVICES];
+    static SmemSetup setup;
     if (n <= 0) return 0;
     if (nlevels <= 0 || nlevels > MAX_LEVELS || nrows <= 0 || ncols <= 0 ||
         rows_t <= 0 || rows_t > nrows || (long long)rows_t * ncols > SMEM_MAX_PIXELS ||
@@ -355,32 +355,18 @@ extern "C" int sm_chaos_tiles(const float* img, long long stride, const float* t
         return (int)cudaErrorInvalidValue;
     if (seam_in_smem ? nodes > SMEM_MAX_PIXELS : gpar == nullptr)
         return (int)cudaErrorInvalidValue;
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    static const void* const fns[] = {(const void*)chaos_tile_kernel,
+                                      (const void*)seam_merge_smem_kernel};
+    int sms = 0, optin = 0;
+    cudaError_t err = smem_setup(setup, fns, 2, &sms, &optin);
     if (err != cudaSuccess) return (int)err;
-    if (dev < 0 || dev >= SMEM_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-    if (optin[dev] == 0) {
-        int s = 0, o = 0;
-        err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
-        if (err == cudaSuccess)
-            err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(chaos_tile_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, o);
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(seam_merge_smem_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, o);
-        if (err != cudaSuccess) return (int)err;
-        sms[dev] = s;
-        optin[dev] = o;
-    }
     const int tile_bytes = chaos_block_smem_bytes(rows_t, ncols, nlevels);
     const int merge_bytes = seam_in_smem ? seam_smem_bytes((int)nodes) : seam_off_par();
-    if (tile_bytes > optin[dev] || merge_bytes > optin[dev])
+    if (tile_bytes > optin || merge_bytes > optin)
         return (int)cudaErrorInvalidValue;
     const int vec4 = ((uintptr_t)img % 16 == 0) && stride % 4 == 0 && ncols % 4 == 0;
     const int pairs = n * tiles;
-    const int grid = pairs < sms[dev] ? pairs : sms[dev];
+    const int grid = pairs < sms ? pairs : sms;
     cudaStream_t st = (cudaStream_t)stream;
     chaos_tile_kernel<<<grid, SMEM_THREADS, tile_bytes, st>>>(
         img, stride, thr, seam_m, rec, tile_sum, n, nrows, ncols, nlevels, rows_t,

@@ -35,6 +35,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 #define MC_THREADS 256
@@ -274,19 +276,70 @@ __host__ inline bool mc_valid_slices(int p, int cluster, int slice) {
     return slice > 0 && (long long)cluster * slice >= p && (long long)(cluster - 1) * slice < p;
 }
 
-// Set a kernel's cluster and shared-memory attributes and fill `cfg` for a
-// launch over n_ions clusters of `cluster` CTAs.
+// The launch set-up of one kernel on one device, made once: its dynamic
+// shared-memory limit raised to all the device allows a block beside the
+// kernel's static shared memory, and, the first time a plan needs a cluster of
+// more than 8 CTAs, non-portable cluster sizes allowed.  The attributes are
+// the function's, shared by every host thread, so they are never set per
+// launch: two threads launching one kernel with plans of different shared
+// memory would otherwise set the limit under each other's launch.  Each launch
+// passes its own dynamicSmemBytes instead.  One mutex guards the table;
+// entries never move.  `limit` gets the kernel's dynamic shared-memory limit.
+#define MC_SETUP_SLOTS 256
+
+struct McSetup {
+    const void* fn;
+    int dev;
+    int limit;
+    bool nonportable;
+};
+
+__host__ inline cudaError_t mc_setup(const void* fn, int cluster, int* limit) {
+    static std::mutex mu;
+    static McSetup table[MC_SETUP_SLOTS];
+    static int used = 0;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> lock(mu);
+    McSetup* e = nullptr;
+    for (int i = 0; i < used && e == nullptr; ++i)
+        if (table[i].fn == fn && table[i].dev == dev) e = &table[i];
+    if (e == nullptr) {
+        if (used == MC_SETUP_SLOTS) return cudaErrorInvalidValue;
+        int optin = 0;
+        cudaFuncAttributes fa = {};
+        err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, fn);
+        const int lim = optin - (int)fa.sharedSizeBytes;
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, lim);
+        if (err != cudaSuccess) return err;
+        e = &table[used++];
+        *e = {fn, dev, lim, false};
+    }
+    if (cluster > 8 && !e->nonportable) {
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return err;
+        e->nonportable = true;
+    }
+    *limit = e->limit;
+    return cudaSuccess;
+}
+
+// Make the kernel's launch set-up (once per device, mc_setup) and fill `cfg`
+// for a launch over n_ions clusters of `cluster` CTAs with `smem` bytes of
+// dynamic shared memory each.
 __host__ inline cudaError_t mc_config(const void* fn, int n_ions, int cluster, int smem,
                                       cudaStream_t stream, cudaLaunchConfig_t& cfg,
                                       cudaLaunchAttribute* attr) {
-    cudaError_t err = cudaSuccess;
-    if (cluster > 8) err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int limit = 0;
+    cudaError_t err = mc_setup(fn, cluster, &limit);
     if (err != cudaSuccess) {
         cudaGetLastError();
         return err;
     }
+    if (smem < 0 || smem > limit) return cudaErrorInvalidValue;
     cfg = {};
     cfg.gridDim = dim3((unsigned)n_ions * (unsigned)cluster, 1, 1);
     cfg.blockDim = dim3(MC_THREADS, 1, 1);

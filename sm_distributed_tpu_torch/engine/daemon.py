@@ -16,8 +16,8 @@ retry/backoff/dead-letter, metrics, admin API — lives in
 ``sm_distributed_tpu_torch.service`` (the ``serve`` CLI command); this
 module stays the minimal one-message-at-a-time consumer, the shared spool
 primitives and ``annotate_callback``, which runs the port's ``SearchJob``
-per message.  A ``mode: "stream"`` message (live acquisition) raises: the
-stream ingest is ROADMAP queue 1 item 9b.
+per message, or its ``StreamSearchJob`` for a ``mode: "stream"`` message
+(live acquisition, ``engine/stream.py``).
 """
 
 from __future__ import annotations
@@ -323,11 +323,16 @@ def annotate_callback(sm_config: SMConfig, residency=None):
         ds_config = (
             DSConfig.from_dict(msg["ds_config"]) if msg.get("ds_config") else DSConfig()
         )
+        # live-acquisition streaming (engine/stream.py): a mode=stream
+        # message runs the long-lived stream attempt, with the same
+        # constructor contract; its input comes from the chunk log instead
+        # of the message's input_path (a "stream://<ds_id>" sentinel)
+        job_cls = SearchJob
         if msg.get("mode") == "stream":
-            raise NotImplementedError(
-                "mode='stream' (live-acquisition ingest) is not in the "
-                "PyTorch port yet (queue 1 item 9b of ROADMAP.md)")
-        job = SearchJob(
+            from .stream import StreamSearchJob
+
+            job_cls = StreamSearchJob
+        job = job_cls(
             ds_id=msg["ds_id"],
             ds_name=msg.get("ds_name", msg["ds_id"]),
             input_path=msg["input_path"],

@@ -57,6 +57,10 @@ class SpectralDataset:
         return cache[ppm]
 
     @property
+    def n_spectra(self) -> int:
+        return int(self.pixel_inds.size)
+
+    @property
     def n_peaks(self) -> int:
         return int(self.mzs_flat.size)
 
@@ -115,6 +119,37 @@ class SpectralDataset:
             order = np.argsort(mzs_flat[s:e], kind="stable")
             mzs_flat[s:e] = mzs_flat[s:e][order]
             ints_flat[s:e] = ints_flat[s:e][order]
+
+    @classmethod
+    def from_arrays(
+        cls,
+        coords: np.ndarray,
+        spectra: list[tuple[np.ndarray, np.ndarray]],
+    ) -> "SpectralDataset":
+        """Build from raw (x, y) scan coords + per-spectrum (mzs, ints): one
+        lexsort keyed on (pixel, m/z) groups the peaks by dense pixel and
+        sorts each pixel by m/z, so the result depends only on the set of
+        spectra, not their order (the stream ingest's chunk log relies on
+        this).  Bit-identical to ``from_imzml`` over the same spectra."""
+        nrows, ncols, pixel_inds, mask = cls._pixel_grid(coords, len(spectra))
+        lens = np.fromiter((len(m) for m, _ in spectra), dtype=np.int64,
+                           count=len(spectra))
+        row_ptr = cls._row_ptr(nrows * ncols, pixel_inds, lens)
+        mz_all = (np.concatenate([np.asarray(m, np.float64) for m, _ in spectra])
+                  if spectra else np.empty(0, np.float64))
+        int_all = (np.concatenate([np.asarray(i, np.float32) for _, i in spectra])
+                   if spectra else np.empty(0, np.float32))
+        pix_all = np.repeat(pixel_inds, lens)
+        order = np.lexsort((mz_all, pix_all))
+        return cls(
+            nrows=nrows,
+            ncols=ncols,
+            pixel_inds=pixel_inds,
+            mask=mask,
+            mzs_flat=mz_all[order],
+            ints_flat=int_all[order],
+            row_ptr=row_ptr,
+        )
 
     @classmethod
     def from_imzml(cls, path: str | Path) -> "SpectralDataset":

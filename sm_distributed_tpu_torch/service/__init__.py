@@ -15,13 +15,15 @@ Copies of ``sm_distributed_tpu/service``'s modules for the card:
 - ``metrics``    — counters/gauges/histograms with Prometheus text
   exposition;
 - ``telemetry``  — device-memory monitor + SLO tracker;
+- ``readpath``   — the result read path: segment queries, cursors, ion
+  tiles, the governed read cache and read admission;
 - ``api``        — the stdlib ``http.server`` admin API;
 - ``server``     — ``AnnotationService`` composing all of the above (plus
-  the device breaker, ``models/breaker.py``) with graceful SIGTERM
-  shutdown.
+  the device breaker, ``models/breaker.py``, and the stream ingest,
+  ``engine/stream.py``) with graceful SIGTERM shutdown.
 
-The JAX package's stream ingest, read path, cache primer, fleet controller
-and fleet view are ROADMAP queue 1 item 9b.
+The JAX package's cache primer, fleet controller and fleet view are
+ROADMAP queue 1 item 9b.
 """
 
 from .admission import AdmissionController

@@ -45,15 +45,21 @@ status codes for what the port serves.  Endpoints:
   per-chip health state + fault strikes + quarantine evidence
   (``service/health.py``), lease holders, probe/quarantine/readmit/
   host-eviction totals, and the breaker's state;
-- ``GET /peers``  the replica registry view.
+- ``GET /peers``  the replica registry view;
+- ``GET /datasets`` / ``GET /datasets/<id>/annotations`` /
+  ``GET /annotations`` / ``GET /datasets/<id>/images/<sf_adduct>``  the
+  result read path (``service/readpath.py``): dataset listing,
+  filtered/sorted/keyset-paginated annotation queries, cross-dataset
+  per-molecule cohorts, and PNG ion-image tiles; read-admission sheds
+  return a structured **429** with ``Retry-After``, independent of the
+  write-side admission;
+- ``POST /datasets/<id>/pixels`` / ``POST /datasets/<id>/finish``  the
+  live-acquisition chunk seam of a ``mode: "stream"`` submit
+  (``engine/stream.py``).
 
 Routes of the JAX package whose modules are not in the port yet answer
 **404** with a JSON body naming the ROADMAP item (queue 1 item 9b): the
-read path (``/datasets``, ``/datasets/<id>/annotations``,
-``/datasets/<id>/images/<ion>``, ``/annotations``), the fleet view
-(``/fleet/*``), ``/debug/profile``, ``/debug/compile``, the stream POSTs
-(``/datasets/<id>/pixels``, ``/datasets/<id>/finish``) and a ``mode:
-"stream"`` submit.
+fleet view (``/fleet/*``), ``/debug/profile`` and ``/debug/compile``.
 
 ``ThreadingHTTPServer`` keeps scrapes responsive while workers run; every
 handler is read-only except ``/submit`` (appends to ``pending/``) and
@@ -72,8 +78,7 @@ from ..utils import tracing
 from ..utils.logger import logger
 
 # the JAX package's routes whose modules the port does not have yet
-_NOT_PORTED_GET = ("/datasets", "/annotations", "/fleet/", "/debug/profile",
-                   "/debug/compile")
+_NOT_PORTED_GET = ("/fleet/", "/debug/profile", "/debug/compile")
 
 
 def _not_ported(what: str) -> tuple[int, dict]:
@@ -96,8 +101,8 @@ def validate_submit(msg) -> list[str]:
     errs = []
     if "mode" in msg and msg["mode"] not in ("batch", "stream"):
         errs.append("'mode' must be \"batch\" or \"stream\"")
-    # the JAX package's validation: a stream submit needs no input_path
-    # (the port then refuses it as not ported)
+    # a stream submit has no input file — the chunk log IS the input, so
+    # input_path is auto-filled with a "stream://<ds_id>" sentinel
     required = (("ds_id",) if msg.get("mode") == "stream"
                 else ("ds_id", "input_path"))
     for req in required:
@@ -168,6 +173,14 @@ class AdminAPI:
                 self._reply(status, json.dumps(obj).encode(),
                             "application/json", headers)
 
+            def _reply_read(self, result) -> None:
+                """Render a ReadPath handler result: PNG bytes or JSON."""
+                status, body, headers = result
+                if isinstance(body, (bytes, bytearray)):
+                    self._reply(status, bytes(body), "image/png", headers)
+                else:
+                    self._reply_json(status, body, headers)
+
             def do_GET(self):
                 try:
                     url = urlparse(self.path)
@@ -205,6 +218,30 @@ class AdminAPI:
                         self._reply_json(200, api._peers())
                     elif url.path.startswith(_NOT_PORTED_GET):
                         self._reply_json(*_not_ported(f"GET {url.path}"))
+                    elif url.path == "/datasets" or url.path == "/annotations" \
+                            or (url.path.startswith("/datasets/")
+                                and url.path.strip("/").split("/")[2:3]
+                                in (["annotations"], ["images"])):
+                        rp = getattr(api.service, "readpath", None)
+                        if rp is None:
+                            self._reply_json(
+                                404, {"error": "read path not configured",
+                                      "reason": "not_found"})
+                            return
+                        q = parse_qs(url.query)
+                        parts = url.path.strip("/").split("/")
+                        if url.path == "/datasets":
+                            self._reply_read(rp.handle_datasets())
+                        elif url.path == "/annotations":
+                            self._reply_read(rp.handle_cohort(q))
+                        elif len(parts) == 3:
+                            self._reply_read(
+                                rp.handle_annotations(parts[1], q))
+                        elif len(parts) == 4:
+                            self._reply_read(
+                                rp.handle_tile(parts[1], parts[3], q))
+                        else:
+                            self._reply_json(404, {"error": "not found"})
                     elif (parts := url.path.strip("/").split("/"))[0] == \
                             "jobs" and len(parts) == 3 and parts[2] == "trace":
                         q = parse_qs(url.query)
@@ -213,7 +250,9 @@ class AdminAPI:
                             ("0", "", "false"))
                         self._reply_json(status, body)
                     elif parts[0] == "jobs" and len(parts) == 2:
-                        # one record, partial preview included
+                        # one record, partial preview included — the poll
+                        # surface a live acquisition watches its
+                        # provisional FDR ranking through
                         job = next((j for j in api.service.scheduler.jobs()
                                     if j["msg_id"] == parts[1]), None)
                         if job is None:
@@ -235,8 +274,14 @@ class AdminAPI:
                         status, body, headers = api._submit(self._read_body())
                         self._reply_json(status, body, headers)
                     elif len(parts) == 3 and parts[0] == "datasets" \
-                            and parts[1] and parts[2] in ("pixels", "finish"):
-                        self._reply_json(*_not_ported(f"POST {path}"))
+                            and parts[1] and parts[2] == "pixels":
+                        status, body, headers = api._stream_pixels(
+                            parts[1], self._read_body())
+                        self._reply_json(status, body, headers)
+                    elif len(parts) == 3 and parts[0] == "datasets" \
+                            and parts[1] and parts[2] == "finish":
+                        status, body = api._stream_finish(parts[1])
+                        self._reply_json(status, body)
                     else:
                         self._reply_json(404, {"error": "not found"})
                 except Exception as exc:  # noqa: BLE001
@@ -309,9 +354,6 @@ class AdminAPI:
             return 503, {"error": "service is draining",
                          "reason": "stopping", "retry_after_s": 5.0}, \
                 {"Retry-After": "5"}
-        if msg.get("mode") == "stream":
-            return (*_not_ported("a mode='stream' submit (live-acquisition "
-                                 "ingest)"), None)
         tenant = str(msg.get("tenant", "default"))
         adm = getattr(svc, "admission", None)
         decision = adm.try_admit(tenant) if adm is not None else None
@@ -323,9 +365,16 @@ class AdminAPI:
             return decision.status, decision.body(), \
                 {"Retry-After": str(max(1, int(round(decision.retry_after_s))))}
         try:
+            if msg.get("mode") == "stream" and not msg.get("input_path"):
+                # the scheduler and the engine read the chunk log, never
+                # this path; the sentinel satisfies the publisher's contract
+                # and makes the dataset's provenance legible in the message
+                msg["input_path"] = f"stream://{msg['ds_id']}"
             # deadline propagation: pin the ABSOLUTE deadline at submit time
-            # so queueing delay counts against it end to end
-            if "deadline_s" in msg:
+            # so queueing delay counts against it end to end.  Stream jobs
+            # are exempt: an acquisition has no known length, and their
+            # liveness bound is service.stream.idle_timeout_s
+            if "deadline_s" in msg and msg.get("mode") != "stream":
                 service_block = dict(msg.get("service", {}))
                 service_block.setdefault(
                     "deadline_at", time.time() + float(msg["deadline_s"]))
@@ -358,6 +407,84 @@ class AdminAPI:
                       priority=str(msg.get("priority", "normal")))
         return 202, {"msg_id": dst.stem, "spooled": str(dst),
                      "trace_id": trace["trace_id"]}, None
+
+    def _stream_pixels(self, ds_id: str,
+                       raw: bytes) -> tuple[int, dict, dict | None]:
+        """``POST /datasets/<id>/pixels``: append one spectra
+        chunk to the dataset's crash-safe chunk log.  Body::
+
+            {"seq": 0, "coords": [[x, y], ...],
+             "mzs":  [[...], ...],  "ints": [[...], ...]}
+
+        Idempotent by ``seq`` — a byte-identical retry (lost ack) gets a
+        200 with ``duplicate: true``; a conflicting payload under the same
+        seq gets a 409.  Out-of-order seqs are fine."""
+        svc = self.service
+        ingest = getattr(svc, "stream_ingest", None)
+        if ingest is None:
+            return 404, {"error": "streaming ingest not configured",
+                         "reason": "not_found"}, None
+        if svc.stopping():
+            return 503, {"error": "service is draining",
+                         "reason": "stopping", "retry_after_s": 5.0}, \
+                {"Retry-After": "5"}
+        try:
+            body = json.loads(raw or b"{}")
+        except json.JSONDecodeError as exc:
+            return 400, {"error": f"malformed JSON: {exc}",
+                         "reason": "invalid_json"}, None
+        errs = []
+        if not isinstance(body, dict):
+            errs.append("body must be a JSON object")
+        else:
+            if not (isinstance(body.get("seq"), int)
+                    and not isinstance(body.get("seq"), bool)
+                    and body["seq"] >= 0):
+                errs.append("'seq' must be a non-negative integer")
+            for name in ("coords", "mzs", "ints"):
+                if not isinstance(body.get(name), list):
+                    errs.append(f"{name!r} must be a list")
+            if not errs and not (len(body["coords"]) == len(body["mzs"])
+                                 == len(body["ints"])):
+                errs.append("'coords', 'mzs' and 'ints' must have one entry "
+                            "per spectrum")
+        if errs:
+            return 400, {"error": "; ".join(errs),
+                         "reason": "invalid_message"}, None
+        from ..engine.stream import ChunkConflictError, StreamGapError
+        from .resources import ResourceBudgetError
+
+        try:
+            out = ingest.append_chunk(
+                ds_id, body["seq"], body["coords"],
+                list(zip(body["mzs"], body["ints"])))
+        except ChunkConflictError as exc:
+            return 409, {"error": str(exc), "reason": "chunk_conflict"}, None
+        except StreamGapError as exc:
+            return 409, {"error": str(exc), "reason": "stream_finished"}, None
+        except ResourceBudgetError as exc:
+            return 507, {"error": str(exc), "reason": "disk_budget",
+                         "retry_after_s": 5.0}, {"Retry-After": "5"}
+        except ValueError as exc:
+            return 400, {"error": str(exc), "reason": "invalid_message"}, None
+        return 200, {"ds_id": ds_id, **out}, None
+
+    def _stream_finish(self, ds_id: str) -> tuple[int, dict]:
+        """``POST /datasets/<id>/finish``: seal the acquisition.  409 when
+        the committed sequence has gaps; idempotent once sealed."""
+        ingest = getattr(self.service, "stream_ingest", None)
+        if ingest is None:
+            return 404, {"error": "streaming ingest not configured",
+                         "reason": "not_found"}
+        from ..engine.stream import StreamEmptyError, StreamGapError
+
+        try:
+            out = ingest.finish(ds_id)
+        except StreamEmptyError as exc:
+            return 409, {"error": str(exc), "reason": "stream_empty"}
+        except StreamGapError as exc:
+            return 409, {"error": str(exc), "reason": "stream_gap"}
+        return 200, {"ds_id": ds_id, **out}
 
     def _trace(self, msg_id: str, raw: bool = False) -> tuple[int, dict]:
         """``GET /jobs/<id>/trace``: resolve msg_id → trace_id (scheduler

@@ -2,7 +2,8 @@
 
 Copy of ``sm_distributed_tpu/service/resources.py`` for the governed seams
 the port has: checkpoint shards, the results store, spool publishes,
-isocalc cache shards and trace files.  A full disk is a degradation, not a
+isocalc cache shards, trace files, stream chunk appends and read-cache
+fills.  A full disk is a degradation, not a
 death, and every long-lived directory (per-job ``traces/``, isocalc cache
 shards, spool ``done/``, dead-letter, replica-registry debris) is bounded:
 
@@ -27,10 +28,9 @@ level  trigger                        effect
                                       flight-recorder ring keeps flowing)
 2      remaining < cache_floor_bytes  isocalc cache-shard writes dropped
                                       (patterns stay in memory)
-3      remaining < read_cache_floor   the JAX package's read-cache
-                                      fills stop; the port has no read
-                                      path yet (ROADMAP queue 1 item
-                                      9b), so nothing more is dropped
+3      remaining < read_cache_floor   read-path cache fills stop
+                                      (service/readpath.py: reads still
+                                      answer from the source segments)
 4      remaining < submit_floor_bytes POST /submit sheds with a
                                       structured **507** + Retry-After
                                       (service/admission.py)
@@ -71,6 +71,7 @@ service composition; with no governor installed every check is a single
 from __future__ import annotations
 
 import errno
+import json
 import os
 import threading
 import time
@@ -119,7 +120,12 @@ class ResourceGovernor:
                  trace_dir: str | Path | None = None,
                  cache_dir: str | Path | None = None,
                  tracing_cfg: TracingConfig | None = None,
-                 metrics=None, replica_id: str = ""):
+                 metrics=None, replica_id: str = "",
+                 read_cache_dir: str | Path | None = None,
+                 read_cache_max_bytes: int = 0,
+                 stream_dir: str | Path | None = None,
+                 stream_retention_age_s: float = 0.0,
+                 stream_idle_timeout_s: float = 0.0):
         self.cfg = cfg
         self.tracing_cfg = tracing_cfg or TracingConfig()
         self.replica_id = replica_id
@@ -129,6 +135,15 @@ class ResourceGovernor:
         self.queue_root = Path(queue_root) if queue_root else None
         self.trace_dir = Path(trace_dir) if trace_dir else None
         self.cache_dir = Path(cache_dir) if cache_dir else None
+        # read-path tile cache: dir + byte cap flow from the server wiring
+        # (ReadPathConfig.cache_disk_max_bytes), not from ResourcesConfig
+        self.read_cache_dir = Path(read_cache_dir) if read_cache_dir else None
+        self.read_cache_max_bytes = int(read_cache_max_bytes)
+        # live-acquisition chunk logs: dir + age flow from the server wiring
+        # (StreamConfig.retention_age_s) like the read cache
+        self.stream_dir = Path(stream_dir) if stream_dir else None
+        self.stream_retention_age_s = float(stream_retention_age_s)
+        self.stream_idle_timeout_s = float(stream_idle_timeout_s)
         self._lock = threading.Lock()
         self._used = 0                # bytes under the roots, last scan
         self._pending = 0             # preflighted-but-not-rescanned bytes
@@ -303,6 +318,18 @@ class ResourceGovernor:
         self._count("degraded", "cache")
         return False
 
+    def allow_read_cache_fill(self) -> bool:
+        """Read-path cache-fill gate (service/readpath.py): False = serve
+        the read from its source segment/npz without caching the result
+        (level >= 3).  Reads never shed here, only their cache warmth."""
+        if not self.enabled or self.level() < LEVEL_NO_READ_CACHE:
+            return True
+        with self._lock:
+            self._degraded_writes["read_cache"] = \
+                self._degraded_writes.get("read_cache", 0) + 1
+        self._count("degraded", "read_cache")
+        return False
+
     def submits_shed(self) -> bool:
         """Admission gate (service/admission.py): True = shed new submits
         with a structured 507 + Retry-After."""
@@ -451,6 +478,58 @@ class ResourceGovernor:
                    if p.stem != self.replica_id]
         self._reap("registry", victims)
 
+    def _sweep_read_cache(self, now: float) -> None:
+        d = self.read_cache_dir
+        cap = self.read_cache_max_bytes
+        if d is None or not d.is_dir():
+            return
+        # aged fill tmps are always fair game; committed tiles only under
+        # the cap (oldest first: eviction just costs a re-render)
+        victims = self._aged(d.glob("*.tmp"), 3600.0, now)
+        if cap > 0:
+            victims += self._over_size_cap(list(d.glob("*.png")), cap)
+        self._reap("read_cache", victims)
+
+    def _sweep_stream(self, now: float) -> None:
+        """Chunk-log retention.  Torn append tmps are fair game after an
+        hour.  A dataset's whole log is reclaimed once its manifest says
+        ``finished`` and it has sat idle past
+        ``service.stream.retention_age_s``, or, for an abandoned
+        acquisition (client vanished, finish never posted), once the
+        manifest has been idle past ``retention_age_s + idle_timeout_s``:
+        by then the stream job is certainly terminal (``StreamIdleError``
+        fires at most ``idle_timeout_s`` after the last commit).  With
+        ``idle_timeout_s`` 0 the operator opted into open-ended
+        acquisitions, and unfinished logs are never reaped."""
+        d = self.stream_dir
+        age = self.stream_retention_age_s
+        idle_timeout = self.stream_idle_timeout_s
+        if d is None or not d.is_dir():
+            return
+        self._reap("stream", self._aged(d.glob("*/.*.tmp"), 3600.0, now))
+        if age <= 0:
+            return
+        for ds_dir in sorted(d.iterdir()):
+            man = ds_dir / "manifest.json"
+            if not ds_dir.is_dir() or not man.is_file():
+                continue
+            try:
+                finished = bool(json.loads(man.read_text()).get("finished"))
+                idle_s = now - man.stat().st_mtime
+            except (OSError, ValueError):
+                continue
+            reap = (idle_s >= age if finished
+                    else idle_timeout > 0 and idle_s >= age + idle_timeout)
+            if reap:
+                lock = ds_dir / ".lock"
+                self._reap("stream",
+                           sorted(ds_dir.glob("chunk_*.npz"))
+                           + ([lock] if lock.exists() else []) + [man])
+                try:
+                    ds_dir.rmdir()
+                except OSError:
+                    pass          # stray file left behind -> next tick
+
     def gc_tick(self, owns_msg=None) -> dict:
         """One retention sweep + usage rescan (scheduler replica loop).
         ``owns_msg(msg_id)`` scopes the spool classes to this replica's
@@ -460,6 +539,8 @@ class ResourceGovernor:
         self._sweep_spool(now, owns_msg)
         self._sweep_cache(now)
         self._sweep_registry(now)
+        self._sweep_read_cache(now)
+        self._sweep_stream(now)
         self.rescan_usage()
         with self._lock:
             self._gc_runs += 1

@@ -80,6 +80,7 @@ from ..utils.cancel import (
     CancelToken,
     DeadlineExceededError,
     JobCancelledError,
+    StreamIdleError,
 )
 from ..utils.config import ServiceConfig
 from ..utils.failpoints import failpoint, record_recovery, register_failpoint
@@ -157,6 +158,11 @@ class RetryPolicy:
             max_s=cfg.backoff_max_s,
             jitter=cfg.backoff_jitter,
         )
+
+
+# the longest a DELETE waits for the dispatcher to record a message it has
+# just renamed into running/ (a file write apart)
+_CLAIM_WINDOW_S = 2.0
 
 
 @dataclass
@@ -405,6 +411,9 @@ class JobScheduler:
         self.m_quarantined = m.counter(
             "sm_jobs_quarantined_total",
             "Messages parked in quarantine/ after crash-looping claims")
+        self.m_stream_reranks = m.counter(
+            "sm_stream_reranks_total",
+            "Provisional stream re-ranks published via the partial seam")
         self.m_running = m.gauge(
             "sm_jobs_running", "Jobs currently executing in the worker pool")
         self.m_duration = m.histogram(
@@ -498,9 +507,19 @@ class JobScheduler:
     def _set_partial(self, rec: JobRecord, payload: dict) -> None:
         """Streamed first results: the running search published
         a provisional-annotation summary — surface it on the job record
-        so GET /jobs shows rankable results while later batches run."""
+        so GET /jobs shows rankable results while later batches run.
+        Stream re-ranks ride the same seam with a ``stream`` coverage
+        block; it feeds the re-rank counter and the chunk-commit ->
+        partial SLO histogram."""
         with self._records_lock:
             rec.partial = dict(payload or {})
+        stream = (payload or {}).get("stream")
+        if isinstance(stream, dict):
+            if self.metrics:
+                self.m_stream_reranks.inc()
+            lat = stream.get("commit_to_partial_s")
+            if self.slo is not None and lat is not None:
+                self.slo.observe_stream_partial(float(lat))
 
     def _note_terminal(self, rec: JobRecord) -> None:
         with self._records_lock:
@@ -802,6 +821,11 @@ class JobScheduler:
         """Absolute deadline for a message: ``service.deadline_at`` (set by
         the API from ``deadline_s`` at submit) wins; a raw ``deadline_s`` is
         anchored at publish time.  0 = no deadline."""
+        if isinstance(msg, dict) and msg.get("mode") == "stream":
+            # open-ended jobs: an acquisition has no known length, so a
+            # submit-pinned deadline is dead on arrival; liveness is
+            # bounded by service.stream.idle_timeout_s instead
+            return 0.0
         svc = msg.get("service", {}) if isinstance(msg, dict) else {}
         if svc.get("deadline_at"):
             return float(svc["deadline_at"])
@@ -862,7 +886,16 @@ class JobScheduler:
                     self._dead_letter(claimed, {"raw": raw}, rec,
                                       f"poison message: {exc}", "")
                     return
-            rec.state = "running"
+            with self._records_lock:
+                # a DELETE may have flagged the claim since the check above;
+                # cancel() flags only a record that is not running yet
+                flagged = bool(rec.cancel_requested)
+                if not flagged:
+                    rec.state = "running"
+            if flagged:
+                self._terminal_cancelled(claimed, msg, rec,
+                                         "cancelled by user before start")
+                return
             rec.started_at = time.time()
             rec.attempts += 1
             if self.metrics:
@@ -914,7 +947,21 @@ class JobScheduler:
                 timeout_s = min(timeout_s, max(0.0, deadline_at - time.time()))
             t0 = time.perf_counter()
             attempt.start()
-            attempt.join(timeout=timeout_s)
+            if isinstance(msg, dict) and msg.get("mode") == "stream":
+                # open-ended attempt: an acquisition's wall clock is
+                # unknowable up front, so the flat per-attempt timeout does
+                # not apply; liveness is owned by stream.idle_timeout_s
+                # (raised inside the attempt) and the progress-reset stall
+                # watchdog, either of which cancels the token.  Once ANY
+                # cancel lands, an attempt that fails to unwind within
+                # cancel_grace_s falls through to the abandoned-thread
+                # handling below, as a timed-out batch attempt does.
+                while attempt.is_alive() and not token.cancelled():
+                    attempt.join(timeout=0.5)
+                if attempt.is_alive():
+                    attempt.join(timeout=self.cfg.cancel_grace_s)
+            else:
+                attempt.join(timeout=timeout_s)
             timed_out = attempt.is_alive()
             abandoned = False
             if timed_out:
@@ -979,6 +1026,20 @@ class JobScheduler:
                     claimed, msg, rec,
                     (token.reason or "cancelled by user")
                     + (" (abandoned)" if abandoned else ""))
+            elif isinstance(attempt.error, StreamIdleError):
+                # the acquisition went silent past its idle timeout:
+                # terminal like a deadline, retrying cannot conjure chunks
+                self._terminal_cancelled(
+                    claimed, msg, rec,
+                    str(attempt.error) + (" (abandoned)" if abandoned else ""))
+            elif is_cancel_exc and isinstance(msg, dict) \
+                    and msg.get("mode") == "stream" \
+                    and str(token.reason or "").startswith("drain"):
+                # drain hand-off: the acquisition is alive and its chunk log
+                # durable; republish at once with no backoff and no attempt
+                # burned, so a peer replica resumes from the streaming
+                # checkpoint
+                self._stream_handoff(claimed, msg, rec)
             elif timed_out or is_cancel_exc:
                 # timeout / watchdog stall — a normal failure under the
                 # retry policy (the next attempt may behave)
@@ -1093,21 +1154,7 @@ class JobScheduler:
         try:
             os.replace(src, dst)
         except FileNotFoundError:
-            with self._records_lock:
-                rec = self._records.get(msg_id)
-                live = self._live.get(msg_id)
-            if live is not None:
-                token, _attempt = live
-                rec.cancel_requested = "user"
-                self._deliver_cancel(token, rec, reason)
-                return "cancelling"
-            if rec is not None and rec.state in ("claimed", "queued",
-                                                 "running", "retry_wait"):
-                # claimed-but-unstarted (hand-off buffer): the worker honors
-                # the flag before starting the attempt
-                rec.cancel_requested = "user"
-                return "cancelling"
-            return "not_found"
+            return self._cancel_claimed(msg_id, reason)
         try:
             msg = json.loads(dst.read_text())
             if not isinstance(msg, dict):
@@ -1132,6 +1179,38 @@ class JobScheduler:
             self.m_cancels.labels(reason="user").inc()
         logger.info("scheduler: %s cancelled while queued", msg_id)
         return "cancelled"
+
+    def _cancel_claimed(self, msg_id: str, reason: str) -> str:
+        """``cancel`` of a message no longer in ``pending/``: flag a claimed
+        but unstarted record (the worker honours the flag as it marks the
+        record running, under the same lock), or cancel a live attempt.
+        The dispatcher renames a message into ``running/`` before it makes
+        the record, and a worker marks the record running before it
+        registers the attempt: while the message sits in ``running/`` this
+        waits out those windows, at most ``_CLAIM_WINDOW_S`` (a peer
+        replica's claim never gets a record here and ends in
+        ``not_found``).  A departure: the JAX package answers ``not_found``
+        in the first window and lets the job run in the second."""
+        claimed = self.root / "running" / f"{msg_id}.json"
+        deadline = time.time() + _CLAIM_WINDOW_S
+        while True:
+            with self._records_lock:
+                rec = self._records.get(msg_id)
+                live = self._live.get(msg_id)
+                if live is None and rec is not None and \
+                        rec.state in ("claimed", "queued", "retry_wait"):
+                    rec.cancel_requested = "user"
+                    return "cancelling"
+            if live is not None:
+                token, _attempt = live
+                rec.cancel_requested = "user"
+                self._deliver_cancel(token, rec, reason)
+                return "cancelling"
+            if rec is not None and rec.state in TERMINAL_STATES:
+                return "terminal"
+            if not claimed.exists() or time.time() >= deadline:
+                return "not_found"
+            time.sleep(0.01)
 
     def _watchdog_loop(self) -> None:
         """Cancel attempts whose per-phase progress heartbeat stalled —
@@ -1260,6 +1339,56 @@ class JobScheduler:
         logger.warning(
             "scheduler: %s attempt %d/%d failed (%s); retry in %.2fs",
             claimed.name, rec.attempts, max_attempts, error, delay)
+
+    def _stream_handoff(self, claimed: Path, msg: dict, rec: JobRecord) -> None:
+        """Drain hand-off of a live acquisition: the unwound stream
+        attempt's message goes straight back to pending/ so a peer replica
+        (this one stopped claiming) picks it up and resumes from the
+        streaming checkpoint (the chunk log, manifest and search checkpoint
+        shards, all durable and replica-agnostic).  Unlike a retry: no
+        backoff (the acquisition is live now) and no attempt burned (the
+        hand-off is controller-initiated, not a failure)."""
+        if not self._fence_ok(rec, "stream_handoff"):
+            return
+        rec.attempts = max(0, rec.attempts - 1)
+        rec.state = "queued"
+        rec.next_retry_at = 0.0
+        updated = dict(msg)
+        svc = dict(updated.get("service", {}))
+        svc["attempts"] = rec.attempts
+        svc.pop("next_retry_at", None)
+        svc["last_error"] = rec.error or "drain: stream hand-off"
+        updated["service"] = svc
+        tmp = self.root / "pending" / f".{claimed.name}.tmp"
+        tmp.write_text(json.dumps(updated, indent=2))
+        failpoint(FP_RETRY_PUBLISH, path=tmp)
+        os.replace(tmp, self.root / "pending" / claimed.name)
+        try:
+            claimed.unlink()
+        except FileNotFoundError:
+            pass
+        clear_heartbeat(claimed)
+        self._drop_lease(rec.msg_id, terminal=False)
+        record_recovery("stream.drain_handoff")
+        with self._records_lock:
+            hit = self._trace_roots.get(rec.msg_id)
+        tracing.event("stream.handoff", ctx=hit[0] if hit else None,
+                      replica=self.replica_id)
+        logger.info("scheduler: %s stream acquisition handed off to a peer "
+                    "(drain)", claimed.name)
+
+    def _cancel_live_streams(self, reason: str) -> None:
+        """Deliver a drain cancel to every live ``mode=stream`` attempt:
+        an open-ended acquisition never finishes on its own, so a draining
+        replica must actively unwind it into the hand-off path instead of
+        waiting out drain_timeout_s against an instrument."""
+        with self._records_lock:
+            live = [(mid, tok, att) for mid, (tok, att) in self._live.items()]
+        for msg_id, token, att in live:
+            m = getattr(att, "msg", None)
+            if isinstance(m, dict) and m.get("mode") == "stream" \
+                    and not token.cancelled():
+                self._deliver_cancel(token, self._record(msg_id), reason)
 
     def _dead_letter(self, claimed: Path, msg: dict, rec: JobRecord,
                      error: str, tb: str) -> None:
@@ -1484,6 +1613,10 @@ class JobScheduler:
         # them and complete the work exactly once
         failpoint(FP_DRAIN_HANDOFF)
         self._recompute_owned()
+        # live acquisitions hand off now: they would otherwise outlive
+        # the drain window waiting on the instrument
+        self._cancel_live_streams(
+            "drain: handing off live acquisition to a peer")
         tracing.event("drain.begin", replica=self.replica_id,
                       claims=self.live_claims())
         logger.info("replica %s: drain requested — releasing shard "
@@ -1691,6 +1824,9 @@ class JobScheduler:
         wait for running jobs.  Returns True when fully drained in time."""
         timeout_s = self.cfg.drain_timeout_s if timeout_s is None else timeout_s
         self._stop.set()
+        # a live acquisition waits on the instrument indefinitely: unwind
+        # it into the hand-off path so the worker join below can finish
+        self._cancel_live_streams("drain: service shutting down")
         deadline = time.time() + timeout_s
         ok = True
         for t in self._threads:

@@ -9,9 +9,10 @@ claimed-but-unstarted messages, drain running jobs, then stop the API —
 ``running/`` is empty on a clean exit, so a restart resumes exactly the
 pending backlog.  The device pool has one chip per visible CUDA device for
 a ``torch_cuda`` service on the card (none there raises), one for
-``numpy_ref`` or ``device="cpu"``.  Not wired yet (ROADMAP queue 1 item
-9b): the stream ingest, the read path, the cache primer, compile
-attribution, the fleet view and the device profiler.
+``numpy_ref`` or ``device="cpu"``.  The stream ingest and the read path are
+wired as in the JAX package.  Not wired yet (ROADMAP queue 1 item 9b): the
+cache primer, compile attribution, the fleet view and the device
+profiler.
 """
 
 from __future__ import annotations
@@ -99,6 +100,10 @@ class AnnotationService:
         # the engine seams (checkpoints, results, publish, cache shards)
         # and the admission controller consult it without plumbing;
         # tracing's file gate makes trace appends the FIRST thing dropped.
+        read_cache_dir = Path(self.sm_config.work_dir) / "read_cache"
+        from ..engine.stream import StreamIngest, stream_root
+
+        stream_dir = stream_root(self.sm_config)
         self.resources = ResourceGovernor(
             self.sm_config.resources,
             work_dir=self.sm_config.work_dir,
@@ -107,9 +112,28 @@ class AnnotationService:
             trace_dir=self.trace_dir,
             cache_dir=Path(self.sm_config.work_dir) / "isocalc_cache",
             tracing_cfg=self.sm_config.tracing,
-            metrics=self.metrics, replica_id=cfg.replica_id)
+            metrics=self.metrics, replica_id=cfg.replica_id,
+            read_cache_dir=read_cache_dir,
+            read_cache_max_bytes=cfg.read.cache_disk_max_bytes,
+            stream_dir=stream_dir,
+            stream_retention_age_s=cfg.stream.retention_age_s,
+            stream_idle_timeout_s=cfg.stream.idle_timeout_s)
         set_governor(self.resources)
         tracing.set_file_gate(self.resources.trace_gate)
+        # live-acquisition ingest (engine/stream.py): the HTTP chunk seam
+        # (POST /datasets/<id>/pixels|finish) appends into the crash-safe
+        # chunk log that StreamSearchJob re-scores from; a shared work_dir
+        # means any replica can serve appends for any acquisition
+        self.stream_ingest = StreamIngest(stream_dir, metrics=self.metrics)
+        # result read path (service/readpath.py): governed LRU + segment
+        # reader + tile renderer behind the GET endpoints; cache fills
+        # consult the governor's no-read-cache degrade level
+        from .readpath import ReadPath
+
+        self.readpath = ReadPath(
+            self.sm_config.storage.results_dir, cfg.read,
+            governor=self.resources, metrics=self.metrics, slo=self.slo,
+            disk_dir=read_cache_dir) if cfg.read.enabled else None
         # device-OOM adaptive-scoring telemetry (models/oom.py): events,
         # converged backoffs, and the learned safe batch on /metrics
         oom.attach_metrics(self.metrics)
@@ -132,7 +156,8 @@ class AnnotationService:
             self.metrics, self.sm_config.telemetry,
             device_pool=self.device_pool,
             queue_root=self.queue_dir / queue,
-            replica_id=cfg.replica_id)
+            replica_id=cfg.replica_id,
+            readpath=self.readpath, stream_ingest=self.stream_ingest)
         # device-backend circuit breaker: configure the process singleton
         # from THIS service's knobs and export its state on /metrics
         get_device_breaker(cfg)
@@ -167,14 +192,16 @@ class AnnotationService:
             self.metrics.add_collector(self._collect_residency)
         self.api = AdminAPI(self, host=cfg.http_host,
                             port=cfg.http_port) if with_api else None
-        # the admin address and pool occupancy are gossiped through
-        # registry heartbeats so peers can find this replica without
-        # another channel — the API binds its socket in __init__, so the
-        # address is final here
+        # the admin address, pool occupancy and in-flight stream count are
+        # gossiped through registry heartbeats so peers can find this
+        # replica without another channel — the API binds its socket in
+        # __init__, so the address is final here
         if self.api is not None:
             self.scheduler.add_gossip(
                 "admin", lambda: "%s:%d" % self.api.address)
         self.scheduler.add_gossip("pool", self._gossip_pool)
+        self.scheduler.add_gossip("streams_in_flight",
+                                  self.stream_ingest.in_flight)
 
     def _gossip_pool(self) -> dict:
         """The heartbeat-sized pool summary peers read (the full per-chip

@@ -26,9 +26,8 @@ Copy of ``sm_distributed_tpu/service/telemetry.py`` for the card:
   scheduler's seams.  ``report()`` computes attainment against the
   configured objectives straight from the histogram buckets
   (``Histogram.fraction_below``) plus the error-budget burn rate —
-  ``GET /slo``.  The read and stream-partial SLIs are reported as in the
-  JAX package, with no observations until their modules are ported
-  (ROADMAP queue 1 item 9b).
+  ``GET /slo``.  The read path observes the ``read`` SLI and the stream
+  ingest's provisional re-ranks the ``stream_partial`` SLI.
 
 Config: ``SMConfig.telemetry`` (enabled, sample_interval_s,
 timeseries_len, slo_* objectives).
@@ -57,7 +56,8 @@ class DeviceMonitor:
 
     def __init__(self, registry, cfg: TelemetryConfig | None = None,
                  queue_root: str | Path | None = None,
-                 device_pool=None, replica_id: str = ""):
+                 device_pool=None, replica_id: str = "",
+                 readpath=None, stream_ingest=None):
         self.registry = registry
         self.cfg = cfg or TelemetryConfig()
         # replica identity: stamped on every timeseries sample so
@@ -68,6 +68,10 @@ class DeviceMonitor:
         # never taken
         self.device_pool = device_pool
         self.queue_root = Path(queue_root) if queue_root else None
+        # the read path's cache and in-flight state and the stream
+        # ingest's chunk counters sample into the ring too
+        self.readpath = readpath
+        self.stream_ingest = stream_ingest
         self._ring: deque = deque(maxlen=self.cfg.timeseries_len)
         self._occ: deque = deque(maxlen=_OCCUPANCY_WINDOW)
         self._lock = threading.Lock()
@@ -192,6 +196,30 @@ class DeviceMonitor:
                     list(self.queue_root.glob("running/*.json")))
             except OSError:
                 pass
+        # read plane: cache + in-flight state, so /debug/timeseries charts
+        # read saturation beside device state
+        if self.readpath is not None:
+            rp = self.readpath.snapshot()
+            cache = rp.get("cache", {})
+            snap["read_inflight"] = rp.get("inflight")
+            snap["read_sheds"] = rp.get("sheds")
+            snap["read_cache_hits"] = cache.get("hits")
+            snap["read_cache_misses"] = cache.get("misses")
+            snap["read_cache_bytes"] = cache.get("bytes")
+            snap["read_cache_entries"] = cache.get("entries")
+        # stream plane: chunk/pixel/re-rank totals (from the shared
+        # registry) + acquisitions currently open on the shared stream root
+        if self.stream_ingest is not None:
+            snap["stream_chunks_total"] = self.registry.value(
+                "sm_stream_chunks_total")
+            snap["stream_pixels_total"] = self.registry.value(
+                "sm_stream_pixels_total")
+            snap["stream_reranks_total"] = self.registry.value(
+                "sm_stream_reranks_total")
+            try:
+                snap["stream_in_flight"] = self.stream_ingest.in_flight()
+            except OSError:
+                pass
         with self._lock:
             self._ring.append(snap)
         return snap
@@ -254,9 +282,9 @@ class SLOTracker:
     queue-wait at each job's FIRST attempt start and end-to-end latency at
     every terminal outcome; ``models/msm_basic.py`` notifies the first
     scored checkpoint group through its first-annotation observer list
-    (the moment the first FDR-rankable metrics exist).  The read and
-    stream-partial SLIs have no observer in the port yet.  Attainment
-    comes from the histogram buckets themselves, so
+    (the moment the first FDR-rankable metrics exist); the read path
+    observes each served read and the scheduler each stream re-rank.
+    Attainment comes from the histogram buckets themselves, so
     ``/slo`` and ``/metrics`` can never disagree.
     """
 
@@ -316,6 +344,17 @@ class SLOTracker:
         with self._lock:
             self._submits.pop(job_id, None)
             self._first_noted.discard(job_id)
+
+    def observe_read(self, seconds: float) -> None:
+        """Read-path seam (service/readpath.py): one served read; sheds
+        (429) are excluded: they are admission outcomes, not latency."""
+        self.h_read.observe(max(0.0, seconds))
+
+    def observe_stream_partial(self, seconds: float) -> None:
+        """Streaming seam: one provisional re-rank became visible on the
+        partial channel, ``seconds`` after the newest chunk it covers was
+        committed to the acquisition manifest."""
+        self.h_stream_partial.observe(max(0.0, seconds))
 
     # -------------------------------------------------------------- report
     def report(self) -> dict:

@@ -29,6 +29,14 @@ class DeadlineExceededError(JobCancelledError):
     """The job's absolute deadline passed (terminal — never retried)."""
 
 
+class StreamIdleError(JobCancelledError):
+    """A live acquisition went silent: no chunk was committed for
+    ``service.stream.idle_timeout_s``.  Stream jobs are exempt from the
+    absolute submit deadline (an acquisition has no known length), so this
+    is their liveness bound.  Terminal like a deadline trip: retrying cannot
+    conjure the missing chunks."""
+
+
 class CancelToken:
     """Thread-safe one-shot cancellation flag with an optional absolute
     deadline and a progress heartbeat."""

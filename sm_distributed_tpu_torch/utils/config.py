@@ -14,9 +14,11 @@ admission, breaker), ``telemetry``, ``resources``, ``storage``, ``tracing``
 
 A block or value the port does not have yet raises ``NotImplementedError``
 naming the ROADMAP item that brings it, rather than being dropped, unless
-it holds the JAX package's default: the ``service`` blocks ``fleet``,
-``prime`` and ``stream``, and ``read`` and ``fleetview``, which the JAX
-package enables by default and the port accepts only disabled (item 9b);
+it holds the JAX package's default: the ``service`` blocks ``fleet`` and
+``prime``, and ``fleetview``, which the JAX package enables by default and
+the port accepts only disabled (item 9b); the ``read`` block (the read path,
+enabled by default as in the JAX package) and the ``stream`` block (live
+acquisition ingest) take every value the JAX package does;
 ``telemetry.profile`` and ``telemetry.retrace`` and
 ``parallel.compile_cache_dir`` (item 9b); ``service.devices_per_job`` above
 1, ``parallel.isocalc_device="on"`` (item 8) and the JAX package's mesh and
@@ -43,9 +45,9 @@ VALID_BACKENDS = ("numpy_ref", "torch_cuda")
 
 
 # the JAX package's ``service`` blocks the port does not have yet, with
-# their defaults; ``read`` and ``fleetview`` are accepted only disabled (the
-# JAX package enables them by default).  tests/test_torch_resilience.py
-# holds this table equal to the JAX package's ServiceConfig defaults
+# their defaults; ``fleetview`` is accepted only disabled (the JAX package
+# enables it by default).  tests/test_torch_resilience.py holds this table
+# equal to the JAX package's ServiceConfig defaults
 _SERVICE_NOT_YET = {
     "fleet": {"enabled": False, "min_replicas": 1, "max_replicas": 4,
               "decide_interval_s": 5.0, "cooldown_s": 60.0,
@@ -55,20 +57,13 @@ _SERVICE_NOT_YET = {
               "spawn_timeout_s": 30.0, "drain_timeout_s": 120.0},
     "prime": {"enabled": False, "idle_after_s": 5.0, "interval_s": 30.0,
               "max_specs_per_cycle": 0},
-    "read": {"enabled": True, "cache_max_bytes": 67108864,
-             "cache_max_entries": 1024, "cache_disk_max_bytes": 134217728,
-             "max_concurrent": 32, "retry_after_s": 1.0, "page_size": 100,
-             "page_size_max": 1000},
-    "stream": {"idle_timeout_s": 300.0, "poll_interval_s": 0.25,
-               "rescore_min_chunks": 1, "retention_age_s": 3600.0},
     "fleetview": {"enabled": True, "scrape_timeout_s": 2.0,
                   "cache_ttl_s": 1.0},
 }
-# what the port accepts of them: the JAX package's defaults, with the read
-# path and the fleet view disabled
+# what the port accepts of them: the JAX package's defaults, with the fleet
+# view disabled
 _SERVICE_ACCEPTED = {
     **_SERVICE_NOT_YET,
-    "read": {**_SERVICE_NOT_YET["read"], "enabled": False},
     "fleetview": {**_SERVICE_NOT_YET["fleetview"], "enabled": False},
 }
 
@@ -292,15 +287,80 @@ class AdmissionConfig:
 
 
 @dataclass(frozen=True)
+class ReadPathConfig:
+    """Result read path (``service/readpath.py``): the queryable annotation
+    index, the ion-image tile service and the governed LRU cache behind the
+    ``GET /datasets*`` and ``/annotations`` endpoints, the JAX package's
+    knobs and defaults.  Reads shed independently of writes: more than
+    ``max_concurrent`` in-flight reads get a structured 429 + Retry-After,
+    and cache fills stop (reads still answer from the source segments) when
+    the disk governor degrades past the read-cache floor."""
+    enabled: bool = True                 # serve the read endpoints
+    cache_max_bytes: int = 64 << 20      # in-memory LRU result/tile cache
+                                         # byte cap (0 disables caching)
+    cache_max_entries: int = 1024        # ... entry cap
+    cache_disk_max_bytes: int = 128 << 20  # on-disk tile cache byte cap
+                                         # under <work_dir>/read_cache
+                                         # (0 disables the disk tier)
+    max_concurrent: int = 32             # in-flight read bound; excess reads
+                                         # shed with 429 (0 = unlimited)
+    retry_after_s: float = 1.0           # Retry-After hint on shed reads
+    page_size: int = 100                 # default annotations page length
+    page_size_max: int = 1000            # hard cap on ?limit=
+
+    def __post_init__(self):
+        if min(self.cache_max_bytes, self.cache_max_entries,
+               self.cache_disk_max_bytes, self.max_concurrent) < 0:
+            raise ValueError("read: cache/concurrency bounds must be >= 0")
+        if self.retry_after_s < 0:
+            raise ValueError("read: retry_after_s must be >= 0")
+        if not 0 < self.page_size <= self.page_size_max:
+            raise ValueError(
+                "read: need 0 < page_size <= page_size_max")
+
+
+@dataclass(frozen=True)
+class StreamConfig:
+    """Live-acquisition streaming ingest (``engine/stream.py``): ``mode:
+    "stream"`` submits, ``POST /datasets/<id>/pixels`` chunk appends into
+    the crash-safe chunk log, provisional re-scores as coverage grows, and
+    batch-identical convergence at ``POST /datasets/<id>/finish``; the JAX
+    package's knobs and defaults."""
+    idle_timeout_s: float = 300.0        # cancel an acquisition when no NEW
+                                         # chunk commits for this long (stream
+                                         # jobs are exempt from the submit's
+                                         # absolute deadline); 0 waits forever
+    poll_interval_s: float = 0.25        # stream attempt's manifest poll
+                                         # cadence while waiting for chunks
+    rescore_min_chunks: int = 1          # provisional re-scores run only
+                                         # when at least this many NEW chunks
+                                         # committed since the last one
+    retention_age_s: float = 3600.0      # finished chunk logs idle past
+                                         # this are removed by the governor's
+                                         # GC sweep; abandoned (never
+                                         # finished) logs after
+                                         # retention_age_s + idle_timeout_s
+                                         # idle (0 = keep forever)
+
+    def __post_init__(self):
+        if self.idle_timeout_s < 0 or self.retention_age_s < 0:
+            raise ValueError(
+                "stream: idle_timeout_s/retention_age_s must be >= 0")
+        if self.poll_interval_s <= 0 or self.rescore_min_chunks < 1:
+            raise ValueError("stream: poll_interval_s must be positive and "
+                             "rescore_min_chunks >= 1")
+
+
+@dataclass(frozen=True)
 class ServiceConfig:
     """Annotation-service knobs (scheduler, failure policy, device pool and
     health, replicas, admin API, admission, breaker), the JAX package's,
     consumed by ``sm_distributed_tpu_torch.service`` (the ``serve`` CLI
     command).  ``devices_per_job`` above 1 raises: leases of several cards
-    are ROADMAP queue 1 item 7.  The JAX package's ``fleet``, ``prime``,
-    ``read``, ``stream`` and ``fleetview`` blocks are accepted at their
-    defaults (``read`` and ``fleetview`` disabled) and held nowhere: their
-    modules are item 9b.  ``breaker_degraded_batch`` (the JAX package's
+    are ROADMAP queue 1 item 7.  ``read`` (the read path) and ``stream``
+    (live-acquisition ingest) are the JAX package's blocks.  Its ``fleet``,
+    ``prime`` and ``fleetview`` blocks are accepted at their defaults
+    (``fleetview`` disabled) and held nowhere: their modules are item 9b.  ``breaker_degraded_batch`` (the JAX package's
     numpy batch while the breaker is open) is accepted, validated and read
     nowhere: the port refuses a job on an open breaker instead of moving it
     to the host."""
@@ -407,6 +467,8 @@ class ServiceConfig:
     breaker_cooldown_s: float = 30.0     # open → half-open probe delay
     breaker_degraded_batch: int = 512    # read nowhere (see above)
     admission: AdmissionConfig = field(default_factory=AdmissionConfig)
+    read: ReadPathConfig = field(default_factory=ReadPathConfig)
+    stream: StreamConfig = field(default_factory=StreamConfig)
 
     def __post_init__(self):
         if self.workers <= 0 or self.max_attempts <= 0:
@@ -504,9 +566,9 @@ class ResourcesConfig:
                                          # trace-file writes are dropped
     cache_floor_bytes: int = 16 << 20    # ... below which isocalc cache
                                          # shard writes are dropped
-    read_cache_floor_bytes: int = 12 << 20  # ... below which the JAX
-                                         # package's read-cache fills stop
-                                         # (the port has no read path)
+    read_cache_floor_bytes: int = 12 << 20  # ... below which read-path
+                                         # cache fills stop (reads still
+                                         # answer from the segments)
     submit_floor_bytes: int = 8 << 20    # ... below which POST /submit
                                          # sheds with 507 + Retry-After
     gc_interval_s: float = 30.0          # retention sweep + usage rescan
@@ -656,4 +718,6 @@ _DATACLASS_FIELDS = {
     ("SMConfig", "resources"): ResourcesConfig,
     ("SMConfig", "logs"): LogsConfig,
     ("ServiceConfig", "admission"): AdmissionConfig,
+    ("ServiceConfig", "read"): ReadPathConfig,
+    ("ServiceConfig", "stream"): StreamConfig,
 }

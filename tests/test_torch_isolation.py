@@ -107,11 +107,50 @@ def test_import_list_covers_the_service():
     service's and the daemon's included."""
     mods = set(_port_modules())
     for m in ("admission", "api", "device_pool", "health", "leases",
-              "metrics", "resources", "scheduler", "server", "telemetry"):
+              "metrics", "readpath", "resources", "scheduler", "server",
+              "telemetry"):
         assert f"sm_distributed_tpu_torch.service.{m}" in mods
     assert {"sm_distributed_tpu_torch.engine.daemon",
             "sm_distributed_tpu_torch.engine.residency",
+            "sm_distributed_tpu_torch.engine.stream",
             "sm_distributed_tpu_torch.parallel.distributed"} <= mods
+
+
+def test_stream_submit_and_read_path_served_by_default(tmp_path):
+    """With the JAX package's default ``service`` config a ``mode:
+    "stream"`` submit is accepted (202, its ``stream://`` sentinel input)
+    and ``/datasets`` answers 200: neither is the 404 of a module not
+    ported."""
+    import json
+    import urllib.request
+
+    from sm_distributed_tpu_torch.service import AnnotationService
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    sm = SMConfig.from_dict({
+        "device": "cpu", "work_dir": str(tmp_path / "work"),
+        "storage": {"results_dir": str(tmp_path / "res")},
+        "service": {"http_port": 0, "poll_interval_s": 0.02}})
+    svc = AnnotationService(tmp_path / "q", lambda msg: None, sm_config=sm)
+    svc.start()
+    try:
+        base = "http://%s:%d" % svc.api.address
+        req = urllib.request.Request(
+            base + "/submit", method="POST",
+            data=json.dumps({"ds_id": "live", "mode": "stream"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            assert r.status == 202
+            msg_id = json.loads(r.read())["msg_id"]
+        with urllib.request.urlopen(base + "/datasets", timeout=10) as r:
+            assert r.status == 200
+            assert json.loads(r.read()) == {"datasets": []}
+        assert svc.scheduler.wait_for_terminal(1, timeout_s=30.0)
+    finally:
+        assert svc.shutdown()
+    # wherever the spool moved it, the message carries the sentinel input
+    (msg,) = (tmp_path / "q" / "sm_annotate").glob(f"*/{msg_id}.json")
+    assert json.loads(msg.read_text())["input_path"] == "stream://live"
 
 
 def test_serve_default_device_needs_a_gpu(tmp_path):

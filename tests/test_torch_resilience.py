@@ -26,6 +26,7 @@ step against the JAX package's.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import weakref
 import zlib
@@ -668,10 +669,11 @@ def test_config_accepts_what_the_jax_package_accepts():
 
 
 def test_service_defaults_table_matches_jax():
-    """Every ``service`` knob the port has defaults to the JAX package's
-    value, and the port accepts a block it does not have yet only at the
-    JAX package's default (``read`` and ``fleetview`` disabled): its table
-    of those defaults is the JAX ServiceConfig's, key for key."""
+    """Every ``service`` knob the port has (the ``read`` and ``stream``
+    blocks included) defaults to the JAX package's value, and the port
+    accepts a block it does not have yet only at the JAX package's default
+    (``fleetview`` disabled): its table of those defaults is the JAX
+    ServiceConfig's, key for key."""
     import dataclasses
 
     from sm_distributed_tpu.utils.config import SMConfig as JSC
@@ -682,17 +684,33 @@ def test_service_defaults_table_matches_jax():
     for knob, value in got.items():
         assert value == want.pop(knob), knob
     assert _SERVICE_NOT_YET == want
-    want["read"]["enabled"] = want["fleetview"]["enabled"] = False
+    want["fleetview"]["enabled"] = False
     SMConfig.from_dict({"service": want})
 
 
 @pytest.mark.parametrize("service", [
-    {"read": {"enabled": True}}, {"fleetview": {"enabled": True}},
-    {"fleet": {"enabled": True}}, {"read": {"page_size": 7}},
-    {"stream": {"idle_timeout_s": 5.0}}, {"prime": {"enabled": True}}])
+    {"fleetview": {"scrape_timeout_s": 5.0}}, {"fleetview": {"enabled": True}},
+    {"fleet": {"enabled": True}}, {"fleet": {"max_replicas": 2}},
+    {"prime": {"interval_s": 5.0}}, {"prime": {"enabled": True}}])
 def test_other_service_keys_raise_naming_item_9(service):
     with pytest.raises(NotImplementedError, match="item 9"):
         SMConfig.from_dict({"service": service})
+
+
+@pytest.mark.parametrize("service", [
+    {"read": {"enabled": False}}, {"read": {"page_size": 7}},
+    {"read": {"max_concurrent": 0, "cache_max_bytes": 0}},
+    {"stream": {"idle_timeout_s": 5.0}},
+    {"stream": {"rescore_min_chunks": 3, "retention_age_s": 0.0}}])
+def test_read_and_stream_blocks_take_the_jax_values(service):
+    """The read path's and the stream ingest's blocks take every value the
+    JAX package takes, to the same dataclass fields."""
+    from sm_distributed_tpu.utils.config import SMConfig as JSC
+
+    block, = service
+    got = getattr(SMConfig.from_dict({"service": service}).service, block)
+    want = getattr(JSC.from_dict({"service": service}).service, block)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 @pytest.mark.parametrize("bad", [

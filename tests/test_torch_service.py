@@ -7,9 +7,10 @@
   annotations and metrics equal, exactly, those of the port's CLI ``run``
   on the same dataset, and its FDR levels and msm ranks are identical to
   the JAX package's service run of the same dataset;
-- the admin API: every route the port serves answers as the JAX package's,
-  the routes of modules not yet ported answer 404 naming their ROADMAP
-  item, and ``DELETE /jobs/<id>`` cancels a waiting job;
+- the admin API: every route the port serves answers as the JAX package's
+  (the read path and the stream seam with the default config), the routes
+  of modules not yet ported answer 404 naming their ROADMAP item, and
+  ``DELETE /jobs/<id>`` cancels a waiting job;
 - no host fallback: a ``torch_cuda`` job meeting an open breaker is
   refused on each attempt and dead-lettered.
 """
@@ -274,25 +275,83 @@ def test_admin_api_routes(tmp_path):
         peers = json.loads(_get(base + "/peers")[1])
         assert peers["replica_id"] == "r0"
 
-        for route in ("/datasets", "/datasets/a/annotations",
-                      "/annotations?sf=C6H12O6", "/fleet/status",
-                      "/fleet/metrics", "/debug/profile?seconds=1",
-                      "/debug/compile"):
+        for route in ("/fleet/status", "/fleet/metrics",
+                      "/debug/profile?seconds=1", "/debug/compile"):
             with pytest.raises(urllib.error.HTTPError) as err:
                 _get(base + route)
             assert err.value.code == 404
             assert "item 9b" in json.loads(err.value.read())["error"]
-        for path, body in (("/datasets/a/pixels", {"seq": 0}),
-                           ("/datasets/a/finish", {}),
-                           ("/submit", {"ds_id": "s", "mode": "stream"})):
-            st, out = _send(base + path, "POST", body)
-            assert st == 404 and "item 9b" in out["error"]
+        # the read path, served with the default config: nothing stored yet
+        assert json.loads(_get(base + "/datasets")[1]) == {"datasets": []}
+        cohort = json.loads(_get(base + "/annotations?sf=C6H12O6")[1])
+        assert cohort == {"sf": "C6H12O6", "n_datasets": 0, "n_rows": 0,
+                          "datasets": []}
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _get(base + "/datasets/a/annotations")
+        assert err.value.code == 404
+        assert json.loads(err.value.read())["error"] == "not_found"
+        # the stream seam: a malformed chunk, an empty finish
+        st, out = _send(base + "/datasets/a/pixels", "POST", {"seq": 0})
+        assert st == 400 and out["reason"] == "invalid_message"
+        st, out = _send(base + "/datasets/a/finish", "POST", {})
+        assert st == 409 and out["reason"] == "stream_empty"
         st, out = _send(base + "/submit", "POST", {"ds_id": "x"})
         assert st == 400 and out["reason"] == "invalid_message"
     finally:
         assert service.shutdown()
     root = tmp_path / "q" / "sm_annotate"
     assert not list(root.glob("running/*"))
+
+
+def test_delete_in_the_claim_window_cancels(tmp_path, monkeypatch):
+    """A DELETE that lands after the dispatcher renamed the message into
+    ``running/`` and before it recorded it (the claim-count write between)
+    waits out that window and cancels the job, whether the worker has
+    started it by then or not; the JAX package's scheduler answers
+    ``not_found`` there (a departure)."""
+    def job(msg, ctx=None):
+        # a job checks its token at its phase boundaries, as SearchJob does
+        with ctx.device_token:
+            for _ in range(50):
+                ctx.cancel.check("work")
+                time.sleep(0.01)
+
+    sm = SMConfig.from_dict(_sm(tmp_path, service={
+        "workers": 1, "poll_interval_s": 0.02, "http_port": 0}))
+    service = AnnotationService(tmp_path / "q", job, sm_config=sm,
+                                with_api=False)
+    sched = service.scheduler
+    entered, release = threading.Event(), threading.Event()
+    bump = sched._bump_claims
+
+    def slow_bump(claimed, msg):
+        entered.set()
+        release.wait(10.0)
+        return bump(claimed, msg)
+
+    monkeypatch.setattr(sched, "_bump_claims", slow_bump)
+    service.publisher.publish({"ds_id": "w", "input_path": "/in",
+                               "msg_id": "in_window"})
+    service.start()
+    try:
+        assert entered.wait(10.0)
+        assert (tmp_path / "q" / "sm_annotate" / "running" /
+                "in_window.json").exists()
+        assert "in_window" not in {j["msg_id"] for j in sched.jobs()}
+        box = {}
+        t = threading.Thread(
+            target=lambda: box.update(out=sched.cancel("in_window")))
+        t.start()
+        time.sleep(0.1)
+        release.set()
+        t.join(10.0)
+        assert not t.is_alive() and box["out"] == "cancelling"
+        assert sched.wait_for_terminal(1, timeout_s=20.0)
+        (rec,) = [j for j in sched.jobs() if j["msg_id"] == "in_window"]
+        assert rec["state"] == "cancelled", rec
+    finally:
+        release.set()
+        assert service.shutdown()
 
 
 def test_open_breaker_dead_letters_without_host_fallback(dataset, tmp_path):
