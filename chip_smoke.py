@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives ten paths (seven of the library search, the job path, the
-service, and the service's read path and stream ingest), each with the
-kernel launch counts set to 0 just before it and read just after:
+nvcc and drives eleven paths (seven of the library search, the job path,
+the service, the service's read path and stream ingest, and a device-mode
+isotope search under the profiler), each with the kernel launch counts set
+to 0 just before it and read just after:
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -101,7 +102,22 @@ kernel launch counts set to 0 just before it and read just after:
   the sealed stream bit-equal to phase 3, the phase's device peak under
   2.5x the main path's; a 32x32 stream over HTTP (duplicate 200, conflict
   409, empty finish 409) bit-equal to its batch run; and a stream that gets
-  no chunk dead-lettered with ``StreamIdleError``.
+  no chunk dead-lettered with ``StreamIdleError``;
+- device isotope patterns and the profiler (phase 13, after phase 9):
+  13a generates phase 9's 10,500 ions cold with
+  ``IsocalcWrapper(device_blur=True)`` on the card, each held to phase 9's
+  cold oracle table (equal peak counts, |dm/z| < 5e-6, |dint| < 1e-3), the
+  stage's outputs for the first 500 ions' segments on the CPU as well, and
+  the ``dev`` cache namespace (a device-mode wrapper warm-loads every ion,
+  an oracle-mode one none); 13b searches the main path's dataset and ions
+  with ``parallel.isocalc_device="on"`` and a cold pattern cache in a
+  worker thread while this thread holds a ``ProfileSession`` open, each
+  hand kernel's profiler event count equal to its launch counter, the
+  attribution's classes summing to its total, the device stage's share of
+  the device time printed; 13c drives ``GET /debug/profile`` in a service
+  (200 with the JAX response's keys, 400, one 200 and one 409 at once,
+  captures during a 32x32 job whose injected spans land in its trace,
+  ``sm_profile_captures_total``, 404 when disabled).
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -123,7 +139,9 @@ moments plans' occupancy beside this one's.
 One line per phase; any failure raises and exits non-zero.  The line before
 the last is a JSON object with each kernel's launches on its path (phase
 11's jobs A and B in ``service_launches``, phase 12's stream job, its
-re-scores and its sealed pass, in ``stream_launches``), its error against
+re-scores and its sealed pass, in ``stream_launches``, and the profiler's
+event count of its device function over phase 13b's search in
+``profile_launches``), its error against
 the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
@@ -2152,18 +2170,13 @@ def _check_chaos_strips(images: torch.Tensor, side: int, nlevels: int,
         f"version, first {n_scipy} equal to scipy {sc}")
 
 
-def _kernel_name(name: str) -> str:
-    """A device kernel's name without its return type, anonymous namespace,
-    template arguments and parameters."""
-    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
-    return re.split(r"[<(]", name, maxsplit=1)[0]
-
-
 def _device_kernels_ms(fn) -> dict:
     """Device milliseconds of one call of ``fn`` by kernel name, from a
     torch.profiler trace of the card (after a warm-up call); empty when the
     trace holds no device activity."""
     from torch.profiler import ProfilerActivity, profile
+
+    from sm_distributed_tpu_torch.analysis.profiling import kernel_name
 
     fn()
     torch.cuda.synchronize()
@@ -2173,7 +2186,7 @@ def _device_kernels_ms(fn) -> dict:
     out: dict = {}
     for e in prof.events():
         if "CUDA" in str(e.device_type):
-            name = _kernel_name(e.name)
+            name = kernel_name(e.name)
             out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
@@ -2210,7 +2223,7 @@ def _histograms(backend, table, plan) -> dict:
     }
 
 
-def phase_ordered_stream() -> dict:
+def phase_ordered_stream() -> tuple[dict, dict]:
     """Bench.py's ``scale`` case through ``MSMBasicSearch`` at the shipped
     defaults: an m/z-ordered stream of 6 batches, whose variant rule may
     take the band or compact extraction.  The same stream scored with both
@@ -2220,7 +2233,9 @@ def phase_ordered_stream() -> dict:
     is its own.  Prints the variant counts, the per-batch device ms by
     variant, the histogram's host plan and device kernels, the marginal ns
     a slot of the scatter and of the compaction that the rule weighs
-    (``models/msm_torch.py``), ions/s and the device peak."""
+    (``models/msm_torch.py``), ions/s and the device peak.  Returns the
+    phase's results and its oracle patterns (the first search's wrapper,
+    its table and its cold generation stats) for phase 13."""
     from sm_distributed_tpu_torch.io.fixtures import (
         expand_formula_list,
         synthetic_dataset_arrays,
@@ -2240,6 +2255,7 @@ def phase_ordered_stream() -> dict:
     t_ds = time.perf_counter() - t_start
     runs = {}
     isocalc = None
+    oracle_stats = {}
     for label, parallel in (("off", {"band_slice": "off",
                                      "peak_compaction": "off"}),
                             ("compact", {"peak_compaction": "on"}),
@@ -2256,6 +2272,8 @@ def phase_ordered_stream() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         isocalc = search.isocalc
+        if label == "off":
+            oracle_stats = dict(isocalc.last_stats)
         backend, table = search.last_backend, search.last_table
         runs[label] = {
             "bundle": bundle, "backend": backend, "table": table,
@@ -2394,7 +2412,10 @@ def phase_ordered_stream() -> dict:
             "batch_ms": batch_ms, "histogram_ms": hist_ms, "slots": slots,
             "host_plan_ms": plan_ms, "histogram_kernels_ms": split,
             "rates": rates, "recall": recall, "stream_walls_s": walls,
-            "phase_s": time.perf_counter() - t_start}
+            "phase_s": time.perf_counter() - t_start}, {
+                "isocalc": isocalc, "table": table, "ds_cfg": ds_cfg,
+                "stats": oracle_stats,
+                "patterns_s": off["timings"]["isotope_patterns"]}
 
 
 # ------------------------------------------------ phase 10: resilience
@@ -3647,6 +3668,363 @@ def phase_read_stream(card: str, tmp: Path, ds, truth, main: dict) -> dict:
             "phase_s": took}
 
 
+# ------------------------------------- phase 13: device patterns, profiler
+# the JAX package's bounds of device-mode patterns against the oracle
+# (tests/test_isocalc_parallel.py)
+ISO_MZ_TOL, ISO_INT_TOL = 5e-6, 1e-3
+# ions of phase 9's list whose segments 13a also runs through the stage on
+# the CPU (a few thousand segments)
+ISO_CPU_IONS = 500
+# the hand kernels' device functions, as the profiler names them, by
+# launch counter (the row-tile kernel serves both the packed and the
+# strips routes)
+PROFILED_KERNELS = {"moments": ("moments_cluster_kernel",),
+                    "chaos": ("chaos_smem_kernel",),
+                    "chaos_tiles": ("chaos_tile_kernel",),
+                    "chaos_strips": ("chaos_tile_kernel",),
+                    "fused_window_moments": ("fused_cluster_kernel",)}
+PROFILE_KEYS = {"seconds", "duration_s", "trace_file", "attribution",
+                "jobs_running", "injected_spans"}
+# at most this many 1 s captures while 13c's 32x32 job runs
+LIVE_CAPTURES = 20
+
+
+def _pattern_gaps(got: list, want: list, what: str) -> tuple[float, float]:
+    """Worst |dm/z| and |dint| of two pattern lists of one ion list, after
+    checking each ion's peak count; raises past the JAX package's bounds."""
+    dmz = dint = 0.0
+    for i, ((gm, gi), (wm, wi)) in enumerate(zip(got, want)):
+        assert gm.size == wm.size, f"{what}: ion {i} has {gm.size} peaks, " \
+            f"not {wm.size}"
+        if gm.size:
+            dmz = max(dmz, float(np.abs(gm - wm).max()))
+            dint = max(dint, float(np.abs(gi - wi).max()))
+    assert dmz < ISO_MZ_TOL and dint < ISO_INT_TOL, (what, dmz, dint)
+    return dmz, dint
+
+
+def phase_device_patterns(card: str, oracle: dict) -> dict:
+    """13a: phase 9's 10,500 ions (``bench.py``'s ``scale`` case, uncut)
+    generated cold in device mode (``IsocalcWrapper(device_blur=True)`` on
+    the card) into a fresh cache dir, held ion by ion to phase 9's cold
+    oracle table (equal peak counts, |dm/z| < 5e-6, |dint| < 1e-3); the
+    stage's raw outputs for the first ions' segments on the CPU as well,
+    held to the card's within the same bounds; the ``dev`` namespace: a
+    second device-mode wrapper warm-loads every ion, an oracle-mode one
+    none."""
+    from sm_distributed_tpu_torch.ops.isocalc import (
+        IsocalcWrapper,
+        fine_structure_segments,
+    )
+    from sm_distributed_tpu_torch.ops.formula import (
+        apply_adduct,
+        parse_formula,
+    )
+    from sm_distributed_tpu_torch.ops.isocalc_torch import DeviceBlurCentroid
+
+    t_phase = time.perf_counter()
+    table = oracle["table"]
+    cfg = oracle["ds_cfg"].isotope_generation
+    pairs = list(zip(table.sfs, table.adducts))
+    want = oracle["isocalc"].pattern_table(pairs, list(table.targets))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_iso_") as cache:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dev = IsocalcWrapper(cfg, cache_dir=cache, device_blur=True,
+                             device="cuda")
+        got = dev.pattern_table(pairs, list(table.targets))
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        stage = dict(dev._device.stats)
+        assert got.sfs == want.sfs and got.adducts == want.adducts
+        assert np.array_equal(got.n_valid, want.n_valid), "peak counts differ"
+        dmz = float(np.abs(got.mzs - want.mzs).max())
+        dint = float(np.abs(got.ints - want.ints).max())
+        assert dmz < ISO_MZ_TOL and dint < ISO_INT_TOL, (dmz, dint)
+        heavy = got.n_ions - stage["ions"]
+        assert stage["ions"] > 0 and heavy >= 0, stage
+        # the namespace: device shards only, warm for device mode
+        names = [p.name for p in Path(cache).glob("theor_peaks_*")]
+        assert names and all(n.startswith(
+            f"theor_peaks_{dev._param_key()}") for n in names), names
+        warm = IsocalcWrapper(cfg, cache_dir=cache, device_blur=True,
+                              device="cuda")
+        assert len(warm._cache) == got.n_ions, len(warm._cache)
+        host = IsocalcWrapper(cfg, cache_dir=cache)
+        assert host._cache == {}, len(host._cache)
+    # the stage on the card and on the CPU over the same segments
+    params = (cfg.charge, cfg.isocalc_sigma, cfg.isocalc_pts_per_mz,
+              cfg.n_peaks)
+    segs = [s for s in (fine_structure_segments(
+        apply_adduct(parse_formula(sf), ad), *params)
+        for sf, ad in pairs[:ISO_CPU_IONS]) if s is not None]
+    on_card = DeviceBlurCentroid(*params, device="cuda")
+    on_cpu = DeviceBlurCentroid(*params, device="cpu")
+    t0 = time.perf_counter()
+    card_out = on_card.centroid_batch(segs)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_out = on_cpu.centroid_batch(segs)
+    cpu_s = time.perf_counter() - t0
+    cpu_gap = _pattern_gaps(card_out, cpu_out, "13a card vs CPU stage")
+    oracle_s = oracle["patterns_s"]
+    took = time.perf_counter() - t_phase
+    out = {"n_ions": got.n_ions, "cold_s": cold_s,
+           "oracle_cold_s": oracle_s, "oracle_gen": oracle["stats"],
+           "gen": dict(dev.last_stats), "stage": stage, "heavy_ions": heavy,
+           "peak_bytes": peak, "max_dmz": dmz, "max_dint": dint,
+           "cpu_check": {"ions": len(segs),
+                         "segments": on_cpu.stats["segments"],
+                         "card_s": card_s, "cpu_s": cpu_s,
+                         "max_dmz": cpu_gap[0], "max_dint": cpu_gap[1]},
+           "phase_s": took}
+    say(f"  [{card}] 13a device patterns: {got.n_ions} ions cold in "
+        f"{cold_s:.3f} s against phase 9's oracle {oracle_s:.3f} s "
+        f"(generation {oracle['stats'].get('seconds')} s, "
+        f"{oracle['stats'].get('workers')} workers); stage "
+        f"{stage['seconds']:.3f} s ({stage['device_s']:.3f} s on the card "
+        f"by CUDA events), {stage['calls']} calls, {stage['ions']} ions, "
+        f"{stage['segments']} segments, {stage['buckets']} buckets, "
+        f"{stage['blocks']} blocks; {heavy} heavy ions took the oracle; "
+        f"device peak {peak} B above the {base} B already allocated; worst "
+        f"|dm/z| {dmz:.3e}, |dint| {dint:.3e} against the oracle; "
+        f"namespace: {len(names)} dev shards, warm-loaded whole, invisible "
+        "to an oracle-mode wrapper")
+    say(f"  [{card}] 13a stage on the card vs on the CPU over the first "
+        f"{len(segs)} ions ({on_cpu.stats['segments']} segments): worst "
+        f"|dm/z| {cpu_gap[0]:.3e}, |dint| {cpu_gap[1]:.3e}; card "
+        f"{card_s:.3f} s, CPU {cpu_s:.3f} s")
+    return out
+
+
+def phase_profiled_search(card: str, ds, truth, main_ann, tmp: Path) -> dict:
+    """13b: the main path's data and its 100 formulas (4,944 ions) at the
+    shipped defaults with ``isocalc_device="on"`` and a cold pattern cache,
+    searched in a worker thread while this thread holds a ``ProfileSession``
+    open from before the search starts until after it ends (the service's
+    layout: the capture and the job in different threads).  Each hand
+    kernel's event count in the capture must equal its launch counter's
+    delta over the search, and the attribution's classes must add up to its
+    total.  Prints the attribution, the device stage's share of the device
+    time and the FDR ranks against phase 3's search (not gated: the
+    patterns differ within contract)."""
+    import threading
+
+    from sm_distributed_tpu_torch.analysis.profiling import ProfileSession
+    from sm_distributed_tpu_torch.models.msm_basic import MSMBasicSearch
+    from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
+
+    t_phase = time.perf_counter()
+    search = MSMBasicSearch(ds, truth.formulas, DSConfig(), SMConfig.from_dict(
+        {"fdr": {"decoy_sample_size": 20},
+         "parallel": {"isocalc_device": "on"}}))
+    done: dict = {}
+
+    def run():
+        try:
+            done["bundle"] = search.search()
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            done["error"] = exc
+
+    # the stage's wall windows: during the search's pattern phase nothing
+    # else runs on the card, so the device events that start inside them
+    # are the stage's
+    stage_obj = search.isocalc._device_stage()
+    windows: list = []
+    centroid_batch = stage_obj.centroid_batch
+
+    def timed_batch(seg_lists):
+        w0 = time.time()
+        out = centroid_batch(seg_lists)
+        windows.append((w0, time.time()))
+        return out
+
+    stage_obj.centroid_batch = timed_batch
+    session = ProfileSession(tmp / "profile13b")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    session.start()
+    start_s = time.perf_counter() - t0
+    worker = threading.Thread(target=run, name="profiled-search")
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    result = session.stop()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if "error" in done:
+        raise done["error"]
+    bundle = done["bundle"]
+    att = result["attribution"]
+    counts: dict = {}
+    for e in result["events"]:
+        counts[e["op"]] = counts.get(e["op"], 0) + 1
+    events = {k: sum(counts.get(n, 0) for n in names)
+              for k, names in PROFILED_KERNELS.items()}
+    say(f"  [{card}] 13b profiled search: wall {wall:.3f} s (capture start "
+        f"{start_s:.3f} s, duration {result['duration_s']} s); phases "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in bundle.timings.items())
+        + f"; launches {launches}; profiler events by hand kernel {events}; "
+        f"{att['n_events']} device events, {att['total_device_s']:.6f} s")
+    say(f"  [{card}] 13b attribution by class (s): {json.dumps(att['by_class_s'])}"
+        f"; top kernels: " + json.dumps(
+            [{k: x[k] for k in ("module", "op", "class", "device_s", "count")}
+             for x in att["kernels"][:12]]))
+    assert launches["moments"] > 0 and launches["chaos"] > 0, launches
+    assert events["moments"] == launches["moments"], (events, launches)
+    assert events["chaos"] == launches["chaos"], (events, launches)
+    assert events["fused_window_moments"] == \
+        launches["fused_window_moments"], (events, launches)
+    assert events["chaos_tiles"] == (launches["chaos_tiles"]
+                                     + launches["chaos_strips"]), (
+        events, launches)
+    assert abs(sum(att["by_class_s"].values()) - att["total_device_s"]) \
+        < 1e-8, att["by_class_s"]
+    stage = dict(stage_obj.stats)
+    # Kineto's ts is microseconds past the trace's baseTimeNanoseconds on
+    # the wall clock
+    import gzip
+
+    with gzip.open(result["trace_file"], "rt") as fh:
+        base_s = json.load(fh).get("baseTimeNanoseconds", 0) / 1e9
+    stage_kernel_s = sum(
+        e["dur_s"] for e in result["events"]
+        if any(w0 <= base_s + e["ts_us"] / 1e6 <= w1 for w0, w1 in windows))
+    share = stage_kernel_s / att["total_device_s"]
+    ref, got = main_ann, bundle.annotations
+    key = ["sf", "adduct"]
+    both = ref.merge(got, on=key, suffixes=("_ref", "_dev"))
+    same_order = [tuple(r) for r in ref[key].itertuples(index=False)] == [
+        tuple(r) for r in got[key].itertuples(index=False)]
+    ranks = {"annotations": [len(ref), len(got)], "same_order": same_order,
+             "fdr_level_differs": int(
+                 (both.fdr_level_ref != both.fdr_level_dev).sum()),
+             "at_10pct": [int((ref.fdr_level <= 0.1).sum()),
+                          int((got.fdr_level <= 0.1).sum())]}
+    took = time.perf_counter() - t_phase
+    say(f"  [{card}] 13b device stage: its kernels {stage_kernel_s:.6f} s "
+        f"(profiler events inside its {len(windows)} calls' windows), "
+        f"{100 * share:.2f}% of the capture's device time; its blocks span "
+        f"{stage['device_s']:.6f} s on the card's stream (CUDA events, "
+        f"launch gaps included) and {stage['seconds']:.3f} s in all, "
+        f"{stage['blocks']} blocks; FDR against phase 3 (not gated): "
+        f"{json.dumps(ranks)}")
+    return {"wall_s": wall, "timings": bundle.timings, "launches": launches,
+            "events": events, "attribution": att, "stage": stage,
+            "stage_kernel_s": stage_kernel_s,
+            "stage_share": share, "capture_start_s": start_s,
+            "duration_s": result["duration_s"], "ranks": ranks,
+            "phase_s": took}
+
+
+def phase_profile_route(card: str, tmp: Path) -> dict:
+    """13c: ``GET /debug/profile`` in an ``AnnotationService`` with phase
+    11's knobs: ``?seconds=1`` answers 200 with the JAX response's keys,
+    ``?seconds=-1`` 400, two at once one 200 and one 409, captures of 1 s
+    one after another while a 32x32 job runs (their running jobs, device
+    events and injected spans printed, not gated; the job's trace holds
+    every injected span), ``sm_profile_captures_total`` counting the
+    completed captures; a service with ``telemetry.profile.enabled`` false
+    answers 404."""
+    import threading
+
+    from sm_distributed_tpu_torch.engine.daemon import annotate_callback
+    from sm_distributed_tpu_torch.io.fixtures import generate_synthetic_dataset
+    from sm_distributed_tpu_torch.service import AnnotationService
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    t_phase = time.perf_counter()
+    sm = SMConfig.from_dict({
+        **SERVICE_SM, "work_dir": str(tmp / "work13"),
+        "storage": {"results_dir": str(tmp / "results13")}})
+    service = AnnotationService(tmp / "profile_q", annotate_callback(sm),
+                                sm_config=sm)
+    service.start()
+    codes: dict = {}
+    try:
+        base = "http://%s:%d" % service.api.address
+        status, one = _http(base, "/debug/profile?seconds=1")
+        assert status == 200 and set(one) == PROFILE_KEYS, (status, one)
+        codes["seconds=1"] = status
+        status, bad = _http(base, "/debug/profile?seconds=-1")
+        assert status == 400 and bad["reason"] == "invalid_request", bad
+        codes["seconds=-1"] = status
+        pair: list = []
+        threads = [threading.Thread(target=lambda: pair.append(
+            _http(base, "/debug/profile?seconds=1"))) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert sorted(st for st, _ in pair) == [200, 409], pair
+        codes["concurrent"] = sorted(st for st, _ in pair)
+        # captures of 1 s, one after another, while a 32x32 job runs
+        path, truth = generate_synthetic_dataset(
+            tmp / "small13", nrows=32, ncols=32, present_fraction=0.6,
+            noise_peaks=50, seed=3)
+        _, sub = _http(base, "/submit", "POST", {
+            "ds_id": "small13", "input_path": str(path),
+            "formulas": list(truth.formulas[:10])})
+        live: list = []
+        deadline = time.time() + 300
+        while time.time() < deadline and len(live) < LIVE_CAPTURES:
+            rows = {j["msg_id"]: j for j in _http(base, "/jobs")[1]}
+            state = rows.get(sub["msg_id"], {}).get("state")
+            if state in ("done", "failed", "cancelled", "quarantined"):
+                break
+            if state != "running":
+                time.sleep(0.02)
+                continue
+            status, cap = _http(base, "/debug/profile?seconds=1")
+            assert status == 200, (status, cap)
+            live.append({"jobs_running": cap["jobs_running"],
+                         "injected_spans": cap["injected_spans"],
+                         "device_events": cap["attribution"]["n_events"],
+                         "device_s": cap["attribution"]["total_device_s"]})
+        row = _wait_jobs(base, [sub["msg_id"]], 300)[sub["msg_id"]]
+        assert row["state"] == "done", row
+        metrics = _http(base, "/metrics")[1]
+        n_caps = 2 + len(live)
+        assert f"sm_profile_captures_total {n_caps}" in metrics, [
+            ln for ln in metrics.splitlines() if "profile" in ln]
+        trace = _http(base, f"/jobs/{sub['msg_id']}/trace?raw=1")[1]
+        spans = sum(r["name"] == "device_kernel" for r in trace["records"])
+        assert spans == sum(c["injected_spans"] for c in live), spans
+        status, other = _http(base, "/debug/compile")
+        assert status == 404 and "item 9b" in other["error"], other
+    finally:
+        assert service.shutdown(), "service did not drain"
+    off_sm = SMConfig.from_dict({
+        **SERVICE_SM, "work_dir": str(tmp / "work13off"),
+        "storage": {"results_dir": str(tmp / "results13off")},
+        "telemetry": {**SERVICE_SM["telemetry"],
+                      "profile": {"enabled": False}}})
+    off = AnnotationService(tmp / "profile_off_q", annotate_callback(off_sm),
+                            sm_config=off_sm)
+    off.start()
+    try:
+        status, body = _http("http://%s:%d" % off.api.address,
+                             "/debug/profile?seconds=1")
+        assert status == 404 and body["reason"] == "not_found", body
+        codes["disabled"] = status
+    finally:
+        assert off.shutdown(), "disabled service did not drain"
+    took = time.perf_counter() - t_phase
+    say(f"  [{card}] 13c /debug/profile: codes {codes}; the first capture "
+        f"{one['duration_s']} s for seconds {one['seconds']}, "
+        f"{one['attribution']['n_events']} device events on an idle card; "
+        f"{len(live)} captures of 1 s while the 32x32 job ran: "
+        f"{json.dumps(live)}; its trace holds {spans} device_kernel spans; "
+        f"sm_profile_captures_total {n_caps}; /debug/compile 404 naming "
+        "item 9b")
+    return {"codes": codes, "first_duration_s": one["duration_s"],
+            "live": live, "trace_device_spans": spans, "phase_s": took}
+
+
 class OtherPort:
     """The moments, fused and chaos wrappers of another checkout's port
     (``--ab DIR``), imported under the package name ``ab_port``: its kernels
@@ -3745,16 +4123,36 @@ def main() -> int:
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
                              "n_ions", "n_peaks", "drift", "recall",
                              "batch_ms", "variant_counts")}))
-    del ds, truth, search, backend, main
+    # phase 13b searches the main path's dataset again
+    main_ann = main["bundle"].annotations
+    del search, backend, main
     torch.cuda.empty_cache()
     strips_entry, slide = phase_whole_slide(
         dev, ds_cfg.image_generation.nlevels, ab)
     lap("whole_slide")
     _breaker_closed(2, "phase 8")
     torch.cuda.empty_cache()
-    ordered = phase_ordered_stream()
+    ordered, oracle = phase_ordered_stream()
     lap("ordered_stream")
     _breaker_closed(2, "phase 9")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_13_") as tmp13:
+        patterns13 = phase_device_patterns(card, oracle)
+        del oracle
+        lap("device_patterns")
+        profiled = phase_profiled_search(card, ds, truth, main_ann,
+                                         Path(tmp13))
+        lap("profiled_search")
+        torch.cuda.empty_cache()
+        route = phase_profile_route(card, Path(tmp13))
+        lap("profile_route")
+    _breaker_closed(2, "phase 13")
+    say(f"phase 13 device patterns and the profiler [{card}]: "
+        f"{patterns13['phase_s'] + profiled['phase_s'] + route['phase_s']:.1f}"
+        f" s; {patterns13['n_ions']} device patterns within the oracle's "
+        "bounds, profiler events equal to the launch counters, "
+        "/debug/profile codes as the JAX package's")
+    del ds, truth
     say("job path: " + json.dumps({k: job[k] for k in (
         "runs", "inproc_wall_s", "inproc_timings", "hbm", "phase_s",
         "steps_s")}))
@@ -3769,6 +4167,10 @@ def main() -> int:
         {k: v for k, v in service.items() if k != "launches"}))
     say(f"read path and stream [{card}]: " + json.dumps(
         {k: v for k, v in stream.items() if k != "launches"}))
+    say(f"device patterns and the profiler [{card}]: " + json.dumps(
+        {"13a": patterns13, "13b": {k: v for k, v in profiled.items()
+                                    if k != "attribution"},
+         "13c": route}))
     # the moments kernel's error: the largest over phase 4's blocks and the
     # whole-slide block of phase 8
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
@@ -3785,6 +4187,7 @@ def main() -> int:
             job: counts[entry["name"]]
             for job, counts in service["launches"].items()}
         entry["stream_launches"] = stream["launches"][entry["name"]]
+        entry["profile_launches"] = profiled["events"][entry["name"]]
     _breaker_closed(2, "the script")
     say(f"  [{card}] 10.4 no host fallback: after every phase the device "
         "breaker was closed, the two refused jobs are step 10.3's, and no "

@@ -259,11 +259,19 @@ def lease_device(device: str, device_indices=None) -> str:
 
 def make_isocalc(ds_config: DSConfig, sm_config: SMConfig,
                  cache_dir: str | None) -> IsocalcWrapper:
-    """IsocalcWrapper wired to the engine's ``parallel.isocalc_*`` knobs."""
+    """IsocalcWrapper wired to the engine's ``parallel.isocalc_*`` knobs.
+    The device stage runs on the search's device (``sm_config.device``),
+    outside any device-pool lease, as the JAX package's runs on its default
+    device."""
     par = sm_config.parallel
     return IsocalcWrapper(ds_config.isotope_generation, cache_dir=cache_dir,
                           n_procs=par.isocalc_workers or None,
-                          chunk_size=par.isocalc_chunk)
+                          # "on" forces the device stage; "off" leaves the
+                          # decision to the SM_ISOCALC_DEVICE env (None)
+                          device_blur=(True if par.isocalc_device == "on"
+                                       else None),
+                          chunk_size=par.isocalc_chunk,
+                          device=sm_config.device)
 
 
 class IsotopePrefetch:
@@ -509,9 +517,7 @@ class MSMBasicSearch:
         overlapped ``numpy_ref`` path scores leading groups while generation
         runs): instead of the pattern m/z block it hashes what determines
         it — the ion list, the isotope-generation params,
-        ``ISOCALC_PATTERN_VERSION`` and the device-blur flag, which is
-        False until ``isocalc_device="on"`` is ported (ROADMAP queue 1 item
-        8)."""
+        ``ISOCALC_PATTERN_VERSION`` and the device-blur flag."""
         img = self.ds_config.image_generation
         par = self.sm_config.parallel
         iso = self.ds_config.isotope_generation
@@ -525,7 +531,7 @@ class MSMBasicSearch:
         h.update("\x00".join(table.adducts).encode())
         h.update(repr((iso.charge, iso.isocalc_sigma, iso.isocalc_pts_per_mz,
                        iso.n_peaks, ISOCALC_PATTERN_VERSION,
-                       False)).encode())
+                       bool(self.isocalc.device_blur))).encode())
         return h.hexdigest()
 
     def _hash_dataset(self, h) -> None:

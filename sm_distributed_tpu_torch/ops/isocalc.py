@@ -20,8 +20,15 @@ base file past 64.
 Cache-shard writes pass the service's disk governor
 (``service/resources.py``): skipped under disk pressure, denied at the hard
 floor; the service exports the generation counters (``attach_metrics``).
-Not in the port yet: the device blur stage (``parallel.isocalc_device``,
-ROADMAP queue 1 item 8).
+
+Device mode (``device_blur=True``, ``parallel.isocalc_device="on"`` or env
+``SM_ISOCALC_DEVICE=1``): workers emit each ion's fine-structure segments
+(``fine_structure_segments``) and the blur, centroid detection and top
+``n_peaks`` run batched on the search's torch device
+(``ops/isocalc_torch.py``); heavy ions past the stage's caps take the exact
+host oracle.  The patterns agree with the oracle to ~1e-5, not bit-exactly,
+so they live under their own cache key (``dev<key>``, the JAX package's).
+Workers stay free of torch: the stage runs in the parent process.
 """
 
 from __future__ import annotations
@@ -300,6 +307,60 @@ class IsotopePatternTable:
 # mid-search checkpoint resume against silently different patterns.
 ISOCALC_PATTERN_VERSION = 1
 
+# ---------------------------------------------------------------------------
+# fine-structure segments (host prep for the device blur stage)
+#
+# Windowed states cluster at isotope spacings (~1/|z| Da) while the blur
+# support is only 5*sigma, so the profile decomposes into a handful of short
+# independent segments, each evaluated densely on the device
+# (ops/isocalc_torch.py) without a scatter.
+
+# per-segment grid cap (points).  At the shipped 10k pts/mz this allows a
+# ~53 mDa state span per segment; typical isotope clusters span a few mDa.
+SEGMENT_GRID_CAP = 1536
+
+
+def fine_structure_segments(
+    counts: dict[str, int],
+    charge: int,
+    isocalc_sigma: float,
+    isocalc_pts_per_mz: int,
+    n_peaks: int,
+) -> list[tuple[float, np.ndarray, np.ndarray, int]] | None:
+    """Windowed ion fine structure, split into blur-independent segments.
+
+    Returns ``[(seg_lo, m_rel, abunds, npts), ...]`` — per segment the f64
+    grid origin (min state - 5 sigma), state positions relative to it, their
+    abundances, and the segment grid length — or ``None`` when the ion does
+    not fit the device stage's static caps (over ``n_peaks + 4`` segments, or
+    a segment wider than SEGMENT_GRID_CAP): such heavy ions take the exact
+    NumPy oracle instead.
+
+    Segments are cut where the state gap exceeds ``2*pad + 2*step``: beyond
+    that distance the oracle's truncated per-state windows cannot reach
+    across the cut either, so evaluating segments independently drops only
+    contributions the oracle drops too.
+    """
+    masses, abunds = fine_structure(counts)
+    mzs = (masses - charge * elements.ELECTRON_MASS) / abs(charge)
+    lo = mzs.min()
+    keep = mzs <= lo + (n_peaks + 2) / abs(charge)
+    mzs, abunds = mzs[keep], abunds[keep]
+    step = 1.0 / isocalc_pts_per_mz
+    pad = 5.0 * isocalc_sigma
+    cuts = np.nonzero(np.diff(mzs) > 2 * pad + 2 * step)[0] + 1
+    segs: list[tuple[float, np.ndarray, np.ndarray, int]] = []
+    for s, e in zip(np.r_[0, cuts], np.r_[cuts, mzs.size]):
+        m, a = mzs[s:e], abunds[s:e]
+        seg_lo = float(m[0]) - pad
+        npts = int(np.ceil((m[-1] + pad - seg_lo) / step)) + 1
+        if npts > SEGMENT_GRID_CAP:
+            return None
+        segs.append((seg_lo, m - seg_lo, a, npts))
+    if len(segs) > n_peaks + 4:
+        return None
+    return segs
+
 
 FP_ISO_WORKER = register_failpoint(
     "isocalc.worker",
@@ -339,28 +400,41 @@ def _pool_init(failpoint_spec: str | None) -> None:
 def _compute_chunk(args):
     """Compute one chunk of pre-validated (sf, adduct) pairs, in a spawned
     pool worker or inline.  Returns ``(ci, outputs, trace_records)``, each
-    output ``(ion, mzs, ints)``; with a wire trace context the chunk's span
-    is captured (the worker has no sinks) and returned for the parent
-    process to emit."""
-    ci, pairs, params, wire = args
+    output
+
+    - ``("pat", ion, mzs, ints)``: a finished host-computed pattern, or
+    - ``("seg", ion, segments)``: fine-structure segments for the device
+      blur->centroid stage (device mode; heavy ions still arrive as "pat"
+      through the exact oracle).
+
+    With a wire trace context the chunk's span is captured (the worker has
+    no sinks) and returned for the parent process to emit."""
+    ci, pairs, params, device, wire = args
     ctx = tracing.TraceContext.from_wire(wire)
     if ctx is None:
-        return ci, _compute_chunk_body(pairs, params), []
+        return ci, _compute_chunk_body(pairs, params, device), []
     with tracing.capture() as records:
         with tracing.span("isocalc_chunk", ctx=ctx, ci=ci,
                           n_pairs=len(pairs), worker_pid=os.getpid()):
-            out = _compute_chunk_body(pairs, params)
+            out = _compute_chunk_body(pairs, params, device)
     return ci, out, records
 
 
-def _compute_chunk_body(pairs, params):
+def _compute_chunk_body(pairs, params, device):
     failpoint(FP_ISO_WORKER)
     charge, sigma, pts_per_mz, n_peaks = params
     out = []
     for sf, adduct in pairs:
         counts = apply_adduct(parse_formula(sf), adduct)
+        ion = f"{sf}{adduct}"
+        if device:
+            segs = fine_structure_segments(
+                counts, charge, sigma, pts_per_mz, n_peaks)
+            if segs is not None:
+                out.append(("seg", ion, segs))
+                continue
         mzs, ints = centroids(counts, charge, sigma, pts_per_mz, n_peaks)
-        out.append((f"{sf}{adduct}", mzs, ints))
+        out.append(("pat", ion, mzs, ints))
     return out
 
 
@@ -569,15 +643,27 @@ class PatternStream:
             seconds=round(self.gen_seconds, 3),
             patterns_per_s=round(self.patterns_per_s, 2),
             workers=self.workers,
+            device=self.wrapper.device_blur,
         )
         with self._cond:
             self._cond.notify_all()
 
     def _deliver(self, ci: int, outputs: list, records: list | None) -> None:
-        """Commit one completed chunk: its cache shard, its table rows, the
-        prefix; emit the worker's captured trace spans."""
+        """Commit one completed chunk: device-finish its segment outputs,
+        then its cache shard, its table rows, the prefix; emit the worker's
+        captured trace spans."""
         tracing.emit_records(records, tracing.current())
-        entries = {ion: (mzs, ints) for ion, mzs, ints in outputs}
+        entries: dict[str, tuple[np.ndarray, np.ndarray]] = {}
+        seg_ions = [(o[1], o[2]) for o in outputs if o[0] == "seg"]
+        if seg_ions:
+            finished = self.wrapper._device_stage().centroid_batch(
+                [segs for _ion, segs in seg_ions])
+            for (ion, _segs), (mzs, ints) in zip(seg_ions, finished):
+                entries[ion] = (mzs, ints)
+        for o in outputs:
+            if o[0] == "pat":
+                _kind, ion, mzs, ints = o
+                entries[ion] = (mzs, ints)
         self.wrapper._commit_chunk_shard(self._job_tag, ci, entries)
         with self._cond:
             for ion, (mzs, ints) in entries.items():
@@ -601,6 +687,7 @@ class PatternStream:
         n_procs = wrapper.n_procs or int(os.environ.get(
             "SM_ISOCALC_PROCS", os.cpu_count() or 1))
         params = wrapper._params()
+        device = wrapper.device_blur
         use_pool = self.n_missing >= _PARALLEL_THRESHOLD and n_procs > 1
         self.workers = n_procs if use_pool else 1
         buffered: dict[int, tuple] = {}
@@ -620,7 +707,7 @@ class PatternStream:
                 if self._cancel.is_set():
                     return
                 _ci, outputs, records = _compute_chunk(
-                    (ci, chunk, params, wire))
+                    (ci, chunk, params, device, wire))
                 buffered[ci] = (outputs, records)
                 commit_ready()
             return
@@ -643,7 +730,8 @@ class PatternStream:
                 initializer=_pool_init, initargs=(spec,))
             try:
                 futs = {ex.submit(_compute_chunk,
-                                  (ci, self._chunks[ci], params, wire)): ci
+                                  (ci, self._chunks[ci], params, device,
+                                   wire)): ci
                         for ci in sorted(remaining)}
                 for fut in as_completed(futs):
                     ci = futs[fut]
@@ -676,7 +764,7 @@ class PatternStream:
                 return
             record_recovery("isocalc.chunk_inline")
             _ci, outputs, records = _compute_chunk(
-                (ci, self._chunks[ci], params, wire))
+                (ci, self._chunks[ci], params, device, wire))
             buffered[ci] = (outputs, records)
             commit_ready()
 
@@ -689,17 +777,32 @@ class IsocalcWrapper:
     cache are computed; ``n_procs`` caps the spawn pool (None = all cores;
     env ``SM_ISOCALC_PROCS``), ``chunk_size`` the pairs a chunk and shard
     (0 = 2048; env ``SM_ISOCALC_CHUNK``).  Without ``cache_dir`` patterns
-    live in this wrapper's memory only."""
+    live in this wrapper's memory only.
+
+    ``device_blur`` (None: env ``SM_ISOCALC_DEVICE=1`` opts in) routes the
+    blur and centroid detection of every ion that fits the stage's caps
+    through ``ops/isocalc_torch.py`` on the torch ``device`` (default
+    ``"cuda"``; a CUDA device that is not there raises, with no fallback to
+    the host oracle).  Device-mode patterns live under their own cache key,
+    never mixed with the oracle's."""
 
     _COMPACT_SHARDS = 64
 
     def __init__(self, cfg: IsotopeGenerationConfig,
                  cache_dir: str | Path | None = None,
-                 n_procs: int | None = None, chunk_size: int = 0):
+                 n_procs: int | None = None,
+                 device_blur: bool | None = None, chunk_size: int = 0,
+                 device: str = "cuda"):
         self.cfg = cfg
         self.cache_dir = Path(cache_dir) if cache_dir else None
         self.n_procs = n_procs
         self.chunk_size = chunk_size
+        if device_blur is None:
+            device_blur = os.environ.get("SM_ISOCALC_DEVICE", "") not in (
+                "", "0")
+        self.device_blur = bool(device_blur)
+        self.device = device
+        self._device = None
         self._lock = threading.RLock()
         self._cache: dict[str, tuple[np.ndarray, np.ndarray]] = {}
         self._dirty: dict[str, tuple[np.ndarray, np.ndarray]] = {}
@@ -761,13 +864,16 @@ class IsocalcWrapper:
         return out
 
     def _param_key(self) -> str:
-        """The JAX package's key of the host-computed patterns' parameters
-        (its device-blur patterns live under another key)."""
+        """The JAX package's key of the patterns' parameters.  Device-mode
+        patterns agree with the oracle only to ~1e-5: they take their own
+        namespace, a "dev" PREFIX (the shard glob is "theor_peaks_<key>*",
+        which a suffixed key would still match)."""
         c = self.cfg
         blob = json.dumps(
             [c.charge, c.isocalc_sigma, c.isocalc_pts_per_mz, c.n_peaks],
             sort_keys=True)
-        return hashlib.sha256(blob.encode()).hexdigest()[:16]
+        key = hashlib.sha256(blob.encode()).hexdigest()[:16]
+        return f"dev{key}" if self.device_blur else key
 
     def _shard_paths(self) -> list[Path]:
         return sorted(self.cache_dir.glob(
@@ -875,10 +981,21 @@ class IsocalcWrapper:
         c = self.cfg
         return (c.charge, c.isocalc_sigma, c.isocalc_pts_per_mz, c.n_peaks)
 
+    def _device_stage(self):
+        """The lazy ``DeviceBlurCentroid`` (imports torch only in device
+        mode, and only in this process: pool workers never reach it)."""
+        if self._device is None:
+            from .isocalc_torch import DeviceBlurCentroid
+
+            self._device = DeviceBlurCentroid(*self._params(),
+                                              device=self.device)
+        return self._device
+
     def isotope_peaks(self, sf: str, adduct: str
                       ) -> tuple[np.ndarray, np.ndarray] | None:
         """Centroided (mzs, ints) for formula+adduct, or None if the
-        chemistry is invalid (e.g. '-H' from an H-free formula)."""
+        chemistry is invalid (e.g. '-H' from an H-free formula).  Host
+        oracle unless device mode is on."""
         ion = f"{sf}{adduct}"
         with self._lock:
             hit = self._cache.get(ion)
@@ -888,7 +1005,12 @@ class IsocalcWrapper:
             counts = apply_adduct(parse_formula(sf), adduct)
         except FormulaError:
             return None
-        peaks = centroids(counts, *self._params())
+        segs = (fine_structure_segments(counts, *self._params())
+                if self.device_blur else None)
+        if segs is not None:
+            peaks = self._device_stage().centroid_batch([segs])[0]
+        else:
+            peaks = centroids(counts, *self._params())
         with self._lock:
             self._cache[ion] = peaks
             self._dirty[ion] = peaks

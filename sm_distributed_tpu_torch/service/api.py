@@ -46,6 +46,11 @@ status codes for what the port serves.  Endpoints:
   (``service/health.py``), lease holders, probe/quarantine/readmit/
   host-eviction totals, and the breaker's state;
 - ``GET /peers``  the replica registry view;
+- ``GET /debug/profile?seconds=``  single-flight on-demand
+  ``torch.profiler`` capture around in-flight work: per-kernel device-time
+  attribution (fused moments kernel vs scoring chain vs transfers) +
+  ``device_kernel`` spans injected into running jobs' traces (409 while
+  another capture runs, 404 when ``telemetry.profile.enabled`` is off);
 - ``GET /datasets`` / ``GET /datasets/<id>/annotations`` /
   ``GET /annotations`` / ``GET /datasets/<id>/images/<sf_adduct>``  the
   result read path (``service/readpath.py``): dataset listing,
@@ -59,7 +64,7 @@ status codes for what the port serves.  Endpoints:
 
 Routes of the JAX package whose modules are not in the port yet answer
 **404** with a JSON body naming the ROADMAP item (queue 1 item 9b): the
-fleet view (``/fleet/*``), ``/debug/profile`` and ``/debug/compile``.
+fleet view (``/fleet/*``) and ``/debug/compile``.
 
 ``ThreadingHTTPServer`` keeps scrapes responsive while workers run; every
 handler is read-only except ``/submit`` (appends to ``pending/``) and
@@ -78,7 +83,7 @@ from ..utils import tracing
 from ..utils.logger import logger
 
 # the JAX package's routes whose modules the port does not have yet
-_NOT_PORTED_GET = ("/fleet/", "/debug/profile", "/debug/compile")
+_NOT_PORTED_GET = ("/fleet/", "/debug/compile")
 
 
 def _not_ported(what: str) -> tuple[int, dict]:
@@ -216,6 +221,18 @@ class AdminAPI:
                         self._reply_json(status, body)
                     elif url.path == "/peers":
                         self._reply_json(200, api._peers())
+                    elif url.path == "/debug/profile":
+                        q = parse_qs(url.query)
+                        s = q.get("seconds", [None])[0]
+                        try:
+                            seconds = float(s) if s else None
+                        except ValueError:
+                            self._reply_json(
+                                400, {"error": "'seconds' must be a number",
+                                      "reason": "invalid_request"})
+                            return
+                        status, body = api._profile(seconds)
+                        self._reply_json(status, body)
                     elif url.path.startswith(_NOT_PORTED_GET):
                         self._reply_json(*_not_ported(f"GET {url.path}"))
                     elif url.path == "/datasets" or url.path == "/annotations" \
@@ -564,6 +581,17 @@ class AdminAPI:
             return 404, {"error": "resource governor not configured",
                          "reason": "not_found"}
         return 200, governor.snapshot()
+
+    def _profile(self, seconds: float | None) -> tuple[int, dict]:
+        """``GET /debug/profile?seconds=`` — single-flight
+        ``torch.profiler`` capture around in-flight work: per-kernel device
+        time attribution + ``device_kernel`` span injection into running
+        jobs' traces.  409 while another capture runs."""
+        prof = getattr(self.service, "profiler", None)
+        if prof is None:
+            return 404, {"error": "device profiler not configured",
+                         "reason": "not_found"}
+        return prof.run(seconds)
 
     def _peers(self) -> dict:
         """``GET /peers`` — the replica registry view: this

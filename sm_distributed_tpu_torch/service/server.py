@@ -9,10 +9,10 @@ claimed-but-unstarted messages, drain running jobs, then stop the API —
 ``running/`` is empty on a clean exit, so a restart resumes exactly the
 pending backlog.  The device pool has one chip per visible CUDA device for
 a ``torch_cuda`` service on the card (none there raises), one for
-``numpy_ref`` or ``device="cpu"``.  The stream ingest and the read path are
-wired as in the JAX package.  Not wired yet (ROADMAP queue 1 item 9b): the
-cache primer, compile attribution, the fleet view and the device
-profiler.
+``numpy_ref`` or ``device="cpu"``.  The stream ingest, the read path and
+the device profiler (``GET /debug/profile``) are wired as in the JAX
+package.  Not wired yet (ROADMAP queue 1 item 9b): the cache primer,
+compile attribution and the fleet view.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from ..utils.logger import add_phase_observer, logger, remove_phase_observer
 from .admission import AdmissionController
 from .api import AdminAPI
 from .device_pool import DevicePool, resolve_pool_size
+from .fleetview import DeviceProfiler
 from .metrics import MetricsRegistry, build_info_collector, process_collector
 from .resources import ResourceGovernor, set_governor
 from .scheduler import JobScheduler
@@ -192,6 +193,9 @@ class AnnotationService:
             self.metrics.add_collector(self._collect_residency)
         self.api = AdminAPI(self, host=cfg.http_host,
                             port=cfg.http_port) if with_api else None
+        # GET /debug/profile: on-demand torch.profiler capture around the
+        # jobs in flight
+        self.profiler = DeviceProfiler(self, self.sm_config.telemetry.profile)
         # the admin address, pool occupancy and in-flight stream count are
         # gossiped through registry heartbeats so peers can find this
         # replica without another channel — the API binds its socket in

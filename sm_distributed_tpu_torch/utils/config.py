@@ -19,10 +19,12 @@ it holds the JAX package's default: the ``service`` blocks ``fleet`` and
 the port accepts only disabled (item 9b); the ``read`` block (the read path,
 enabled by default as in the JAX package) and the ``stream`` block (live
 acquisition ingest) take every value the JAX package does;
-``telemetry.profile`` and ``telemetry.retrace`` and
-``parallel.compile_cache_dir`` (item 9b); ``service.devices_per_job`` above
-1, ``parallel.isocalc_device="on"`` (item 8) and the JAX package's mesh and
+``telemetry.retrace`` and ``parallel.compile_cache_dir`` (item 9b);
+``service.devices_per_job`` above 1 and the JAX package's mesh and
 multi-host knobs (item 7); and the values listed on each dataclass.
+``telemetry.profile`` (``GET /debug/profile`` through ``torch.profiler``)
+and ``parallel.isocalc_device`` ("on": isotope patterns blurred and
+centroided on the search's device) take every value the JAX package does.
 ``peak_compaction`` and ``band_slice`` take every value the JAX package
 does: ``"auto"`` lets the backend pick the plain, band or compact variant
 for each batch by its estimated cost on the card, ``"on"`` forces one (band
@@ -75,9 +77,6 @@ _NOT_YET = {
     **{("ServiceConfig", k): ("queue 1 item 9b", v)
        for k, v in _SERVICE_ACCEPTED.items()},
     ("TelemetryConfig", "retrace"): ("queue 1 item 9b", True),
-    ("TelemetryConfig", "profile"): ("queue 1 item 9b", {
-        "enabled": True, "default_seconds": 2.0, "max_seconds": 30.0,
-        "dir": ""}),
     ("ParallelConfig", "compile_cache_dir"): ("queue 1 item 9b", ""),
     ("ParallelConfig", "pixels_axis"): ("queue 1 item 7", -1),
     ("ParallelConfig", "formulas_axis"): ("queue 1 item 7", 1),
@@ -250,9 +249,6 @@ class ParallelConfig:
             raise ValueError("parallel: formula_batch must be positive and "
                              "isocalc_workers, isocalc_chunk, "
                              "checkpoint_every and resident_datasets >= 0")
-        if self.isocalc_device == "on":
-            raise _not_in_slice("parallel.isocalc_device='on' (device "
-                                "isotope-pattern blur)", "queue 1 item 8")
 
 
 @dataclass(frozen=True)
@@ -514,13 +510,35 @@ class ServiceConfig:
 
 
 @dataclass(frozen=True)
+class ProfileConfig:
+    """On-demand device profiling (``service/fleetview.py``): ``GET
+    /debug/profile?seconds=`` runs a ``torch.profiler`` capture around
+    in-flight work, attributes device time per kernel, and injects
+    ``device_kernel`` spans into live job traces.  The JAX package's knobs
+    and defaults."""
+    enabled: bool = True                 # serve /debug/profile
+    default_seconds: float = 2.0         # capture window when ?seconds= is
+                                         # omitted
+    max_seconds: float = 30.0            # hard cap on a requested window (a
+                                         # profile holds the single-flight
+                                         # slot for its whole duration)
+    dir: str = ""                        # capture dir; "" = <work_dir>/profiles
+
+    def __post_init__(self):
+        if not 0 < self.default_seconds <= self.max_seconds:
+            raise ValueError("profile: need 0 < default_seconds <= "
+                             "max_seconds")
+
+
+@dataclass(frozen=True)
 class TelemetryConfig:
     """Quantitative telemetry (service/telemetry.py): the device-memory
     monitor + metric-snapshot time-series ring behind ``GET
-    /debug/timeseries``, and the SLO objectives ``GET /slo`` reports
-    attainment/error-budget burn against.  The JAX package's ``retrace``
-    and ``profile`` (compile attribution, ``/debug/profile``) are accepted
-    at their defaults (ROADMAP queue 1 item 9b)."""
+    /debug/timeseries``, the SLO objectives ``GET /slo`` reports
+    attainment/error-budget burn against, and the device profiler behind
+    ``GET /debug/profile`` (``profile``).  The JAX package's ``retrace``
+    (compile attribution) is accepted at its default (ROADMAP queue 1 item
+    9b)."""
     enabled: bool = True                 # start the sampling thread
     sample_interval_s: float = 5.0       # device/occupancy sample cadence
     timeseries_len: int = 720            # snapshot ring capacity (1 h @ 5 s)
@@ -533,6 +551,7 @@ class TelemetryConfig:
     slo_stream_partial_s: float = 30.0   # stream chunk commit -> provisional
                                          # partial served
     slo_target: float = 0.99
+    profile: ProfileConfig = field(default_factory=ProfileConfig)
 
     def __post_init__(self):
         if self.sample_interval_s <= 0 or self.timeseries_len <= 0:
@@ -715,6 +734,7 @@ _DATACLASS_FIELDS = {
     ("SMConfig", "storage"): StorageConfig,
     ("SMConfig", "tracing"): TracingConfig,
     ("SMConfig", "telemetry"): TelemetryConfig,
+    ("TelemetryConfig", "profile"): ProfileConfig,
     ("SMConfig", "resources"): ResourcesConfig,
     ("SMConfig", "logs"): LogsConfig,
     ("ServiceConfig", "admission"): AdmissionConfig,

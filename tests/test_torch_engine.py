@@ -526,7 +526,7 @@ def test_isotope_prefetch_matches_plain_search(tmp_path):
     ({"telemetry": {"retrace": False}}, "item 9"),
     ({"service": {"prime": {"idle_after_s": 60.0}}}, "item 9"),
     ({"parallel": {"num_processes": 2}}, "item 7"),
-    ({"parallel": {"isocalc_device": "on"}}, "item 8"),
+    ({"parallel": {"coordinator_address": "localhost:1"}}, "item 7"),
     ({"parallel": {"pixels_axis": 2}}, "item 7"),
     ({"parallel": {"compile_cache_dir": "/x"}}, "item 9"),
 ])

@@ -248,7 +248,7 @@ def test_fused_wrapper_on_cpu_uses_plain_version():
 
 
 @pytest.mark.parametrize("section,knob,value", [
-    ("parallel", "isocalc_device", "on"),
+    ("service", "prime", {"enabled": True}),
     ("service", "devices_per_job", 2),
 ])
 def test_values_outside_the_slice_raise(section, knob, value):
@@ -270,6 +270,7 @@ def test_values_outside_the_slice_raise(section, knob, value):
     ("do_preprocessing", True),
     ("cube_dtype", "bf16"), ("cube_dtype", "int8"),
     ("checkpoint_every", 3),
+    ("isocalc_device", "on"),
 ])
 def test_values_inside_the_slice_are_accepted(knob, value):
     from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig

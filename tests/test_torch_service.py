@@ -8,8 +8,9 @@
   on the same dataset, and its FDR levels and msm ranks are identical to
   the JAX package's service run of the same dataset;
 - the admin API: every route the port serves answers as the JAX package's
-  (the read path and the stream seam with the default config), the routes
-  of modules not yet ported answer 404 naming their ROADMAP item, and
+  (the read path, the stream seam and ``/debug/profile`` with the default
+  config), the routes of modules not yet ported answer 404 naming their
+  ROADMAP item, and
   ``DELETE /jobs/<id>`` cancels a waiting job;
 - no host fallback: a ``torch_cuda`` job meeting an open breaker is
   refused on each attempt and dead-lettered.
@@ -276,11 +277,17 @@ def test_admin_api_routes(tmp_path):
         assert peers["replica_id"] == "r0"
 
         for route in ("/fleet/status", "/fleet/metrics",
-                      "/debug/profile?seconds=1", "/debug/compile"):
+                      "/fleet/slo", "/debug/compile"):
             with pytest.raises(urllib.error.HTTPError) as err:
                 _get(base + route)
             assert err.value.code == 404
             assert "item 9b" in json.loads(err.value.read())["error"]
+        # /debug/profile is served (a torch.profiler capture; no device
+        # events on the CPU)
+        status, body = _get(base + "/debug/profile?seconds=0.1")
+        prof = json.loads(body)
+        assert status == 200 and prof["seconds"] == 0.1
+        assert prof["attribution"]["n_events"] == 0
         # the read path, served with the default config: nothing stored yet
         assert json.loads(_get(base + "/datasets")[1]) == {"datasets": []}
         cohort = json.loads(_get(base + "/annotations?sf=C6H12O6")[1])
