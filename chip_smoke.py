@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives eleven paths (seven of the library search, the job path,
-the service, the service's read path and stream ingest, and a device-mode
-isotope search under the profiler), each with the kernel launch counts set
-to 0 just before it and read just after:
+nvcc and drives twelve paths (seven of the library search, the job path,
+the service, the service's read path and stream ingest, a device-mode
+isotope search under the profiler, and the main path on meshes of
+devices), each with the kernel launch counts set to 0 just before it and
+read just after:
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -117,7 +118,24 @@ to 0 just before it and read just after:
   the device time printed; 13c drives ``GET /debug/profile`` in a service
   (200 with the JAX response's keys, 400, one 200 and one 409 at once,
   captures during a 32x32 job whose injected spans land in its trace,
-  ``sm_profile_captures_total``, 404 when disabled).
+  ``sm_profile_captures_total``, 404 when disabled);
+- the main path on ("pixels", "formulas") meshes (phase 14, after phase
+  12, on phase 3's dataset, search object and warm patterns): 14a its
+  4,944 ions through ``MSMBasicSearch`` on a 2x2 mesh of ``cuda:0``
+  repeated (``make_torch_backend`` from an explicit device list), every
+  metric row, annotation and FDR rank bit-equal to phase 3's, batch 0's
+  ion images bit-equal to phase 3's backend's, moments and packed chaos
+  launched once a mesh cell and batch (12 and 12), each batch's
+  CUDA-event ms by stage (extraction, shuffle copies, metrics, gather);
+  14b batch 0 alone on 4x1 and 1x4 meshes and on 2x2 with the band and
+  the compact variant forced, bit-equal; 14c a checkpointed 2x2 search
+  killed after its first group and resumed on a 2x1 mesh, bit-equal to
+  14a; 14d a 2x1 mesh over ``cuda:0`` and ``cuda:1`` (and a 2x2 mesh
+  over four cards where four are visible), each bit-equal to 14a and timed
+  in turns against phase 3's backend, and the kernels on ``cuda:1``, only
+  where more than one card is visible (otherwise one line says the step
+  did not run).  Each mesh's set-up and score seconds,
+  ions/s and device peak are printed.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -139,9 +157,10 @@ moments plans' occupancy beside this one's.
 One line per phase; any failure raises and exits non-zero.  The line before
 the last is a JSON object with each kernel's launches on its path (phase
 11's jobs A and B in ``service_launches``, phase 12's stream job, its
-re-scores and its sealed pass, in ``stream_launches``, and the profiler's
+re-scores and its sealed pass, in ``stream_launches``, the profiler's
 event count of its device function over phase 13b's search in
-``profile_launches``), its error against
+``profile_launches``, and phase 14a's 2x2 search in
+``sharded_launches``), its error against
 the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
@@ -2428,13 +2447,16 @@ PLAIN_IONS = 64
 
 
 def _breaker_closed(refused: int, after: str) -> None:
-    """The process's device breaker closed, and exactly ``refused`` jobs
-    refused on it so far (step 10.3's): no path met a device fault that
-    the script did not inject."""
+    """Every device breaker of the process closed (the process breaker
+    and each leased chip's), and exactly ``refused`` jobs refused so far
+    (step 10.3's): no path met a device fault that the script did not
+    inject."""
     from sm_distributed_tpu_torch.models import breaker
 
-    snap = breaker.get_device_breaker().snapshot()
-    assert snap["state"] == "closed", f"after {after}: breaker {snap}"
+    breaker.get_device_breaker()
+    for lbl, snap in breaker.breakers_snapshot().items():
+        assert snap["state"] == "closed", \
+            f"after {after}: breaker {lbl} {snap}"
     n = breaker.refused_count()
     assert n == refused, (
         f"after {after}: {n} refused jobs, expected {refused}")
@@ -2920,6 +2942,300 @@ SERVICE_SM = {"device": "cuda", "fdr": {"decoy_sample_size": 20},
                           "poll_interval_s": 0.05, "backoff_base_s": 0.2,
                           "backoff_jitter": 0.0, "heartbeat_interval_s": 1.0},
               "telemetry": {"sample_interval_s": 0.5}}
+
+
+# phase 14: the main path on ("pixels", "formulas") meshes (port slice 14):
+# 14a's full width on 2x2, 14b's first batch alone on 4x1 and 1x4 and each
+# forced variant on 2x2, 14c's resume on 2x1
+SHARD_FULL = (2, 2)
+SHARD_FIRST_BATCH = ((4, 1), (1, 4))
+SHARD_VARIANTS = {"band": {"band_slice": "on"},
+                  "compact": {"band_slice": "off", "peak_compaction": "on"}}
+SHARD_RESUME = (2, 1)
+
+
+class _ShardLayoutOnce:
+    """Phase 14's backends after 14a's share the main dataset's sharded
+    layouts (``prepare_flat_sharded_arrays``, a deterministic function of
+    the dataset, ppm, shard count and capacities: the per-shard m/z sort),
+    as phase 10 shares its sort.  14a's search runs the port's own set-up,
+    and so does the first backend of each layout after it; the set-up
+    seconds of the later ones leave the sort out."""
+
+    def __init__(self):
+        from sm_distributed_tpu_torch.parallel import sharded
+
+        self._mod, self._orig = sharded, sharded.prepare_flat_sharded_arrays
+        self._memo = {}
+
+    def __enter__(self):
+        def once(ds, ppm, n_shards=1, pad_to_multiple=1024, p_loc=None,
+                 slot_bucket=None):
+            key = (id(ds), ppm, n_shards, pad_to_multiple, p_loc,
+                   slot_bucket)
+            if key not in self._memo:
+                self._memo[key] = self._orig(ds, ppm, n_shards,
+                                             pad_to_multiple, p_loc,
+                                             slot_bucket)
+            return self._memo[key]
+
+        self._mod.prepare_flat_sharded_arrays = once
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.prepare_flat_sharded_arrays = self._orig
+        self._memo.clear()
+        return False
+
+
+def _stage_ms(backend, tables) -> list:
+    """Each batch's CUDA-event ms by stage of the sharded step (extraction,
+    shuffle copies, metrics, gather), one batch at a time on cuda:0's
+    stream (``ShardedTorchBackend.timer``)."""
+    out = []
+    for t in tables:
+        marks = []
+
+        def timer(stage, marks=marks):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev))
+
+        backend.timer = timer
+        try:
+            backend.score_batch(t)
+        finally:
+            backend.timer = None
+        torch.cuda.synchronize()
+        out.append({marks[i][0]: round(marks[i - 1][1].elapsed_time(
+            marks[i][1]), 3) for i in range(1, len(marks))})
+    return out
+
+
+def phase_sharded(card: str, ds, truth, search, ds_cfg, main: dict) -> dict:
+    """Phase 14: the main path's dataset and ions (phase 3's search object
+    and warm isotope patterns) through ``MSMBasicSearch`` on meshes of
+    ``cuda:0`` repeated, built by ``make_torch_backend`` from an explicit
+    device list; a mesh over distinct cards (14d) only where more than one
+    is visible.  Every result held bit-equal to phase 3's.  Returns the
+    launch counts of 14a's search and the figures the summary prints."""
+    from sm_distributed_tpu_torch.models.msm_basic import (
+        MSMBasicSearch,
+        _slice_table,
+    )
+    from sm_distributed_tpu_torch.parallel.sharded import (
+        ShardedTorchBackend,
+        make_torch_backend,
+    )
+    from sm_distributed_tpu_torch.utils import failpoints
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    t_phase = time.perf_counter()
+    ref = main["bundle"]
+    table = search.last_table
+    dev0 = torch.device("cuda", 0)
+    out = {"meshes": {}}
+
+    def sm(mesh, **par):
+        return SMConfig.from_dict({
+            "fdr": {"decoy_sample_size": 20},
+            "parallel": {"pixels_axis": mesh[0], "formulas_axis": mesh[1],
+                         **par}})
+
+    def make(mesh, devices, checkpoint_dir=None, **par):
+        s = MSMBasicSearch(ds, truth.formulas, ds_cfg, sm(mesh, **par),
+                           checkpoint_dir=checkpoint_dir, devices=devices)
+        s.isocalc = search.isocalc     # the main path's warm patterns
+        return s
+
+    def line(msg: str) -> None:
+        say(f"  [{card}] {msg}")
+
+    def label(mesh) -> str:
+        return f"{mesh[0]}x{mesh[1]}"
+
+    # -- 14a: full width on 2x2 -------------------------------------------
+    s14a = make(SHARD_FULL, [dev0] * 4)
+    bundle, wall, launches, peak = _search_run(s14a)
+    backend = s14a.last_backend
+    assert isinstance(backend, ShardedTorchBackend), type(backend)
+    assert backend.mesh.shape == {"pixels": 2, "formulas": 2}
+    _bit_equal(bundle, ref, "14a 2x2 search")
+    variants = dict(backend.variant_counts)
+    n_batches = -(-table.n_ions // backend.batch)
+    cells = backend.mesh.size
+    assert launches["moments"] == cells * n_batches == 12 and \
+        launches["chaos"] == cells * n_batches, (
+            f"14a: moments and packed chaos must launch once a cell and "
+            f"batch ({cells} x {n_batches}): {launches}")
+    assert launches["chaos_tiles"] == launches["chaos_strips"] == \
+        launches["fused_window_moments"] == 0, launches
+    t0 = _slice_table(table, 0, backend.batch)
+    t_img = time.perf_counter()
+    assert np.array_equal(backend.extract_ion_images(t0),
+                          search.last_backend.extract_ion_images(t0)), \
+        "14a: the mesh's ion images differ from phase 3's backend's"
+    img_s = time.perf_counter() - t_img
+    tim = bundle.timings
+    batches = [_slice_table(table, s, min(s + backend.batch, table.n_ions))
+               for s in range(0, table.n_ions, backend.batch)]
+    stages = _stage_ms(backend, batches)
+    shuffle_share = [round(b["shuffle"] / sum(b.values()), 4)
+                     for b in stages]
+    # the score phase of phase 3's backend (warm, one device) and of the
+    # mesh on the same batches, in turns (single, mesh, mesh, single)
+
+    def score_s(b) -> float:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        b.score_batches(batches)
+        torch.cuda.synchronize()
+        return time.perf_counter() - ts
+
+    turns = {"single": [], "mesh": []}
+    for who in ("single", "mesh", "mesh", "single"):
+        turns[who].append(score_s(search.last_backend if who == "single"
+                                  else backend))
+    out["launches"] = launches
+    out["meshes"][label(SHARD_FULL)] = {
+        "setup_s": tim["backend_setup"], "score_s": tim["score"],
+        "ions_per_s": table.n_ions / tim["score"], "wall_s": wall,
+        "peak_bytes": peak, "variant_counts": variants,
+        "batch_stage_ms": stages, "shuffle_share": shuffle_share,
+        "score_turns_s": turns}
+    line(f"14a 2x2 mesh of cuda:0: {table.n_ions} ions in {n_batches} "
+         f"batches of {backend.batch}, bit-equal to phase 3 (metrics rows, "
+         f"annotations, FDR ranks); set-up {tim['backend_setup']:.3f} s "
+         f"(the per-shard sort included), score {tim['score']:.3f} s, "
+         f"{table.n_ions / tim['score']:.1f} ions/s; peak device memory "
+         f"{peak / 2**30:.2f} GiB (phase 3: "
+         f"{main['peak_bytes'] / 2**30:.2f}); launches {launches}; variants "
+         f"{variants}; batch 0's ion images bit-equal to phase "
+         f"3's backend's ({img_s:.1f} s); per batch, ms by stage "
+         f"{json.dumps(stages)}, the shuffle's share {shuffle_share}; the "
+         f"3 batches scored warm in turns, phase 3's backend "
+         f"{turns['single']} s, the 2x2 mesh {turns['mesh']} s")
+    del backend, s14a
+    torch.cuda.empty_cache()
+
+    with _ShardLayoutOnce():
+        # -- 14b: the first batch alone on 4x1 and 1x4, and each variant
+        rows0 = _search_rows(ref)[:t0.n_ions]
+
+        def first_batch(mesh, what, **par):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ts = time.perf_counter()
+            b = make_torch_backend(ds, ds_cfg, sm(mesh, **par),
+                                   restrict_table=table, devices=[dev0] * 4)
+            setup = time.perf_counter() - ts
+            assert isinstance(b, ShardedTorchBackend), type(b)
+            score = []
+            for _ in range(2):            # the first call and a warm one
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                got = b.score_batch(t0)
+                score.append(time.perf_counter() - ts)
+                assert np.array_equal(got.astype(np.float32), rows0), \
+                    f"14b {what}: batch 0 differs from phase 3's rows"
+            rec = {"setup_s": setup, "score_s": score,
+                   "ions_per_s": t0.n_ions / score[1],
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "variant_counts": dict(b.variant_counts)}
+            line(f"14b {what}: batch 0 ({t0.n_ions} ions) bit-equal to "
+                 f"phase 3, twice; set-up {setup:.3f} s, score "
+                 f"{score[0]:.3f} s, then {score[1]:.3f} s warm, peak "
+                 f"{rec['peak_bytes'] / 2**30:.2f} GiB, variants "
+                 f"{b.variant_counts}")
+            del b
+            torch.cuda.empty_cache()
+            return rec
+
+        for mesh in SHARD_FIRST_BATCH:
+            out["meshes"][label(mesh)] = first_batch(mesh, label(mesh))
+        for variant, par in SHARD_VARIANTS.items():
+            rec = first_batch(SHARD_FULL, f"2x2 {variant}", **par)
+            assert rec["variant_counts"][variant] == 2, rec
+            out["meshes"][f"2x2 {variant}"] = rec
+
+        # -- 14c: a 2x2 search killed after its first group, resumed on 2x1
+        with tempfile.TemporaryDirectory() as td:
+            failpoints.configure("device.score_batch=raise:RuntimeError@2")
+            try:
+                make(SHARD_FULL, [dev0] * 4, checkpoint_dir=td,
+                     checkpoint_every=1).search()
+                raise AssertionError("the killed 2x2 search did not die")
+            except RuntimeError as exc:
+                assert "device.score_batch" in str(exc), exc
+            finally:
+                failpoints.configure(None)
+            shards = sorted(Path(td).glob("msm_search.p0.g*.ckpt.npz"))
+            assert len(shards) == 1, shards
+            resumed = make(SHARD_RESUME, [dev0] * 2, checkpoint_dir=td,
+                           checkpoint_every=1)
+            r_bundle, r_wall, r_launches, r_peak = _search_run(resumed)
+            assert resumed.last_backend.mesh.shape == {"pixels": 2,
+                                                       "formulas": 1}
+            assert r_launches["moments"] == r_launches["chaos"] == 2 * 2, (
+                f"14c: 2 groups of 1 batch on 2 cells: {r_launches}")
+            _bit_equal(r_bundle, bundle, "14c resumed on 2x1")
+            resumed.last_checkpoint.finalize()
+        out["meshes"]["2x1 resumed"] = {
+            "setup_s": r_bundle.timings["backend_setup"],
+            "score_s": r_bundle.timings["score"], "wall_s": r_wall,
+            "peak_bytes": r_peak, "launches": r_launches}
+        line(f"14c checkpointed 2x2 search killed before group 1 of 3 "
+             f"(device.score_batch), 1 durable shard; resumed on a 2x1 mesh: "
+             f"2 groups scored (launches {r_launches}), bit-equal to 14a; "
+             f"set-up {r_bundle.timings['backend_setup']:.3f} s, score "
+             f"{r_bundle.timings['score']:.3f} s, wall {r_wall:.3f} s")
+        del resumed
+        torch.cuda.empty_cache()
+
+    # -- 14d: distinct cards, where there are any: 2x1 over two, and 2x2
+    # over four where four are visible
+    n_cards = torch.cuda.device_count()
+    distinct = [mesh for mesh in (SHARD_RESUME, SHARD_FULL)
+                if mesh[0] * mesh[1] <= n_cards]
+    for mesh in distinct if n_cards > 1 else ():
+        cards = [torch.device("cuda", i) for i in range(mesh[0] * mesh[1])]
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        s14d = make(mesh, cards)
+        d_bundle, d_wall, d_launches, _peak = _search_run(s14d)
+        b14d = s14d.last_backend
+        assert set(b14d.mesh.distinct()) == set(cards), b14d.mesh.devices
+        _bit_equal(d_bundle, bundle, f"14d {label(mesh)} over {cards}")
+        d_turns = {"single": [], "mesh": []}
+        for who in ("single", "mesh", "mesh", "single"):
+            d_turns[who].append(score_s(search.last_backend
+                                        if who == "single" else b14d))
+        peaks = [torch.cuda.max_memory_allocated(c) for c in cards]
+        out["meshes"][f"{label(mesh)} distinct"] = {
+            "setup_s": d_bundle.timings["backend_setup"],
+            "score_s": d_bundle.timings["score"], "wall_s": d_wall,
+            "launches": d_launches, "peak_bytes_by_card": peaks,
+            "score_turns_s": d_turns}
+        line(f"14d {label(mesh)} mesh over cuda:0..{len(cards) - 1}: "
+             f"bit-equal to 14a; set-up "
+             f"{d_bundle.timings['backend_setup']:.3f} s, score "
+             f"{d_bundle.timings['score']:.3f} s; launches {d_launches}; "
+             f"peaks by card {[round(x / 2**30, 2) for x in peaks]} GiB; "
+             f"the 3 batches warm in turns, phase 3's backend "
+             f"{d_turns['single']} s, this mesh {d_turns['mesh']} s")
+        del s14d, b14d
+        torch.cuda.empty_cache()
+    if n_cards > 1:
+        line("14d " + _second_device_check())
+    else:
+        line(f"14d distinct cards: not run, the card count is {n_cards}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 14 sharded main path [{card}]: {out['phase_s']:.1f} s; "
+        "2x2, 4x1, 1x4, each variant and a resume on 2x1 bit-equal to "
+        f"phase 3; moments and packed chaos launched {launches['moments']} "
+        f"and {launches['chaos']} times over 14a's {cells} cells and "
+        f"{n_batches} batches")
+    return out
 
 
 def _http(base: str, path: str, method: str = "GET", body=None):
@@ -4118,6 +4434,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     stream = phase_read_stream(card, Path(job_dir.name), ds, truth, main)
     lap("read_stream")
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(card, ds, truth, search, ds_cfg, main)
+    lap("sharded")
+    _breaker_closed(2, "phase 14")
     job_dir.cleanup()
     say("main path: " + json.dumps({
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
@@ -4167,6 +4487,8 @@ def main() -> int:
         {k: v for k, v in service.items() if k != "launches"}))
     say(f"read path and stream [{card}]: " + json.dumps(
         {k: v for k, v in stream.items() if k != "launches"}))
+    say(f"sharded main path [{card}]: " + json.dumps(
+        {k: v for k, v in sharded.items() if k != "launches"}))
     say(f"device patterns and the profiler [{card}]: " + json.dumps(
         {"13a": patterns13, "13b": {k: v for k, v in profiled.items()
                                     if k != "attribution"},
@@ -4188,6 +4510,7 @@ def main() -> int:
             for job, counts in service["launches"].items()}
         entry["stream_launches"] = stream["launches"][entry["name"]]
         entry["profile_launches"] = profiled["events"][entry["name"]]
+        entry["sharded_launches"] = sharded["launches"][entry["name"]]
     _breaker_closed(2, "the script")
     say(f"  [{card}] 10.4 no host fallback: after every phase the device "
         "breaker was closed, the two refused jobs are step 10.3's, and no "

@@ -44,7 +44,10 @@ def pattern_table_from_arrays(sfs, adducts, mzs, ints, n_valid,
     )
 
 
-_PARALLEL_KEYS = {f for f in ParallelConfig.__dataclass_fields__}
+# the multi-process runtime's knobs describe a launch, not a search
+_PARALLEL_KEYS = {f for f in ParallelConfig.__dataclass_fields__} - {
+    "coordinator_address", "num_processes", "process_id", "init_retries",
+    "init_backoff_s"}
 
 
 def configs_from_dicts(sm_dict: dict[str, Any], ds_dict: dict[str, Any],
@@ -52,10 +55,10 @@ def configs_from_dicts(sm_dict: dict[str, Any], ds_dict: dict[str, Any],
     """Port configs from the dicts a JAX-package search takes.
 
     ``ds_dict`` carries over as it is.  From ``sm_dict`` the port keeps
-    ``fdr`` and the ``parallel`` knobs it has; the backend becomes
-    ``torch_cuda``, and the JAX package's other sections (service, storage,
-    tracing, ...) and parallel knobs (mesh axes, checkpointing, compile
-    cache) do not change scores and are left out.  ``device`` overrides the
+    ``fdr`` and the ``parallel`` knobs it has, the mesh axes included; the
+    backend becomes ``torch_cuda``, and the JAX package's other sections
+    (service, storage, tracing, ...) and parallel knobs (the multi-process
+    runtime, the compile cache) do not change scores and are left out.  ``device`` overrides the
     config's device."""
     sm: dict[str, Any] = {"backend": "torch_cuda"}
     if "fdr" in sm_dict:

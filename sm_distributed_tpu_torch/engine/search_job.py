@@ -92,7 +92,7 @@ class SearchJob:
         # the scheduler's device-pool lease (Lock-protocol compatible, so a
         # plain threading.Lock works too): the device-bound set-up, search
         # and store run under it while staging and parsing overlap across
-        # jobs; its one chip is the search's device
+        # jobs; its chips are the search's device or mesh
         self.device_token = device_token
         # utils/cancel.CancelToken or None: checked at phase boundaries
         # here and between batch groups in the search

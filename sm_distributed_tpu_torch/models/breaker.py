@@ -17,10 +17,14 @@ breaker wraps the device scoring seam in ``MSMBasicSearch._score_group``:
   job's device build is allowed through as a probe.  A clean group closes
   the breaker; another device fault re-opens it and restarts the cooldown.
 
-One card, one process-wide breaker (the ``"*"`` singleton): a one-chip
-service lease answers to it too.  The JAX package's per-device registry and
-its lease view come with multi-GPU (ROADMAP queue 1 item 7).  The service
-exports ``sm_breaker_state{device=}``, ``sm_breaker_transitions_total`` and
+A process registry of breakers, one per chip, as in the JAX package: a
+search holding a device-pool lease answers to its chips' breakers through
+a :class:`LeaseBreaker` (a fault counts on every leased chip, a clean group
+resets them all, and the device path runs only if every chip allows it; an
+open chip breaker refuses the job, it never moves it to the host), so one
+bad chip never refuses jobs holding other chips.  A search without a lease
+answers to the process breaker (label ``"*"``).  The service exports
+``sm_breaker_state{device=}``, ``sm_breaker_transitions_total`` and
 ``sm_breaker_refused_total`` (``attach_metrics``); the last stands where the
 JAX package counts ``sm_breaker_degraded_total``.
 """
@@ -123,40 +127,95 @@ class CircuitBreaker:
                     "cooldown_s": self.cooldown_s}
 
 
-# ------------------------------------------------------- process singleton
+class LeaseBreaker:
+    """Per-chip breaker view over one device-pool lease.
+
+    A sticky fault at the scoring seam counts on EVERY leased chip's
+    breaker (the seam cannot attribute deeper; the health probe does), a
+    clean group resets them all, and the device path is allowed only when
+    every chip's breaker allows it."""
+
+    def __init__(self, breakers: list[CircuitBreaker]):
+        self._breakers = list(breakers)
+
+    @property
+    def state(self) -> str:
+        # the worst state across the lease: open > half_open > closed
+        states = [b.state for b in self._breakers]
+        for s in (STATE_OPEN, STATE_HALF_OPEN):
+            if s in states:
+                return s
+        return STATE_CLOSED
+
+    def allow_device(self) -> bool:
+        # every chip is asked (no short-circuit), so each open breaker past
+        # its cooldown flips to its half-open probe together
+        return all([b.allow_device() for b in self._breakers])
+
+    def record_success(self) -> None:
+        for b in self._breakers:
+            b.record_success()
+
+    def record_failure(self) -> bool:
+        return any([b.record_failure() for b in self._breakers])
+
+    def snapshot(self) -> dict:
+        return {b.label: b.snapshot() for b in self._breakers}
+
+
+# ------------------------------------------------------- process registry
 _lock = threading.Lock()
-_breaker: CircuitBreaker | None = None
+_breakers: dict[str, CircuitBreaker] = {}
 _refused = 0
 _metrics = None
 
 
-def get_device_breaker(service_cfg=None) -> CircuitBreaker:
-    """The process-wide device breaker.  ``service_cfg`` (a
-    ``ServiceConfig``) refreshes its thresholds in place; the state machine
-    is untouched."""
-    global _breaker
+def _breaker_locked(label: str) -> CircuitBreaker:
+    b = _breakers.get(label)
+    if b is None:
+        b = _breakers[label] = CircuitBreaker(label=label)
+    return b
+
+
+def get_device_breaker(service_cfg=None, devices=None):
+    """The process's breaker for a device scope: ``devices`` (a lease's
+    chip tuple) selects its chips' breakers in a :class:`LeaseBreaker`;
+    ``None`` the process breaker (label ``"*"``).  ``service_cfg`` (a
+    ``ServiceConfig``) refreshes the thresholds in place; the state
+    machines are untouched."""
+    labels = ([GLOBAL_LABEL] if not devices
+              else [str(int(d)) for d in devices])
     with _lock:
-        if _breaker is None:
-            _breaker = CircuitBreaker()
+        picked = [_breaker_locked(lb) for lb in labels]
         if service_cfg is not None:
-            _breaker.threshold = int(service_cfg.breaker_threshold)
-            _breaker.cooldown_s = float(service_cfg.breaker_cooldown_s)
-        return _breaker
+            for b in picked:
+                b.threshold = int(service_cfg.breaker_threshold)
+                b.cooldown_s = float(service_cfg.breaker_cooldown_s)
+    if not devices:
+        return picked[0]
+    return LeaseBreaker(picked)
+
+
+def breaker_for(label) -> CircuitBreaker | None:
+    """The breaker of one label (a chip index or ``"*"``), or None when
+    this process never touched it."""
+    with _lock:
+        return _breakers.get(str(label))
 
 
 def breakers_snapshot() -> dict:
-    """{label: snapshot} of the breaker, when this process touched it (the
-    ``GET /debug/devices`` body's breaker half)."""
+    """{label: snapshot} of every breaker this process touched (the ``GET
+    /debug/devices`` body's breaker half)."""
     with _lock:
-        b = _breaker
-    return {b.label: b.snapshot()} if b is not None else {}
+        picked = list(_breakers.values())
+    return {b.label: b.snapshot() for b in picked}
 
 
 def reset_device_breaker() -> None:
-    """A fresh breaker, a zero refused count and no metrics (tests)."""
-    global _breaker, _refused, _metrics
+    """Fresh breakers, a zero refused count and no metrics (tests)."""
+    global _refused, _metrics
     with _lock:
-        _breaker = None
+        _breakers.clear()
         _refused = 0
         _metrics = None
 
@@ -182,14 +241,14 @@ def attach_metrics(registry) -> None:
     global _metrics
     with _lock:
         _metrics = registry
-        b = _breaker
+        existing = list(_breakers.values())
         refused = _refused
     g = registry.gauge(
         "sm_breaker_state",
         "Device breaker state (0=closed, 1=half_open, 2=open), per chip "
         "('*' = the un-leased process breaker)", ("device",))
-    b = b or CircuitBreaker()
-    g.labels(device=b.label).set(_STATE_CODE[b.state])
+    for b in existing or [CircuitBreaker()]:
+        g.labels(device=b.label).set(_STATE_CODE[b.state])
     registry.counter(
         "sm_breaker_transitions_total",
         "Device breaker state transitions, by chip and destination",

@@ -40,12 +40,14 @@ Resilience, as in the JAX package:
 Service hooks, as in the JAX package: ``backend_cache`` (an
 ``engine/residency.DatasetResidency``) keeps set-up backends resident across
 jobs, a backend whose device met a sticky fault is evicted from it;
-``device_indices`` is the job's device-pool lease, one chip ``i`` meaning
-``cuda:i``; ``partial_observer`` receives provisional annotations over the
-first scored group; the first-annotation observers hear when the first
-FDR-rankable metrics exist; checkpoint shards pass the disk governor's
-preflight.  Not in the port yet: the multi-host resume agreement and leases
-of more than one chip (ROADMAP queue 1 item 7).
+``device_indices`` is the job's device-pool lease: one chip ``i`` is
+``cuda:i``, several chips a mesh over them (``parallel/sharded.py``), and
+a leased search answers to its chips' breakers; ``partial_observer``
+receives provisional annotations over the first scored group; the
+first-annotation observers hear when the first FDR-rankable metrics exist;
+checkpoint shards pass the disk governor's preflight.  In a multi-process
+runtime (``parallel/distributed.py``) every process resumes a checkpointed
+search from the same group.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ from ..ops.isocalc import (
     IsocalcWrapper,
     IsotopePatternTable,
 )
+from ..parallel import distributed
 from ..utils import tracing
 from ..utils.cancel import JobCancelledError
 from ..utils.config import DSConfig, SMConfig
@@ -226,32 +229,33 @@ class NumpyBackend:
 
 def make_backend(name: str, ds: SpectralDataset, ds_config: DSConfig,
                  sm_config: SMConfig, table: IsotopePatternTable | None = None,
-                 device_indices=None):
+                 device_indices=None, devices=None):
     """The scoring backend named ``name``.  ``table`` (the search's full ion
     table) lets the device backend drop dataset peaks outside every window;
-    ``device_indices`` (see :func:`lease_device`) picks its device."""
+    ``device_indices`` (a device-pool lease) or ``devices`` (an explicit
+    device list) picks its device or mesh
+    (``parallel/sharded.make_torch_backend``)."""
     if name == "numpy_ref":
         return NumpyBackend(ds, ds_config)
     if name == "torch_cuda":
-        from .msm_torch import TorchBackend
+        from ..parallel.sharded import make_torch_backend
 
-        return TorchBackend(ds, ds_config, sm_config, restrict_table=table,
-                            device=lease_device(sm_config.device,
-                                                device_indices))
+        return make_torch_backend(ds, ds_config, sm_config,
+                                  restrict_table=table,
+                                  device_indices=device_indices,
+                                  devices=devices)
     raise ValueError(f"unknown backend {name!r}")
 
 
-def lease_device(device: str, device_indices=None) -> str:
-    """The torch device of a device-pool lease: chip ``i`` of a ``cuda``
-    config is ``cuda:i``; a ``cpu`` config stays on the CPU (the pool's
-    chips are then simulated).  A lease of more than one chip raises:
-    sharding over several cards is ROADMAP queue 1 item 7."""
+def lease_device(device: str, device_indices=None):
+    """The torch device of a device-pool lease, as the residency keys a
+    set-up backend by it: chip ``i`` of a ``cuda`` config is ``cuda:i``; a
+    ``cpu`` config stays on the CPU (the pool's chips are then simulated);
+    a lease of several chips is the tuple of its chips' devices."""
     if not device_indices:
         return device
     if len(device_indices) > 1:
-        raise NotImplementedError(
-            f"a lease of {len(device_indices)} chips is not in the PyTorch "
-            "port yet (queue 1 item 7 of ROADMAP.md: multi-GPU)")
+        return tuple(lease_device(device, (i,)) for i in device_indices)
     if str(device).split(":")[0] != "cuda":
         return device
     return f"cuda:{int(device_indices[0])}"
@@ -450,7 +454,7 @@ class MSMBasicSearch:
                  checkpoint_dir: str | None = None,
                  backend_cache=None,
                  prefetch: IsotopePrefetch | None = None, cancel=None,
-                 device_indices=None, partial_observer=None):
+                 device_indices=None, partial_observer=None, devices=None):
         self.ds = ds
         self.formulas = list(dict.fromkeys(formulas))  # dedup, keep order
         self.ds_config = ds_config
@@ -468,10 +472,12 @@ class MSMBasicSearch:
         # utils/cancel.CancelToken or None: checked between batch groups
         # and between batches
         self.cancel = cancel
-        # the job's device-pool lease (one chip; lease_device checks)
+        # the job's device-pool lease: one chip, or a mesh over several
         self.device_indices = (tuple(int(i) for i in device_indices)
                                if device_indices else None)
-        lease_device(self.sm_config.device, self.device_indices)
+        # an explicit device list to mesh over in the lease's place (it may
+        # repeat a device: the tests and chip_smoke.py on one card)
+        self.devices = list(devices) if devices is not None else None
         # provisional annotations over the first scored group go here (the
         # service's job record); None = no consumer
         self.partial_observer = partial_observer
@@ -541,8 +547,20 @@ class MSMBasicSearch:
         h.update(np.float64(
             self.ds.ints_flat.sum(dtype=np.float64)).tobytes())
 
-    # the JAX package's multi-host resume agreement (every process resumes
-    # from the same group) comes with multi-GPU (ROADMAP queue 1 item 7)
+    def _agree_resume_point(self, done: int) -> int:
+        """Multi-process: every process must resume from the SAME batch
+        group, or their searches leave the lockstep the runtime keeps.
+        Checkpoints are per-process local files, so the processes agree on
+        min(done) (rows below it are valid everywhere) with a gloo
+        ``all_reduce(MIN)``; one process keeps its own ``done``."""
+        if self.sm_config.backend != "torch_cuda":
+            return done
+        agreed = distributed.agree_min(done)
+        if agreed != done:
+            logger.info(
+                "checkpoint resume point lowered %d -> %d to agree with "
+                "other processes", done, agreed)
+        return agreed
 
     def _oom_key(self) -> str:
         """Safe-batch registry key: what a batch's device footprint depends
@@ -789,7 +807,11 @@ class MSMBasicSearch:
         # before any work (the port never scores it on the host instead);
         # allow_device() admits one half-open probe after the cooldown
         use_device = self.sm_config.backend == "torch_cuda"
-        breaker = get_device_breaker(self.sm_config.service)
+        # a leased search answers to its chips' breakers, so one bad chip's
+        # history never refuses jobs holding other chips; an un-leased
+        # search answers to the process breaker ("*")
+        breaker = get_device_breaker(self.sm_config.service,
+                                     devices=self.device_indices)
         if use_device and not breaker.allow_device():
             raise refuse_device(
                 "a torch_cuda job refused until the cooldown's half-open "
@@ -821,7 +843,8 @@ class MSMBasicSearch:
         def build():
             return make_backend(self.sm_config.backend, self.ds,
                                 self.ds_config, self.sm_config, table=table,
-                                device_indices=self.device_indices)
+                                device_indices=self.device_indices,
+                                devices=self.devices)
 
         with phase_timer("backend_setup", timings):
             if self.backend_cache is not None:
@@ -832,8 +855,11 @@ class MSMBasicSearch:
                 self._backend_key = (
                     self.sm_config.backend, fingerprint, par.mz_chunk,
                     par.peak_compaction, par.band_slice, par.order_ions,
-                    par.cube_dtype, par.fused_metrics,
-                    lease_device(self.sm_config.device, self.device_indices))
+                    par.cube_dtype, par.fused_metrics, par.pixels_axis,
+                    par.formulas_axis,
+                    lease_device(self.sm_config.device, self.device_indices),
+                    None if self.devices is None
+                    else tuple(str(d) for d in self.devices))
                 backend = self.backend_cache.backend(self._backend_key, build)
             else:
                 backend = build()
@@ -854,8 +880,10 @@ class MSMBasicSearch:
             if ckpt_every > 0:
                 fingerprint = (self._fingerprint_pairs(table) if overlap
                                else self._fingerprint(table))
-                ckpt = SearchCheckpoint(self.checkpoint_dir, fingerprint)
-                done = ckpt.load(metrics, len(groups), row_ranges)
+                ckpt = SearchCheckpoint(self.checkpoint_dir, fingerprint,
+                                        process_id=distributed.world()[0])
+                done = self._agree_resume_point(
+                    ckpt.load(metrics, len(groups), row_ranges))
                 if done:
                     logger.info(
                         "resuming search from checkpoint: %d/%d batch groups "

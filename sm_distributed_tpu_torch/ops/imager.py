@@ -28,8 +28,8 @@ nothing is padded to a fixed capacity: eager torch needs no static shapes,
 so the band is a view of exactly ``width`` slots (no ``band_bucket``
 ladder, no clamp of its start) and the compaction gathers exactly ``n_b``
 slots (no pad slots pointed at an out-of-range pixel, which a CUDA
-``index_put_`` would fault on rather than drop).  ``band_bucket`` comes
-with the sharded path, where a fixed capacity is still needed.
+``index_put_`` would fault on rather than drop).  The sharded path
+(``parallel/sharded.py``) does the same in every cell of its mesh.
 
 Exactness: intensities sit on the shared integer grid with every
 per-(pixel, window) sum below 2**24, so the scatter's atomics and the
@@ -105,6 +105,8 @@ def prepare_flat_sharded_arrays(
     ppm: float,
     n_shards: int = 1,
     pad_to_multiple: int = 1024,
+    p_loc: int | None = None,
+    slot_bucket=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """Host-side flat layout per PIXEL SHARD: (mz_q (S, Nmax) int32 ascending
     per row, px_local (S, Nmax) int32, ints (S, Nmax) f32, p_loc).
@@ -112,18 +114,31 @@ def prepare_flat_sharded_arrays(
     Each shard owns a contiguous slice of ``p_loc = ceil(P/S)`` pixels and
     its peaks sorted by quantized m/z; rows pad to the max shard peak count
     rounded up to ``pad_to_multiple`` (m/z -> MZ_PAD_Q sentinel, pixel ->
-    the shard-local overflow row ``p_loc``, intensity 0).  The port scores
-    on one device, so its callers take one shard; the JAX package's
-    lattice capacities for multi-device meshes (``p_loc``, ``slot_bucket``)
-    come with the multi-GPU slice."""
-    p_loc = -(-ds.n_pixels // n_shards)
+    the shard-local overflow row ``p_loc``, intensity 0).
+
+    ``p_loc`` (the shape-bucket lattice): an explicit per-shard pixel
+    capacity >= ceil(P/S); the sharded backend passes a row-bucketed
+    whole-row capacity, so trailing shards may be partly or wholly padding.
+    ``slot_bucket`` replaces the ``pad_to_multiple`` rounding of the
+    peak-slot capacity with the shared lattice (``ops/buckets.peak_bucket``).
+    """
+    if p_loc is None:
+        p_loc = -(-ds.n_pixels // n_shards)
+    elif p_loc * n_shards < ds.n_pixels:
+        raise ValueError(
+            f"p_loc={p_loc} x {n_shards} shards cannot hold "
+            f"{ds.n_pixels} pixels")
     mz_q = quantize_mz(ds.mzs_flat)
     ints_q, _scale = ds.intensity_quantization(ppm)
     lens = ds.row_lengths()
     pixel = np.repeat(np.arange(ds.n_pixels, dtype=np.int64), lens)
     shard = (pixel // p_loc).astype(np.int32)
     counts = np.bincount(shard, minlength=n_shards)
-    n_max = -(-max(int(counts.max()), 1) // pad_to_multiple) * pad_to_multiple
+    if slot_bucket is not None:
+        n_max = int(slot_bucket(max(int(counts.max()), 1)))
+    else:
+        n_max = -(-max(int(counts.max()), 1)
+                  // pad_to_multiple) * pad_to_multiple
     mz_s = np.full((n_shards, n_max), MZ_PAD_Q, dtype=np.int32)
     px_s = np.full((n_shards, n_max), p_loc, dtype=np.int32)
     in_s = np.zeros((n_shards, n_max), dtype=np.float32)

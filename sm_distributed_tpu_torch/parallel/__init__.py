@@ -1,1 +1,3 @@
-"""Process identity of the port (multi-GPU sharding: ROADMAP queue 1 item 7)."""
+"""Multi-device scoring of the port: the ("pixels", "formulas") mesh
+(``mesh.py``), mesh-sharded scoring (``sharded.py``) and the multi-process
+runtime (``distributed.py``)."""

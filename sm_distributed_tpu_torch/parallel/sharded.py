@@ -1,0 +1,537 @@
+"""Mesh-sharded scoring: one formula batch over a ("pixels", "formulas") mesh.
+
+Port of ``sm_distributed_tpu/parallel/sharded.py`` (``ShardedJaxBackend``,
+``make_jax_backend``).  The JAX package runs one ``shard_map``-ed program
+per batch over its mesh; here one controller (the search's thread) drives
+every cell (s, f) of a ``parallel/mesh.Mesh`` of torch devices in three
+stages:
+
+1. **extraction**: cell (s, f) histograms pixel shard s's resident peaks
+   (the contiguous image rows ``[s * p_loc, (s + 1) * p_loc)``, m/z
+   sorted) under formula shard f's windows and runs the banded membership
+   matmuls (``ops/imager.extract_images_flat_banded``), giving the
+   ``(B_loc, K, p_loc)`` image block of formula shard f's ``B_loc`` ions on
+   its pixels.  The extraction takes the plain, band or compact variant of
+   the single-device path (``models/msm_torch.py``), one variant for the
+   whole mesh (``_variant_for``), each cell with its own exact band or
+   kept peaks;
+2. **the shuffle** (the JAX package's ``all_to_all`` along the pixel
+   axis): device (j, f) receives sub-batch j of every pixel shard's block
+   (``Tensor.to(device)``, a device-to-device copy between cards) and
+   concatenates them along the pixel axis, ending with all pixels of
+   ``B_loc / n_pix`` ions;
+3. **metrics**: ``ops/metrics.batch_metrics`` on that ``(B_loc / n_pix, K,
+   P)`` block: the masked moments kernel and the packed chaos kernel on
+   the card, launched under their tensor's device
+   (``kernels/_build.on_tensor_device``).  Then **the gather** (the JAX
+   package's ``all_gather``): the ``(B_loc / n_pix, 4)`` metric rows of
+   every pixel shard, in pixel-shard order, reassemble formula shard f's
+   rows.
+
+Image values are exact integers on the shared intensity grid, so every ion's
+full image is bit-identical to the single-device path's and its metrics are
+computed by the same code on the same bits: sharded scoring is BIT-EQUAL to
+``TorchBackend``'s at any mesh shape, as the JAX package's contract says.
+Images are extracted in the ion-major chunk plan's order (the
+single-device path's); the plan is formula shard f's and shared by every
+pixel shard, so the shuffle hands each device the same ions from every
+shard, and only the gathered metric rows are un-permuted.
+
+As in the JAX package the mesh step does not take the fused kernel (the
+correlation moments need the post-shuffle global-pixel mean), refuses
+``parallel.mz_chunk``, keeps bf16 resident intensities (expanded to f32 by
+each cell) and scores an int8 cube as f32, with a warning (per-tile scales
+do not align with shard rows).  Unlike the JAX package nothing is padded to
+a sticky capacity: eager torch needs no static shapes, so each cell's band
+is a view of exactly its width and its compaction gathers exactly its kept
+peaks (the JAX package's ``_grow_compact_capacity``, ``band_bucket`` and
+the padding of ``_pack_runs`` / ``_pack_bands`` have no counterpart).  The
+JAX package's bucket-spec record (``_sharded_spec``) serves its compile
+primer, which the port does not have yet (ROADMAP queue 1 item 9b).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..io.dataset import SpectralDataset
+from ..models.msm_torch import (
+    COMPACT_NS_PER_SLOT,
+    SCATTER_NS_PER_SLOT,
+    TorchBackend,
+    resolve_device,
+)
+from ..ops import buckets as shape_buckets
+from ..ops.imager import (
+    BAND_WINDOWS,
+    batch_peak_band,
+    batch_peak_runs,
+    compact_peaks,
+    extract_images_flat_banded,
+    flat_bound_ranks,
+    ion_window_chunks,
+    ions_per_chunk_for,
+    prepare_flat_sharded_arrays,
+    restrict_flat_to_windows,
+    window_rank_grid,
+)
+from ..ops.isocalc import IsotopePatternTable
+from ..ops.metrics import batch_metrics
+from ..ops.quantize import (
+    compact_cube,
+    cube_to_device,
+    expand_cube_range,
+    quantize_window,
+)
+from ..utils import tracing
+from ..utils.config import DSConfig, SMConfig
+from ..utils.logger import logger
+from .mesh import FORMULAS_AXIS, PIXELS_AXIS, Mesh, make_mesh
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class ShardPlan(NamedTuple):
+    """Host plan of one batch on the mesh."""
+    ints_p: np.ndarray       # (b, k) padded theoretical intensities
+    nv_p: np.ndarray         # (b,) padded valid peak counts
+    chunks: list             # [f] ion_window_chunks(...) of formula shard f
+    pos: list                # [s][f] (G_loc,) bound ranks in pixel shard s
+    runs: list | None        # [s][f] batch_peak_runs(...) unless "off"
+    bands: list | None       # [s][f] batch_peak_band(...) unless "off"
+    k: int                   # isotope peaks a row
+
+
+class ShardedTorchBackend:
+    """Multi-device scorer: the interface and results of
+    ``models/msm_torch.TorchBackend``, the data sharded over the mesh."""
+
+    name = "torch_cuda"
+
+    def __init__(self, ds: SpectralDataset, ds_config: DSConfig,
+                 sm_config: SMConfig, mesh: Mesh | None = None,
+                 restrict_table: IsotopePatternTable | None = None):
+        self.ds = ds
+        self.ds_config = ds_config
+        par = sm_config.parallel
+        self.mesh = mesh if mesh is not None else make_mesh(
+            par, device=sm_config.device)
+        for d in self.mesh.distinct():
+            resolve_device(d)             # a card that exists; no TF32
+        n_pix = self.mesh.shape[PIXELS_AXIS]
+        n_form = self.mesh.shape[FORMULAS_AXIS]
+        self._n_pix, self._n_form = n_pix, n_form
+        self._buckets = shape_buckets.buckets_enabled(par)
+        # each formula shard's block splits evenly across the pixel shards
+        # (the shuffle's ion sub-batches)
+        self._batch_granule = n_form * n_pix
+        self.batch = _round_up(shape_buckets.effective_batch(par),
+                               self._batch_granule)
+        img = ds_config.image_generation
+        self.ppm = img.ppm
+        self.nlevels = img.nlevels
+        self.do_preprocessing = img.do_preprocessing
+        self.q = img.q
+        if par.mz_chunk:
+            raise ValueError(
+                "parallel.mz_chunk applies only to the single-device cube "
+                "path; on a multi-device mesh, per-device memory is bounded "
+                f"by sharding (pixels/{n_pix}) — unset mz_chunk, or "
+                "reduce parallel.formula_batch / grow the pixels axis to "
+                "shrink per-shard scratch")
+        # the histogram scratch of one cell, as the JAX package guards it
+        k_est = ds_config.isotope_generation.n_peaks
+        b_loc = self.batch // n_form
+        p_loc_est = -(-ds.n_pixels // n_pix)
+        scratch = 4 * (p_loc_est + 1) * max(2 * b_loc * k_est + 1, 4098)
+        if scratch > (8 << 30):
+            raise ValueError(
+                f"per-shard histogram scratch would be ~{scratch / 2**30:.0f}"
+                f" GiB ({p_loc_est} pixels/shard x {b_loc} ions/formula-shard"
+                f" x {k_est} peaks); reduce parallel.formula_batch, grow the"
+                " pixels mesh axis, or add formula shards")
+        if self._buckets:
+            # whole lattice rows per shard, peak slots on the lattice; the
+            # metric grid is the single-device path's row bucket, which the
+            # shuffle's concatenation is cut to
+            nrows_b = shape_buckets.row_bucket(ds.nrows)
+            r_loc = shape_buckets.pow2ish(-(-nrows_b // n_pix), 1)
+            mz_s, px_s, in_s, self._p_loc = prepare_flat_sharded_arrays(
+                ds, self.ppm, n_pix, p_loc=r_loc * ds.ncols,
+                slot_bucket=shape_buckets.peak_bucket)
+            self._nrows_metric = nrows_b
+        else:
+            mz_s, px_s, in_s, self._p_loc = prepare_flat_sharded_arrays(
+                ds, self.ppm, n_pix)
+            self._nrows_metric = ds.nrows
+        self._n_pix_metric = self._nrows_metric * ds.ncols
+        # the real pixel count for the masked moments; None off the lattice
+        self._n_real = ds.n_pixels if self._buckets else None
+        if restrict_table is not None:
+            mz_s, px_s, in_s = self._restrict_shards(mz_s, px_s, in_s,
+                                                     restrict_table)
+        self.cube_dtype = par.cube_dtype
+        if self.cube_dtype == "int8":
+            logger.warning(
+                "parallel.cube_dtype=int8 is single-device only (per-tile "
+                "scales do not shard); mesh path keeps f32 residents")
+            self.cube_dtype = "f32"
+        self._compaction = par.peak_compaction
+        self._band_mode = par.band_slice
+        self.int_scale = ds.intensity_quantization(self.ppm)[1]
+        self._mz_shards = mz_s            # host-side, for the bound ranks
+        # pixel shard s's rows on each distinct device of mesh row s: cells
+        # of one row on one device share them
+        self._px: list[dict] = []
+        self._in: list[dict] = []
+        for s in range(n_pix):
+            codes, _scales = compact_cube(in_s[s], self.cube_dtype)
+            row_px, row_in = {}, {}
+            for d in dict.fromkeys(self.mesh.devices[s]):
+                row_px[d] = torch.from_numpy(
+                    px_s[s].astype(np.int64)).to(d)
+                row_in[d] = cube_to_device(codes, d)
+            self._px.append(row_px)
+            self._in.append(row_in)
+        logger.info(
+            "torch_cuda sharded flat peaks resident: %s over mesh %s "
+            "(pixels=%d, formulas=%d, p_loc=%d); cube_dtype=%s",
+            px_s.shape, self.mesh.shape, n_pix, n_form, self._p_loc,
+            self.cube_dtype)
+        self._gc_width = 0                # sticky chunk band width
+        # batches this backend scored by each extraction variant
+        self.variant_counts = dict.fromkeys(("plain", "band", "compact"), 0)
+        # called with each stage's name as it is enqueued (chip_smoke.py
+        # records CUDA events there); None in the program
+        self.timer = None
+
+    # ------------------------------------------------------------- set-up
+    def shrink_batch(self, batch: int) -> None:
+        """Cap the padding batch (shrink only), clamped to the mesh's batch
+        granule (formula shards x pixel shards): below it, memory relief
+        must come from the mesh geometry instead."""
+        new = max(self._batch_granule,
+                  _round_up(max(1, int(batch)), self._batch_granule))
+        if new < self.batch:
+            logger.warning("sharded torch_cuda backend: formula batch %d -> "
+                           "%d (OOM backoff, granule %d)", self.batch, new,
+                           self._batch_granule)
+            self.batch = new
+
+    def _restrict_shards(self, mz_s, px_s, in_s, table):
+        """Drop peaks outside the union of ``table``'s windows from every
+        pixel shard's row and re-pad rows to the new common length
+        (exact)."""
+        lo_q, hi_q = quantize_window(table.mzs, self.ppm)
+        mz_k, px_k, in_k, n_eff = restrict_flat_to_windows(
+            mz_s, px_s, in_s, lo_q, hi_q, overflow_row=self._p_loc)
+        logger.info("window-union restriction: %d -> %d peaks/shard max",
+                    mz_s.shape[1], n_eff)
+        return mz_k, px_k, in_k
+
+    # --------------------------------------------------------- host plans
+    def _flat_plan(self, table: IsotopePatternTable) -> ShardPlan:
+        """Host prep of one batch: per formula shard its windows' rank grid
+        and ion-major chunk plan, and per (pixel shard, formula shard) cell
+        the bound ranks and, unless their mode is "off", the compaction
+        runs and the rank band among the shard's peaks."""
+        n, b = table.n_ions, self.batch
+        if n > b:
+            raise ValueError(f"batch of {n} ions exceeds formula_batch={b}")
+        k = table.max_peaks
+        k_eff = max(1, k)
+        lo_q, hi_q = quantize_window(table.mzs, self.ppm)
+        lo_p = np.zeros((b, k), dtype=np.int32)
+        hi_p = np.zeros((b, k), dtype=np.int32)
+        ints_p = np.zeros((b, k), dtype=np.float32)
+        nv_p = np.zeros(b, dtype=np.int32)
+        lo_p[:n], hi_p[:n] = lo_q, hi_q
+        ints_p[:n] = table.ints
+        nv_p[:n] = table.n_valid
+        b_loc = b // self._n_form
+        ipc = ions_per_chunk_for(b_loc, k_eff, BAND_WINDOWS)
+        shards = range(self._n_pix)
+        chunks = []
+        pos = [[] for _ in shards]
+        runs = [[] for _ in shards] if self._compaction != "off" else None
+        bands = [[] for _ in shards] if self._band_mode != "off" else None
+        for fi in range(self._n_form):
+            sl = slice(fi * b_loc, (fi + 1) * b_loc)
+            grid, r_lo, r_hi = window_rank_grid(lo_p[sl], hi_p[sl])
+            chunks.append(ion_window_chunks(r_lo, r_hi, b_loc, k_eff, ipc))
+            for s in shards:
+                mz = self._mz_shards[s]
+                pos[s].append(flat_bound_ranks(mz, grid))
+                if runs is not None:
+                    runs[s].append(batch_peak_runs(mz, lo_p[sl], hi_p[sl],
+                                                   pos[s][fi]))
+                if bands is not None:
+                    bands[s].append(batch_peak_band(mz, lo_p[sl],
+                                                    hi_p[sl]))
+        return ShardPlan(ints_p, nv_p, chunks, pos, runs, bands, k)
+
+    def _variant_for(self, runs, bands) -> str:
+        """The extraction variant of one batch, for the whole mesh: the
+        single-device rule (``TorchBackend._variant_for``, the card's
+        per-slot rates) on the busiest cell's work.  "on" forces a variant,
+        band first; every variant gives the same bits."""
+        if self._band_mode == "on" and bands is not None:
+            return "band"
+        if self._compaction == "on" and runs is not None:
+            return "compact"
+        n = int(self._mz_shards.shape[1])
+        est = {"plain": SCATTER_NS_PER_SLOT * n}
+        if runs is not None:
+            est["compact"] = COMPACT_NS_PER_SLOT * max(
+                r[2] for row in runs for r in row)
+        if bands is not None:
+            w = max(bd[1] for row in bands for bd in row)
+            if w < n:
+                est["band"] = SCATTER_NS_PER_SLOT * w
+        return min(est, key=est.get)
+
+    def _grow(self, plan: ShardPlan) -> None:
+        self._gc_width = max([self._gc_width] + [c[4] for c in plan.chunks])
+
+    def presize(self, tables) -> None:
+        """Grow the sticky band width to cover ``tables`` without scoring,
+        so every batch of a search runs at one shape."""
+        for t in tables:
+            self._grow(self._flat_plan(t))
+
+    def warmup(self, tables) -> None:
+        """Pre-size on ``tables`` and score one batch of each extraction
+        variant they take, so every kernel is built and loaded on every
+        device of the mesh before the first timed batch."""
+        tables = list(tables)
+        plans = [self._flat_plan(t) for t in tables]
+        for plan in plans:
+            self._grow(plan)
+        seen: set = set()
+        for t, plan in zip(tables, plans):
+            variant = self._variant_for(plan.runs, plan.bands)
+            if variant not in seen:
+                seen.add(variant)
+                self._dispatch(t, plan).cpu()
+
+    # ------------------------------------------------------------ scoring
+    def _mark(self, stage: str) -> None:
+        if self.timer is not None:
+            self.timer(stage)
+
+    def _cell_images(self, plan: ShardPlan, variant: str, s: int, fi: int,
+                     dev) -> torch.Tensor:
+        """Stage 1 in cell (s, fi): the (B_loc, K, p_loc) image block of
+        formula shard fi's ions on pixel shard s, in the chunk plan's ion
+        order."""
+        starts, r_lo_loc, r_hi_loc, _inv, _gc, _order = plan.chunks[fi]
+        px, codes = self._px[s][dev], self._in[s][dev]
+        pos = _put(plan.pos[s][fi], dev, torch.int64)
+        if variant == "band":
+            b_lo, width = plan.bands[s][fi]
+            px = px[b_lo:b_lo + width]
+            ints = expand_cube_range(codes, None, b_lo, b_lo + width)
+            pos = torch.clamp(pos - b_lo, 0, width)
+        elif variant == "compact":
+            run_pos, run_delta, n_b, pos_b = plan.runs[s][fi]
+            px, ints = compact_peaks(px, codes, _put(run_pos, dev, torch.int64),
+                                     _put(run_delta, dev, torch.int64), n_b)
+            pos = _put(pos_b, dev, torch.int64)
+        else:
+            ints = expand_cube_range(codes, None)
+        imgs = extract_images_flat_banded(
+            px, ints, pos, starts, _put(r_lo_loc, dev), _put(r_hi_loc, dev),
+            None, gc_width=self._gc_width, n_pixels=self._p_loc)
+        return imgs.view(self.batch // self._n_form, plan.k, self._p_loc)
+
+    def _shuffle(self, blocks: list, j: int, dev) -> torch.Tensor:
+        """Stage 2 on device ``dev``: sub-batch j of every pixel shard's
+        block, along the pixel axis, cut to the metric grid."""
+        bj = blocks[0].shape[0] // self._n_pix
+        rows = slice(j * bj, (j + 1) * bj)
+        parts = []
+        for s, blk in enumerate(blocks):
+            width = min(self._p_loc, self._n_pix_metric - s * self._p_loc)
+            if width <= 0:
+                break
+            part = blk[rows]
+            parts.append((part if width == self._p_loc
+                          else part[:, :, :width]).to(dev))
+        if len(parts) == 1 and parts[0].is_contiguous():
+            return parts[0]
+        return torch.cat(parts, dim=2)
+
+    def _dispatch(self, table: IsotopePatternTable,
+                  plan: ShardPlan | None = None) -> torch.Tensor:
+        """Enqueue one padded batch on the mesh; returns its (b, 4)
+        metrics in the table's ion order, on the mesh's first device (not
+        synchronised)."""
+        if plan is None:
+            plan = self._flat_plan(table)
+        self._grow(plan)
+        variant = self._variant_for(plan.runs, plan.bands)
+        grid = self.mesh.devices
+        n_pix, n_form = self._n_pix, self._n_form
+        b_loc = self.batch // n_form
+        bj = b_loc // n_pix
+        self._mark("start")
+        blocks = [[self._cell_images(plan, variant, s, fi, grid[s, fi])
+                   for s in range(n_pix)] for fi in range(n_form)]
+        self._mark("extract")
+        mine = [[self._shuffle(blocks[fi], j, grid[j, fi])
+                 for j in range(n_pix)] for fi in range(n_form)]
+        del blocks
+        self._mark("shuffle")
+        rows = []
+        for fi in range(n_form):
+            order = plan.chunks[fi][5]
+            sl = slice(fi * b_loc, (fi + 1) * b_loc)
+            theor = plan.ints_p[sl][order]
+            n_valid = plan.nv_p[sl][order]
+            for j in range(n_pix):
+                dev, sub = grid[j, fi], slice(j * bj, (j + 1) * bj)
+                rows.append(batch_metrics(
+                    mine[fi][j], _put(theor[sub], dev), _put(n_valid[sub], dev),
+                    self._nrows_metric, self.ds.ncols, self.nlevels,
+                    n_real=self._n_real,
+                    do_preprocessing=self.do_preprocessing, q=self.q))
+                mine[fi][j] = None
+        self._mark("metrics")
+        home = grid[0, 0]
+        outs = []
+        for fi in range(n_form):
+            f_rows = torch.cat([r.to(home) for r in rows[fi * n_pix:
+                                                         (fi + 1) * n_pix]])
+            outs.append(f_rows[_put(plan.chunks[fi][3], home, torch.int64)])
+        out = torch.cat(outs)
+        self._mark("gather")
+        self.variant_counts[variant] += 1
+        return out
+
+    def score_batch(self, table: IsotopePatternTable) -> np.ndarray:
+        """(n_ions, 4) f64 metrics of one batch."""
+        out = self._dispatch(table)
+        return out[:table.n_ions].cpu().numpy().astype(np.float64)
+
+    def score_batches(self, tables, cancel=None) -> list[np.ndarray]:
+        """Plan every batch first (pre-sizing the sticky band width),
+        enqueue each, then copy the results to the host; a device error of
+        any batch surfaces at the copy, inside the caller's fault handling.
+        ``cancel`` is checked once before the group, at the checkpoint
+        grain, as in the JAX package."""
+        tables = list(tables)
+        if cancel is not None:
+            cancel.check("score_batches")
+        plans = [self._flat_plan(t) for t in tables]
+        for plan in plans:
+            self._grow(plan)
+        outs = []
+        for t, plan in zip(tables, plans):
+            with tracing.span("score_batch", backend="torch_cuda_sharded",
+                              ions=int(t.n_ions), enqueue=True,
+                              mesh=self.mesh.shape):
+                outs.append(self._dispatch(t, plan))
+        devices = [str(d) for d in self.mesh.devices.flat]
+        with tracing.span("device_sync", batches=len(outs), devices=devices):
+            res = [o[:t.n_ions].cpu().numpy().astype(np.float64)
+                   for o, t in zip(outs, tables)]
+        self._trace_mesh_memory()
+        return res
+
+    def _trace_mesh_memory(self) -> None:
+        """Each of the mesh's cards' allocated bytes onto the ambient
+        trace (nothing on the CPU)."""
+        per = {str(d): int(torch.cuda.memory_allocated(d))
+               for d in self.mesh.distinct() if torch.device(d).type == "cuda"}
+        if per:
+            tracing.event("mesh_hbm", devices=per)
+
+    def extract_ion_images(self, table: IsotopePatternTable) -> np.ndarray:
+        """(n_ions, K, n_pixels) f32 ion images of ``table``, in its ion
+        order, off the device shards: collective-free, each cell extracts
+        its formula shard's windows on its pixel shard (the plain variant)
+        and the blocks are assembled on the host, divided by the intensity
+        grid's power-of-two scale (exact), the images of invalid isotope
+        peaks zero.  Bit-equal to ``ops/imager_np``.  Tables longer than
+        the batch are extracted batch by batch."""
+        from ..models.msm_basic import _slice_table
+
+        n, b = table.n_ions, self.batch
+        if n > b:
+            return np.concatenate([
+                self.extract_ion_images(_slice_table(table, s, min(s + b, n)))
+                for s in range(0, n, b)])
+        plan = self._flat_plan(table)
+        self._grow(plan)
+        k, p_loc = plan.k, self._p_loc
+        b_loc = b // self._n_form
+        imgs = np.zeros((b, k, self._n_pix * p_loc), dtype=np.float32)
+        for fi in range(self._n_form):
+            for s in range(self._n_pix):
+                dev = self.mesh.devices[s, fi]
+                blk = self._cell_images(plan, "plain", s, fi, dev)
+                blk = blk[_put(plan.chunks[fi][3], dev, torch.int64)]
+                imgs[fi * b_loc:(fi + 1) * b_loc, :,
+                     s * p_loc:(s + 1) * p_loc] = blk.cpu().numpy()
+        imgs = np.ascontiguousarray(imgs[:n, :, :self.ds.n_pixels])
+        imgs /= np.float32(self.int_scale)
+        valid = np.arange(k)[None, :] < table.n_valid[:, None]
+        imgs[~valid] = 0.0
+        return imgs
+
+
+def _put(a: np.ndarray, dev, dtype: torch.dtype | None = None
+         ) -> torch.Tensor:
+    """A host array on ``dev``."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return (t if dtype is None else t.to(dtype)).to(dev)
+
+
+def make_torch_backend(ds: SpectralDataset, ds_config: DSConfig,
+                       sm_config: SMConfig, restrict_table=None,
+                       device_indices=None, devices=None):
+    """The single-device backend or the mesh-sharded one.
+
+    ``device_indices`` is a device-pool lease's chips: a 1-chip lease gets
+    ``TorchBackend`` pinned to that chip, an N-chip lease
+    ``ShardedTorchBackend`` over a mesh of those chips, shaped by
+    ``parallel.pixels_axis`` / ``formulas_axis``.  ``devices`` (an explicit
+    device list, which may repeat a device) takes the lease's place.  With
+    neither, the mesh spans the config's devices
+    (``mesh.config_devices``); a mesh of one device gets ``TorchBackend``.
+    ``restrict_table`` (the search's full ion table) drops the dataset's
+    peaks outside every window (exact)."""
+    from .distributed import maybe_initialize_distributed
+    from .mesh import host_topology, lease_devices
+
+    par = sm_config.parallel
+    maybe_initialize_distributed(par)          # no-op single-process
+    hosts = 1
+    if devices is None:
+        devices = lease_devices(device_indices, device=sm_config.device)
+        pool_hosts = max(1, int(sm_config.service.device_pool_hosts))
+        if devices is not None and pool_hosts > 1:
+            from ..service.device_pool import resolve_pool_size
+            from ..service.health import split_host_ranges
+
+            # the host failure domains THIS lease spans (the pool hands
+            # out chips host-major)
+            size = resolve_pool_size(sm_config.service, sm_config.backend,
+                                     sm_config.device)
+            hosts = max(1, len(host_topology(
+                device_indices, split_host_ranges(size, pool_hosts))))
+    if devices is not None and len(devices) == 1:
+        return TorchBackend(ds, ds_config, sm_config,
+                            restrict_table=restrict_table, device=devices[0])
+    mesh = make_mesh(par, devices=devices, hosts=hosts,
+                     device=sm_config.device)
+    if mesh.size == 1:
+        return TorchBackend(ds, ds_config, sm_config,
+                            restrict_table=restrict_table,
+                            device=mesh.devices[0, 0])
+    return ShardedTorchBackend(ds, ds_config, sm_config, mesh=mesh,
+                               restrict_table=restrict_table)

@@ -3,15 +3,16 @@
 Copy of ``sm_distributed_tpu/service/device_pool.py``: the same grants for
 the same calls.  Each job's device-bound phase runs under a lease from the
 **pool**, and a lease of chip ``i`` is device ``cuda:i``
-(``models/msm_basic.lease_device``):
+(``models/msm_basic.lease_device``), a lease of several chips a mesh:
 
 - a job asks for ``1..N`` chips (``service.devices_per_job`` default, a
   per-submit ``devices`` field overrides);
 - **small jobs pack**: two 1-chip jobs get DISTINCT chips and run their
   device phases concurrently;
-- **larger leases are a contiguous run** of device indices; the port scores
-  one chip a job, so a search handed more raises until multi-GPU
-  (ROADMAP queue 1 item 7);
+- **larger leases are a contiguous run** of device indices, which the
+  search shards over as a ("pixels", "formulas") mesh
+  (``parallel/sharded.py``); a lease of more chips than are visible keeps
+  the visible ones, with a warning (``parallel/mesh.lease_devices``);
 - **FIFO-ish fairness**: waiters are served in arrival order; a waiter
   whose request cannot currently be satisfied is skipped (so small jobs
   keep packing around a waiting sub-mesh job), but after ``max_bypass``

@@ -11,11 +11,13 @@ daemon's one-message-at-a-time blocking loop
 - a **worker pool** executes claimed jobs concurrently.  Device-bound
   phases go through the **device pool** (``service/device_pool.py``): each
   job gets a ``DeviceLease`` (``service.devices_per_job`` default,
-  per-submit ``devices`` override; the port scores one chip a job),
+  per-submit ``devices`` override; a lease of several chips scores on a
+  mesh over them, ``parallel/sharded.py``),
   handed to the callback via ``JobContext.device_token`` — Lock-protocol
   compatible, acquired inside ``SearchJob.run`` around the backend set-up,
   search and store.  Jobs pack onto DISTINCT chips and run their device
-  phases concurrently; a lease of chip ``i`` runs the job on ``cuda:i``.
+  phases concurrently; a lease of chip ``i`` runs the job on ``cuda:i``,
+  a lease of chips ``i..j`` on a ("pixels", "formulas") mesh of them.
   Each attempt runs in its own thread, and CUDA's current device is per
   thread: the kernels and the job's torch calls name the lease's device
   explicitly.  CPU-bound staging/parse overlaps device time;

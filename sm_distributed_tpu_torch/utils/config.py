@@ -19,9 +19,12 @@ it holds the JAX package's default: the ``service`` blocks ``fleet`` and
 the port accepts only disabled (item 9b); the ``read`` block (the read path,
 enabled by default as in the JAX package) and the ``stream`` block (live
 acquisition ingest) take every value the JAX package does;
-``telemetry.retrace`` and ``parallel.compile_cache_dir`` (item 9b);
-``service.devices_per_job`` above 1 and the JAX package's mesh and
-multi-host knobs (item 7); and the values listed on each dataclass.
+``telemetry.retrace`` and ``parallel.compile_cache_dir`` (item 9b); and
+the values listed on each dataclass.  The mesh and multi-process knobs
+(``parallel.pixels_axis``, ``formulas_axis``, ``coordinator_address``,
+``num_processes``, ``process_id``, ``init_retries``, ``init_backoff_s``)
+and ``service.devices_per_job`` above 1 take every value the JAX package
+does (``parallel/``).
 ``telemetry.profile`` (``GET /debug/profile`` through ``torch.profiler``)
 and ``parallel.isocalc_device`` ("on": isotope patterns blurred and
 centroided on the search's device) take every value the JAX package does.
@@ -78,13 +81,6 @@ _NOT_YET = {
        for k, v in _SERVICE_ACCEPTED.items()},
     ("TelemetryConfig", "retrace"): ("queue 1 item 9b", True),
     ("ParallelConfig", "compile_cache_dir"): ("queue 1 item 9b", ""),
-    ("ParallelConfig", "pixels_axis"): ("queue 1 item 7", -1),
-    ("ParallelConfig", "formulas_axis"): ("queue 1 item 7", 1),
-    ("ParallelConfig", "coordinator_address"): ("queue 1 item 7", ""),
-    ("ParallelConfig", "num_processes"): ("queue 1 item 7", 1),
-    ("ParallelConfig", "process_id"): ("queue 1 item 7", -1),
-    ("ParallelConfig", "init_retries"): ("queue 1 item 7", 5),
-    ("ParallelConfig", "init_backoff_s"): ("queue 1 item 7", 1.0),
 }
 
 
@@ -214,7 +210,16 @@ class ParallelConfig:
     and, on the ``numpy_ref`` backend, scores batches as their patterns
     land.  ``resident_datasets`` is how many parsed datasets and set-up
     backends the service keeps resident across jobs (LRU, 0 disables:
-    ``engine/residency.py``)."""
+    ``engine/residency.py``).  ``pixels_axis`` and ``formulas_axis`` shape
+    the ("pixels", "formulas") mesh a search shards over (-1: every device
+    left over; ``parallel/mesh.py``); ``coordinator_address``,
+    ``num_processes``, ``process_id``, ``init_retries`` and
+    ``init_backoff_s`` configure the multi-process runtime
+    (``parallel/distributed.py``; the env variables ``SM_COORDINATOR``,
+    ``SM_NUM_PROCESSES`` and ``SM_PROCESS_ID`` override the first
+    three)."""
+    pixels_axis: int = -1
+    formulas_axis: int = 1
     formula_batch: int = 2048
     mz_chunk: int = 0
     peak_compaction: str = "auto"
@@ -229,8 +234,19 @@ class ParallelConfig:
     isocalc_device: str = "off"
     overlap_isocalc: str = "auto"
     resident_datasets: int = 2
+    coordinator_address: str = ""        # "" = single-process (no-op init)
+    num_processes: int = 1
+    process_id: int = -1                 # -1 = resolve from env/launcher
+    init_retries: int = 5                # attempts after the first
+    init_backoff_s: float = 1.0          # first retry delay; doubles
 
     def __post_init__(self):
+        for axis in ("pixels_axis", "formulas_axis"):
+            if getattr(self, axis) < -1 or getattr(self, axis) == 0:
+                raise ValueError(
+                    "mesh axis sizes must be -1 or positive, got "
+                    f"pixels_axis={self.pixels_axis}, "
+                    f"formulas_axis={self.formulas_axis}")
         for knob, valid in (("order_ions", ("auto", "mz", "table")),
                             ("band_slice", ("auto", "on", "off")),
                             ("peak_compaction", ("auto", "on", "off")),
@@ -352,8 +368,9 @@ class ServiceConfig:
     """Annotation-service knobs (scheduler, failure policy, device pool and
     health, replicas, admin API, admission, breaker), the JAX package's,
     consumed by ``sm_distributed_tpu_torch.service`` (the ``serve`` CLI
-    command).  ``devices_per_job`` above 1 raises: leases of several cards
-    are ROADMAP queue 1 item 7.  ``read`` (the read path) and ``stream``
+    command).  A lease of ``devices_per_job`` (or a submit's ``devices``)
+    chips above 1 scores on a mesh over them (``parallel/sharded.py``).
+    ``read`` (the read path) and ``stream``
     (live-acquisition ingest) are the JAX package's blocks.  Its ``fleet``,
     ``prime`` and ``fleetview`` blocks are accepted at their defaults
     (``fleetview`` disabled) and held nowhere: their modules are item 9b.  ``breaker_degraded_batch`` (the JAX package's
@@ -397,7 +414,7 @@ class ServiceConfig:
     devices_per_job: int = 1             # chips a job claims by default; a
                                          # per-submit "devices" field
                                          # overrides.  1 = pack jobs onto
-                                         # distinct chips (above 1: item 7)
+                                         # distinct chips; above 1 a mesh
     device_pool_max_bypass: int = 64     # grants that may jump a waiting
                                          # larger lease before it seals the
                                          # queue (anti-starvation for
@@ -492,9 +509,6 @@ class ServiceConfig:
                 "service: health_fault_quarantine must be >= 1, "
                 "health_reprobe_after_s >= 0, and "
                 "health_host_evict_fraction > 0 (>= 1.0 disables eviction)")
-        if self.devices_per_job > 1:
-            raise _not_in_slice(f"service.devices_per_job="
-                                f"{self.devices_per_job}", "queue 1 item 7")
         if self.host_watchdog_interval_s < 0 or self.host_stale_after_s <= 0:
             raise ValueError("service: host_watchdog_interval_s must be >= 0 "
                              "and host_stale_after_s positive")

@@ -150,8 +150,9 @@ def test_lease_device():
     assert msm_basic.lease_device("cuda", (3,)) == "cuda:3"
     assert msm_basic.lease_device("cuda:0", (1,)) == "cuda:1"
     assert msm_basic.lease_device("cpu", (2,)) == "cpu"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        msm_basic.lease_device("cuda", (0, 1))
+    # a lease of several chips keys the residency by all of them (a mesh)
+    assert msm_basic.lease_device("cuda", (0, 1)) == ("cuda:0", "cuda:1")
+    assert msm_basic.lease_device("cpu", (0, 1)) == ("cpu", "cpu")
 
 
 def test_first_annotation_and_partials_match_jax(dataset):

@@ -362,16 +362,17 @@ def test_delete_in_the_claim_window_cancels(tmp_path, monkeypatch):
 
 
 def test_open_breaker_dead_letters_without_host_fallback(dataset, tmp_path):
-    """A ``torch_cuda`` job that meets an open breaker is refused with
-    ``DeviceUnavailableError`` on every attempt and dead-lettered by the
-    retry policy; nothing is scored on the host."""
+    """A ``torch_cuda`` job that meets an open breaker (its leased chip's)
+    is refused with ``DeviceUnavailableError`` on every attempt and
+    dead-lettered by the retry policy; nothing is scored on the host."""
     from sm_distributed_tpu_torch.engine.daemon import annotate_callback
 
     path, formulas = dataset
     sm = SMConfig.from_dict(_sm(tmp_path, service={
         "workers": 1, "poll_interval_s": 0.02, "http_port": 0,
         "backoff_base_s": 0.05, "breaker_cooldown_s": 3600.0}))
-    b = breaker.get_device_breaker(sm.service)
+    # the pool's one chip: a leased job answers to its chip's breaker
+    b = breaker.get_device_breaker(sm.service, devices=(0,))
     for _ in range(sm.service.breaker_threshold):
         b.record_failure()
     assert b.state == breaker.STATE_OPEN
