@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives twelve paths (seven of the library search, the job path,
-the service, the service's read path and stream ingest, a device-mode
-isotope search under the profiler, and the main path on meshes of
-devices), each with the kernel launch counts set to 0 just before it and
-read just after:
+nvcc and drives thirteen paths (seven of the library search, the job
+path, the service, the service's read path and stream ingest, a
+device-mode isotope search under the profiler, the main path on meshes of
+devices, and a replica takeover), each with the kernel launch counts set
+to 0 just before it and read just after:
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -135,7 +135,23 @@ read just after:
   in turns against phase 3's backend, and the kernels on ``cuda:1``, only
   where more than one card is visible (otherwise one line says the step
   did not run).  Each mesh's set-up and score seconds,
-  ions/s and device peak are printed.
+  ions/s and device peak are printed;
+- a replica takeover (phase 15, after phase 14, on phase 3b's imzML, work
+  dir and warm patterns, the main path's ions): 15a replica r0 of a
+  2-replica config (``drivers.replica_chaos --replica-serve``, a
+  subprocess on ``cuda:0`` with ``SM_FAILPOINTS=device.score_batch=crash@1``
+  and ``SM_LOCK_ORDER=raise``) claims the one message, parses, builds its
+  backend and dies at its first score group (exit 21, the message in
+  ``running/`` under r0's lease); 15b once r0's beat and heartbeat are
+  stale (polled), r1 (``AnnotationService`` in process, the lock-order
+  detector in raise mode) fences the claim one higher, requeues it
+  (``sm_replica_takeover_requeues_total`` 1) and runs it to ``done/``:
+  one message there and none elsewhere, the ledger with no STARTED row
+  after ``fail_stale_started(before=<takeover>)`` and its newest job
+  FINISHED, the stored results bit-equal to phase 3's, moments and packed
+  chaos launched 3 times each and nothing else, no lock-order cycle.
+  Every check is a state, a count or bit-equality; a deadline of 120 s
+  only ends a hang.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -159,8 +175,9 @@ the last is a JSON object with each kernel's launches on its path (phase
 11's jobs A and B in ``service_launches``, phase 12's stream job, its
 re-scores and its sealed pass, in ``stream_launches``, the profiler's
 event count of its device function over phase 13b's search in
-``profile_launches``, and phase 14a's 2x2 search in
-``sharded_launches``), its error against
+``profile_launches``, phase 14a's 2x2 search in
+``sharded_launches``, and phase 15's r1 in ``takeover_launches``), its
+error against
 the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
@@ -4360,6 +4377,234 @@ class OtherPort:
         self.chaos = importlib.import_module("ab_port.ops.chaos")
 
 
+# phase 15: a replica takeover on the card (port slice 15).  r0, a
+# ``drivers.replica_chaos --replica-serve`` subprocess of a 2-replica
+# config, dies at its first score group; r1, in process, fences and
+# requeues its claim and runs the job.  Every check is a state, a count or
+# bit-equality; the deadline only ends a hang.
+TAKEOVER_DS = "takeover_main"
+TAKEOVER_SPEC = "device.score_batch=crash@1"
+TAKEOVER_DEADLINE_S = 120.0
+TAKEOVER_SM = {"device": "cuda", "fdr": {"decoy_sample_size": 20},
+               "service": {"workers": 1, "http_port": 0, "replicas": 2,
+                           "spool_shards": 8, "poll_interval_s": 0.05,
+                           "heartbeat_interval_s": 0.2,
+                           "stale_after_s": 2.0,
+                           "replica_heartbeat_interval_s": 0.2,
+                           "replica_stale_after_s": 2.0,
+                           "takeover_interval_s": 0.2,
+                           "backoff_base_s": 0.2, "backoff_jitter": 0.0}}
+
+
+def _spool_census(root: Path) -> dict:
+    return {s: sorted(p.name for p in (root / s).glob("*.json"))
+            for s in ("pending", "running", "done", "failed", "quarantine")}
+
+
+def _wait_state(what: str, ready, deadline: float) -> None:
+    """Poll ``ready()`` until it holds; the deadline only ends a hang."""
+    while not ready():
+        assert time.time() < deadline, f"phase 15: {what} never held"
+        time.sleep(0.05)
+
+
+def phase_takeover(card: str, tmp: Path, truth, main: dict) -> dict:
+    """Phase 15: a replica takeover on the card, on phase 3b's imzML, work
+    dir (warm pattern cache) and the main path's ions.  15a: replica r0 of
+    a 2-replica config, a ``drivers.replica_chaos --replica-serve``
+    subprocess on ``cuda:0`` with ``SM_FAILPOINTS=device.score_batch=
+    crash@1`` and ``SM_LOCK_ORDER=raise``, is the only live replica and
+    owns every shard: it claims the one message, stages and parses the
+    input, builds its backend on the card and dies at the first score
+    group.  15b: once r0's registry beat and its claim's heartbeat are
+    older than the config's staleness horizons (polled, no fixed sleep),
+    r1 starts in process (``AnnotationService``, the lock-order detector
+    in raise mode, the launch counts reset just before): its takeover
+    fences and requeues the claim and it runs the job to ``done/``."""
+    import os
+
+    from sm_distributed_tpu_torch.analysis import lockorder
+    from sm_distributed_tpu_torch.engine.daemon import (
+        QUEUE_ANNOTATE,
+        QueuePublisher,
+        annotate_callback,
+        heartbeat_path,
+    )
+    from sm_distributed_tpu_torch.engine.storage import JobLedger
+    from sm_distributed_tpu_torch.service import AnnotationService
+    from sm_distributed_tpu_torch.service.leases import (
+        LeaseStore,
+        ReplicaRegistry,
+    )
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    import pandas as pd
+
+    t_phase = time.perf_counter()
+    base = tmp / "takeover"
+    queue = base / "queue"
+    root = queue / QUEUE_ANNOTATE
+    base.mkdir(parents=True)
+    sm_dict = {**TAKEOVER_SM, "work_dir": str(tmp / "work"),
+               "storage": {"results_dir": str(base / "results")}}
+    sm_json = base / "sm.json"
+    sm_json.write_text(json.dumps(sm_dict))
+    svc = TAKEOVER_SM["service"]
+    msg_name = f"{TAKEOVER_DS}.json"
+    QueuePublisher(queue).publish({
+        "ds_id": TAKEOVER_DS, "msg_id": TAKEOVER_DS,
+        "input_path": str(tmp / "main_path.imzML"),
+        "formulas": list(truth.formulas)})
+
+    # 15a: r0 dies at its first score group, holding the claim
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    env["SM_FAILPOINTS"] = TAKEOVER_SPEC
+    env["SM_LOCK_ORDER"] = "raise"
+    log = base / "r0.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "sm_distributed_tpu_torch.drivers.replica_chaos",
+             "--replica-serve", str(queue), str(sm_json),
+             "--replica-id", "r0", "--idle-exit", str(TAKEOVER_DEADLINE_S),
+             "--metrics-dump", str(base / "r0.prom")],
+            env=env, stdout=fh, stderr=fh, cwd=str(ROOT))
+        try:
+            rc = proc.wait(timeout=TAKEOVER_DEADLINE_S)
+        finally:
+            if proc.poll() is None:      # a hang: reap it before failing
+                proc.kill()
+                proc.wait()
+    r0_s = time.perf_counter() - t0
+    r0_log = log.read_text()
+    assert rc == 21, f"15a: r0 exited {rc}, not the crash code 21\n" \
+        + r0_log[-3000:]
+    assert "FAILPOINT-FIRED name=device.score_batch" in r0_log, r0_log[-3000:]
+    census = _spool_census(root)
+    assert census["running"] == [msg_name] and not any(
+        v for k, v in census.items() if k != "running"), census
+    lease0 = json.loads((root / "leases" / msg_name).read_text())
+    assert lease0["holder"] == "r0", lease0
+    fence0 = int(lease0["fence"])
+    say(f"  15a [{card}]: r0 claimed {TAKEOVER_DS} and died at its first "
+        f"score group in {r0_s:.1f} s (exit 21); the message is in "
+        f"running/ under r0's lease (fence {fence0})")
+
+    # 15b: r0's beat and its claim's heartbeat go stale; r1 takes over
+    deadline = time.time() + TAKEOVER_DEADLINE_S
+    probe = ReplicaRegistry(root, "phase15-probe",
+                            stale_after_s=svc["replica_stale_after_s"])
+    leases = LeaseStore(root, "phase15-probe")
+    claim = root / "running" / msg_name
+
+    def claim_stale() -> bool:
+        # the scheduler's rule: the claim's heartbeat, else the message's
+        # mtime and ctime (the claim's rename), and the lease's renewal
+        hb = heartbeat_path(claim)
+        st = claim.stat()
+        ref = hb.stat().st_mtime if hb.exists() else max(st.st_mtime,
+                                                          st.st_ctime)
+        ref = max(ref, leases.renewed_at(TAKEOVER_DS))
+        return time.time() - ref >= svc["stale_after_s"]
+
+    _wait_state("r0's registry beat stale",
+                lambda: "r0" not in probe.alive(), deadline)
+    _wait_state("r0's claim heartbeat stale", claim_stale, deadline)
+    sm1 = SMConfig.from_dict({**sm_dict, "service": {**svc,
+                                                      "replica_id": "r1"}})
+    t_takeover = time.time()
+    lockorder.enable(mode="raise")
+    service = None
+    try:
+        service = AnnotationService(queue, annotate_callback(sm1),
+                                    sm_config=sm1)
+        store = service.scheduler.leases
+        bumps, claims = [], []
+        orig_bump, orig_claim = store.bump, store.claim
+
+        def bump(msg_id):
+            fence = orig_bump(msg_id)
+            bumps.append((msg_id, fence))
+            return fence
+
+        def claim_lease(msg_id):
+            lease = orig_claim(msg_id)
+            claims.append((msg_id, lease.fence))
+            return lease
+
+        store.bump, store.claim = bump, claim_lease
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        service.start()
+        _wait_state("r1's job terminal",
+                    lambda: service.scheduler._terminal_count >= 1, deadline)
+        takeover_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_launches()
+        row = {r["msg_id"]: r for r in service.scheduler.jobs()}[TAKEOVER_DS]
+        metrics_text = service.metrics.expose()
+    finally:
+        if service is not None:
+            service.shutdown()
+        report = lockorder.disable()
+    assert row["state"] == "done", row
+    census = _spool_census(root)
+    assert census["done"] == [msg_name] and not any(
+        v for k, v in census.items() if k != "done"), census
+    assert bumps == [(TAKEOVER_DS, fence0 + 1)], (bumps, fence0)
+    assert claims == [(TAKEOVER_DS, fence0 + 2)], (claims, fence0)
+    assert 'sm_replica_takeover_requeues_total{replica="r1"} 1' in \
+        metrics_text, [ln for ln in metrics_text.splitlines()
+                       if "takeover" in ln]
+    ledger = JobLedger(base / "results")
+    try:
+        n_reconciled = ledger.fail_stale_started(ds_ids=[TAKEOVER_DS],
+                                                 before=t_takeover)
+        statuses = list(ledger.jobs(TAKEOVER_DS).status)
+    finally:
+        ledger.close()
+    assert "STARTED" not in statuses and statuses[-1] == "FINISHED", statuses
+    res = base / "results" / TAKEOVER_DS
+    ref = main["bundle"]
+    _same_frame(pd.read_parquet(res / "annotations.parquet"),
+                ref.annotations.reset_index(drop=True),
+                "takeover annotations")
+    _same_frame(pd.read_parquet(res / "all_metrics.parquet"),
+                ref.all_metrics.reset_index(drop=True),
+                "takeover all_metrics")
+    n_batches = -(-main["n_ions"] // 2048)
+    want = {k: 0 for k in launches}
+    want["moments"] = want["chaos"] = n_batches
+    assert launches == want, (launches, want)
+    assert not report["cycles"], report
+    timings = json.loads((res / "timings.json").read_text())
+    job_wall = row["finished_at"] - row["started_at"]
+    took = time.perf_counter() - t_phase
+    say(f"  15b [{card}]: r1 fenced r0's claim (fence {fence0} -> "
+        f"{fence0 + 1}), requeued it (sm_replica_takeover_requeues_total 1) "
+        f"and claimed it at fence {fence0 + 2}; {takeover_s:.1f} s from r1's "
+        f"start to done; job wall {job_wall:.3f} s, phases "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()
+                    if isinstance(v, (int, float)))
+        + f"; ledger after fail_stale_started(before=takeover) "
+        f"{statuses} ({n_reconciled} reconciled); launches {launches}; "
+        f"lock order: {report['locks_instrumented']} locks, "
+        f"{report['edges']} edges, no cycle")
+    say(f"phase 15 replica takeover [{card}]: {took:.1f} s; one message in "
+        "done/, none elsewhere; stored results bit-equal to phase 3")
+    return {"phase_s": took, "r0_to_crash_s": r0_s,
+            "takeover_to_done_s": takeover_s, "job_wall_s": job_wall,
+            "job_phases": timings, "fence": [fence0, fence0 + 1, fence0 + 2],
+            "ledger": statuses, "reconciled": n_reconciled,
+            "lockorder": {k: report[k] for k in
+                          ("locks_instrumented", "edges")},
+            "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", metavar="DIR", help="another checkout of the "
@@ -4438,6 +4683,10 @@ def main() -> int:
     sharded = phase_sharded(card, ds, truth, search, ds_cfg, main)
     lap("sharded")
     _breaker_closed(2, "phase 14")
+    torch.cuda.empty_cache()
+    takeover = phase_takeover(card, Path(job_dir.name), truth, main)
+    lap("takeover")
+    _breaker_closed(2, "phase 15")
     job_dir.cleanup()
     say("main path: " + json.dumps({
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
@@ -4489,6 +4738,8 @@ def main() -> int:
         {k: v for k, v in stream.items() if k != "launches"}))
     say(f"sharded main path [{card}]: " + json.dumps(
         {k: v for k, v in sharded.items() if k != "launches"}))
+    say(f"replica takeover [{card}]: " + json.dumps(
+        {k: v for k, v in takeover.items() if k != "launches"}))
     say(f"device patterns and the profiler [{card}]: " + json.dumps(
         {"13a": patterns13, "13b": {k: v for k, v in profiled.items()
                                     if k != "attribution"},
@@ -4511,6 +4762,7 @@ def main() -> int:
         entry["stream_launches"] = stream["launches"][entry["name"]]
         entry["profile_launches"] = profiled["events"][entry["name"]]
         entry["sharded_launches"] = sharded["launches"][entry["name"]]
+        entry["takeover_launches"] = takeover["launches"][entry["name"]]
     _breaker_closed(2, "the script")
     say(f"  [{card}] 10.4 no host fallback: after every phase the device "
         "breaker was closed, the two refused jobs are step 10.3's, and no "

@@ -1,2 +1,7 @@
-"""Analysis tools of the port: ``profiling`` (on-demand device profiles
-through ``torch.profiler``, behind ``GET /debug/profile``)."""
+"""Analysis tools of the port: ``lockorder`` (the runtime lock-order
+detector, a copy of the JAX package's, scoped to this package) and
+``profiling`` (on-demand device profiles through ``torch.profiler``, behind
+``GET /debug/profile``).  The JAX package's static lint (``smlint``) keys on
+its own tree and has no counterpart here."""
+
+from . import lockorder  # noqa: F401

@@ -24,7 +24,10 @@ default; "cpu" runs the plain versions of the kernels).  ``serve`` runs the
 annotation service (``sm_distributed_tpu_torch.service``): the concurrent
 spool scheduler, its jobs on the device pool's chips, and the admin API.
 The JAX package's ``serve --fleet`` (the elastic fleet controller) is
-ROADMAP queue 1 item 9b.
+ROADMAP queue 1 item 9b.5.  The service's chaos, replica, resource and
+trace drivers are ``python -m sm_distributed_tpu_torch.drivers.<name>``
+(``replica_chaos --replica-serve`` runs one replica under the lock-order
+detector when ``SM_LOCK_ORDER`` is set).
 """
 
 from __future__ import annotations

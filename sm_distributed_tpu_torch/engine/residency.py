@@ -34,6 +34,10 @@ class _LRU:
     and the duplicate is dropped (device-backend builds don't race in
     practice because they run under the job's device lease)."""
 
+    # shared-state registry, the JAX package's own (tests hold the two equal):
+    # mutated only under _lock
+    _GUARDED_BY = {"data": "_lock", "hits": "_lock", "misses": "_lock"}
+
     def __init__(self, maxsize: int):
         self.maxsize = maxsize
         self.data: OrderedDict = OrderedDict()

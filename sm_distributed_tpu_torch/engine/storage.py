@@ -97,7 +97,7 @@ class JobLedger:
             f"PRAGMA busy_timeout={int(self.BUSY_TIMEOUT_S * 1000)}")
         # WAL lets readers proceed under a writer (index replace vs /jobs
         # queries); falls back gracefully where the filesystem can't do WAL
-        mode = self._conn.execute("PRAGMA journal_mode=WAL").fetchone()[0]
+        mode = self._journal_mode_wal()
         if str(mode).lower() != "wal":
             logger.warning(
                 "ledger %s: journal_mode=WAL unavailable (got %r); "
@@ -107,6 +107,22 @@ class JobLedger:
             self._conn.execute("PRAGMA synchronous=NORMAL")
         self._conn.executescript(_SCHEMA)
         self._conn.commit()
+
+    def _journal_mode_wal(self) -> str:
+        """Switch the file to WAL.  The switch takes the file's exclusive
+        lock, and sqlite answers "database is locked" at once, without its
+        busy handler, while another connection opens the same file at the
+        same moment (concurrent workers each opening the ledger): retry up
+        to the busy timeout."""
+        deadline = time.monotonic() + self.BUSY_TIMEOUT_S
+        while True:
+            try:
+                return self._conn.execute(
+                    "PRAGMA journal_mode=WAL").fetchone()[0]
+            except sqlite3.OperationalError as exc:
+                if "locked" not in str(exc) or time.monotonic() > deadline:
+                    raise
+                time.sleep(0.01)
 
     def upsert_dataset(self, ds_id: str, name: str, input_path: str,
                        ds_config: dict) -> None:
@@ -147,6 +163,44 @@ class JobLedger:
             "SELECT status FROM job WHERE id=?", (job_id,)
         ).fetchone()
         return row[0] if row else None
+
+    def fail_stale_started(self, ds_id: str | None = None,
+                           error: str = "orphaned by process crash",
+                           ds_ids=None, before: float | None = None) -> int:
+        """Crash reconciliation: mark STARTED job rows FAILED.  A row stuck in
+        STARTED means the owning process died between start_job and its
+        terminal update — rerunning is idempotent, but the ledger must not
+        report a dead job as live forever.  With ``ds_id`` the sweep is
+        scoped to one dataset.
+
+        Multi-replica scoping: a takeover replica must
+        not reap a LIVE peer's in-flight rows.  ``ds_ids`` restricts the
+        sweep to the datasets whose spool messages the takeover actually
+        fenced + requeued (the dead replica's shard contents), and
+        ``before`` restricts it to rows started before the takeover
+        timestamp — a row a live peer started afterwards survives even if
+        its dataset collides."""
+        q = "UPDATE job SET status=?, finished_at=?, error=? WHERE status=?"
+        args: list = [JOB_FAILED, time.time(), error, JOB_STARTED]
+        if ds_id is not None:
+            q += " AND ds_id=?"
+            args.append(ds_id)
+        if ds_ids is not None:
+            ids = sorted({str(d) for d in ds_ids})
+            if not ids:
+                return 0
+            q += f" AND ds_id IN ({','.join('?' * len(ids))})"
+            args.extend(ids)
+        if before is not None:
+            q += " AND started_at < ?"
+            args.append(float(before))
+        cur = self._conn.execute(q, args)
+        self._conn.commit()
+        n = cur.rowcount if cur.rowcount and cur.rowcount > 0 else 0
+        if n:
+            record_recovery("ledger.stale_started")
+            logger.warning("ledger: marked %d orphaned STARTED job(s) FAILED", n)
+        return n
 
     def jobs(self, ds_id: str | None = None) -> pd.DataFrame:
         q = "SELECT * FROM job"

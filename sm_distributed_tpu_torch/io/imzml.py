@@ -1,5 +1,5 @@
 """Native imzML + ibd reader/writer (copy of ``sm_distributed_tpu/io/imzml.py``
-without its fault-injection seams).
+with the same fault-injection seams, ``io.imzml_parse`` and ``io.ibd_read``).
 
 The reference parses imzML via the external ``pyimzML`` library inside
 ``sm/engine/imzml_txt_converter.py::ImzmlTxtConverter.convert`` [U]
@@ -27,6 +27,13 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+
+from ..utils.failpoints import failpoint, register_failpoint
+
+FP_IMZML_PARSE = register_failpoint(
+    "io.imzml_parse", "start of imzML XML parse (corrupt/unreadable imzML)")
+FP_IBD_READ = register_failpoint(
+    "io.ibd_read", "per-array ibd read (I/O error / truncation mid-ingest)")
 
 _DTYPES = {
     "MS:1000521": np.dtype("<f4"),
@@ -102,6 +109,7 @@ class ImzMLReader:
     # -- parsing ---------------------------------------------------------
 
     def _parse_xml(self) -> None:
+        failpoint(FP_IMZML_PARSE, path=self.imzml_path)
         param_groups: dict[str, list[tuple[str, str]]] = {}
         cur_group: str | None = None
         in_spectrum = False
@@ -216,6 +224,7 @@ class ImzMLReader:
         return np.array([(s.x, s.y) for s in self.spectra], dtype=np.int64)
 
     def _read_array(self, ref: _ArrayRef) -> np.ndarray:
+        failpoint(FP_IBD_READ, path=self.ibd_path)
         self._ibd.seek(ref.offset)
         raw = self._ibd.read(ref.length * ref.dtype.itemsize)
         if len(raw) != ref.length * ref.dtype.itemsize:

@@ -55,6 +55,11 @@ class DeviceUnavailableError(RuntimeError):
 class CircuitBreaker:
     """Consecutive-failure breaker with half-open recovery probes."""
 
+    # shared-state registry, the JAX package's own (tests hold the two equal):
+    # these attrs may only be mutated under _lock
+    _GUARDED_BY = {"_state": "_lock", "_failures": "_lock",
+                   "_opened_at": "_lock", "transitions": "_lock"}
+
     def __init__(self, threshold: int = 3, cooldown_s: float = 30.0,
                  label: str = GLOBAL_LABEL):
         self.threshold = int(threshold)

@@ -83,6 +83,7 @@ from ..ops.quantize import (
     expand_cube_range,
     quantize_window,
 )
+from ..utils import tracing
 from ..utils.config import DSConfig, SMConfig
 
 logger = logging.getLogger(__name__)
@@ -753,9 +754,15 @@ class TorchBackend:
             if plan is not None:
                 self._grow_from_plan(plan)
         outs = []
+        dev_attr = ({"device": int(self.device.index)}
+                    if self.device.index is not None else {})
         for t, plan in zip(tables, plans):
             if cancel is not None:
                 cancel.check("score_batch")
-            outs.append(self._dispatch(t, plan))
+            # a per-batch scoring span, as the JAX backend's: on the card it
+            # measures the enqueue (the copies below settle the device work)
+            with tracing.span("score_batch", backend="torch_cuda",
+                              ions=int(t.n_ions), enqueue=True, **dev_attr):
+                outs.append(self._dispatch(t, plan))
         return [o[:t.n_ions].cpu().numpy().astype(np.float64)
                 for o, t in zip(outs, tables)]

@@ -72,6 +72,9 @@ def shape_key(n_pixels: int, backend: str, device_indices=None) -> str:
 class _GuardedRegistry:
     """The module singleton's state, lock-guarded."""
 
+    _GUARDED_BY = {"_safe": "_lock", "_events": "_lock",
+                   "_recoveries": "_lock"}
+
     def __init__(self):
         self._lock = threading.Lock()
         self._safe: dict[str, int] = {}

@@ -492,6 +492,14 @@ class PatternStream:
     clean prefix.  ``ready_rows`` is the filled prefix of the table.
     """
 
+    # guarded-by registry, the JAX package's own (tests hold the two equal):
+    # the publication frontier + stream terminal state move only under _cond
+    # (row arrays themselves are single-writer, published via the _ready_rows
+    # barrier; this copy keeps no _done flag, its entry stays so the registry
+    # equals the JAX package's)
+    _GUARDED_BY = {"_ready_rows": "_cond", "_row_done": "_cond",
+                   "_error": "_cond", "_done": "_cond"}
+
     def __init__(self, wrapper: "IsocalcWrapper",
                  pairs: list[tuple[str, str]],
                  flags: list[bool] | None):
@@ -785,6 +793,11 @@ class IsocalcWrapper:
     ``"cuda"``; a CUDA device that is not there raises, with no fallback to
     the host oracle).  Device-mode patterns live under their own cache key,
     never mixed with the oracle's."""
+
+    # guarded-by registry, the JAX package's own (tests hold the two equal):
+    # the in-memory pattern cache + dirty set are shared between streams and
+    # single-ion callers
+    _GUARDED_BY = {"_cache": "_lock", "_dirty": "_lock"}
 
     _COMPACT_SHARDS = 64
 

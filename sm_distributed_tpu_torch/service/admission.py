@@ -59,6 +59,13 @@ class Decision:
 class AdmissionController:
     """Thread-safe occupancy + latency tracking behind ``/submit``."""
 
+    # shared-state registry, the JAX package's own (tests hold the two equal):
+    # mutated only under _lock (*_locked methods are the documented caller-
+    # holds-lock exception)
+    _GUARDED_BY = {"_depth": "_lock", "_tenant_inflight": "_lock",
+                   "_tenant_by_msg": "_lock", "_ewma": "_lock",
+                   "_shedding": "_lock"}
+
     def __init__(self, cfg: AdmissionConfig, metrics=None):
         self.cfg = cfg
         self._lock = threading.Lock()

@@ -98,6 +98,13 @@ class DeviceLease:
 class DevicePool:
     """Allocate contiguous chip runs to leases, FIFO-ish, crash-safe."""
 
+    # shared-state registry, the JAX package's own (tests hold the two equal):
+    # mutated only under _cond (methods named *_locked are the documented
+    # caller-holds-lock exception)
+    _GUARDED_BY = {"_owner": "_cond", "_waiters": "_cond",
+                   "_compat": "_cond", "grants_total": "_cond",
+                   "releases_total": "_cond", "leases_reaped_total": "_cond"}
+
     def __init__(self, size: int, max_bypass: int = 64, hosts: int = 1,
                  health: HealthTracker | None = None):
         if size <= 0:

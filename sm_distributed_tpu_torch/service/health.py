@@ -144,6 +144,16 @@ def _parse_sim_bad(text: str | None) -> frozenset[int]:
 class HealthTracker:
     """Per-chip health states + fault counters for one DevicePool."""
 
+    # shared-state registry, the JAX package's own (tests hold the two equal):
+    # fault reports, probes, and pool grant scans all touch these maps —
+    # mutations only under _lock.  Probes themselves (device work) run OUTSIDE
+    # the lock; only their verdicts re-enter it.
+    _GUARDED_BY = {"_state": "_lock", "_faults": "_lock",
+                   "_quarantined_at": "_lock", "_reason": "_lock",
+                   "quarantines_total": "_lock", "readmits_total": "_lock",
+                   "probes_total": "_lock", "host_evictions_total": "_lock",
+                   "_sim_bad": "_lock"}
+
     def __init__(self, size: int, hosts: int = 1,
                  probe_on_lease: bool = True,
                  fault_quarantine: int = 3,

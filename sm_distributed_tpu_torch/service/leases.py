@@ -331,6 +331,13 @@ class ReplicaRegistry:
     epoch so a restarted replica is distinguishable from its previous
     life (leases carry the epoch)."""
 
+    # guarded-by registry, the JAX package's own (tests hold the two equal):
+    # the replica loop re-registers after a drain clear while API /peers
+    # handlers and the fleet controller's reconcile thread read epoch for lease
+    # stamping / drain acks — the epoch bump must be atomic with the sentinel
+    # clear it pairs with.
+    _GUARDED_BY = {"epoch": "_lock"}
+
     def __init__(self, queue_root: str | Path, replica_id: str,
                  stale_after_s: float = 8.0):
         self.dir = Path(queue_root) / "replicas"

@@ -48,6 +48,11 @@ def _escape(v: str) -> str:
 class _Metric:
     """Base: a named family with labelled children."""
 
+    # guarded-by registry, the JAX package's own (tests hold the two equal):
+    # the child map may only be mutated under the family lock (scrapes iterate
+    # it concurrently)
+    _GUARDED_BY = {"_children": "_lock"}
+
     kind = "untyped"
 
     def __init__(self, name: str, help: str = "", labelnames: tuple[str, ...] = ()):
@@ -94,6 +99,8 @@ class _Metric:
 
 
 class _CounterChild:
+    _GUARDED_BY = {"value": "_lock"}
+
     __slots__ = ("value", "_lock")
 
     def __init__(self):
@@ -124,6 +131,8 @@ class Counter(_Metric):
 
 
 class _GaugeChild:
+    _GUARDED_BY = {"value": "_lock"}
+
     __slots__ = ("value", "_lock")
 
     def __init__(self):
@@ -165,6 +174,10 @@ class Gauge(_Metric):
 
 
 class _HistogramChild:
+    # counts/sum/count move together; a torn view renders +Inf < a finite
+    # bucket (the scrape-vs-observe race this registry pins)
+    _GUARDED_BY = {"counts": "_lock", "sum": "_lock", "count": "_lock"}
+
     __slots__ = ("buckets", "counts", "sum", "count", "_lock")
 
     def __init__(self, buckets: tuple[float, ...]):
@@ -378,6 +391,9 @@ def process_collector(registry: "MetricsRegistry") -> None:
 
 class MetricsRegistry:
     """Registry: owns metric families + scrape-time collect callbacks."""
+
+    # guarded-by registry, the JAX package's own (tests hold the two equal)
+    _GUARDED_BY = {"_metrics": "_lock", "_collectors": "_lock"}
 
     def __init__(self):
         self._lock = threading.Lock()

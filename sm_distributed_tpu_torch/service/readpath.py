@@ -64,6 +64,11 @@ class ReadCache:
     ``put`` — a get never evicts, so a hit is one lock + one move_to_end.
     """
 
+    # guarded-by registry, the JAX package's own (tests hold the two equal)
+    _GUARDED_BY = {"_entries": "_lock", "_bytes": "_lock",
+                   "_hits": "_lock", "_misses": "_lock",
+                   "_evictions": "_lock"}
+
     def __init__(self, max_bytes: int, max_entries: int):
         self.max_bytes = int(max_bytes)
         self.max_entries = int(max_entries)
@@ -150,6 +155,9 @@ class ReadPath:
     Handlers return ``(status, body, headers)`` where ``body`` is a
     JSON-ready dict or raw PNG bytes; ``AdminAPI`` stays a thin router.
     """
+
+    # guarded-by registry, the JAX package's own (tests hold the two equal)
+    _GUARDED_BY = {"_inflight": "_lock", "_sheds": "_lock"}
 
     def __init__(self, results_dir: str | Path,
                  cfg: ReadPathConfig | None = None, *,

@@ -113,6 +113,15 @@ class ResourceBudgetError(OSError):
 class ResourceGovernor:
     """Preflight + degrade levels + retention GC over the governed roots."""
 
+    # guarded-by registry, the JAX package's own (tests hold the two equal):
+    # sampling/preflight state is touched by worker threads, the scheduler's
+    # replica loop, and HTTP handlers
+    _GUARDED_BY = {"_used": "_lock", "_pending": "_lock", "_free": "_lock",
+                   "_free_at": "_lock", "_level": "_lock",
+                   "_degraded_writes": "_lock", "_denied": "_lock",
+                   "_gc_stats": "_lock", "_gc_runs": "_lock",
+                   "_last_gc_at": "_lock"}
+
     def __init__(self, cfg: ResourcesConfig,
                  work_dir: str | Path | None = None,
                  results_dir: str | Path | None = None,

@@ -286,6 +286,18 @@ class _Attempt(threading.Thread):
 class JobScheduler:
     """Drain the spool with a worker pool under the service failure policy."""
 
+    # shared-state registry, the JAX package's own (tests hold the two equal):
+    # dispatcher, workers, watchdog, replica loop, and HTTP handlers all touch
+    # these maps — mutations only under _records_lock.  _owned and _draining
+    # are excluded deliberately: each is replaced wholesale by one writer (the
+    # replica loop) and read racily by design.
+    _GUARDED_BY = {"_records": "_records_lock", "_live": "_records_lock",
+                   "_trace_roots": "_records_lock",
+                   "_lease_by_msg": "_records_lock",
+                   "_inflight_by_tenant": "_records_lock",
+                   "_terminal_count": "_records_lock",
+                   "_fenced_count": "_records_lock"}
+
     def __init__(
         self,
         queue_dir: str | Path,
@@ -1794,7 +1806,17 @@ class JobScheduler:
                     continue          # our own live claim
             hb = heartbeat_path(p)
             try:
-                ref = hb.stat().st_mtime if hb.exists() else p.stat().st_mtime
+                if hb.exists():
+                    ref = hb.stat().st_mtime
+                else:
+                    # a claim's rename into running/ keeps the message's
+                    # mtime (its publish time) and sets its ctime: a claim
+                    # made a moment ago, whose heartbeat and lease are not
+                    # written yet, is fresh however old the message is
+                    # (the JAX package keeps the mtime alone, and can fence
+                    # and requeue such a claim under its running worker)
+                    st = p.stat()
+                    ref = max(st.st_mtime, st.st_ctime)
             except FileNotFoundError:
                 continue              # finished between glob and stat
             # freshest sign of life: claim heartbeat OR lease renewal

@@ -11,8 +11,15 @@ pending backlog.  The device pool has one chip per visible CUDA device for
 a ``torch_cuda`` service on the card (none there raises), one for
 ``numpy_ref`` or ``device="cpu"``.  The stream ingest, the read path and
 the device profiler (``GET /debug/profile``) are wired as in the JAX
-package.  Not wired yet (ROADMAP queue 1 item 9b): the cache primer,
-compile attribution and the fleet view.
+package.  Its locks are watched by the lock-order detector
+(``analysis/lockorder.py``) when the caller enables it before building the
+service, as the drivers do under ``SM_LOCK_ORDER``; its recovery paths
+(crash requeues, fenced takeovers, drains, the disk governor) are driven
+by the port's drivers (``sm_distributed_tpu_torch.drivers``:
+``chaos_sweep``, ``replica_chaos``, ``resource_smoke``, ``trace_smoke``).
+Not wired yet (ROADMAP queue 1 items
+9b.4-9b.6): the cache primer, the fleet controller and fleet view, and
+compile attribution.
 """
 
 from __future__ import annotations

@@ -54,6 +54,11 @@ _OCCUPANCY_WINDOW = 60
 class DeviceMonitor:
     """Sample device/HBM/cache/occupancy state into gauges + a ring."""
 
+    # guarded-by registry, the JAX package's own (tests hold the two equal):
+    # the snapshot ring is appended by the sampling thread and listed by HTTP
+    # handlers; _occ is deliberately sampling-thread-private (no lock declared)
+    _GUARDED_BY = {"_ring": "_lock"}
+
     def __init__(self, registry, cfg: TelemetryConfig | None = None,
                  queue_root: str | Path | None = None,
                  device_pool=None, replica_id: str = "",
@@ -287,6 +292,9 @@ class SLOTracker:
     Attainment comes from the histogram buckets themselves, so
     ``/slo`` and ``/metrics`` can never disagree.
     """
+
+    # guarded-by registry, the JAX package's own (tests hold the two equal)
+    _GUARDED_BY = {"_submits": "_lock", "_first_noted": "_lock"}
 
     def __init__(self, registry, cfg: TelemetryConfig | None = None):
         self.cfg = cfg or TelemetryConfig()

@@ -41,6 +41,12 @@ class CancelToken:
     """Thread-safe one-shot cancellation flag with an optional absolute
     deadline and a progress heartbeat."""
 
+    # guarded-by registry, the JAX package's own (tests hold the two equal):
+    # the first-cancel-wins reason may only be written under _lock;
+    # last_progress/progress_phase are deliberately unsynchronized heartbeat
+    # fields (benign races)
+    _GUARDED_BY = {"reason": "_lock"}
+
     def __init__(self, deadline_at: float | None = None):
         self._event = threading.Event()
         self._lock = threading.Lock()

@@ -16,10 +16,11 @@ A block or value the port does not have yet raises ``NotImplementedError``
 naming the ROADMAP item that brings it, rather than being dropped, unless
 it holds the JAX package's default: the ``service`` blocks ``fleet`` and
 ``prime``, and ``fleetview``, which the JAX package enables by default and
-the port accepts only disabled (item 9b); the ``read`` block (the read path,
-enabled by default as in the JAX package) and the ``stream`` block (live
-acquisition ingest) take every value the JAX package does;
-``telemetry.retrace`` and ``parallel.compile_cache_dir`` (item 9b); and
+the port accepts only disabled (items 9b.4 and 9b.5); the ``read``
+block (the read path, enabled by default as in the JAX package) and the
+``stream`` block (live acquisition ingest) take every value the JAX
+package does;
+``telemetry.retrace`` and ``parallel.compile_cache_dir`` (item 9b.6); and
 the values listed on each dataclass.  The mesh and multi-process knobs
 (``parallel.pixels_axis``, ``formulas_axis``, ``coordinator_address``,
 ``num_processes``, ``process_id``, ``init_retries``, ``init_backoff_s``)
@@ -34,7 +35,9 @@ for each batch by its estimated cost on the card, ``"on"`` forces one (band
 first), ``"off"`` leaves it out; the variants give the same bits.
 ``do_preprocessing`` (hot-spot clipping), ``checkpoint_every`` (search
 checkpoint groups) and ``cube_dtype`` (a bf16 or int8 resident intensity
-cube on the flat path) take every value the JAX package accepts.
+cube on the flat path) take every value the JAX package accepts.  The
+service drivers (``sm_distributed_tpu_torch.drivers``) and the lock-order
+detector (``SM_LOCK_ORDER``) read nothing beyond these keys.
 """
 
 from __future__ import annotations

@@ -49,6 +49,10 @@ FP_TRACE_APPEND = register_failpoint(
     "emission must never fail the pipeline")
 
 RECORD_KINDS = ("span", "event")
+# required keys per record kind (validate_records + the trace smoke driver)
+_SPAN_KEYS = ("kind", "trace_id", "span_id", "parent_id", "name", "ts",
+              "dur", "pid", "tid")
+_EVENT_KEYS = ("kind", "trace_id", "span_id", "name", "ts", "pid", "tid")
 
 _CTX: contextvars.ContextVar["TraceContext | None"] = contextvars.ContextVar(
     "sm_trace_ctx", default=None)
@@ -93,6 +97,9 @@ class TraceContext:
 # --------------------------------------------------------- flight recorder
 class FlightRecorder:
     """Bounded ring of the most recent records, process-wide."""
+
+    # guarded-by registry, the JAX package's own (tests hold the two equal)
+    _GUARDED_BY = {"_ring": "_lock"}
 
     def __init__(self, maxlen: int = 2048):
         self._lock = threading.Lock()
@@ -410,6 +417,30 @@ def read_trace(path: str | Path) -> list[dict]:
         if isinstance(rec, dict):
             out.append(rec)
     return out
+
+
+def validate_records(records: list[dict]) -> list[str]:
+    """Schema check; returns problem strings (empty = valid).  The trace
+    smoke driver and tests run every emitted trace through this."""
+    problems = []
+    for i, rec in enumerate(records):
+        if not isinstance(rec, dict):
+            problems.append(f"record {i}: not an object")
+            continue
+        kind = rec.get("kind")
+        if kind not in RECORD_KINDS:
+            problems.append(f"record {i}: bad kind {kind!r}")
+            continue
+        keys = _SPAN_KEYS if kind == "span" else _EVENT_KEYS
+        missing = [k for k in keys if k not in rec]
+        if missing:
+            problems.append(f"record {i} ({kind} {rec.get('name')!r}): "
+                            f"missing {missing}")
+        if kind == "span" and not isinstance(rec.get("dur"), (int, float)):
+            problems.append(f"record {i}: span dur not numeric")
+        if "attrs" in rec and not isinstance(rec["attrs"], dict):
+            problems.append(f"record {i}: attrs not an object")
+    return problems
 
 
 def to_chrome_trace(records: list[dict]) -> dict:
