@@ -4428,7 +4428,6 @@ def phase_takeover(card: str, tmp: Path, truth, main: dict) -> dict:
         QUEUE_ANNOTATE,
         QueuePublisher,
         annotate_callback,
-        heartbeat_path,
     )
     from sm_distributed_tpu_torch.engine.storage import JobLedger
     from sm_distributed_tpu_torch.service import AnnotationService
@@ -4436,6 +4435,7 @@ def phase_takeover(card: str, tmp: Path, truth, main: dict) -> dict:
         LeaseStore,
         ReplicaRegistry,
     )
+    from sm_distributed_tpu_torch.service.scheduler import claim_last_alive
     from sm_distributed_tpu_torch.utils.config import SMConfig
 
     import pandas as pd
@@ -4501,14 +4501,9 @@ def phase_takeover(card: str, tmp: Path, truth, main: dict) -> dict:
     claim = root / "running" / msg_name
 
     def claim_stale() -> bool:
-        # the scheduler's rule: the claim's heartbeat, else the message's
-        # mtime and ctime (the claim's rename), and the lease's renewal
-        hb = heartbeat_path(claim)
-        st = claim.stat()
-        ref = hb.stat().st_mtime if hb.exists() else max(st.st_mtime,
-                                                          st.st_ctime)
-        ref = max(ref, leases.renewed_at(TAKEOVER_DS))
-        return time.time() - ref >= svc["stale_after_s"]
+        # the rule r1's takeover scan reads
+        return (time.time() - claim_last_alive(claim, leases)
+                >= svc["stale_after_s"])
 
     _wait_state("r0's registry beat stale",
                 lambda: "r0" not in probe.alive(), deadline)

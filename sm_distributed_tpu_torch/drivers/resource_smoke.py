@@ -18,14 +18,13 @@ to end:
 5. the bounded-retention GC keeps the spool under its caps: drained
    ``done/`` messages are reaped within the retention age and
    ``sm_gc_removed_files_total`` moves;
-6. the preflight fast path's cost per call is measured.  ``--max-preflight-us``
-   turns it into a gate (the JAX smoke's 25 µs); by default it is printed.
+6. the preflight fast path's cost per call is measured and printed (the
+   JAX smoke fails above 25 µs; this one gates no latency).
 
 Usage::
 
     python -m sm_distributed_tpu_torch.drivers.resource_smoke \\
-        [--backend numpy_ref|torch_cuda] [--device cpu|cuda] \\
-        [--max-preflight-us 25]
+        [--backend numpy_ref|torch_cuda] [--device cpu|cuda]
 
 Exit 0 = the smoke passes.
 """
@@ -65,8 +64,7 @@ def _wait_level(h: Harness, want: int, timeout_s: float = 10.0) -> dict:
     raise AssertionError(f"governor never reached level {want}: {body}")
 
 
-def run(work: Path, backend: str = "numpy_ref", device: str = "cpu",
-        max_preflight_us: float | None = None) -> int:
+def run(work: Path, backend: str = "numpy_ref", device: str = "cpu") -> int:
     fx = build_fixtures(work)
     h = Harness(work, "resource_smoke", sm_overrides={
         "backend": backend, "device": device,
@@ -177,10 +175,6 @@ def run(work: Path, backend: str = "numpy_ref", device: str = "cpu",
         for _ in range(n):
             governor.preflight("smoke_bench", 0)
         per_call = (time.perf_counter() - t0) / n
-        if max_preflight_us is not None and \
-                per_call > max_preflight_us * 1e-6:
-            return fail(f"preflight costs {per_call * 1e6:.1f} µs/call "
-                        f"(> {max_preflight_us} µs budget)")
     finally:
         h.shutdown()
     print(f"resource_smoke: OK — trace-drop degrade at level 1 (golden "
@@ -196,12 +190,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--backend", default="numpy_ref",
                     choices=("numpy_ref", "torch_cuda"))
     ap.add_argument("--device", default="cpu")
-    ap.add_argument("--max-preflight-us", type=float, default=None,
-                    help="fail when a preflight call costs more (µs)")
     args = ap.parse_args(argv)
     work = Path(tempfile.mkdtemp(prefix="sm_resource_smoke_"))
     try:
-        return run(work, args.backend, args.device, args.max_preflight_us)
+        return run(work, args.backend, args.device)
     except AssertionError as exc:
         return fail(str(exc))
     finally:

@@ -492,13 +492,12 @@ class PatternStream:
     clean prefix.  ``ready_rows`` is the filled prefix of the table.
     """
 
-    # guarded-by registry, the JAX package's own (tests hold the two equal):
-    # the publication frontier + stream terminal state move only under _cond
-    # (row arrays themselves are single-writer, published via the _ready_rows
-    # barrier; this copy keeps no _done flag, its entry stays so the registry
-    # equals the JAX package's)
+    # guarded-by registry, the JAX package's less its _done flag, which
+    # this copy does not keep: the publication frontier + stream terminal
+    # state move only under _cond (row arrays themselves are single-writer,
+    # published via the _ready_rows barrier)
     _GUARDED_BY = {"_ready_rows": "_cond", "_row_done": "_cond",
-                   "_error": "_cond", "_done": "_cond"}
+                   "_error": "_cond"}
 
     def __init__(self, wrapper: "IsocalcWrapper",
                  pairs: list[tuple[str, str]],

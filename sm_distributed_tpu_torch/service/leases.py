@@ -33,6 +33,18 @@ replicas.  The scheduler runs it even with one replica:
   rename itself: exactly one of (stale holder's move, fencer's move) can
   win, because the source path only exists once.
 
+- **claim windows** — a claim is three writes: the rename into
+  ``running/``, the lease claim and the claim-count rewrite of the
+  claimed file.  Until the lease is claimed the claim's only sign of
+  life is its rename's ctime, which a dispatcher stalled there lets age
+  past the staleness horizon, and a rewrite after a takeover moved the
+  message would put a second copy back in ``running/``.  The
+  dispatcher makes the three under a per-shard ``flock`` on
+  ``leases/.claims-<shard>.lock``, and a takeover fences and moves a
+  claim only under the same lock, re-reading its staleness there (the
+  JAX package has no such window lock).  A crashed holder's lock dies
+  with its process.
+
 - **replica registry** — ``<queue-root>/replicas/<replica_id>.json``
   heartbeat files carry ``(epoch, beat time, shards owned, admission
   summary)``.  Replicas poll the registry (and ``GET /peers`` serves it)
@@ -49,6 +61,8 @@ takeover scan must leave a recoverable spool).
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
 import hashlib
 import json
 import os
@@ -280,6 +294,24 @@ class LeaseStore:
             pass
         except OSError:
             logger.warning("lease: could not clear %s", msg_id, exc_info=True)
+
+    @contextlib.contextmanager
+    def claim_window(self, shard: int):
+        """Hold shard ``shard``'s claim window: yields True when this
+        caller holds it, False when another claim or takeover does.  It
+        never waits: while a holder stalls, the others skip that shard's
+        claims and requeues and come back on their next scan."""
+        fd = os.open(self.dir / f".claims-{shard}.lock",
+                     os.O_RDWR | os.O_CREAT, 0o644)
+        try:
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            except BlockingIOError:
+                yield False
+                return
+            yield True
+        finally:
+            os.close(fd)              # closing the descriptor unlocks it
 
     def renewed_at(self, msg_id: str) -> float:
         """Last renewal timestamp (0.0 when unknown) — takeover scans

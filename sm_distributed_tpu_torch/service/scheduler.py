@@ -73,6 +73,7 @@ from ..engine.daemon import (
     ClaimHeartbeat,
     _STATES,
     clear_heartbeat,
+    heartbeat_path,
     sweep_orphan_tmp,
 )
 from ..models import faults
@@ -281,6 +282,23 @@ class _Attempt(threading.Thread):
         except BaseException as exc:  # noqa: BLE001 — recorded, not swallowed
             self.error = exc
             self.tb = traceback.format_exc()
+
+
+def claim_last_alive(claim: Path, leases: LeaseStore) -> float:
+    """The freshest sign of life of a claim in ``running/`` (epoch
+    seconds): its heartbeat's mtime, else the message's mtime and ctime,
+    and its lease's last renewal.  The rename into ``running/`` keeps the
+    message's mtime (its publish time) and sets its ctime, so a claim made
+    a moment ago reads fresh however old the message is (the JAX package
+    reads the mtime alone).  Raises FileNotFoundError once the claim has
+    left ``running/``."""
+    hb = heartbeat_path(claim)
+    if hb.exists():
+        ref = hb.stat().st_mtime
+    else:
+        st = claim.stat()
+        ref = max(st.st_mtime, st.st_ctime)
+    return max(ref, leases.renewed_at(claim.stem))
 
 
 class JobScheduler:
@@ -734,16 +752,23 @@ class JobScheduler:
         for _key, p, msg in self._scan_pending(time.time()):
             if self._stop.is_set() or self._draining:
                 return False
-            claimed = self._claim(p)
-            if claimed is None:
-                continue              # another scheduler/daemon won the race
-            msg_id = claimed.stem
+            msg_id = p.stem
             # the rename is the mutex; the lease is the fence.  Claiming
             # bumps the fence past any prior holder's token, so a ghost
             # replica that once held this message can no longer write.
-            lease = self.leases.claim(msg_id)
+            # The shard's claim window keeps a takeover off the claim
+            # until its lease and claim count are written.
+            with self.leases.claim_window(
+                    shard_of(msg_id, self.cfg.spool_shards)) as held:
+                claimed = self._claim(p) if held else None
+                if claimed is not None:
+                    lease = self.leases.claim(msg_id)
+                    if isinstance(msg, dict) and msg:
+                        msg = self._bump_claims(claimed, msg)
+            if claimed is None:
+                continue              # another scheduler/daemon won the
+                                      # race, or holds the shard's window
             if isinstance(msg, dict) and msg:
-                msg = self._bump_claims(claimed, msg)
                 claims = int(msg.get("service", {}).get("claims", 0))
                 if self.cfg.quarantine_after and \
                         claims > self.cfg.quarantine_after:
@@ -1793,47 +1818,41 @@ class JobScheduler:
         return self._requeue_stale_owned(self.cfg.stale_after_s)
 
     def _requeue_stale_owned(self, max_age_s: float) -> int:
-        from ..engine.daemon import heartbeat_path
+        rescue_age = self._rescue_age_s()
+
+        def stale(p: Path, in_owned: bool) -> bool:
+            try:
+                age = time.time() - claim_last_alive(p, self.leases)
+            except FileNotFoundError:
+                return False          # finished between glob and stat
+            # a peer's partition is not ours to reap unless it aged past
+            # the failsafe
+            return age >= (max_age_s if in_owned
+                           else max(max_age_s, rescue_age))
 
         n = 0
-        now = time.time()
-        rescue_age = self._rescue_age_s()
         for p in self.root.glob("running/*.json"):
             msg_id = p.stem
-            in_owned = shard_of(msg_id, self.cfg.spool_shards) in self._owned
+            shard = shard_of(msg_id, self.cfg.spool_shards)
+            in_owned = shard in self._owned
             with self._records_lock:
                 if msg_id in self._lease_by_msg:
                     continue          # our own live claim
-            hb = heartbeat_path(p)
-            try:
-                if hb.exists():
-                    ref = hb.stat().st_mtime
-                else:
-                    # a claim's rename into running/ keeps the message's
-                    # mtime (its publish time) and sets its ctime: a claim
-                    # made a moment ago, whose heartbeat and lease are not
-                    # written yet, is fresh however old the message is
-                    # (the JAX package keeps the mtime alone, and can fence
-                    # and requeue such a claim under its running worker)
-                    st = p.stat()
-                    ref = max(st.st_mtime, st.st_ctime)
-            except FileNotFoundError:
-                continue              # finished between glob and stat
-            # freshest sign of life: claim heartbeat OR lease renewal
-            ref = max(ref, self.leases.renewed_at(msg_id))
-            if now - ref < max_age_s:
+            if not stale(p, in_owned):
                 continue
-            if not in_owned and now - ref < rescue_age:
-                continue              # a peer's partition — not ours to reap
-                                      # unless it aged past the failsafe
             # fence FIRST, move second: any write the dead (or merely
             # silent) holder tries after this bump is rejected, so the
-            # requeue can never produce a double completion
-            self.leases.bump(msg_id)
-            try:
-                os.replace(p, self.root / "pending" / p.name)
-            except FileNotFoundError:
-                continue              # the holder finished in the window
+            # requeue can never produce a double completion.  Both under
+            # the shard's claim window, the staleness read again there: a
+            # claim in flight when the scan read it is written by now
+            with self.leases.claim_window(shard) as held:
+                if not held or not stale(p, in_owned):
+                    continue
+                self.leases.bump(msg_id)
+                try:
+                    os.replace(p, self.root / "pending" / p.name)
+                except FileNotFoundError:
+                    continue          # the holder finished in the window
             clear_heartbeat(p)
             n += 1
             if self.metrics:

@@ -76,13 +76,22 @@ def test_replica_score_crash_parity(tmp_path, monkeypatch):
         monkeypatch.setitem(mod.SM_TEMPLATE, "service",
                             {**mod.SM_TEMPLATE["service"], **STALE_S})
     port = trc.run_sweep(tmp_path / "torch", only=["score_crash"])
-    ref = jrc.run_sweep(tmp_path / "jax", only=["score_crash"])
+    jax_base = tmp_path / "jax"
+    ref = jrc.run_sweep(jax_base, only=["score_crash"])
+    if not ref[0]["ok"] and "(double completion)" in str(ref[0].get("error")):
+        # the JAX scheduler's takeover race (ROADMAP queue 3: its scan can
+        # fence and requeue a claim still in flight; the port's claim
+        # window closes it) now and then spoils the reference run under
+        # load.  Such a run is no reference: it is made once more.  The
+        # port's run is held as it came.
+        jax_base = tmp_path / "jax-again"
+        ref = jrc.run_sweep(jax_base, only=["score_crash"])
     assert port[0]["ok"], port[0].get("error")
     assert ref[0]["ok"], ref[0].get("error")
     assert port[0]["invariant_errors"] == []
     assert port[0]["rc_r0"] == ref[0]["rc_r0"] == trc.CRASH_RC
     msgs = trc.messages(Path("x"), [])
-    want = _summary(_jax_final(tmp_path / "jax" / "score_crash", msgs))
+    want = _summary(_jax_final(jax_base / "score_crash", msgs))
     assert _summary(port[0]["final"]) == want
     assert want["spool"]["done"] == sorted(m["msg_id"] for m in msgs)
 

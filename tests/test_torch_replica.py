@@ -298,41 +298,55 @@ def test_two_replicas_partition_claims(tmp_path):
 
 
 def test_takeover_requeues_dead_replica_claims(tmp_path):
-    def case(m, d):
-        root = d / QUEUE
-        _publish(m, d, "dead1")
-        dead_store = m["leases"].LeaseStore(root, "rdead", epoch=1)
-        (root / "running").mkdir(parents=True, exist_ok=True)
-        (root / "pending" / "dead1.json").rename(root / "running" / "dead1.json")
-        dead_lease = dead_store.claim("dead1")
-        old = time.time() - 5.0          # the dead holder's last sign of life
-        os.utime(root / "running" / "dead1.json", (old, old))
-        lease_file = dead_store._path("dead1")
-        import json
-        rec = json.loads(lease_file.read_text())
-        rec["renewed_at"] = old
-        lease_file.write_text(json.dumps(rec))
-        done = []
-        metrics = m["metrics"].MetricsRegistry()
-        sched = m["sched"].JobScheduler(
-            d, lambda msg: done.append(msg["msg_id"]),
-            config=_cfg(m, replica_id="r1"), metrics=metrics)
-        sched.start()
-        assert sched.wait_for_terminal(1, timeout_s=20.0)
-        sched.shutdown()
-        requeues = [ln for ln in metrics.expose().splitlines()
-                    if ln.startswith("sm_replica_takeover_requeues_total{")]
-        # the survivor's own fresh claim of a message whose mtime is old
-        # can be bumped once more by its first takeover scan (a race both
-        # packages share): the fenced count and the number of requeues are
-        # not compared, only that the takeover fenced and requeued
-        return (sorted(set(done)), _census(root),
-                _rejected(m, lambda: dead_store.check(dead_lease)),
-                len(requeues) == 1 and float(requeues[0].split()[-1]) >= 1)
+    out = {}
+    for name, m in PACKAGES.items():
+        d = tmp_path / name
+        d.mkdir()
+        out[name] = _takeover_case(m, d)
+    requeues = {name: o.pop() for name, o in out.items()}
+    assert out["torch"] == out["jax"], out
+    done, census, rejected = out["torch"]
+    assert done == ["dead1"] and census["done"] == ["dead1"] and rejected
+    # the port requeues the dead claim once; the JAX package's survivor
+    # can also fence its own fresh claim of the aged message once more
+    # (its takeover scan reads the claim's publish mtime; see
+    # test_takeover_leaves_a_claim_made_a_moment_ago)
+    assert requeues["torch"] == 1 and requeues["jax"] >= 1, requeues
 
-    done, census, rejected, counted = _both(case, tmp_path)
-    assert done == ["dead1"] and census["done"] == ["dead1"]
-    assert rejected and counted
+
+def _takeover_case(m, d) -> list:
+    """A dead replica's claim in ``running/`` (aged heartbeat and lease,
+    fence 1), and a survivor r1 started over the spool."""
+    root = d / QUEUE
+    _publish(m, d, "dead1")
+    dead_store = m["leases"].LeaseStore(root, "rdead", epoch=1)
+    (root / "running").mkdir(parents=True, exist_ok=True)
+    (root / "pending" / "dead1.json").rename(root / "running" / "dead1.json")
+    dead_lease = dead_store.claim("dead1")
+    old = time.time() - 5.0          # the dead holder's last sign of life
+    os.utime(root / "running" / "dead1.json", (old, old))
+    lease_file = dead_store._path("dead1")
+    import json
+    rec = json.loads(lease_file.read_text())
+    rec["renewed_at"] = old
+    lease_file.write_text(json.dumps(rec))
+    done = []
+    metrics = m["metrics"].MetricsRegistry()
+    # horizons of 2 s: a worker starved for longer on a loaded test
+    # host would be fenced by a takeover, rightly, and counted
+    sched = m["sched"].JobScheduler(
+        d, lambda msg: done.append(msg["msg_id"]),
+        config=_cfg(m, replica_id="r1", stale_after_s=2.0),
+        metrics=metrics)
+    sched.start()
+    assert sched.wait_for_terminal(1, timeout_s=20.0)
+    sched.shutdown()
+    requeues = [ln for ln in metrics.expose().splitlines()
+                if ln.startswith("sm_replica_takeover_requeues_total{")]
+    assert len(requeues) == 1, requeues
+    return [sorted(set(done)), _census(root),
+            _rejected(m, lambda: dead_store.check(dead_lease)),
+            float(requeues[0].split()[-1])]
 
 
 def test_fence_race_two_replicas_one_completion(tmp_path):
@@ -368,9 +382,10 @@ def test_fence_race_two_replicas_one_completion(tmp_path):
         fenced = a._fenced_count
         a.shutdown()
         b.shutdown()
-        # the winner may run the job twice under load: its own first
-        # claim can be fenced by its takeover scan (the aged-mtime race
-        # of the takeover case above); what must hold is one completion
+        # the JAX package's winner may run the job twice under load: its
+        # takeover scan can fence its own fresh claim (see
+        # test_takeover_leaves_a_claim_made_a_moment_ago); what must hold
+        # in both is one completion
         return ran, sorted(set(done_b)), fenced, _census(root)
 
     ran, done_b, fenced, census = _both(case, tmp_path)
@@ -501,8 +516,9 @@ def test_orphan_rescue_claims_unowned_aged_messages(tmp_path):
         for p in (d / QUEUE / "pending").glob("*.json"):
             os.utime(p, (old, old))
         sched.start()
-        # every message in done/ (a claim fenced by the race of the test
-        # above goes back to pending/ and is rescued again)
+        # every message in done/ (in the JAX package, a fresh claim its
+        # own takeover scan fences goes back to pending/ and is rescued
+        # again)
         deadline = time.time() + 30.0
         while time.time() < deadline and \
                 len(list((d / QUEUE / "done").glob("*.json"))) < len(ids):
@@ -538,3 +554,49 @@ def test_takeover_leaves_a_claim_made_a_moment_ago(tmp_path):
     assert out["torch"] == (0, {"pending": [], "running": ["fresh1"],
                                 "done": [], "failed": []})
     assert out["jax"][0] == 1 and out["jax"][1]["pending"] == ["fresh1"]
+
+
+def test_takeover_leaves_a_claim_held_in_flight(tmp_path):
+    """The port's dispatcher held between its claim rename and its lease
+    claim for longer than ``stale_after_s``, while its own takeover scans
+    run every 0.1 s: the claim window keeps every scan off the claim, and
+    the message is requeued never and completed once.  (The JAX package
+    has no claim window: its scan fences and requeues such a claim, and
+    the claim-count write then puts a second copy back in ``running/``.)"""
+    m = PACKAGES["torch"]
+    done = []
+    metrics = m["metrics"].MetricsRegistry()
+    sched = m["sched"].JobScheduler(
+        tmp_path, lambda msg: done.append(msg["msg_id"]),
+        config=_cfg(m, stale_after_s=0.2), metrics=metrics)
+    _publish(m, tmp_path, "held1")
+    root = tmp_path / QUEUE
+    old = time.time() - 10.0
+    os.utime(root / "pending" / "held1.json", (old, old))
+    in_window, release = threading.Event(), threading.Event()
+    claim = sched.leases.claim
+
+    def held_claim(msg_id):
+        in_window.set()
+        assert release.wait(20.0)
+        return claim(msg_id)
+
+    sched.leases.claim = held_claim
+    sched.start()
+    try:
+        assert in_window.wait(10.0)
+        time.sleep(0.6)                   # 3 horizons, about 6 scans
+        requeued_while_held = sched.requeue_stale()
+        census_held = _census(root)
+    finally:
+        release.set()
+    assert sched.wait_for_terminal(1, timeout_s=20.0)
+    sched.shutdown()
+    requeues = [ln for ln in metrics.expose().splitlines()
+                if ln.startswith("sm_replica_takeover_requeues_total{")]
+    assert requeued_while_held == 0
+    assert census_held["running"] == ["held1"] and not census_held["pending"]
+    assert done == ["held1"]
+    assert _census(root) == {"pending": [], "running": [], "done": ["held1"],
+                             "failed": []}
+    assert all(float(ln.split()[-1]) == 0 for ln in requeues), requeues
