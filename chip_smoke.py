@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives thirteen paths (seven of the library search, the job
+nvcc and drives fourteen paths (seven of the library search, the job
 path, the service, the service's read path and stream ingest, a
 device-mode isotope search under the profiler, the main path on meshes of
-devices, and a replica takeover), each with the kernel launch counts set
-to 0 just before it and read just after:
+devices, a replica takeover, and the kernel-build primer beside the
+elastic fleet), each with the kernel launch counts set to 0 just before it
+and read just after:
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -151,7 +152,26 @@ to 0 just before it and read just after:
   FINISHED, the stored results bit-equal to phase 3's, moments and packed
   chaos launched 3 times each and nothing else, no lock-order cycle.
   Every check is a state, a count or bit-equality; a deadline of 120 s
-  only ends a hang.
+  only ends a hang;
+- the primer and the fleet (phase 16, after phase 15): 16a the kernel-build
+  primer (``service/primer.py``) in process, from no prime manifest, over
+  the bucket specs phases 3 and 11 recorded: one cycle primes each with no
+  nvcc run (phase 2 built every kernel), no launch and no device
+  allocation, a second primes none, ``GET /debug/compile`` shows every
+  spec primed and the four kernels loaded and set up on ``cuda:0``, and
+  phase 14c's mesh spec, on a two-card lease, is skipped for want of
+  cards on one card; 16b ``serve --fleet`` as a subprocess
+  (``min_replicas`` 2) over phase 11b's 32x32 dataset: r0 and a spawned
+  replica alive in ``/fleet/status``, one job done and stored bit-equal to
+  phase 11b's, the replica that ran it launching moments and packed chaos
+  once a score batch and nothing else (read from its own ``/metrics``,
+  ``sm_kernel_launches_total``; none on the other), the spawned replica
+  SIGKILLed (``sm_fleet_crashes_total`` 1) and replaced, SIGTERM draining
+  every child (each drain acked), ``running/`` empty, exit 0; 16c
+  ``/fleet/metrics``, ``/fleet/slo`` and ``/fleet/status`` 200 with both
+  replicas, the merged ``sm_jobs_total`` and ``sm_kernel_launches_total``
+  the sums of the replicas' own.
+  States, counts and bits only; a deadline of 180 s only ends a hang.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -176,8 +196,9 @@ the last is a JSON object with each kernel's launches on its path (phase
 re-scores and its sealed pass, in ``stream_launches``, the profiler's
 event count of its device function over phase 13b's search in
 ``profile_launches``, phase 14a's 2x2 search in
-``sharded_launches``, and phase 15's r1 in ``takeover_launches``), its
-error against
+``sharded_launches``, phase 15's r1 in ``takeover_launches``, phase
+16a's prime cycles in ``prime_launches``: 0, priming launches nothing, and
+phase 16b's job on its replica in ``fleet_launches``), its error against
 the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
@@ -226,9 +247,12 @@ N_FORMULAS = 100          # ~4.9k ions with 3 adducts and 20 decoys each
 # the whole-slide path: a 1024x1024 DESI-like slide on the m/z-chunked cube
 # path (mz_chunk = the flat path's BAND_WINDOWS), +H only, ~12 formulas with
 # 20 decoys each: 2 batches of 128 (its depth, cut from 20 formulas in 2
-# batches of the JAX bench's desi batch of 256 to keep the script's time)
+# batches of the JAX bench's desi batch of 256 to keep the script's time),
+# 100 noise peaks a pixel (cut from 200, the main path's, for the same
+# reason: the slide's generation and m/z sort were 86 of the phase's 180
+# s; the kernels' shapes do not depend on it)
 WS_SIDE = 1024
-WS_NOISE_PEAKS = 200
+WS_NOISE_PEAKS = 100
 WS_FORMULAS = 12
 WS_PARALLEL = {"mz_chunk": 512, "formula_batch": 128}
 
@@ -412,31 +436,6 @@ def phase_environment() -> tuple[str, torch.device]:
     return card, dev
 
 
-def _ptxas_report(log: str) -> dict:
-    """{kernel: (registers, spill store bytes)} from ptxas -v output; the
-    moments kernels' template instances named ``name<K,regime>``."""
-    out, fn, spill = {}, None, 0
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            fn, spill = m.group(1), 0
-            t = re.match(r"_Z\d+(\w+?)ILi(\d+)ELb(\d)E", fn)
-            if t:
-                fn = (f"{t.group(1)}<{t.group(2)},"
-                      f"{'resident' if t.group(3) == '1' else 'streaming'}>")
-            t = re.match(r"_Z(\d+)(\w+)", fn)
-            if t and not fn.endswith(">"):
-                fn = t.group(2)[:int(t.group(1))]
-            continue
-        m = re.search(r"(\d+) bytes spill stores", ln)
-        if m:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and fn:
-            out[fn] = (int(m.group(1)), spill)
-    return out
-
-
 def _check_moments_layout() -> None:
     """The cluster kernels' shared-memory layout (``mc_smem_bytes`` in
     csrc/moments_cluster.cuh) is the one ops/moments.py::moments_smem_bytes
@@ -467,13 +466,18 @@ def active_clusters(k: int, plan, build=None) -> int:
 
 def phase_build() -> None:
     from sm_distributed_tpu_torch.kernels import _build
+    from sm_distributed_tpu_torch.service.primer import bind_builds
+    from sm_distributed_tpu_torch.utils.config import SMConfig
 
+    # the script's configs all build under the default directory and
+    # record their bucket specs there, as a CLI process on the card does
+    bind_builds(SMConfig.from_dict({}))
     t0 = time.perf_counter()
     _build.build_all()
     took = time.perf_counter() - t0
     regs = {}
     for name, log in _build.build_logs.items():
-        rep = _ptxas_report(log)
+        rep = _build.ptxas_report(log)
         if name in ("moments", "fused_moments") and rep:
             # the paths' K = 4 instances, and the largest spill of any K
             worst = max(rep.items(), key=lambda kv: kv[1][1])
@@ -4328,7 +4332,7 @@ def phase_profile_route(card: str, tmp: Path) -> dict:
         spans = sum(r["name"] == "device_kernel" for r in trace["records"])
         assert spans == sum(c["injected_spans"] for c in live), spans
         status, other = _http(base, "/debug/compile")
-        assert status == 404 and "item 9b" in other["error"], other
+        assert status == 200 and set(other) == {"primer", "builds"}, other
     finally:
         assert service.shutdown(), "service did not drain"
     off_sm = SMConfig.from_dict({
@@ -4352,8 +4356,7 @@ def phase_profile_route(card: str, tmp: Path) -> dict:
         f"{one['attribution']['n_events']} device events on an idle card; "
         f"{len(live)} captures of 1 s while the 32x32 job ran: "
         f"{json.dumps(live)}; its trace holds {spans} device_kernel spans; "
-        f"sm_profile_captures_total {n_caps}; /debug/compile 404 naming "
-        "item 9b")
+        f"sm_profile_captures_total {n_caps}; /debug/compile 200")
     return {"codes": codes, "first_duration_s": one["duration_s"],
             "live": live, "trace_device_spans": spans, "phase_s": took}
 
@@ -4404,7 +4407,7 @@ def _spool_census(root: Path) -> dict:
 def _wait_state(what: str, ready, deadline: float) -> None:
     """Poll ``ready()`` until it holds; the deadline only ends a hang."""
     while not ready():
-        assert time.time() < deadline, f"phase 15: {what} never held"
+        assert time.time() < deadline, f"{what} never held"
         time.sleep(0.05)
 
 
@@ -4600,6 +4603,371 @@ def phase_takeover(card: str, tmp: Path, truth, main: dict) -> dict:
             "launches": launches}
 
 
+# phase 16: the rest of the service on the card (port slice 16).  16a the
+# kernel-build primer in process over the bucket specs phases 3 and 11
+# recorded (and a two-card spec of phase 14c); 16b ``serve --fleet`` as a
+# subprocess with two replicas, a job, a replica SIGKILLed and replaced,
+# and SIGTERM draining every child; 16c the fleet view across both
+# replicas.  Every check is a state, a count or bit-equality; the deadline
+# only ends a hang.
+FLEET_DEADLINE_S = 180.0
+# the kernels of sm_kernel_launches_total, the replicas' launch counts
+FLEET_KERNELS = ("moments", "chaos", "chaos_tiles", "chaos_strips",
+                 "fused_window_moments")
+FLEET_SM = {"device": "cuda", "fdr": {"decoy_sample_size": 20},
+            "service": {"workers": 1, "http_port": 0, "spool_shards": 8,
+                        "poll_interval_s": 0.05, "heartbeat_interval_s": 0.2,
+                        "replica_heartbeat_interval_s": 0.2,
+                        "replica_stale_after_s": 3.0,
+                        "takeover_interval_s": 0.2,
+                        "fleet": {"min_replicas": 2, "max_replicas": 2,
+                                  "decide_interval_s": 0.2,
+                                  "cooldown_s": 0.0, "hysteresis_ticks": 1,
+                                  "spawn_timeout_s": 120.0,
+                                  "drain_timeout_s": 60.0},
+                        "fleetview": {"cache_ttl_s": 0.0}},
+            "telemetry": {"sample_interval_s": 0.5}}
+
+
+def _recorded_specs() -> dict:
+    """Every bucket spec this process recorded and every one the kernel
+    build directory's manifest holds (a ``serve`` subprocess records
+    there), by key."""
+    from sm_distributed_tpu_torch.kernels import _build
+    from sm_distributed_tpu_torch.ops import buckets
+
+    specs = {buckets.spec_key(s): s
+             for s in buckets.load_manifest(_build.BUILD_DIR)}
+    specs.update((buckets.spec_key(s), s) for s in buckets.recorded_specs())
+    return specs
+
+
+def _children_of(pid: int) -> dict:
+    """{replica id: pid} of the ``serve`` replicas process ``pid`` spawned
+    (read from /proc: the fleet's children are not the script's)."""
+    out = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+            if int(fields[1]) != pid:
+                continue
+            argv = (stat.parent / "cmdline").read_bytes().split(b"\0")
+        except (OSError, ValueError, IndexError):
+            continue
+        args = [a.decode() for a in argv]
+        if "--replica-id" in args:
+            out[args[args.index("--replica-id") + 1]] = int(stat.parent.name)
+    return out
+
+
+def _reap_marked(marker: str) -> list:
+    """Kill every process whose environment carries ``marker`` (a phase's
+    subprocesses and whatever they spawned, orphans of a SIGKILLed parent
+    included); returns their pids."""
+    import os
+    import signal
+
+    needle = marker.encode()
+    pids = []
+    for env in Path("/proc").glob("[0-9]*/environ"):
+        try:
+            if needle not in env.read_bytes().split(b"\0"):
+                continue
+            pid = int(env.parent.name)
+            if pid == os.getpid():
+                continue
+            os.kill(pid, signal.SIGKILL)
+            pids.append(pid)
+        except (OSError, ValueError):
+            continue
+    return pids
+
+
+def _metric(text: str, line_prefix: str) -> float:
+    """The value of the one exposition sample ``line_prefix`` names (0 when
+    absent)."""
+    for ln in text.splitlines():
+        if ln.startswith(line_prefix + " "):
+            return float(ln.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def phase_prime(card: str, specs: dict, two_card: dict | None) -> dict:
+    """16a: the primer over the specs phases 3 and 11 recorded, from no
+    prime manifest: one cycle primes each (no nvcc run: phase 2 built every
+    kernel), launches no kernel and allocates no device memory; a second
+    primes none; ``GET /debug/compile`` of an in-process service shows
+    every spec primed and the four kernels loaded and set up on
+    ``cuda:0``; phase 14c's 2x1 mesh spec made a two-card lease's
+    (``devices: 2``; phase 14c ran it on one card, which it records) is
+    skipped for want of cards on a one-card machine."""
+    from sm_distributed_tpu_torch.engine.daemon import annotate_callback
+    from sm_distributed_tpu_torch.kernels import _build
+    from sm_distributed_tpu_torch.ops import buckets
+    from sm_distributed_tpu_torch.service import AnnotationService
+    from sm_distributed_tpu_torch.service.primer import CachePrimer
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    t_phase = time.perf_counter()
+    assert specs, "16a: phases 3 and 11 recorded no bucket spec"
+    build_dir = _build.BUILD_DIR
+    for name in ("prime_manifest.json", "bucket_manifest.json"):
+        (build_dir / name).unlink(missing_ok=True)
+    buckets.reset()
+    buckets.bind_manifest_dir(build_dir)
+    for spec in specs.values():
+        buckets.record_spec(spec)
+    sm = SMConfig.from_dict({**SERVICE_SM, "service": {
+        **SERVICE_SM["service"], "prime": {"enabled": False}}})
+    primer = CachePrimer(sm, busy=lambda: False)
+    n = len(specs)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(0)
+    runs0 = _build.nvcc_runs
+    reset_launches()
+    t0 = time.perf_counter()
+    first = primer.prime_once(abort_when_busy=False)
+    cycle_s = time.perf_counter() - t0
+    second = primer.prime_once(abort_when_busy=False)
+    launches = read_launches()
+    torch.cuda.synchronize()
+    assert first == {"primed": n, "skipped": 0, "errors": 0,
+                     "aborted": False, "built": 0}, (first, n)
+    assert second == {"primed": 0, "skipped": n, "errors": 0,
+                      "aborted": False, "built": 0}, second
+    assert _build.nvcc_runs == runs0, "16a: the primer ran nvcc"
+    assert not any(launches.values()), f"16a: priming launched {launches}"
+    assert torch.cuda.memory_allocated(0) == mem0, "16a: priming allocated"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_16a_") as tmp:
+        svc_sm = SMConfig.from_dict({**SERVICE_SM,
+                                     "work_dir": str(Path(tmp) / "work")})
+        service = AnnotationService(Path(tmp) / "q", annotate_callback(svc_sm),
+                                    sm_config=svc_sm)
+        service.start()
+        try:
+            status, body = _http("http://%s:%d" % service.api.address,
+                                 "/debug/compile")
+        finally:
+            assert service.shutdown(), "16a: service did not drain"
+    assert status == 200, (status, body)
+    prim = body["primer"]
+    assert prim["known"] == prim["primed"] == n and prim["missing"] == 0, \
+        {k: prim[k] for k in ("known", "primed", "missing")}
+    census = body["builds"]["kernels"]
+    for name in _build.KERNELS:
+        k = census[name]
+        assert k["state"] in ("built", "found") and k["loads"] >= 1 and \
+            k["setups"].get("cuda:0", 0) >= 1, (name, k)
+    skip = None
+    if two_card is not None:
+        two_card = {**two_card, "devices": 2}
+        buckets.record_spec(two_card)
+        third = primer.prime_once(abort_when_busy=False)
+        snap = {buckets.spec_key(b): b["status"]
+                for b in primer.snapshot()["buckets"]}
+        skip = snap[buckets.spec_key(two_card)]
+        want = ("skipped:devices" if torch.cuda.device_count() < 2
+                else "primed")
+        assert skip == want, (skip, want, third)
+    took = time.perf_counter() - t_phase
+    say(f"  16a [{card}]: {n} recorded bucket specs primed in one cycle of "
+        f"{cycle_s:.3f} s with no nvcc run, no launch and no device "
+        f"allocation; a second cycle primed 0; /debug/compile primed "
+        f"{prim['primed']} of {prim['known']}, missing 0, the kernels "
+        + ", ".join(f"{k} {census[k]['state']} ({census[k]['setups']})"
+                    for k in _build.KERNELS)
+        + f"; phase 14c's mesh spec on two cards: {skip}")
+    return {"phase_s": took, "cycle_s": cycle_s, "specs": n,
+            "first": first, "second": second, "two_card": skip,
+            "census": census, "launches": launches}
+
+
+def phase_fleet(card: str, tmp: Path) -> dict:
+    """16b and 16c: ``serve --fleet`` as a subprocess on ``torch_cuda``,
+    ``cuda``, ``min_replicas`` 2, over phase 11b's 32x32 dataset.  16b: r0
+    and a spawned replica come up (states in ``/fleet/status``); one job
+    completes, its stored results bit-equal to phase 11b's; 16c: the fleet
+    view answers 200 with both replicas and the merged ``sm_jobs_total``
+    equals the sum of the replicas' own; 16b: the spawned replica is
+    SIGKILLed, ``sm_fleet_crashes_total`` reaches 1 and a replacement
+    registers; SIGTERM drains every child (each drain acked), ``running/``
+    ends empty and the exit code is 0."""
+    import os
+    import signal
+    import threading
+
+    import pandas as pd
+
+    from sm_distributed_tpu_torch.engine.daemon import QueuePublisher
+    from sm_distributed_tpu_torch.io.fixtures import generate_synthetic_dataset
+
+    t_phase = time.perf_counter()
+    base = tmp / "fleet"
+    path, truth = generate_synthetic_dataset(
+        base / "small", nrows=32, ncols=32, present_fraction=0.6,
+        noise_peaks=50, seed=3)
+    sm_json = base / "sm.json"
+    sm_json.write_text(json.dumps({
+        **FLEET_SM, "work_dir": str(base / "work"),
+        "storage": {"results_dir": str(base / "results")}}))
+    queue = base / "q"
+    root = queue / "sm_annotate"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    env.pop("SM_FAILPOINTS", None)
+    # inherited by serve, its replicas and their workers: the phase reaps
+    # every process that carries it once serve has exited
+    env["SM_CHIP_SMOKE_FLEET"] = f"{os.getpid()}-{time.time_ns()}"
+    marker = f"SM_CHIP_SMOKE_FLEET={env['SM_CHIP_SMOKE_FLEET']}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sm_distributed_tpu_torch.engine.cli",
+         "serve", str(queue), "--sm-config", str(sm_json), "--fleet"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=str(ROOT))
+    lines: list[str] = []
+    found = threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if "admin API on http://" in line:
+                found.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    deadline = time.time() + FLEET_DEADLINE_S
+
+    def status() -> dict:
+        return _http(base_url, "/fleet/status")[1]
+
+    def alive_ids() -> set:
+        return {rid for rid, r in status()["replicas"].items()
+                if r["alive"] and not r["draining"]}
+
+    try:
+        assert found.wait(FLEET_DEADLINE_S), \
+            "16b: serve --fleet: no admin API line\n" + "".join(lines[-40:])
+        base_url = re.search(r"admin API on (http://[\d.]+:\d+)",
+                             "".join(lines)).group(1)
+        _wait_state("two replicas alive in /fleet/status",
+                    lambda: len(alive_ids()) == 2, deadline)
+        up_s = time.perf_counter() - t0
+        first_ids = alive_ids()
+        spawned = sorted(first_ids - {"r0"})
+        assert len(spawned) == 1, first_ids
+        QueuePublisher(queue).publish({
+            "ds_id": "small", "msg_id": "fleet_good",
+            "input_path": str(path), "formulas": truth.formulas[:10]})
+        _wait_state("the job in done/",
+                    lambda: (root / "done" / "fleet_good.json").exists(),
+                    deadline)
+        job_s = time.perf_counter() - t0 - up_s
+        # 16c: the fleet view with both replicas
+        codes = {}
+        codes["metrics"], merged = _http(base_url, "/fleet/metrics")
+        codes["slo"], slo = _http(base_url, "/fleet/slo")
+        codes["status"], st = _http(base_url, "/fleet/status")
+        assert codes == {"metrics": 200, "slo": 200, "status": 200}, codes
+        assert slo["fleet"]["replicas_merged"] == 2 and \
+            not slo["fleet"]["partial"], slo["fleet"]
+        assert st["alive"] == 2 and not st["partial"], st
+        own = {rid: _http(f"http://{rec['admin']}", "/metrics")[1]
+               for rid, rec in st["replicas"].items() if rec["alive"]}
+        done_sum = sum(_metric(t, 'sm_jobs_total{state="done"}')
+                       for t in own.values())
+        assert done_sum == 1 and _metric(
+            merged, 'sm_jobs_total{state="done"}') == done_sum, \
+            (done_sum, [ln for ln in merged.splitlines()
+                        if ln.startswith("sm_jobs_total")])
+        ran_on = [rid for rid, t in own.items()
+                  if _metric(t, 'sm_jobs_total{state="done"}') == 1]
+        # each replica's kernel launches since it started, from its own
+        # /metrics: the job's, on the replica that ran it, and none on the
+        # other (priming launches nothing)
+        launches = {rid: {k: int(_metric(t, f'sm_kernel_launches_total'
+                                            f'{{kernel="{k}"}}'))
+                          for k in FLEET_KERNELS}
+                    for rid, t in own.items()}
+        merged_launches = {k: int(_metric(merged, f'sm_kernel_launches_total'
+                                                  f'{{kernel="{k}"}}'))
+                           for k in FLEET_KERNELS}
+        # 16b: SIGKILL the spawned replica; the controller counts a crash
+        # and spawns a replacement under a new id
+        pids = _children_of(proc.pid)
+        victim = spawned[0]
+        assert victim in pids, (victim, pids)
+        t_kill = time.perf_counter()
+        os.kill(pids[victim], signal.SIGKILL)
+        _wait_state("sm_fleet_crashes_total 1", lambda: _metric(
+            _http(base_url, "/metrics")[1], "sm_fleet_crashes_total") == 1,
+            deadline)
+        _wait_state("a replacement replica alive", lambda: len(
+            alive_ids() - {"r0", victim}) == 1, deadline)
+        replace_s = time.perf_counter() - t_kill
+        replacement = sorted(alive_ids() - {"r0", victim})
+        children = _children_of(proc.pid)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=FLEET_DEADLINE_S)
+        drain_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        # the log is in the pipe once serve has exited; an orphan of the
+        # SIGKILLed replica may hold the pipe open, so the wait is short
+        reader.join(timeout=5)
+        leftover = _reap_marked(marker)
+    log = "".join(lines)
+    (base / "serve.log").write_text(log)
+    # what serve and its replicas logged from the SIGTERM on
+    tail = log[log.rfind("received signal"):].splitlines()[:12]
+    assert rc == 0, f"16b: serve --fleet exited {rc}\n" + log[-4000:]
+    for rid in children:
+        assert re.search(rf"replica {rid} drained \(rc=0, acked=True\)",
+                         log), f"16b: {rid}'s drain not acked\n" + log[-4000:]
+    census = _spool_census(root)
+    assert census["done"] == ["fleet_good.json"] and not any(
+        v for k, v in census.items() if k != "done"), census
+    res, ref = base / "results" / "small", tmp / "serve_results" / "small"
+    for name in ("annotations", "all_metrics"):
+        _same_frame(pd.read_parquet(res / f"{name}.parquet"),
+                    pd.read_parquet(ref / f"{name}.parquet"),
+                    f"fleet job {name}")
+    # one moments and one packed chaos launch a score batch (32x32 pixels:
+    # the shared-memory kernel; 30 levels, 4 peaks: one launch each)
+    n_ions = len(pd.read_parquet(res / "all_metrics.parquet"))
+    n_batches = -(-n_ions // 2048)
+    want = {k: 0 for k in FLEET_KERNELS}
+    want["moments"] = want["chaos"] = n_batches
+    assert len(ran_on) == 1 and launches[ran_on[0]] == want and all(
+        not any(v.values()) for rid, v in launches.items()
+        if rid != ran_on[0]), (ran_on, launches, want)
+    assert merged_launches == want, (merged_launches, want)
+    took = time.perf_counter() - t_phase
+    say(f"  16b [{card}]: serve --fleet up with r0 and {spawned[0]} alive "
+        f"after {up_s:.1f} s; the job ran on {ran_on} in {job_s:.1f} s, "
+        f"stored bit-equal to phase 11b's, its {n_ions} ions in {n_batches} "
+        f"batch(es) launching {launches[ran_on[0]]} there (from its "
+        f"/metrics; none on the other replica); {victim} SIGKILLed, "
+        f"sm_fleet_crashes_total 1 and {replacement} alive "
+        f"{replace_s:.1f} s later; SIGTERM drained {sorted(children)} "
+        f"(acked) and serve exited 0 {drain_s:.1f} s after it; one message "
+        f"in done/ and none elsewhere; {len(leftover)} leftover process(es) "
+        "of the phase reaped")
+    say(f"  16c [{card}]: /fleet/metrics, /fleet/slo, /fleet/status 200 "
+        f"with {sorted(own)}; merged sm_jobs_total{{state=\"done\"}} "
+        f"{done_sum:.0f} = the replicas' own")
+    return {"phase_s": took, "up_s": up_s, "job_s": job_s,
+            "replace_s": replace_s, "drain_s": drain_s,
+            "drain_log": [ln[:160] for ln in tail],
+            "leftover": len(leftover), "ran_on": ran_on,
+            "spawned": spawned, "replacement": replacement,
+            "launches": launches[ran_on[0]]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ab", metavar="DIR", help="another checkout of the "
@@ -4629,6 +4997,7 @@ def main() -> int:
     ds, truth, search, ds_cfg = _setup_main_path()
     main = phase_main_path(ds, truth, search)
     lap("main")
+    prime_specs = _recorded_specs()       # phase 3's, for phase 16a
     _breaker_closed(0, "phase 3")
     backend = search.last_backend
     block, _theor, _n_valid = backend.image_block(
@@ -4669,19 +5038,36 @@ def main() -> int:
     resilience = phase_resilience(card, ds, truth, search, ds_cfg, main)
     lap("resilience")
     torch.cuda.empty_cache()
+    before_11 = _recorded_specs()
     service = phase_service(card, Path(job_dir.name), truth, main)
     lap("service")
+    prime_specs.update((k, v) for k, v in _recorded_specs().items()
+                       if k not in before_11)
     torch.cuda.empty_cache()
     stream = phase_read_stream(card, Path(job_dir.name), ds, truth, main)
     lap("read_stream")
     torch.cuda.empty_cache()
     sharded = phase_sharded(card, ds, truth, search, ds_cfg, main)
     lap("sharded")
+    two_card = next((s for s in _recorded_specs().values()
+                     if s["kind"] == "sharded"
+                     and s["mesh_pix"] * s["mesh_form"] == 2), None)
     _breaker_closed(2, "phase 14")
     torch.cuda.empty_cache()
     takeover = phase_takeover(card, Path(job_dir.name), truth, main)
     lap("takeover")
     _breaker_closed(2, "phase 15")
+    t16 = time.perf_counter()
+    primed = phase_prime(card, prime_specs, two_card)
+    lap("prime")
+    fleet = phase_fleet(card, Path(job_dir.name))
+    lap("fleet")
+    _breaker_closed(2, "phase 16")
+    say(f"phase 16 the primer and the fleet [{card}]: "
+        f"{time.perf_counter() - t16:.1f} s (16a {primed['phase_s']:.1f} s, "
+        f"16b-c {fleet['phase_s']:.1f} s); the recorded specs primed with "
+        "no nvcc run, two replicas up, the job bit-equal to phase 11b's, a "
+        "crashed replica replaced, every drain acked")
     job_dir.cleanup()
     say("main path: " + json.dumps({
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
@@ -4735,6 +5121,9 @@ def main() -> int:
         {k: v for k, v in sharded.items() if k != "launches"}))
     say(f"replica takeover [{card}]: " + json.dumps(
         {k: v for k, v in takeover.items() if k != "launches"}))
+    say(f"primer and fleet [{card}]: " + json.dumps(
+        {"16a": {k: v for k, v in primed.items() if k != "census"},
+         "16b": fleet}))
     say(f"device patterns and the profiler [{card}]: " + json.dumps(
         {"13a": patterns13, "13b": {k: v for k, v in profiled.items()
                                     if k != "attribution"},
@@ -4758,6 +5147,8 @@ def main() -> int:
         entry["profile_launches"] = profiled["events"][entry["name"]]
         entry["sharded_launches"] = sharded["launches"][entry["name"]]
         entry["takeover_launches"] = takeover["launches"][entry["name"]]
+        entry["prime_launches"] = primed["launches"][entry["name"]]
+        entry["fleet_launches"] = fleet["launches"][entry["name"]]
     _breaker_closed(2, "the script")
     say(f"  [{card}] 10.4 no host fallback: after every phase the device "
         "breaker was closed, the two refused jobs are step 10.3's, and no "

@@ -44,10 +44,11 @@ def pattern_table_from_arrays(sfs, adducts, mzs, ints, n_valid,
     )
 
 
-# the multi-process runtime's knobs describe a launch, not a search
+# the multi-process runtime's knobs describe a launch, not a search, and
+# the JAX package's compile cache is not the port's kernel build directory
 _PARALLEL_KEYS = {f for f in ParallelConfig.__dataclass_fields__} - {
     "coordinator_address", "num_processes", "process_id", "init_retries",
-    "init_backoff_s"}
+    "init_backoff_s", "compile_cache_dir"}
 
 
 def configs_from_dicts(sm_dict: dict[str, Any], ds_dict: dict[str, Any],

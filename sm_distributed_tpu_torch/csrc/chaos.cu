@@ -59,17 +59,25 @@ extern "C" int sm_chaos_smem_bytes(int nrows, int ncols, int nlevels) {
 // limit per block).  The SM count and the opt-in limit are queried, and the
 // kernel's dynamic shared-memory attribute set to that limit, once per
 // device under a mutex (smem_setup).
+static SmemSetup chaos_setup;
+static const void* const chaos_fns[] = {(const void*)chaos_smem_kernel};
+
+// The launch set-up (smem_setup) on the current device, with no launch: what
+// the kernel primer makes ahead of traffic.  0 on success.
+extern "C" int sm_chaos_setup(void) {
+    int sms = 0, optin = 0;
+    return (int)smem_setup(chaos_setup, chaos_fns, 1, &sms, &optin);
+}
+
 extern "C" int sm_chaos_smem(const float* img, long long stride, const float* thr,
                              float* out, int n, int nrows, int ncols, int nlevels,
                              void* stream) {
-    static SmemSetup setup;
     if (n <= 0) return 0;
     if (nlevels <= 0 || nlevels > MAX_LEVELS || nrows <= 0 || ncols <= 0 ||
         (long long)nrows * ncols > SMEM_MAX_PIXELS)
         return (int)cudaErrorInvalidValue;
-    static const void* const fns[] = {(const void*)chaos_smem_kernel};
     int sms = 0, optin = 0;
-    const cudaError_t err = smem_setup(setup, fns, 1, &sms, &optin);
+    const cudaError_t err = smem_setup(chaos_setup, chaos_fns, 1, &sms, &optin);
     if (err != cudaSuccess) return (int)err;
     const int bytes = chaos_block_smem_bytes(nrows, ncols, nlevels);
     if (bytes > optin) return (int)cudaErrorInvalidValue;

@@ -337,12 +337,22 @@ extern "C" int sm_chaos_seam_smem_bytes(int nodes) { return seam_smem_bytes(node
 // ops/chaos.py adds the counts of several level ranges before it rounds).
 // Returns cudaGetLastError() after each launch, 0 on success, and
 // cudaErrorInvalidValue for a plan or shape the kernels do not take.
+static SmemSetup tiles_setup;
+static const void* const tiles_fns[] = {(const void*)chaos_tile_kernel,
+                                        (const void*)seam_merge_smem_kernel};
+
+// The launch set-up (smem_setup) on the current device, with no launch: what
+// the kernel primer makes ahead of traffic.  0 on success.
+extern "C" int sm_chaos_tiles_setup(void) {
+    int sms = 0, optin = 0;
+    return (int)smem_setup(tiles_setup, tiles_fns, 2, &sms, &optin);
+}
+
 extern "C" int sm_chaos_tiles(const float* img, long long stride, const float* thr,
                               double* out, unsigned char* seam_m, unsigned int* rec,
                               int* tile_sum, int* gpar, int n, int nrows, int ncols,
                               int nlevels, int rows_t, int seam_in_smem,
                               int merge_grid, void* stream) {
-    static SmemSetup setup;
     if (n <= 0) return 0;
     if (nlevels <= 0 || nlevels > MAX_LEVELS || nrows <= 0 || ncols <= 0 ||
         rows_t <= 0 || rows_t > nrows || (long long)rows_t * ncols > SMEM_MAX_PIXELS ||
@@ -355,10 +365,8 @@ extern "C" int sm_chaos_tiles(const float* img, long long stride, const float* t
         return (int)cudaErrorInvalidValue;
     if (seam_in_smem ? nodes > SMEM_MAX_PIXELS : gpar == nullptr)
         return (int)cudaErrorInvalidValue;
-    static const void* const fns[] = {(const void*)chaos_tile_kernel,
-                                      (const void*)seam_merge_smem_kernel};
     int sms = 0, optin = 0;
-    cudaError_t err = smem_setup(setup, fns, 2, &sms, &optin);
+    cudaError_t err = smem_setup(tiles_setup, tiles_fns, 2, &sms, &optin);
     if (err != cudaSuccess) return (int)err;
     const int tile_bytes = chaos_block_smem_bytes(rows_t, ncols, nlevels);
     const int merge_bytes = seam_in_smem ? seam_smem_bytes((int)nodes) : seam_off_par();

@@ -279,6 +279,25 @@ extern "C" int sm_moments(const float* img, float* out, int n, int k, int ktot, 
 
 extern "C" int sm_moments_k_max(void) { return MC_K_MAX; }
 
+template <bool RESIDENT>
+static int setup_all(void) {
+    const cudaError_t errs[] = {
+        mc_setup_kernel(moments_cluster_kernel<1, RESIDENT>), mc_setup_kernel(moments_cluster_kernel<2, RESIDENT>),
+        mc_setup_kernel(moments_cluster_kernel<3, RESIDENT>), mc_setup_kernel(moments_cluster_kernel<4, RESIDENT>),
+        mc_setup_kernel(moments_cluster_kernel<5, RESIDENT>), mc_setup_kernel(moments_cluster_kernel<6, RESIDENT>),
+        mc_setup_kernel(moments_cluster_kernel<7, RESIDENT>), mc_setup_kernel(moments_cluster_kernel<8, RESIDENT>)};
+    for (const cudaError_t err : errs)
+        if (err != cudaSuccess) return (int)err;
+    return 0;
+}
+
+// The launch set-up (mc_setup) of every instance on the current device, with
+// no launch: what the kernel primer makes ahead of traffic.  0 on success.
+extern "C" int sm_moments_setup(void) {
+    const int err = setup_all<true>();
+    return err ? err : setup_all<false>();
+}
+
 // The dynamic shared bytes of a CTA for a plan: the layout
 // ops/moments.py::moments_smem_bytes mirrors.
 extern "C" long long sm_moments_smem_bytes(int k, int slice, int resident) {

@@ -327,6 +327,15 @@ __host__ inline cudaError_t mc_setup(const void* fn, int cluster, int* limit) {
     return cudaSuccess;
 }
 
+// The launch set-up (mc_setup) of one kernel instance on the current device,
+// with no launch (what a library's set-up entry point makes ahead of
+// traffic).
+template <typename... Params>
+__host__ inline cudaError_t mc_setup_kernel(void (*kernel)(Params...)) {
+    int limit = 0;
+    return mc_setup((const void*)kernel, 1, &limit);
+}
+
 // Make the kernel's launch set-up (once per device, mc_setup) and fill `cfg`
 // for a launch over n_ions clusters of `cluster` CTAs with `smem` bytes of
 // dynamic shared memory each.

@@ -21,19 +21,20 @@ Usage::
     python -m sm_distributed_tpu_torch.drivers.chaos_sweep --smoke   # CI subset
     python -m sm_distributed_tpu_torch.drivers.chaos_sweep --only io.ibd_read
     python -m sm_distributed_tpu_torch.drivers.chaos_sweep --list
-    ... --backend torch_cuda --device cpu    # score on the port's torch path
+    ... --backend numpy_ref --device cpu    # off the card
 
-The base backend is ``numpy_ref`` (as the JAX sweep's); the scenarios that
-the JAX sweep runs on ``jax_tpu`` run on ``torch_cuda`` with ``--device``
-(``cpu`` off the card).  Two differences from the JAX sweep: the
-``fleet`` consumer kind and its ``fleet.spawn`` scenario wait for the port's
-fleet controller (ROADMAP item 9b.5), and ``backend.device_error`` converges
-through a refused attempt and a retry on the device (the port's breaker
-refuses, it never degrades to ``numpy_ref``), so it is held to the golden
-report of its own config.
+The base backend is ``torch_cuda`` on the card; ``--backend numpy_ref``
+is the JAX sweep's base.  The scenarios that the JAX sweep runs on
+``jax_tpu`` run on ``torch_cuda`` on ``--device`` (``cpu`` off the card).
+One difference from the JAX sweep:
+``backend.device_error`` converges through a refused attempt and a retry on
+the device (the port's breaker refuses, it never degrades to
+``numpy_ref``), so it is held to the golden report of its own config.
 
 Internal subcommands (the sweep's crashable subprocesses):
 ``--consume-one QUEUE_DIR SM_CONFIG`` drains one job through a JobScheduler;
+``--fleet-one QUEUE_DIR SM_CONFIG`` drains one job through a
+FleetController-supervised ``--consume-one`` replica (the ``fleet`` kind);
 ``--publish-one QUEUE_DIR MSG_JSON`` publishes one message;
 ``--stream-one QUEUE_DIR SM_CONFIG`` drains one STREAMING job while playing
 the instrument (chunked appends + finish) in the same crashable process.
@@ -56,8 +57,13 @@ import sm_distributed_tpu_torch.engine.stream  # noqa: F401
 import sm_distributed_tpu_torch.io.imzml  # noqa: F401
 import sm_distributed_tpu_torch.models.msm_basic  # noqa: F401
 import sm_distributed_tpu_torch.parallel.distributed  # noqa: F401
+import sm_distributed_tpu_torch.service.fleet  # noqa: F401
 import sm_distributed_tpu_torch.service.readpath  # noqa: F401
 import sm_distributed_tpu_torch.service.scheduler  # noqa: F401
+from sm_distributed_tpu_torch.drivers import (
+    add_device_arguments,
+    require_card,
+)
 from sm_distributed_tpu_torch.engine.daemon import (
     QUEUE_ANNOTATE,
     QueueConsumer,
@@ -98,9 +104,6 @@ SM_TEMPLATE = {
 }
 # scenarios the JAX sweep runs on jax_tpu run on the port's device backend
 DEVICE_SM = {"backend": "torch_cuda"}
-# scenario kinds the port has no module for yet
-DEFERRED = {"fleet.spawn": "the fleet controller's spawn seam (the "
-                           "`fleet` consumer kind): ROADMAP item 9b.5"}
 
 
 @dataclass
@@ -146,7 +149,7 @@ _STREAM = {"service": {"stream": {"idle_timeout_s": 60.0,
                                   "poll_interval_s": 0.05}}}
 
 # Every registered failpoint has a scenario (checked by the sweep preamble);
-# the JAX sweep's table, in its order, less the deferred fleet.spawn.
+# the JAX sweep's table, in its order.
 SCENARIOS: list[Scenario] = [
     Scenario("io.imzml_parse", "consume", "io.imzml_parse=crash@1",
              "crash mid-parse; restart requeues and re-reads"),
@@ -268,6 +271,10 @@ SCENARIOS: list[Scenario] = [
              "drained replica dies before its retire ack; the job is "
              "already terminal — nothing is lost or doubled",
              env={"SM_CHAOS_DRAIN": "1"}, sm=_FAST_REPLICA),
+    Scenario("fleet.spawn", "fleet", "fleet.spawn=crash@1",
+             "fleet controller killed mid-spawn (no replica launched); the "
+             "restarted controller repairs the fleet and the job completes "
+             "exactly once"),
     # SM_DIST_SIMULATE=1 exercises the managed multi-process init path
     # without a real coordinator: the raise is the launch race
     Scenario("dist.initialize", "consume",
@@ -373,6 +380,44 @@ def cmd_consume_one(queue_dir: str, sm_config_path: str) -> int:
         print(f"LOCK-ORDER-CYCLES {rep['cycles']}", flush=True)
         return 5
     return 0 if ok else 3
+
+
+def cmd_fleet_one(queue_dir: str, sm_config_path: str) -> int:
+    """Drain one job through a FleetController-supervised replica: the
+    controller (THIS process — crashable at ``fleet.spawn``) spawns one
+    ``--consume-one`` subprocess as its fleet and waits for the job."""
+    from sm_distributed_tpu_torch.analysis import lockorder
+
+    lockorder.enable_from_env()
+    from sm_distributed_tpu_torch.service.fleet import FleetController
+    from sm_distributed_tpu_torch.utils.config import FleetConfig, SMConfig
+
+    sm = SMConfig.set_path(sm_config_path)
+    root = Path(queue_dir) / QUEUE_ANNOTATE
+
+    def _spawn(rid: str) -> subprocess.Popen:
+        # the child is a plain consume-one replica; it inherits the armed
+        # spec harmlessly (it never reaches the controller's spawn seam)
+        return subprocess.Popen(
+            [sys.executable, "-m", MODULE, "--consume-one", queue_dir,
+             sm_config_path], cwd=str(REPO_ROOT))
+
+    fc = FleetController(
+        queue_dir, FleetConfig(min_replicas=1, max_replicas=1,
+                               decide_interval_s=0.2, cooldown_s=0.0,
+                               hysteresis_ticks=1, spawn_timeout_s=30.0,
+                               drain_timeout_s=10.0),
+        sm.service, spawn=_spawn)
+    fc.start()
+    try:
+        deadline = time.time() + 90.0
+        while time.time() < deadline:
+            if list((root / "done").glob("*.json")):
+                return 0
+            time.sleep(0.1)
+        return 3
+    finally:
+        fc.shutdown(drain=False, timeout_s=5.0)
 
 
 def cmd_stream_one(queue_dir: str, sm_config_path: str) -> int:
@@ -651,10 +696,11 @@ def run_scenario(sc: Scenario, base: Path, msg: dict, golden,
         QueuePublisher(ctx.queue_dir).publish(msg)
 
     while result["runs"] < MAX_RUNS:
-        armed = sc.phase in ("consume", "stream") and \
+        armed = sc.phase in ("consume", "fleet", "stream") and \
             result["runs"] < sc.spec_runs
         spec = sc.spec if armed else None
-        sub = "--stream-one" if sc.phase == "stream" else "--consume-one"
+        sub = {"fleet": "--fleet-one",
+               "stream": "--stream-one"}.get(sc.phase, "--consume-one")
         rc, out = _run_sub(
             [sub, str(ctx.queue_dir), str(ctx.sm_conf)], spec, env)
         outputs.append(out)
@@ -795,23 +841,22 @@ def main(argv: list[str] | None = None) -> int:
                     help=f"fast CI subset: {', '.join(SMOKE)}")
     ap.add_argument("--only", default=None,
                     help="comma-separated scenario (failpoint) names")
-    ap.add_argument("--backend", default="numpy_ref",
-                    choices=("numpy_ref", "torch_cuda"),
-                    help="the base scoring backend (default numpy_ref)")
-    ap.add_argument("--device", default="cpu",
-                    help="torch device of the torch_cuda scenarios "
-                         "(cpu off the card, cuda on it)")
+    add_device_arguments(ap, "the base scoring backend",
+                         "torch device of the torch_cuda scenarios")
     ap.add_argument("--list", action="store_true", dest="list_fps")
     ap.add_argument("--keep", action="store_true",
                     help="keep the sweep directory for inspection")
     ap.add_argument("-v", "--verbose", action="store_true")
     ap.add_argument("--consume-one", nargs=2, metavar=("QUEUE_DIR", "SM_CONFIG"))
+    ap.add_argument("--fleet-one", nargs=2, metavar=("QUEUE_DIR", "SM_CONFIG"))
     ap.add_argument("--publish-one", nargs=2, metavar=("QUEUE_DIR", "MSG_JSON"))
     ap.add_argument("--stream-one", nargs=2, metavar=("QUEUE_DIR", "SM_CONFIG"))
     args = ap.parse_args(argv)
 
     if args.consume_one:
         return cmd_consume_one(*args.consume_one)
+    if args.fleet_one:
+        return cmd_fleet_one(*args.fleet_one)
     if args.publish_one:
         return cmd_publish_one(*args.publish_one)
     if args.stream_one:
@@ -819,10 +864,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.list_fps:
         for name, desc in sorted(failpoints.registered_failpoints().items()):
             print(f"{name:<26} {desc}")
-        for name, why in DEFERRED.items():
-            print(f"{name:<26} not in this sweep yet: {why}")
         return 0
 
+    require_card(ap, args.device)
     only = list(SMOKE) if args.smoke else (
         args.only.split(",") if args.only else None)
     import shutil

@@ -29,7 +29,7 @@ Usage::
     python -m sm_distributed_tpu_torch.drivers.replica_chaos --smoke  # 2
     python -m sm_distributed_tpu_torch.drivers.replica_chaos --only score_crash
     python -m sm_distributed_tpu_torch.drivers.replica_chaos --list
-    ... --backend torch_cuda --device cpu     # score on the torch path
+    ... --backend numpy_ref --device cpu      # off the card
 
 Internal subcommand (the replica worker process)::
 
@@ -55,6 +55,10 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from sm_distributed_tpu_torch.drivers import (
+    add_device_arguments,
+    require_card,
+)
 from sm_distributed_tpu_torch.drivers.chaos_sweep import (
     FIXTURE,
     REPO_ROOT,
@@ -166,7 +170,10 @@ def cmd_replica_serve(args) -> int:
         sm, service=dataclasses.replace(sm.service,
                                         replica_id=args.replica_id))
     SMConfig.set(sm)
+    from sm_distributed_tpu_torch.service.primer import bind_builds
     from sm_distributed_tpu_torch.utils.logger import init_logger
+
+    bind_builds(sm)
 
     init_logger(None, json_logs=False)
     metrics_text = ""
@@ -429,7 +436,10 @@ def run_scenario(sc: Scenario, work: Path, imzml_path: Path,
                 procs[rid], _ = run_replica(base, sm_conf, rid, spec=None,
                                             idle_exit=2.0)
         # liveness probe through a survivor's admin API: /peers must list
-        # every replica once their registrations land
+        # every replica once their registrations land.  The probe runs
+        # until it holds or r1 has exited, not only until the jobs
+        # converge: on a loaded host convergence can come first, and a
+        # probe cut short there is a harness race, not a missing replica
         need_ids = set(REPLICAS)
         deadline = time.time() + CONVERGE_S
         peers_seen = False
@@ -446,7 +456,8 @@ def run_scenario(sc: Scenario, work: Path, imzml_path: Path,
                     except (OSError, ValueError):
                         pass
             done = len(list((root / "done").glob("*.json")))
-            if done >= len(msgs):
+            if done >= len(msgs) and (peers_seen
+                                      or procs["r1"].poll() is not None):
                 break
             if all(p.poll() is not None for p in procs.values()):
                 result["error"] = ("all replicas exited with "
@@ -574,10 +585,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help=f"CI subset: {', '.join(SMOKE)}")
     ap.add_argument("--only", default=None)
-    ap.add_argument("--backend", default="numpy_ref",
-                    choices=("numpy_ref", "torch_cuda"))
-    ap.add_argument("--device", default="cpu",
-                    help="torch device of a torch_cuda run")
+    add_device_arguments(ap)
     ap.add_argument("--list", action="store_true", dest="list_scenarios")
     ap.add_argument("--keep", action="store_true")
     ap.add_argument("-v", "--verbose", action="store_true")
@@ -596,6 +604,7 @@ def main(argv: list[str] | None = None) -> int:
         for sc in SCENARIOS:
             print(f"{sc.name:<16} {sc.spec:<70} {sc.note}")
         return 0
+    require_card(ap, args.device)
     only = list(SMOKE) if args.smoke else (
         args.only.split(",") if args.only else None)
     import shutil

@@ -17,7 +17,7 @@ the port has no report tool, so that step is not here.
 Usage::
 
     python -m sm_distributed_tpu_torch.drivers.trace_smoke \\
-        [--backend numpy_ref|torch_cuda] [--device cpu|cuda]
+        [--backend torch_cuda|numpy_ref] [--device cuda|cpu]
 
 Exit 0 = the smoke passes.
 """
@@ -31,6 +31,10 @@ import tempfile
 import urllib.request
 from pathlib import Path
 
+from sm_distributed_tpu_torch.drivers import (
+    add_device_arguments,
+    require_card,
+)
 from sm_distributed_tpu_torch.drivers.harness import (
     Harness,
     build_fixtures,
@@ -128,10 +132,9 @@ def main(argv: list[str] | None = None) -> int:
     import shutil
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--backend", default="numpy_ref",
-                    choices=("numpy_ref", "torch_cuda"))
-    ap.add_argument("--device", default="cpu")
+    add_device_arguments(ap)
     args = ap.parse_args(argv)
+    require_card(ap, args.device)
     work = Path(tempfile.mkdtemp(prefix="sm_trace_smoke_"))
     try:
         return run(work, args.backend, args.device)

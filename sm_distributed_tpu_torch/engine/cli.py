@@ -16,18 +16,20 @@ Port of ``sm_distributed_tpu/engine/cli.py``::
 
     python -m sm_distributed_tpu_torch.engine.cli serve QUEUE_DIR \\
         [--sm-config sm.json] [--workers N] [--port P] [--host H] \\
-        [--replica-id ID] [--replicas N] [--shards N] [--max-jobs N] \\
-        [--idle-timeout S] [--no-api]
+        [--replica-id ID] [--replicas N] [--shards N] [--fleet] \\
+        [--max-jobs N] [--idle-timeout S] [--no-api]
 
 ``sm.json`` is the port's ``SMConfig``: jobs run on ``device`` ("cuda" by
 default; "cpu" runs the plain versions of the kernels).  ``serve`` runs the
 annotation service (``sm_distributed_tpu_torch.service``): the concurrent
-spool scheduler, its jobs on the device pool's chips, and the admin API.
-The JAX package's ``serve --fleet`` (the elastic fleet controller) is
-ROADMAP queue 1 item 9b.5.  The service's chaos, replica, resource and
-trace drivers are ``python -m sm_distributed_tpu_torch.drivers.<name>``
-(``replica_chaos --replica-serve`` runs one replica under the lock-order
-detector when ``SM_LOCK_ORDER`` is set).
+spool scheduler, its jobs on the device pool's chips, and the admin API;
+``serve --fleet`` (or ``service.fleet.enabled``) also runs the elastic
+fleet controller (``service/fleet.py``) beside it, which spawns and drains
+``serve`` replicas over the same spool.  The service's drivers are
+``python -m sm_distributed_tpu_torch.drivers.<name>`` (``chaos_sweep``,
+``replica_chaos``, ``resource_smoke``, ``trace_smoke``, ``fleet_smoke``,
+``prime_cache``; ``replica_chaos --replica-serve`` runs one replica under
+the lock-order detector when ``SM_LOCK_ORDER`` is set).
 """
 
 from __future__ import annotations
@@ -57,6 +59,11 @@ def _load_configs(args) -> SMConfig:
         failpoints.configure(sm.failpoints)
         logger.warning("fault injection ACTIVE from config: %s",
                        sm.failpoints)
+    # the kernel builds and the bucket manifest go under
+    # parallel.compile_cache_dir, bound once for the process here
+    from ..service.primer import bind_builds
+
+    bind_builds(sm)
     return sm
 
 
@@ -173,8 +180,33 @@ def cmd_serve(args) -> int:
         host, port = service.api.address
         logger.info("serve: admin API on http://%s:%d "
                     "(/healthz /metrics /jobs POST /submit)", host, port)
-    return service.run_forever(max_terminal=args.max_jobs,
-                               idle_timeout_s=args.idle_timeout)
+    controller = None
+    if args.fleet or sm_config.service.fleet.enabled:
+        # elastic fleet: THIS process is replica r0 AND hosts the
+        # controller; additional replicas are spawned `serve` subprocesses
+        # over the same spool, with their own controllers disabled.  The
+        # controller's sm_fleet_* metrics land on this replica's /metrics.
+        from ..service.fleet import (
+            FleetController,
+            serve_spawn,
+            service_signals,
+            write_child_config,
+        )
+
+        child_conf = write_child_config(sm_config, sm_config.work_dir)
+        controller = FleetController(
+            args.queue_dir, sm_config.service.fleet, sm_config.service,
+            spawn=serve_spawn(args.queue_dir, child_conf),
+            signals=service_signals(service), metrics=service.metrics,
+            self_replica_id=sm_config.service.replica_id,
+            halt_when=service.stopping)
+        controller.start()
+    try:
+        return service.run_forever(max_terminal=args.max_jobs,
+                                   idle_timeout_s=args.idle_timeout)
+    finally:
+        if controller is not None:
+            controller.shutdown()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -233,6 +265,11 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--shards", type=int, default=None,
                      help="override service.spool_shards (logical spool "
                           "partitions; must match across replicas)")
+    srv.add_argument("--fleet", action="store_true",
+                     help="run the elastic-fleet controller beside this "
+                          "replica: spawn/drain serve subprocesses between "
+                          "service.fleet.min_replicas and max_replicas on "
+                          "SLO burn + queue depth")
     srv.add_argument("--no-api", action="store_true",
                      help="run the scheduler without the admin API")
     srv.add_argument("--max-jobs", type=int, default=None,

@@ -397,6 +397,11 @@ class TorchBackend:
         # here and every batch's choice depends on that batch alone
         self._gc_width = 0
         self._gc_tail = 0
+        # the compaction capacities a batch's spec names: the JAX package's
+        # sticky _n_keep / _r_pad, grown as it grows them (nothing pads to
+        # them here)
+        self._spec_n_keep = 0
+        self._spec_r_pad = 0
 
     def _init_cube(self, ds: SpectralDataset,
                    restrict_table: IsotopePatternTable | None) -> None:
@@ -668,7 +673,46 @@ class TorchBackend:
             raise ValueError(f"flat variant {variant!r} is not planned for "
                              "this backend")
         self.variant_counts[variant] += 1
+        if self._n_real is not None:
+            shape_buckets.record_spec(self._bucket_spec(variant, plan, d,
+                                                        table.max_peaks))
         return out
+
+    def _bucket_spec(self, variant: str, plan: FlatPlan, d: dict,
+                     k: int) -> dict:
+        """The batch's BucketSpec (``ops/buckets.py``) under the JAX
+        package's keys and values: the same batch on the same variant names
+        the same spec in both packages.  The band and compact capacities
+        are the JAX package's padding (its ``band_bucket`` and sticky
+        compaction capacities); the port pads neither."""
+        n = int(self._px_s.shape[0])
+        n_keep = r_pad = w_cap = 0
+        if variant == "compact":
+            run_pos, _delta, n_b, _pos_b = plan.runs
+            want = min(-(-max(n_b, 1) // (1 << 16)) * (1 << 16), max(1, n))
+            self._spec_n_keep = n_keep = max(self._spec_n_keep, want)
+            self._spec_r_pad = r_pad = max(
+                self._spec_r_pad, -(-max(run_pos.size, 1) // 4096) * 4096)
+        elif variant == "band":
+            w_cap = min(shape_buckets.band_bucket(plan.band[1]),
+                        int(self._mz_host.size))
+        r_lo_loc = d["r_lo_loc"]
+        spec = {
+            "kind": "flat", "variant": variant,
+            "nrows": int(self._nrows_b), "ncols": int(self.ds.ncols),
+            "nlevels": int(self.nlevels),
+            "do_preprocessing": bool(self.do_preprocessing),
+            "q": float(self.q),
+            "n_resident": n, "b": int(d["b"]), "k": int(k),
+            "gc_width": int(d["gc_width"]),
+            "n_keep": n_keep, "r_pad": r_pad, "w_cap": w_cap,
+            "g": int(plan.pos.shape[0]),
+            "c": int(r_lo_loc.shape[0]), "wc": int(r_lo_loc.shape[1]),
+            "devices": 1,
+        }
+        if self.cube_dtype != "f32":
+            spec["cube_dtype"] = self.cube_dtype
+        return spec
 
     def image_block(self, table: IsotopePatternTable,
                     plan: FlatPlan | None = None

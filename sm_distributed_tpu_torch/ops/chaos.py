@@ -361,7 +361,7 @@ def _launch_smem(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
                  ncols: int, nlevels: int) -> torch.Tensor:
     n = principal.shape[0]
     dev = principal.device
-    lib = _build.load("chaos")
+    lib = _build.ready("chaos", dev)
     fn = lib.sm_chaos_smem
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [
         ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -393,7 +393,7 @@ def _launch_tiles(principal: torch.Tensor, thr: torch.Tensor, nrows: int,
     n = principal.shape[0]
     dev = principal.device
     plan = tile_plan(nrows, ncols, nlevels)
-    lib = _build.load("chaos_strips")
+    lib = _build.ready("chaos_strips", dev)
     fn = lib.sm_chaos_tiles
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [
         ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]

@@ -150,7 +150,7 @@ def moments_groups(k: int) -> list[tuple[int, int]]:
 @_build.on_tensor_device
 def _launch(images: torch.Tensor, n_real: int | None) -> torch.Tensor:
     n, k, p = images.shape
-    lib = _build.load("moments")
+    lib = _build.ready("moments", images.device)
     fn = lib.sm_moments
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12 + [
         ctypes.c_void_p]

@@ -83,7 +83,7 @@ def _launch(whp: torch.Tensor, starts: torch.Tensor, r_lo_loc: torch.Tensor,
     cols, p = whp.shape
     n_chunks, wc = r_lo_loc.shape
     dev = whp.device
-    lib = _build.load("fused_moments")
+    lib = _build.ready("fused_moments", dev)
     fn = lib.sm_fused_moments
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + [
         ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]

@@ -45,9 +45,10 @@ do not align with shard rows).  Unlike the JAX package nothing is padded to
 a sticky capacity: eager torch needs no static shapes, so each cell's band
 is a view of exactly its width and its compaction gathers exactly its kept
 peaks (the JAX package's ``_grow_compact_capacity``, ``band_bucket`` and
-the padding of ``_pack_runs`` / ``_pack_bands`` have no counterpart).  The
-JAX package's bucket-spec record (``_sharded_spec``) serves its compile
-primer, which the port does not have yet (ROADMAP queue 1 item 9b).
+the padding of ``_pack_runs`` / ``_pack_bands`` have no counterpart).  Each
+batch records its bucket spec under the JAX package's keys
+(``_sharded_spec``): the kernel primer (``service/primer.py``) reads its
+lease shape (``devices``) and the kernels its variant launches.
 """
 
 from __future__ import annotations
@@ -410,7 +411,39 @@ class ShardedTorchBackend:
         out = torch.cat(outs)
         self._mark("gather")
         self.variant_counts[variant] += 1
+        if self._buckets:
+            shape_buckets.record_spec(self._sharded_spec(variant, plan))
         return out
+
+    def _sharded_spec(self, variant: str, plan: ShardPlan) -> dict:
+        """The batch's BucketSpec under the JAX package's keys: its lease
+        topology (mesh axes, per-shard pixel capacity) and plan shapes,
+        summed over the formula shards.  Nothing is padded to a
+        compaction or band capacity here, so those stay 0.  ``devices``
+        counts the mesh's distinct cards (the JAX package's mesh size: its
+        meshes never repeat a device)."""
+        chunks = plan.chunks
+        spec = {
+            "kind": "sharded", "variant": variant,
+            "nrows": int(self._nrows_metric), "ncols": int(self.ds.ncols),
+            "nlevels": int(self.nlevels),
+            "do_preprocessing": bool(self.do_preprocessing),
+            "q": float(self.q),
+            "n_resident": int(self._mz_shards.shape[1]),
+            "b": int(self.batch), "k": int(plan.k),
+            "gc_width": int(self._gc_width),
+            "n_keep": 0, "r_pad": 0, "w_cap": 0,
+            "g": int(sum(p.shape[0] for p in plan.pos[0])),
+            "c": int(sum(c[1].shape[0] for c in chunks)),
+            "wc": int(max(c[1].shape[1] for c in chunks)),
+            "w": int(sum(c[3].shape[0] for c in chunks)),
+            "devices": len(self.mesh.distinct()),
+            "mesh_pix": int(self._n_pix), "mesh_form": int(self._n_form),
+            "p_loc": int(self._p_loc),
+        }
+        if self.cube_dtype != "f32":
+            spec["cube_dtype"] = self.cube_dtype
+        return spec
 
     def score_batch(self, table: IsotopePatternTable) -> np.ndarray:
         """(n_ions, 4) f64 metrics of one batch."""

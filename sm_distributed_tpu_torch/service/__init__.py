@@ -18,13 +18,17 @@ Copies of ``sm_distributed_tpu/service``'s modules for the card:
 - ``readpath``   — the result read path: segment queries, cursors, ion
   tiles, the governed read cache and read admission;
 - ``api``        — the stdlib ``http.server`` admin API;
-- ``fleetview``  — the device profiler behind ``GET /debug/profile``;
+- ``fleetview``  — the fleet view behind ``GET /fleet/*`` (every live
+  replica's exposition merged) and the device profiler behind ``GET
+  /debug/profile``;
+- ``primer``     — the kernel-build primer: builds, loads and sets up the
+  kernels of the recorded bucket specs while the spool sits idle (``GET
+  /debug/compile``);
+- ``fleet``      — the elastic fleet controller (``serve --fleet``): spawn,
+  crash replacement and zero-loss drains of ``serve`` replicas;
 - ``server``     — ``AnnotationService`` composing all of the above (plus
   the device breaker, ``models/breaker.py``, and the stream ingest,
   ``engine/stream.py``) with graceful SIGTERM shutdown.
-
-The JAX package's cache primer, fleet controller and fleet view
-(``FleetView``) are ROADMAP queue 1 item 9b.
 """
 
 from .admission import AdmissionController

@@ -46,6 +46,18 @@ status codes for what the port serves.  Endpoints:
   (``service/health.py``), lease holders, probe/quarantine/readmit/
   host-eviction totals, and the breaker's state;
 - ``GET /peers``  the replica registry view;
+- ``GET /debug/compile``  the cold-start view: every recorded shape bucket
+  with its primed/missing status (``service/primer.py``) plus the kernel
+  build census (``kernels/_build.py``: built or found, nvcc seconds,
+  ptxas registers and spills, loads and launch set-ups by device), which
+  takes the place of the JAX package's retrace census;
+- ``GET /fleet/metrics`` / ``GET /fleet/slo`` / ``GET /fleet/status``
+  the fleet observability plane (``service/fleetview.py``): every live
+  replica's exposition merged (counters summed, gauges re-labelled,
+  histograms bucket-merged), fleet-wide SLO attainment from the merged
+  buckets, and the replica / host / pool / stream status, degrading to a
+  partial view with ``sm_fleetview_scrape_errors_total{replica=}``
+  evidence when a peer dies mid-scrape;
 - ``GET /debug/profile?seconds=``  single-flight on-demand
   ``torch.profiler`` capture around in-flight work: per-kernel device-time
   attribution (fused moments kernel vs scoring chain vs transfers) +
@@ -62,10 +74,6 @@ status codes for what the port serves.  Endpoints:
   live-acquisition chunk seam of a ``mode: "stream"`` submit
   (``engine/stream.py``).
 
-Routes of the JAX package whose modules are not in the port yet answer
-**404** with a JSON body naming the ROADMAP item (queue 1 item 9b): the
-fleet view (``/fleet/*``) and ``/debug/compile``.
-
 ``ThreadingHTTPServer`` keeps scrapes responsive while workers run; every
 handler is read-only except ``/submit`` (appends to ``pending/``) and
 ``DELETE /jobs/<id>`` (cancels one message).
@@ -81,14 +89,6 @@ from urllib.parse import parse_qs, urlparse
 
 from ..utils import tracing
 from ..utils.logger import logger
-
-# the JAX package's routes whose modules the port does not have yet
-_NOT_PORTED_GET = ("/fleet/", "/debug/compile")
-
-
-def _not_ported(what: str) -> tuple[int, dict]:
-    return 404, {"error": f"{what} is not in the PyTorch port yet (queue 1 "
-                          "item 9b of ROADMAP.md)", "reason": "not_found"}
 
 # message fields /submit validates beyond the publisher's ds_id/input_path
 # requirement: (field, predicate, expectation) — anything else passes
@@ -210,6 +210,9 @@ class AdminAPI:
                     elif url.path == "/debug/devices":
                         status, body = api._devices()
                         self._reply_json(status, body)
+                    elif url.path == "/debug/compile":
+                        status, body = api._compile()
+                        self._reply_json(status, body)
                     elif url.path == "/debug/timeseries":
                         q = parse_qs(url.query)
                         n = q.get("n", [None])[0]
@@ -221,6 +224,16 @@ class AdminAPI:
                         self._reply_json(status, body)
                     elif url.path == "/peers":
                         self._reply_json(200, api._peers())
+                    elif url.path == "/fleet/metrics":
+                        status, text = api._fleet_metrics()
+                        self._reply(status, text.encode(),
+                                    "text/plain; version=0.0.4")
+                    elif url.path == "/fleet/slo":
+                        status, body = api._fleet_slo()
+                        self._reply_json(status, body)
+                    elif url.path == "/fleet/status":
+                        status, body = api._fleet_status()
+                        self._reply_json(status, body)
                     elif url.path == "/debug/profile":
                         q = parse_qs(url.query)
                         s = q.get("seconds", [None])[0]
@@ -233,8 +246,6 @@ class AdminAPI:
                             return
                         status, body = api._profile(seconds)
                         self._reply_json(status, body)
-                    elif url.path.startswith(_NOT_PORTED_GET):
-                        self._reply_json(*_not_ported(f"GET {url.path}"))
                     elif url.path == "/datasets" or url.path == "/annotations" \
                             or (url.path.startswith("/datasets/")
                                 and url.path.strip("/").split("/")[2:3]
@@ -581,6 +592,52 @@ class AdminAPI:
             return 404, {"error": "resource governor not configured",
                          "reason": "not_found"}
         return 200, governor.snapshot()
+
+    def _compile(self) -> tuple[int, dict]:
+        """``GET /debug/compile``: the cold-start view — every recorded
+        shape bucket with its primed/missing status (service/primer.py),
+        plus the kernel build census (kernels/_build.py), so
+        primed-but-never-built and built-but-never-primed kernels are both
+        visible from one endpoint.  With ``telemetry.retrace`` false the
+        census half is ``{"enabled": false}``."""
+        from ..kernels import _build
+
+        primer = getattr(self.service, "primer", None)
+        builds = ({"enabled": True, **_build.census()}
+                  if self.service.sm_config.telemetry.retrace
+                  else {"enabled": False})
+        return 200, {
+            "primer": (primer.snapshot() if primer is not None else None),
+            "builds": builds,
+        }
+
+    def _fleet_metrics(self) -> tuple[int, str]:
+        """``GET /fleet/metrics`` — every live replica's exposition merged
+        into one: counters summed, gauges re-labelled ``{replica=}``,
+        histograms bucket-merged.  Peer failures degrade to a partial view
+        with evidence comments, never an error."""
+        fv = getattr(self.service, "fleetview", None)
+        if fv is None:
+            return 404, "# fleetview not configured (service.fleetview)\n"
+        return 200, fv.metrics_text()
+
+    def _fleet_slo(self) -> tuple[int, dict]:
+        """``GET /fleet/slo`` — fleet-wide attainment / error-budget burn
+        for the five SLIs, computed from the merged histogram buckets."""
+        fv = getattr(self.service, "fleetview", None)
+        if fv is None:
+            return 404, {"error": "fleetview not configured",
+                         "reason": "not_found"}
+        return fv.slo()
+
+    def _fleet_status(self) -> tuple[int, dict]:
+        """``GET /fleet/status`` — replicas, hosts, evictions, pool
+        occupancy, in-flight stream acquisitions, scrape evidence."""
+        fv = getattr(self.service, "fleetview", None)
+        if fv is None:
+            return 404, {"error": "fleetview not configured",
+                         "reason": "not_found"}
+        return fv.status()
 
     def _profile(self, seconds: float | None) -> tuple[int, dict]:
         """``GET /debug/profile?seconds=`` — single-flight

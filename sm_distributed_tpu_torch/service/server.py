@@ -16,10 +16,13 @@ package.  Its locks are watched by the lock-order detector
 service, as the drivers do under ``SM_LOCK_ORDER``; its recovery paths
 (crash requeues, fenced takeovers, drains, the disk governor) are driven
 by the port's drivers (``sm_distributed_tpu_torch.drivers``:
-``chaos_sweep``, ``replica_chaos``, ``resource_smoke``, ``trace_smoke``).
-Not wired yet (ROADMAP queue 1 items
-9b.4-9b.6): the cache primer, the fleet controller and fleet view, and
-compile attribution.
+``chaos_sweep``, ``replica_chaos``, ``resource_smoke``, ``trace_smoke``,
+``fleet_smoke``).  The kernel-build primer (``service/primer.py``) primes
+the recorded bucket specs while the spool sits idle, the build census
+(``kernels/_build.py``) is exported under ``telemetry.retrace``, and the
+fleet view serves ``/fleet/*``, as the JAX package's primer, retrace
+census and fleet view do; ``serve --fleet`` runs the fleet controller
+(``service/fleet.py``) beside this service.
 """
 
 from __future__ import annotations
@@ -40,11 +43,32 @@ from ..utils.logger import add_phase_observer, logger, remove_phase_observer
 from .admission import AdmissionController
 from .api import AdminAPI
 from .device_pool import DevicePool, resolve_pool_size
-from .fleetview import DeviceProfiler
+from .fleetview import DeviceProfiler, FleetView
 from .metrics import MetricsRegistry, build_info_collector, process_collector
 from .resources import ResourceGovernor, set_governor
 from .scheduler import JobScheduler
 from .telemetry import DeviceMonitor, SLOTracker
+
+
+def _collect_launches(m: MetricsRegistry) -> None:
+    """``sm_kernel_launches_total{kernel=}``: each kernel wrapper's launch
+    count (one a launch of its kernel on the card, none on the CPU)."""
+    from ..ops.chaos import chaos_count_sums, chaos_count_sums_strips
+    from ..ops.moments import batch_moments
+    from ..ops.score import fused_window_moments
+
+    family = m.counter("sm_kernel_launches_total",
+                       "Hand-written kernel launches in this process, by "
+                       "kernel", ("kernel",))
+    for kernel, n in (("moments", batch_moments.launches),
+                      ("chaos", chaos_count_sums.launches),
+                      ("chaos_tiles", chaos_count_sums.tiled_launches),
+                      ("chaos_strips", chaos_count_sums_strips.launches),
+                      ("fused_window_moments",
+                       fused_window_moments.launches)):
+        c = family.labels(kernel=kernel)
+        # counters only move forward: a delta from the wrapper's count
+        c.inc(max(0.0, n - c.value))
 
 
 class AnnotationService:
@@ -148,6 +172,17 @@ class AnnotationService:
         # classified device-fault telemetry (models/faults.py):
         # sm_device_faults_total{kind=} beside the oom/breaker families
         faults.attach_metrics(self.metrics)
+        # kernel-build attribution: every nvcc build and every load of a
+        # library built before, by kernel (sm_compile_* on /metrics, read
+        # from the process's build census at scrape time) — the port's
+        # counterpart of the JAX package's retrace census
+        if self.sm_config.telemetry.retrace:
+            from ..kernels import _build
+
+            self.metrics.add_collector(_build.collect_census)
+        # each hand-written kernel's launches in this process, read from
+        # its wrapper's count at scrape time
+        self.metrics.add_collector(_collect_launches)
         self.scheduler = JobScheduler(
             queue_dir, callback, config=cfg, queue=queue, metrics=self.metrics,
             admission=self.admission, trace_dir=self.trace_dir, slo=self.slo,
@@ -158,6 +193,15 @@ class AnnotationService:
         self.admission.sync_from_spool(self.queue_dir / queue,
                                        owns_msg=self.scheduler.owns_msg)
         self.admission.set_peer_view(self.scheduler.peer_admission_summaries)
+        # the kernel-build primer (service/primer.py): when the spool sits
+        # idle, build, load and set up the kernels of the recorded bucket
+        # specs so a cold submit pays no nvcc.  Constructed even when
+        # disabled — GET /debug/compile serves its primed-vs-missing view
+        # either way; only the idle thread is gated on the knob.
+        from .primer import CachePrimer
+
+        self.primer = CachePrimer(
+            self.sm_config, busy=self._primer_busy, metrics=self.metrics)
         # device & memory telemetry: memory/occupancy sampler feeding
         # gauges + the GET /debug/timeseries snapshot ring
         self.telemetry = DeviceMonitor(
@@ -200,13 +244,15 @@ class AnnotationService:
             self.metrics.add_collector(self._collect_residency)
         self.api = AdminAPI(self, host=cfg.http_host,
                             port=cfg.http_port) if with_api else None
-        # GET /debug/profile: on-demand torch.profiler capture around the
-        # jobs in flight
+        # the fleet view (/fleet/* across live replicas) and GET
+        # /debug/profile (an on-demand torch.profiler capture around the
+        # jobs in flight).  The admin address, pool occupancy and in-flight
+        # stream count are gossiped through registry heartbeats so peers
+        # can scrape this replica without another channel — the API binds
+        # its socket in __init__, so the address is final here
+        self.fleetview = (FleetView(self, cfg.fleetview)
+                          if cfg.fleetview.enabled and with_api else None)
         self.profiler = DeviceProfiler(self, self.sm_config.telemetry.profile)
-        # the admin address, pool occupancy and in-flight stream count are
-        # gossiped through registry heartbeats so peers can find this
-        # replica without another channel — the API binds its socket in
-        # __init__, so the address is final here
         if self.api is not None:
             self.scheduler.add_gossip(
                 "admin", lambda: "%s:%d" % self.api.address)
@@ -241,6 +287,15 @@ class AnnotationService:
             h.inc(max(0.0, stats[f"{cache}_hits"] - h.value))
             miss.inc(max(0.0, stats[f"{cache}_misses"] - miss.value))
 
+    def _primer_busy(self) -> bool:
+        """Real work in flight?  The primer only runs while this is False
+        (and re-checks between specs), so priming never delays a job."""
+        if self.scheduler.live_claims() > 0:
+            return True
+        root = self.queue_dir / self.queue
+        return any(True for _ in root.glob("pending/*.json")) or \
+            any(True for _ in root.glob("running/*.json"))
+
     def queue_depths(self) -> dict:
         root = self.queue_dir / self.queue
         return {s: len(list(root.glob(f"{s}/*.json"))) for s in _STATES}
@@ -263,6 +318,8 @@ class AnnotationService:
         self.scheduler.start()
         if self.api is not None:
             self.api.start()
+        if self.sm_config.service.prime.enabled:
+            self.primer.start()
         logger.info("service: up (queue=%s)", self.queue_dir / self.queue)
 
     def shutdown(self, timeout_s: float | None = None) -> bool:
@@ -284,6 +341,7 @@ class AnnotationService:
                          self.sm_config.service.drain_timeout_s) + 10.0)
             return True
         logger.info("service: shutdown requested — draining")
+        self.primer.stop()
         ok = self.scheduler.shutdown(timeout_s)
         if self.api is not None:
             self.api.stop()

@@ -12,16 +12,18 @@ admission, breaker), ``telemetry``, ``resources``, ``storage``, ``tracing``
 ``failpoints``, and the process-global instance of ``set_path`` /
 ``get_conf``.  ``from_dict`` rejects unknown keys, as the JAX package does.
 
-A block or value the port does not have yet raises ``NotImplementedError``
-naming the ROADMAP item that brings it, rather than being dropped, unless
-it holds the JAX package's default: the ``service`` blocks ``fleet`` and
-``prime``, and ``fleetview``, which the JAX package enables by default and
-the port accepts only disabled (items 9b.4 and 9b.5); the ``read``
-block (the read path, enabled by default as in the JAX package) and the
-``stream`` block (live acquisition ingest) take every value the JAX
-package does;
-``telemetry.retrace`` and ``parallel.compile_cache_dir`` (item 9b.6); and
-the values listed on each dataclass.  The mesh and multi-process knobs
+The ``service`` blocks ``fleet`` (the elastic replica fleet), ``prime``
+(the kernel-build primer) and ``fleetview`` (the ``/fleet/*`` view,
+enabled by default), the ``read`` block (the read path) and the ``stream``
+block (live acquisition ingest) take every value the JAX package does, as
+does ``telemetry.retrace`` (the kernel-build census behind ``GET
+/debug/compile`` and the ``sm_compile_*`` families).
+``parallel.compile_cache_dir`` names where the port's kernels are built:
+``""`` (the default) keeps ``build/torch_kernels`` at the repository root,
+a path moves the builds and the primer's two manifests there; the JAX
+package's ``"off"`` (no persistent XLA cache) has no meaning for a port
+that must build its kernels somewhere, and raises.
+The mesh and multi-process knobs
 (``parallel.pixels_axis``, ``formulas_axis``, ``coordinator_address``,
 ``num_processes``, ``process_id``, ``init_retries``, ``init_backoff_s``)
 and ``service.devices_per_job`` above 1 take every value the JAX package
@@ -52,56 +54,10 @@ from typing import Any, ClassVar
 VALID_BACKENDS = ("numpy_ref", "torch_cuda")
 
 
-# the JAX package's ``service`` blocks the port does not have yet, with
-# their defaults; ``fleetview`` is accepted only disabled (the JAX package
-# enables it by default).  tests/test_torch_resilience.py holds this table
-# equal to the JAX package's ServiceConfig defaults
-_SERVICE_NOT_YET = {
-    "fleet": {"enabled": False, "min_replicas": 1, "max_replicas": 4,
-              "decide_interval_s": 5.0, "cooldown_s": 60.0,
-              "hysteresis_ticks": 2, "scale_up_burn": 1.0,
-              "scale_down_burn": 0.5, "queue_high_per_replica": 8.0,
-              "queue_low_per_replica": 1.0, "occupancy_high": 0.95,
-              "spawn_timeout_s": 30.0, "drain_timeout_s": 120.0},
-    "prime": {"enabled": False, "idle_after_s": 5.0, "interval_s": 30.0,
-              "max_specs_per_cycle": 0},
-    "fleetview": {"enabled": True, "scrape_timeout_s": 2.0,
-                  "cache_ttl_s": 1.0},
-}
-# what the port accepts of them: the JAX package's defaults, with the fleet
-# view disabled
-_SERVICE_ACCEPTED = {
-    **_SERVICE_NOT_YET,
-    "fleetview": {**_SERVICE_NOT_YET["fleetview"], "enabled": False},
-}
-
-# blocks and knobs of the JAX package's config the port does not have yet:
-# (dataclass, key) -> (ROADMAP item, the accepted value); None as the
-# value: any value raises.  A nested block is accepted when each key it
-# gives holds its accepted value.
-_NOT_YET = {
-    **{("ServiceConfig", k): ("queue 1 item 9b", v)
-       for k, v in _SERVICE_ACCEPTED.items()},
-    ("TelemetryConfig", "retrace"): ("queue 1 item 9b", True),
-    ("ParallelConfig", "compile_cache_dir"): ("queue 1 item 9b", ""),
-}
-
-
 def _from_dict(cls, d: dict[str, Any]):
     """Build a dataclass from a dict, recursing into dataclass fields and
-    rejecting unknown keys.  Keys starting with "__" are comments.  A key of
-    the JAX package's config the port does not have yet raises
-    ``NotImplementedError`` unless it holds its accepted value."""
+    rejecting unknown keys.  Keys starting with "__" are comments."""
     d = {k: v for k, v in d.items() if not k.startswith("__")}
-    for key in list(d):
-        entry = _NOT_YET.get((cls.__name__, key))
-        if entry is None:
-            continue
-        item, default = entry
-        if default is not None and _holds_default(d[key], default):
-            del d[key]
-            continue
-        raise _not_in_slice(f"{cls.__name__} {key!r}", item)
     names = {f.name for f in dataclasses.fields(cls)}
     unknown = set(d) - names
     if unknown:
@@ -116,21 +72,6 @@ def _from_dict(cls, d: dict[str, Any]):
         else:
             kwargs[key] = val
     return cls(**kwargs)
-
-
-def _holds_default(value, default) -> bool:
-    """``value`` is ``default``, or, for a nested block, a dict each of
-    whose keys holds its default."""
-    if isinstance(default, dict):
-        return isinstance(value, dict) and all(
-            k in default and _holds_default(v, default[k])
-            for k, v in value.items())
-    return value == default
-
-
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet ({item} of ROADMAP.md)")
 
 
 @dataclass(frozen=True)
@@ -220,7 +161,8 @@ class ParallelConfig:
     ``init_backoff_s`` configure the multi-process runtime
     (``parallel/distributed.py``; the env variables ``SM_COORDINATOR``,
     ``SM_NUM_PROCESSES`` and ``SM_PROCESS_ID`` override the first
-    three)."""
+    three).  ``compile_cache_dir`` is where the kernels are built
+    (``kernels/_build.py``)."""
     pixels_axis: int = -1
     formulas_axis: int = 1
     formula_batch: int = 2048
@@ -242,8 +184,19 @@ class ParallelConfig:
     process_id: int = -1                 # -1 = resolve from env/launcher
     init_retries: int = 5                # attempts after the first
     init_backoff_s: float = 1.0          # first retry delay; doubles
+    # where the kernels are built: "" = build/torch_kernels at the
+    # repository root, anything else = that directory (the primer's bucket
+    # and prime manifests live beside the builds)
+    compile_cache_dir: str = ""
 
     def __post_init__(self):
+        if self.compile_cache_dir == "off":
+            raise ValueError(
+                "parallel.compile_cache_dir='off' would mean no kernel "
+                "build directory: the JAX package's 'off' turns its "
+                "persistent XLA cache off, but the port builds its CUDA "
+                "kernels with nvcc on first use and keeps them somewhere; "
+                "give '' (build/torch_kernels) or a directory")
         for axis in ("pixels_axis", "formulas_axis"):
             if getattr(self, axis) < -1 or getattr(self, axis) == 0:
                 raise ValueError(
@@ -367,6 +320,113 @@ class StreamConfig:
 
 
 @dataclass(frozen=True)
+class FleetConfig:
+    """Elastic replica fleet (``service/fleet.py``), the JAX package's knobs
+    and defaults.  A FleetController supervises replica subprocesses and
+    makes hysteresis-damped scale decisions between ``min_replicas`` and
+    ``max_replicas`` from the live signals the service already exports:
+    ``/slo`` error-budget burn, admission queue depth, and device-pool
+    occupancy.  Scale-down is a zero-loss *drain*: the victim stops
+    claiming, finishes or releases in-flight work, acks, and retires —
+    rendezvous hashing re-owns its shards and fenced leases make the
+    handoff safe by construction."""
+    enabled: bool = False                # serve --fleet (or this knob) runs
+                                         # the controller beside replica r0
+    min_replicas: int = 1                # repair floor (crash replacement
+                                         # bypasses hysteresis + cooldown)
+    max_replicas: int = 4                # scale ceiling
+    decide_interval_s: float = 5.0       # controller decision cadence
+    cooldown_s: float = 60.0             # min gap between scale events, so
+                                         # flapping traffic can't thrash
+    hysteresis_ticks: int = 2            # consecutive decide ticks a signal
+                                         # must hold before acting
+    scale_up_burn: float = 1.0           # worst /slo error-budget burn at or
+                                         # above this is scale-up pressure
+    scale_down_burn: float = 0.5         # burn must be at or below this for
+                                         # scale-down relief
+    queue_high_per_replica: float = 8.0  # pending depth / alive replicas at
+                                         # or above this is pressure
+    queue_low_per_replica: float = 1.0   # ... at or below this is relief
+    occupancy_high: float = 0.95         # pool occupancy at or above this is
+                                         # pressure (0 disables the signal)
+    spawn_timeout_s: float = 30.0        # a spawned replica must register a
+                                         # heartbeat within this or count as
+                                         # a failed spawn
+    drain_timeout_s: float = 120.0       # drain ack + process exit deadline
+                                         # before the victim is force-killed
+
+    def __post_init__(self):
+        if self.min_replicas <= 0 or self.max_replicas < self.min_replicas:
+            raise ValueError("fleet: need 1 <= min_replicas <= max_replicas")
+        if self.decide_interval_s <= 0 or self.cooldown_s < 0 or \
+                self.hysteresis_ticks < 1:
+            raise ValueError("fleet: decide_interval_s must be positive, "
+                             "cooldown_s >= 0, hysteresis_ticks >= 1")
+        if self.scale_up_burn <= 0 or self.scale_down_burn < 0 or \
+                self.scale_down_burn > self.scale_up_burn:
+            raise ValueError("fleet: need 0 <= scale_down_burn <= "
+                             "scale_up_burn")
+        if self.queue_high_per_replica <= 0 or \
+                self.queue_low_per_replica < 0 or \
+                self.queue_low_per_replica > self.queue_high_per_replica:
+            raise ValueError("fleet: need 0 <= queue_low_per_replica <= "
+                             "queue_high_per_replica")
+        if not 0.0 <= self.occupancy_high <= 1.0:
+            raise ValueError("fleet: occupancy_high must be in [0, 1]")
+        if self.spawn_timeout_s <= 0 or self.drain_timeout_s <= 0:
+            raise ValueError("fleet: spawn/drain timeouts must be positive")
+
+
+@dataclass(frozen=True)
+class PrimeConfig:
+    """The kernel-build primer (``service/primer.py``), the JAX package's
+    knobs and defaults: a scheduler-idle background thread builds, loads
+    and sets up on the device the kernels of every recorded bucket spec,
+    so a cold submit pays no ``nvcc``.  ``GET /debug/compile`` reports
+    primed vs missing specs; ``drivers/prime_cache.py`` is the offline
+    equivalent."""
+
+    enabled: bool = False                # start the idle primer thread
+    idle_after_s: float = 5.0            # spool must be idle this long
+                                         # before a prime cycle starts
+    interval_s: float = 30.0             # rescan cadence for new bucket
+                                         # specs once everything known is
+                                         # primed
+    max_specs_per_cycle: int = 0         # prime at most N specs per idle
+                                         # cycle (0 = no cap); the primer
+                                         # re-checks idleness between specs
+                                         # either way
+
+    def __post_init__(self):
+        if self.idle_after_s < 0 or self.interval_s <= 0:
+            raise ValueError("prime: idle_after_s must be >= 0 and "
+                             "interval_s positive")
+        if self.max_specs_per_cycle < 0:
+            raise ValueError("prime: max_specs_per_cycle must be >= 0")
+
+
+@dataclass(frozen=True)
+class FleetViewConfig:
+    """The fleet view (``service/fleetview.py``), the JAX package's knobs and
+    defaults: the serving replica scrapes live peers (admin addresses
+    gossiped through registry heartbeats), merges their exposition, and
+    answers ``GET /fleet/metrics|slo|status`` with a fleet-wide view that
+    degrades to partial-with-evidence when a peer dies mid-scrape."""
+    enabled: bool = True                 # serve the /fleet/* endpoints
+    scrape_timeout_s: float = 2.0        # per-peer HTTP scrape budget; a
+                                         # peer slower than this counts as a
+                                         # scrape error, not a fleet 500
+    cache_ttl_s: float = 1.0             # merged-view reuse window so N
+                                         # dashboard readers cost one fleet
+                                         # scrape (0 = scrape every request)
+
+    def __post_init__(self):
+        if self.scrape_timeout_s <= 0 or self.cache_ttl_s < 0:
+            raise ValueError("fleetview: scrape_timeout_s must be positive "
+                             "and cache_ttl_s >= 0")
+
+
+@dataclass(frozen=True)
 class ServiceConfig:
     """Annotation-service knobs (scheduler, failure policy, device pool and
     health, replicas, admin API, admission, breaker), the JAX package's,
@@ -374,9 +434,9 @@ class ServiceConfig:
     command).  A lease of ``devices_per_job`` (or a submit's ``devices``)
     chips above 1 scores on a mesh over them (``parallel/sharded.py``).
     ``read`` (the read path) and ``stream``
-    (live-acquisition ingest) are the JAX package's blocks.  Its ``fleet``,
-    ``prime`` and ``fleetview`` blocks are accepted at their defaults
-    (``fleetview`` disabled) and held nowhere: their modules are item 9b.  ``breaker_degraded_batch`` (the JAX package's
+    (live-acquisition ingest), ``fleet`` (the elastic fleet), ``prime``
+    (the kernel-build primer) and ``fleetview`` (the ``/fleet/*`` view) are
+    the JAX package's blocks.  ``breaker_degraded_batch`` (the JAX package's
     numpy batch while the breaker is open) is accepted, validated and read
     nowhere: the port refuses a job on an open breaker instead of moving it
     to the host."""
@@ -483,8 +543,11 @@ class ServiceConfig:
     breaker_cooldown_s: float = 30.0     # open → half-open probe delay
     breaker_degraded_batch: int = 512    # read nowhere (see above)
     admission: AdmissionConfig = field(default_factory=AdmissionConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+    prime: PrimeConfig = field(default_factory=PrimeConfig)
     read: ReadPathConfig = field(default_factory=ReadPathConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)
+    fleetview: FleetViewConfig = field(default_factory=FleetViewConfig)
 
     def __post_init__(self):
         if self.workers <= 0 or self.max_attempts <= 0:
@@ -553,9 +616,10 @@ class TelemetryConfig:
     monitor + metric-snapshot time-series ring behind ``GET
     /debug/timeseries``, the SLO objectives ``GET /slo`` reports
     attainment/error-budget burn against, and the device profiler behind
-    ``GET /debug/profile`` (``profile``).  The JAX package's ``retrace``
-    (compile attribution) is accepted at its default (ROADMAP queue 1 item
-    9b)."""
+    ``GET /debug/profile`` (``profile``).  ``retrace`` records the
+    kernel-build census (``kernels/_build.py``: builds, loads and per-device
+    launch set-ups) under the JAX package's ``sm_compile_*`` families, with
+    the kernel as the ``site``."""
     enabled: bool = True                 # start the sampling thread
     sample_interval_s: float = 5.0       # device/occupancy sample cadence
     timeseries_len: int = 720            # snapshot ring capacity (1 h @ 5 s)
@@ -568,6 +632,8 @@ class TelemetryConfig:
     slo_stream_partial_s: float = 30.0   # stream chunk commit -> provisional
                                          # partial served
     slo_target: float = 0.99
+    retrace: bool = True                 # kernel-build census: sm_compile_*
+                                         # families + `compile` trace events
     profile: ProfileConfig = field(default_factory=ProfileConfig)
 
     def __post_init__(self):
@@ -755,6 +821,9 @@ _DATACLASS_FIELDS = {
     ("SMConfig", "resources"): ResourcesConfig,
     ("SMConfig", "logs"): LogsConfig,
     ("ServiceConfig", "admission"): AdmissionConfig,
+    ("ServiceConfig", "fleet"): FleetConfig,
+    ("ServiceConfig", "prime"): PrimeConfig,
+    ("ServiceConfig", "fleetview"): FleetViewConfig,
     ("ServiceConfig", "read"): ReadPathConfig,
     ("ServiceConfig", "stream"): StreamConfig,
 }

@@ -120,13 +120,13 @@ def test_every_failpoint_has_a_scenario():
     assert registered == primaries, (
         f"uncovered: {sorted(registered - primaries)}, "
         f"phantom: {sorted(primaries - registered)}")
-    # the JAX sweep's table, less the scenarios that wait for a module
-    jax_keys = [sc.key for sc in jchaos.SCENARIOS
-                if sc.primary not in tchaos.DEFERRED]
-    assert [sc.key for sc in tchaos.SCENARIOS] == jax_keys
+    # the JAX sweep's table, every scenario (the fleet's spawn seam
+    # included: 41)
+    assert [sc.key for sc in tchaos.SCENARIOS] == [
+        sc.key for sc in jchaos.SCENARIOS]
     assert {sc.spec for sc in tchaos.SCENARIOS} == {
-        sc.spec for sc in jchaos.SCENARIOS
-        if sc.primary not in tchaos.DEFERRED}
+        sc.spec for sc in jchaos.SCENARIOS}
+    assert len(tchaos.SCENARIOS) == 41
 
 
 # ------------------------------------------------------ orphan tmp sweep

@@ -531,12 +531,22 @@ def test_isotope_prefetch_matches_plain_search(tmp_path):
     ({"parallel": {"compile_cache_dir": "/x"}}, "item 9"),
 ])
 def test_unported_config_raises_naming_its_item(d, item):
-    """A knob the port does not have raises naming its ROADMAP item.  The
-    item 7 knobs (the mesh and the multi-process runtime) landed with item
-    7a: they are accepted and reach the mesh or the runtime."""
+    """Every knob of the JAX package's config is the port's now: the item 9
+    knobs (the fleet, the fleet view, the primer, the build census and the
+    kernel build directory) are accepted at the JAX package's values and
+    reach the config, as the item 7 knobs (the mesh and the multi-process
+    runtime) reach the mesh or the runtime.  Nothing raises
+    ``NotImplementedError``."""
     if item != "item 7":
-        with pytest.raises(NotImplementedError, match=item):
-            SMConfig.from_dict(d)
+        sm = SMConfig.from_dict(d)
+        (section, block), = d.items()
+        got = getattr(sm, section)
+        for key, value in block.items():
+            if isinstance(value, dict):
+                for k, v in value.items():
+                    assert getattr(getattr(got, key), k) == v
+            else:
+                assert getattr(got, key) == value
         return
     from sm_distributed_tpu_torch.parallel import distributed, mesh
 

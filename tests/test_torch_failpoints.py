@@ -1,8 +1,8 @@
 """The port's fault-injection seams against the JAX package's.
 
 After importing every module of both packages, the port registers the same
-failpoints as the JAX package, less ``fleet.spawn`` (the fleet controller,
-ROADMAP item 9b.5).  The reader's two seams fire where the JAX reader's
+failpoints as the JAX package, ``fleet.spawn`` (the fleet controller)
+included.  The reader's two seams fire where the JAX reader's
 do: ``io.imzml_parse=crash@1`` kills the reading process with the crash
 code, and ``io.ibd_read=raise:OSError@3`` fails the same read of the same
 fixture with the same error, in both packages.
@@ -28,8 +28,8 @@ from sm_distributed_tpu_torch.utils import failpoints as tfp
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGES = {"jax": ("sm_distributed_tpu", jimzml, jfp),
             "torch": ("sm_distributed_tpu_torch", timzml, tfp)}
-# seams of modules the port does not have yet, by failpoint
-PORT_LACKS = {"fleet.spawn": "service/fleet.py, ROADMAP item 9b.5"}
+# seams of modules the port does not have, by failpoint: none
+PORT_LACKS: dict = {}
 
 
 def _import_all(pkg: str) -> None:
@@ -63,7 +63,7 @@ def test_registered_failpoints_equal_the_jax_packages_less_the_fleet():
     jax_fps = jfp.registered_failpoints()
     port_fps = tfp.registered_failpoints()
     assert set(port_fps) == set(jax_fps) - set(PORT_LACKS)
-    for name in ("io.imzml_parse", "io.ibd_read"):
+    for name in ("io.imzml_parse", "io.ibd_read", "fleet.spawn"):
         assert port_fps[name] == jax_fps[name]
 
 

@@ -1,11 +1,11 @@
 """Every port class whose JAX counterpart declares a ``_GUARDED_BY``
 registry (which attributes each lock guards) declares the same one.
 
-The classes of modules the port does not have yet stay out: the primer
-and its bucket-spec registry (ROADMAP item 9b.4), the fleet controller
-and the fleet-view half of ``service/fleetview.py`` (9b.5).  An entry
-for state the port's class does not keep is left out of its registry,
-listed in ``PORT_OMITS``.
+Every registry of the JAX package's service is listed, the primer and
+its bucket-spec registry, the fleet controller and the fleet view
+included; ``PORT_LACKS`` (classes of modules the port does not have) is
+empty.  An entry for state the port's class does not keep is left out of
+its registry, listed in ``PORT_OMITS``.
 """
 
 from __future__ import annotations
@@ -38,12 +38,13 @@ CLASSES = [
     ("ops.isocalc", "IsocalcWrapper"),
     ("utils.tracing", "FlightRecorder"),
     ("utils.cancel", "CancelToken"),
+    ("service.primer", "CachePrimer"),
+    ("service.primer", "_PrimeManifest"),
+    ("ops.buckets", "_SpecRegistry"),
+    ("service.fleet", "FleetController"),
+    ("service.fleetview", "FleetView"),
 ]
-PORT_LACKS = {("service.primer", "CachePrimer"),
-              ("service.primer", "_PrimeManifest"),
-              ("ops.buckets", "_SpecRegistry"),
-              ("service.fleet", "FleetController"),
-              ("service.fleetview", "FleetView")}
+PORT_LACKS: set = set()
 # JAX registry entries whose attribute the port's class does not have
 PORT_OMITS = {("ops.isocalc", "PatternStream"): {"_done"}}
 

@@ -8,7 +8,8 @@ card by default with no CPU fallback.
   without a GPU;
 - kernel wrappers given CPU tensors take the plain version and leave their
   launch counters alone;
-- config values the port does not have raise ``NotImplementedError``.
+- config values of the JAX package's the port once lacked (the primer, the
+  fleet) are accepted now.
 """
 
 from __future__ import annotations
@@ -106,10 +107,13 @@ def test_import_list_covers_the_service():
     """The fresh-process import above takes every port module, the
     service's and the daemon's included."""
     mods = set(_port_modules())
-    for m in ("admission", "api", "device_pool", "health", "leases",
-              "metrics", "readpath", "resources", "scheduler", "server",
-              "telemetry"):
+    for m in ("admission", "api", "device_pool", "fleet", "fleetview",
+              "health", "leases", "metrics", "primer", "readpath",
+              "resources", "scheduler", "server", "telemetry"):
         assert f"sm_distributed_tpu_torch.service.{m}" in mods
+    for d in ("chaos_sweep", "fleet_smoke", "prime_cache", "replica_chaos",
+              "resource_smoke", "trace_smoke"):
+        assert f"sm_distributed_tpu_torch.drivers.{d}" in mods
     assert {"sm_distributed_tpu_torch.engine.daemon",
             "sm_distributed_tpu_torch.engine.residency",
             "sm_distributed_tpu_torch.engine.stream",
@@ -254,19 +258,17 @@ def test_fused_wrapper_on_cpu_uses_plain_version():
     ("service", "devices_per_job", 2),
 ])
 def test_values_outside_the_slice_raise(section, knob, value):
-    """A value outside the port raises naming ROADMAP; ``devices_per_job``
-    above 1 came with the mesh (item 7a) and is accepted."""
-    from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
+    """No value of the JAX package's config is outside the port any more:
+    ``service.prime`` came with the primer and ``devices_per_job`` above 1
+    with the mesh (item 7a); both are accepted and reach the config."""
+    from sm_distributed_tpu_torch.utils.config import SMConfig
 
-    if knob == "devices_per_job":
-        assert SMConfig.from_dict(
-            {section: {knob: value}}).service.devices_per_job == value
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if section in ("parallel", "service"):
-            SMConfig.from_dict({section: {knob: value}})
-        else:
-            DSConfig.from_dict({section: {knob: value}})
+    got = getattr(SMConfig.from_dict({section: {knob: value}}).service, knob)
+    if isinstance(value, dict):
+        for k, v in value.items():
+            assert getattr(got, k) == v
+    else:
+        assert got == value
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -669,23 +669,19 @@ def test_config_accepts_what_the_jax_package_accepts():
 
 
 def test_service_defaults_table_matches_jax():
-    """Every ``service`` knob the port has (the ``read`` and ``stream``
-    blocks included) defaults to the JAX package's value, and the port
-    accepts a block it does not have yet only at the JAX package's default
-    (``fleetview`` disabled): its table of those defaults is the JAX
-    ServiceConfig's, key for key."""
+    """Every ``service`` knob (the ``read``, ``stream``, ``fleet``,
+    ``prime`` and ``fleetview`` blocks included, ``fleetview`` enabled)
+    defaults to the JAX package's value, key for key, and the JAX
+    package's defaults load into the port's config."""
     import dataclasses
 
     from sm_distributed_tpu.utils.config import SMConfig as JSC
-    from sm_distributed_tpu_torch.utils.config import _SERVICE_NOT_YET
 
     want = dataclasses.asdict(JSC().service)
-    got = dataclasses.asdict(SMConfig().service)
-    for knob, value in got.items():
-        assert value == want.pop(knob), knob
-    assert _SERVICE_NOT_YET == want
-    want["fleetview"]["enabled"] = False
-    SMConfig.from_dict({"service": want})
+    assert dataclasses.asdict(SMConfig().service) == want
+    assert want["fleetview"]["enabled"] is True
+    assert dataclasses.asdict(
+        SMConfig.from_dict({"service": want}).service) == want
 
 
 @pytest.mark.parametrize("service", [
@@ -693,8 +689,20 @@ def test_service_defaults_table_matches_jax():
     {"fleet": {"enabled": True}}, {"fleet": {"max_replicas": 2}},
     {"prime": {"interval_s": 5.0}}, {"prime": {"enabled": True}}])
 def test_other_service_keys_raise_naming_item_9(service):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SMConfig.from_dict({"service": service})
+    """The fleet, primer and fleet-view blocks take every value the JAX
+    package's take (they raised naming item 9 before the port had their
+    modules), and each reaches the service config as the JAX package's
+    does."""
+    import dataclasses
+
+    from sm_distributed_tpu.utils.config import SMConfig as JSC
+
+    got = dataclasses.asdict(SMConfig.from_dict({"service": service}).service)
+    want = dataclasses.asdict(JSC.from_dict({"service": service}).service)
+    (block, values), = service.items()
+    assert got[block] == want[block]
+    for k, v in values.items():
+        assert got[block][k] == v
 
 
 @pytest.mark.parametrize("service", [

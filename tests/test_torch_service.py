@@ -276,12 +276,16 @@ def test_admin_api_routes(tmp_path):
         peers = json.loads(_get(base + "/peers")[1])
         assert peers["replica_id"] == "r0"
 
+        # the fleet view and the cold-start view are served, with this
+        # replica alone in the fleet
         for route in ("/fleet/status", "/fleet/metrics",
                       "/fleet/slo", "/debug/compile"):
-            with pytest.raises(urllib.error.HTTPError) as err:
-                _get(base + route)
-            assert err.value.code == 404
-            assert "item 9b" in json.loads(err.value.read())["error"]
+            assert _get(base + route)[0] == 200, route
+        fleet = json.loads(_get(base + "/fleet/status")[1])
+        assert list(fleet["replicas"]) == ["r0"] and fleet["alive"] == 1
+        compile_view = json.loads(_get(base + "/debug/compile")[1])
+        assert compile_view["primer"]["enabled"] is False
+        assert compile_view["builds"]["enabled"] is True
         # /debug/profile is served (a torch.profiler capture; no device
         # events on the CPU)
         status, body = _get(base + "/debug/profile?seconds=0.1")
