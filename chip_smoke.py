@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives fourteen paths (seven of the library search, the job
+nvcc and drives seventeen paths (seven of the library search, the job
 path, the service, the service's read path and stream ingest, a
 device-mode isotope search under the profiler, the main path on meshes of
-devices, a replica takeover, and the kernel-build primer beside the
-elastic fleet), each with the kernel launch counts set to 0 just before it
+devices, a replica takeover, the kernel-build primer beside the elastic
+fleet, and the operator's gates: a cold replica, the compile census and
+device chaos), each with the kernel launch counts set to 0 just before it
 and read just after:
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
@@ -54,7 +55,8 @@ and read just after:
   path's first batch;
 - the ordered stream (phase 9): ``bench.py``'s ``scale`` case (256x256,
   500 formulas +H with 20 decoys each: 10,500 ions in 6 batches, ordered
-  by m/z) at the shipped defaults, whose variant rule takes the band or
+  by m/z; 100 noise peaks a pixel, bench.py's 200 cut for the script's
+  time) at the shipped defaults, whose variant rule takes the band or
   compact extraction, held bit-equal (FDR ranks identical) to the same
   stream with both variants "off" and with compaction forced "on"; it
   prints the variant counts, each batch's device ms by variant, the
@@ -170,8 +172,31 @@ and read just after:
   every child (each drain acked), ``running/`` empty, exit 0; 16c
   ``/fleet/metrics``, ``/fleet/slo`` and ``/fleet/status`` 200 with both
   replicas, the merged ``sm_jobs_total`` and ``sm_kernel_launches_total``
-  the sums of the replicas' own.
-  States, counts and bits only; a deadline of 180 s only ends a hang.
+  the sums of the replicas' own.  16b's replicas keep their kernel builds
+  in phase 17a's directory: they are 17a's primed side;
+- the operator's gates (phase 17): 17a ``serve`` as a subprocess over a
+  fresh, empty kernel build directory
+  (``parallel.compile_cache_dir``) runs a 32x32 job in 2 score batches:
+  its trace holds one uncached ``compile`` event (an nvcc build) for each
+  of moments and packed chaos, its first annotation lands after the first
+  build started and before the terminal state, a provisional partial
+  preview precedes it, ``drivers/trace_report`` gives ``compile_s > 0``,
+  the idle primer primes its spec with no further nvcc run, and its own
+  ``/metrics`` counts one moments and one packed chaos launch a batch;
+  then 16b's replicas start over that directory with every spec primed
+  and no nvcc run, and the one that runs 16b's job finds both kernels
+  built (loads, no build, on the job's trace).  17a starts after phase
+  14, in a thread of the script, and runs beside phases 15 and 16a and
+  17b (``drivers/compile_census`` in process) and 17c
+  (``drivers/device_chaos --smoke`` in process: chip 3 of a 4-chip pool
+  quarantined mid-job, never leased again, the job resumed bit-equal to
+  its golden run, chip 3 readmitted; on one card every lease scores on
+  ``cuda:0``); 17d renders and validates with ``drivers/trace_report`` the
+  traces of phase 11's job A, phase 15's taken-over job and 17a's cold
+  job.  The phase prints what it added to the script: 17b, 17c, the wait
+  for 17a after them and 17d.
+  States, counts and bits only; a deadline of 180 s (phase 16) or 300 s
+  (phase 17) only ends a hang.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -197,8 +222,11 @@ re-scores and its sealed pass, in ``stream_launches``, the profiler's
 event count of its device function over phase 13b's search in
 ``profile_launches``, phase 14a's 2x2 search in
 ``sharded_launches``, phase 15's r1 in ``takeover_launches``, phase
-16a's prime cycles in ``prime_launches``: 0, priming launches nothing, and
-phase 16b's job on its replica in ``fleet_launches``), its error against
+16a's prime cycles in ``prime_launches``: 0, priming launches nothing,
+phase 16b's job on its replica in ``fleet_launches``, 17a's cold job on
+its replica in ``coldstart_launches``, 17b's three census jobs in
+``census_launches`` and 17c's three chaos jobs in
+``device_chaos_launches``), its error against
 the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
@@ -256,11 +284,14 @@ WS_NOISE_PEAKS = 100
 WS_FORMULAS = 12
 WS_PARALLEL = {"mz_chunk": 512, "formula_batch": 128}
 
-# the ordered stream (phase 9): bench.py's scale case as it stands — the
-# main path's 256x256 geometry with 500 formulas (60% present, seed 7), +H
-# only at 3 ppm, 20 decoys each: 10,500 ions in 6 batches of 2048, so the
-# shipped order_ions="auto" orders the ion table by m/z
+# the ordered stream (phase 9): bench.py's scale case — the main path's
+# 256x256 geometry with 500 formulas (60% present, seed 7), +H only at 3
+# ppm, 20 decoys each: 10,500 ions in 6 batches of 2048, so the shipped
+# order_ions="auto" orders the ion table by m/z.  Its depth is cut to 100
+# noise peaks a pixel (bench.py's 200) for the script's time; the ions and
+# batches stay
 OS_FORMULAS = 500
+OS_NOISE_PEAKS = 100
 OS_DS = {"isotope_generation": {"adducts": ["+H"]},
          "image_generation": {"ppm": 3.0}}
 OS_SM = {"fdr": {"decoy_sample_size": 20}}
@@ -2290,7 +2321,7 @@ def phase_ordered_stream() -> tuple[dict, dict]:
     t_start = time.perf_counter()
     ds, truth = synthetic_dataset_arrays(
         NROWS, NCOLS, formulas=expand_formula_list(OS_FORMULAS),
-        present_fraction=0.6, noise_peaks=NOISE_PEAKS, seed=7)
+        present_fraction=0.6, noise_peaks=OS_NOISE_PEAKS, seed=7)
     ds_cfg = DSConfig.from_dict(OS_DS)
     t_ds = time.perf_counter() - t_start
     runs = {}
@@ -3444,6 +3475,7 @@ def phase_service(card: str, tmp: Path, truth, main: dict) -> dict:
     from sm_distributed_tpu_torch.engine.daemon import annotate_callback
     from sm_distributed_tpu_torch.engine.residency import DatasetResidency
     from sm_distributed_tpu_torch.service import AnnotationService
+    from sm_distributed_tpu_torch.utils import tracing
     from sm_distributed_tpu_torch.utils.config import SMConfig
 
     t_phase = time.perf_counter()
@@ -3491,6 +3523,9 @@ def phase_service(card: str, tmp: Path, truth, main: dict) -> dict:
         ids = {k: v["msg_id"] for k, v in ids.items()}
         rows = _wait_jobs(base, list(ids.values()), 900)
         launches_a = read_launches()
+        # job A's trace file, for phase 17d's report
+        trace_a = tracing.trace_path(service.trace_dir,
+                                     rows[ids["A"]]["trace_id"])
         stored_a = {name: pd.read_parquet(res / f"{name}.parquet")
                     for name in ("annotations", "all_metrics")}
         timings_a = json.loads((res / "timings.json").read_text())
@@ -3594,7 +3629,8 @@ def phase_service(card: str, tmp: Path, truth, main: dict) -> dict:
         "device round-trip, serve exits 0 on SIGTERM")
     return {"jobs": per_job, "launches": {"A": launches_a, "B": launches_b},
             "to_healthz_s": to_health, "peak_bytes": peak,
-            "residency": residency.stats, "serve": sub, "phase_s": took}
+            "residency": residency.stats, "serve": sub, "phase_s": took,
+            "trace_a": str(trace_a)}
 
 
 # ------------------------------------------- phase 12 read path and stream
@@ -4545,6 +4581,8 @@ def phase_takeover(card: str, tmp: Path, truth, main: dict) -> dict:
         launches = read_launches()
         row = {r["msg_id"]: r for r in service.scheduler.jobs()}[TAKEOVER_DS]
         metrics_text = service.metrics.expose()
+        # the job's trace file, for phase 17d's report
+        trace_file = Path(service.trace_dir) / f"{row['trace_id']}.jsonl"
     finally:
         if service is not None:
             service.shutdown()
@@ -4600,7 +4638,7 @@ def phase_takeover(card: str, tmp: Path, truth, main: dict) -> dict:
             "ledger": statuses, "reconciled": n_reconciled,
             "lockorder": {k: report[k] for k in
                           ("locks_instrumented", "edges")},
-            "launches": launches}
+            "launches": launches, "trace_file": str(trace_file)}
 
 
 # phase 16: the rest of the service on the card (port slice 16).  16a the
@@ -4782,16 +4820,20 @@ def phase_prime(card: str, specs: dict, two_card: dict | None) -> dict:
             "census": census, "launches": launches}
 
 
-def phase_fleet(card: str, tmp: Path) -> dict:
+def phase_fleet(card: str, tmp: Path, build_dir: Path) -> dict:
     """16b and 16c: ``serve --fleet`` as a subprocess on ``torch_cuda``,
-    ``cuda``, ``min_replicas`` 2, over phase 11b's 32x32 dataset.  16b: r0
-    and a spawned replica come up (states in ``/fleet/status``); one job
-    completes, its stored results bit-equal to phase 11b's; 16c: the fleet
-    view answers 200 with both replicas and the merged ``sm_jobs_total``
-    equals the sum of the replicas' own; 16b: the spawned replica is
-    SIGKILLed, ``sm_fleet_crashes_total`` reaches 1 and a replacement
-    registers; SIGTERM drains every child (each drain acked), ``running/``
-    ends empty and the exit code is 0."""
+    ``cuda``, ``min_replicas`` 2, over phase 11b's 32x32 dataset, its
+    kernel builds in ``build_dir`` (phase 17a's, primed there).  16b: r0
+    and a spawned replica come up (states in ``/fleet/status``), each a
+    primed replica (17a's part two: every recorded spec primed, no nvcc
+    run); one job completes, its stored results bit-equal to phase 11b's,
+    and the replica that ran it found every kernel built (no nvcc run, no
+    uncached ``compile`` event on the job's trace); 16c: the fleet view
+    answers 200 with both replicas and the merged ``sm_jobs_total`` equals
+    the sum of the replicas' own; 16b: the spawned replica is SIGKILLed,
+    ``sm_fleet_crashes_total`` reaches 1 and a replacement registers;
+    SIGTERM drains every child (each drain acked), ``running/`` ends empty
+    and the exit code is 0."""
     import os
     import signal
     import threading
@@ -4809,6 +4851,7 @@ def phase_fleet(card: str, tmp: Path) -> dict:
     sm_json = base / "sm.json"
     sm_json.write_text(json.dumps({
         **FLEET_SM, "work_dir": str(base / "work"),
+        "parallel": {"compile_cache_dir": str(build_dir)},
         "storage": {"results_dir": str(base / "results")}}))
     queue = base / "q"
     root = queue / "sm_annotate"
@@ -4857,6 +4900,19 @@ def phase_fleet(card: str, tmp: Path) -> dict:
         first_ids = alive_ids()
         spawned = sorted(first_ids - {"r0"})
         assert len(spawned) == 1, first_ids
+        # 17a's second part: each replica starts primed over 17a's builds
+        admins = {rid: f"http://{rec['admin']}"
+                  for rid, rec in status()["replicas"].items()
+                  if rid in first_ids}
+        primed_at_start = {}
+        for rid, admin in admins.items():
+            code, dbg = _http(admin, "/debug/compile")
+            prim = dbg["primer"]
+            assert code == 200 and prim["known"] >= 1 and \
+                prim["primed"] == prim["known"] and \
+                dbg["builds"]["nvcc_runs"] == 0, (rid, code, prim,
+                                                   dbg["builds"])
+            primed_at_start[rid] = f"{prim['primed']}/{prim['known']}"
         QueuePublisher(queue).publish({
             "ds_id": "small", "msg_id": "fleet_good",
             "input_path": str(path), "formulas": truth.formulas[:10]})
@@ -4883,6 +4939,8 @@ def phase_fleet(card: str, tmp: Path) -> dict:
                         if ln.startswith("sm_jobs_total")])
         ran_on = [rid for rid, t in own.items()
                   if _metric(t, 'sm_jobs_total{state="done"}') == 1]
+        assert len(ran_on) == 1, ran_on
+        primed = _primed_job(admins[ran_on[0]], "fleet_good")
         # each replica's kernel launches since it started, from its own
         # /metrics: the job's, on the replica that ran it, and none on the
         # other (priming launches nothing)
@@ -4960,12 +5018,334 @@ def phase_fleet(card: str, tmp: Path) -> dict:
     say(f"  16c [{card}]: /fleet/metrics, /fleet/slo, /fleet/status 200 "
         f"with {sorted(own)}; merged sm_jobs_total{{state=\"done\"}} "
         f"{done_sum:.0f} = the replicas' own")
+    say(f"  17a [{card}] primed replicas over 17a's builds: specs primed at "
+        f"start {primed_at_start}, nvcc_runs 0 on each; the job's replica "
+        f"{ran_on[0]} found {primed['kernels']} built, nvcc_runs 0, "
+        f"{primed['loads']} load(s) and no build on the job's trace "
+        f"(compile_s {primed['compile_s']})")
     return {"phase_s": took, "up_s": up_s, "job_s": job_s,
+            "primed": {**primed, "at_start": primed_at_start},
             "replace_s": replace_s, "drain_s": drain_s,
             "drain_log": [ln[:160] for ln in tail],
             "leftover": len(leftover), "ran_on": ran_on,
             "spawned": spawned, "replacement": replacement,
             "launches": launches[ran_on[0]]}
+
+
+# phase 17: the operator's gates on the card.  17a a cold
+# replica (``serve`` over an empty kernel build directory) pays the nvcc
+# builds in its job, and its idle primer primes the job's specs; phase 16b's
+# fleet then starts over that directory as the primed side.  17a runs in a
+# thread beside phases 15 and 16a and 17b, the compile census, and 17c, the
+# device chaos, both in process (``drivers/compile_census``,
+# ``drivers/device_chaos --smoke``); 17d ``drivers/trace_report`` over the
+# traces of phase 11's job A, phase 15's taken-over job and 17a's cold job.
+# States, counts and bits only; the deadline only ends a hang.
+COLD_DEADLINE_S = 300.0
+COLD_SM = {"device": "cuda", "fdr": {"decoy_sample_size": 20},
+           # several score groups, so the first group's annotations stream
+           # before the job ends
+           "parallel": {"formula_batch": 256, "checkpoint_every": 1},
+           "service": {"workers": 1, "http_port": 0, "poll_interval_s": 0.05,
+                       "heartbeat_interval_s": 0.2,
+                       "prime": {"enabled": True, "idle_after_s": 0.5}},
+           "telemetry": {"sample_interval_s": 0.5}}
+
+
+def _compile_events(records: list, cached: bool) -> list:
+    return [r for r in records if r.get("kind") == "event"
+            and r.get("name") == "compile"
+            and bool((r.get("attrs") or {}).get("cached")) == cached]
+
+
+def _primed_job(admin: str, msg_id: str) -> dict:
+    """A primed replica's job: its ``/debug/compile`` shows no nvcc run
+    and every kernel of the recorded specs found built, and the job's trace
+    holds loads of built kernels and no build."""
+    from sm_distributed_tpu_torch.drivers.trace_report import summarize
+    from sm_distributed_tpu_torch.service.primer import spec_kernels
+
+    code, dbg = _http(admin, "/debug/compile")
+    assert code == 200 and dbg["builds"]["nvcc_runs"] == 0, \
+        (code, dbg["builds"])
+    need = sorted({k for b in dbg["primer"]["buckets"]
+                   for k in spec_kernels(b)})
+    kernels = {k: dbg["builds"]["kernels"][k]["state"] for k in need}
+    assert need and set(kernels.values()) == {"found"}, kernels
+    _, trace = _http(admin, f"/jobs/{msg_id}/trace?raw=1")
+    records = trace["records"]
+    loads = _compile_events(records, cached=True)
+    assert not _compile_events(records, cached=False), \
+        "a primed job's trace holds an nvcc build"
+    assert {(r["attrs"] or {}).get("site") for r in loads} == set(need), \
+        (need, loads)
+    acc = summarize(records)["accounting"]
+    assert acc["compile_s"] == 0, acc
+    return {"kernels": kernels, "loads": len(loads),
+            "compile_s": acc["compile_s"],
+            "first_annotation_s": acc["first_annotation_s"]}
+
+
+def phase_coldstart(card: str, tmp: Path) -> dict:
+    """17a: ``serve`` as a subprocess on ``cuda`` over a fresh, empty
+    kernel build directory (``parallel.compile_cache_dir``), a 32x32 job
+    published before it starts.  The job's trace holds an uncached
+    ``compile`` event (an nvcc build) for each kernel it launched, its
+    ``first_annotation`` event lands after the first build started and
+    before the terminal state, a ``partial_annotations`` event carries a
+    provisional count below the ion count, and ``drivers/trace_report``
+    gives ``compile_s > 0``; ``/debug/compile`` counts one nvcc run a
+    kernel; the idle primer then primes every recorded spec with no
+    further run; the replica's launches (its ``/metrics``) are one moments
+    and one packed chaos launch a score batch; SIGTERM -> exit 0.  The
+    directory is phase 16b's, whose replicas are the primed side."""
+    import os
+    import signal
+    import threading
+
+    from sm_distributed_tpu_torch.drivers.trace_report import summarize
+    from sm_distributed_tpu_torch.engine.daemon import QueuePublisher
+    from sm_distributed_tpu_torch.io.fixtures import generate_synthetic_dataset
+
+    t_phase = time.perf_counter()
+    base = tmp / "coldstart"
+    build_dir = base / "kernel_builds"
+    assert not build_dir.exists(), build_dir
+    path, truth = generate_synthetic_dataset(
+        base / "small", nrows=32, ncols=32, present_fraction=0.6,
+        noise_peaks=50, seed=3)
+    sm_json = base / "sm.json"
+    sm_json.write_text(json.dumps({
+        **COLD_SM, "work_dir": str(base / "work"),
+        "parallel": {**COLD_SM["parallel"],
+                     "compile_cache_dir": str(build_dir)},
+        "storage": {"results_dir": str(base / "results")}}))
+    queue = base / "q"
+    QueuePublisher(queue).publish({
+        "ds_id": "cold", "msg_id": "cold", "input_path": str(path),
+        "formulas": truth.formulas[:10]})
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    env.pop("SM_FAILPOINTS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sm_distributed_tpu_torch.engine.cli",
+         "serve", str(queue), "--sm-config", str(sm_json)],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=str(ROOT))
+    lines: list[str] = []
+    found = threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if "admin API on http://" in line:
+                found.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    deadline = time.time() + COLD_DEADLINE_S
+    try:
+        assert found.wait(COLD_DEADLINE_S), \
+            "17a: serve: no admin API line\n" + "".join(lines[-40:])
+        url = re.search(r"admin API on (http://[\d.]+:\d+)",
+                        "".join(lines)).group(1)
+        up_s = time.perf_counter() - t0
+        row = _wait_jobs(url, ["cold"], COLD_DEADLINE_S)["cold"]
+        job_s = time.perf_counter() - t0 - up_s
+        assert row["state"] == "done", row
+        _, trace = _http(url, "/jobs/cold/trace?raw=1")
+        records = trace["records"]
+
+        def primed() -> bool:
+            prim = _http(url, "/debug/compile")[1]["primer"]
+            return prim["known"] >= 1 and prim["primed"] == prim["known"]
+
+        _wait_state("17a: the idle primer primed the cold job's specs",
+                    primed, deadline)
+        _, dbg = _http(url, "/debug/compile")
+        _, slo = _http(url, "/slo")
+        _, text = _http(url, "/metrics")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=30)
+    assert rc == 0, f"17a: serve exited {rc} on SIGTERM\n" + \
+        "".join(lines[-40:])
+    trace_file = base / "cold_trace.jsonl"
+    trace_file.write_text("".join(json.dumps(r) + "\n" for r in records))
+    builds = _compile_events(records, cached=False)
+    sites = {r["attrs"]["site"]: r["attrs"]["dur_s"] for r in builds}
+    assert set(sites) == {"moments", "chaos"} and len(builds) == 2, builds
+    firsts = [r["ts"] for r in records
+              if r.get("name") == "first_annotation"]
+    partials = [r.get("attrs") or {} for r in records
+                if r.get("name") == "partial_annotations"]
+    root = [r for r in records
+            if r.get("kind") == "span" and r.get("name") == "submit"]
+    assert firsts and partials and len(root) == 1, \
+        (len(firsts), len(partials), len(root))
+    t_build = min(r["ts"] - r["attrs"]["dur_s"] for r in builds)
+    assert t_build < min(firsts) < root[0]["ts"] + root[0]["dur"], \
+        (t_build, min(firsts), root[0]["ts"] + root[0]["dur"])
+    pa = partials[0]
+    assert pa.get("provisional") and 0 < pa["n_scored"] < pa["n_ions"], pa
+    acc = summarize(records)["accounting"]
+    assert acc["compile_s"] > 0 and acc["queue_wait_s"] is not None, acc
+    census = dbg["builds"]
+    assert census["nvcc_runs"] == 2 and all(
+        census["kernels"][k]["state"] == "built" for k in sites), census
+    prim = dbg["primer"]
+    launches = {k: int(_metric(text, f'sm_kernel_launches_total'
+                                     f'{{kernel="{k}"}}'))
+                for k in FLEET_KERNELS}
+    n_batches = -(-pa["n_ions"] // COLD_SM["parallel"]["formula_batch"])
+    want = {k: 0 for k in FLEET_KERNELS}
+    want["moments"] = want["chaos"] = n_batches
+    assert launches == want, (launches, want)
+    fa = slo["slos"]["first_annotation"]
+    took = time.perf_counter() - t_phase
+    say(f"  17a [{card}]: a cold serve over an empty build directory up "
+        f"after {up_s:.1f} s; its job done {job_s:.1f} s later, paying "
+        f"{len(builds)} nvcc builds on its trace ({sites} s), compile_s "
+        f"{acc['compile_s']:.3f} s of a {summarize(records)['total_s']:.3f} s "
+        f"job, first annotation at {acc['first_annotation_s']:.3f} s "
+        f"(after the first build's start, before the terminal state; /slo "
+        f"first_annotation count {fa['count']}, attainment "
+        f"{fa['attainment']}), partial preview {pa['n_scored']}/"
+        f"{pa['n_ions']} ions; nvcc_runs {census['nvcc_runs']}; the idle "
+        f"primer primed {prim['primed']}/{prim['known']} spec(s); "
+        f"launches {launches}; SIGTERM -> exit 0")
+    return {"phase_s": took, "up_s": up_s, "job_s": job_s, "builds": sites,
+            "compile_s": acc["compile_s"],
+            "first_annotation_s": acc["first_annotation_s"],
+            "slo_first_annotation": {k: fa[k] for k in
+                                     ("count", "attainment")},
+            "primed": f"{prim['primed']}/{prim['known']}",
+            "launches": launches, "build_dir": str(build_dir),
+            "trace_file": str(trace_file)}
+
+
+def _driver_run(fn, *args) -> tuple[int, str]:
+    """Run a driver's ``run`` in this process; its exit code and what it
+    printed (printed again here, indented)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        say("    " + line[:400])
+    return rc, out
+
+
+def phase_census(card: str, tmp: Path) -> dict:
+    """17b: ``drivers/compile_census`` in process on the card: two 8x8 jobs
+    and a 6x8 job in the same lattice bucket add no nvcc run and no spec
+    key, the ``devices: 2`` step is ``skipped:devices`` on one card, every
+    ``sm_compile_*`` site is a kernel of ``_build.KERNELS``; the jobs'
+    launches counted."""
+    from sm_distributed_tpu_torch.drivers import compile_census
+    from sm_distributed_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    runs0 = _build.nvcc_runs
+    reset_launches()
+    rc, out = _driver_run(compile_census.run, tmp / "census", "torch_cuda",
+                          "cuda")
+    launches = read_launches()
+    assert rc == 0, "17b: compile_census failed"
+    census = json.loads(next(
+        ln for ln in out.splitlines()
+        if ln.startswith("compile_census: census "))[len(
+            "compile_census: census "):])
+    want = ("skipped:devices" if torch.cuda.device_count() < 2 else "ran")
+    assert census["devices_step"] == want, census
+    assert _build.nvcc_runs == runs0, "17b: the census ran nvcc"
+    assert launches["moments"] >= 3 and launches["chaos"] >= 3 and \
+        launches["fused_window_moments"] == launches["chaos_strips"] == \
+        launches["chaos_tiles"] == 0, launches
+    took = time.perf_counter() - t0
+    say(f"  17b [{card}]: compile census OK in {took:.1f} s: "
+        f"{len(census['spec_keys'])} spec key(s) known, 0 new and 0 nvcc "
+        f"runs over the three jobs, devices: 2 {census['devices_step']}, "
+        f"sm_compile_* sites {census['sites']['sm_compile_events_total']}; "
+        f"launches {launches}")
+    return {"phase_s": took, "devices_step": census["devices_step"],
+            "sites": census["sites"], "launches": launches}
+
+
+def phase_device_chaos(card: str, tmp: Path) -> dict:
+    """17c: ``drivers/device_chaos --smoke`` in process on the card: a
+    4-chip pool over the visible cards (one card: every lease scores on
+    ``cuda:0``), chip 3 quarantined mid-job and never leased again, the
+    job resumed from its checkpoint bit-equal to the golden one, chip 3
+    readmitted; the three jobs' launches counted."""
+    from sm_distributed_tpu_torch.drivers import device_chaos
+
+    t0 = time.perf_counter()
+    reset_launches()
+    rc, out = _driver_run(device_chaos.run, tmp / "device_chaos", True,
+                          "torch_cuda", "cuda")
+    launches = read_launches()
+    assert rc == 0, "17c: device_chaos failed"
+    for needle in ("sticky chip 3 quarantined mid-job",
+                   "BIT-IDENTICAL to the 4-chip golden",
+                   "chip 3 READMITTED"):
+        assert needle in out, needle
+    assert launches["moments"] >= 1 and \
+        launches["moments"] == launches["chaos"] and \
+        launches["fused_window_moments"] == launches["chaos_strips"] == \
+        launches["chaos_tiles"] == 0, launches
+    took = time.perf_counter() - t0
+    say(f"  17c [{card}]: device chaos OK in {took:.1f} s on a 4-chip pool "
+        f"over {torch.cuda.device_count()} card(s); launches {launches}")
+    return {"phase_s": took, "launches": launches}
+
+
+def phase_trace_report(card: str, traces: dict) -> dict:
+    """17d: ``drivers/trace_report`` renders each trace and validates it
+    with ``--json`` (and ``--by-replica``): phase 11's job A, phase 15's
+    taken-over job, 17a's cold job (whose accounting must show build
+    seconds)."""
+    import contextlib
+    import io
+
+    from sm_distributed_tpu_torch.drivers import trace_report
+
+    t0 = time.perf_counter()
+    out = {}
+    for label, path in traces.items():
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc_text = trace_report.main([path])
+        js = io.StringIO()
+        with contextlib.redirect_stdout(js):
+            rc_json = trace_report.main([path, "--validate", "--json",
+                                         "--by-replica"])
+        assert rc_text == rc_json == 0, (label, rc_text, rc_json)
+        summary = json.loads(js.getvalue())
+        assert summary["state"] == "done" and summary["n_records"] > 0 and \
+            "phase breakdown:" in text.getvalue(), (label, summary["state"])
+        acc = summary["accounting"]
+        if label == "17a cold job":
+            assert acc["compile_s"] > 0, acc
+        out[label] = {"records": summary["n_records"],
+                      "total_s": summary["total_s"],
+                      "compile_s": acc["compile_s"],
+                      "replicas": sorted(summary["by_replica"]),
+                      "phases": {k: v["seconds"] for k, v in
+                                 summary["phases"].items()}}
+        say(f"  17d [{card}] {label}: rendered and validated, "
+            + json.dumps(out[label]))
+    took = time.perf_counter() - t0
+    return {"phase_s": took, "traces": out}
 
 
 def main() -> int:
@@ -5054,20 +5434,67 @@ def main() -> int:
                      and s["mesh_pix"] * s["mesh_form"] == 2), None)
     _breaker_closed(2, "phase 14")
     torch.cuda.empty_cache()
-    takeover = phase_takeover(card, Path(job_dir.name), truth, main)
-    lap("takeover")
-    _breaker_closed(2, "phase 15")
-    t16 = time.perf_counter()
-    primed = phase_prime(card, prime_specs, two_card)
-    lap("prime")
-    fleet = phase_fleet(card, Path(job_dir.name))
+    # phase 17a's cold replica (a subprocess, its own spool and build
+    # directory) starts its serve and pays its nvcc builds while phases
+    # 15, 16a, 17b and 17c run here; 16b's fleet is its primed side
+    import threading
+
+    cold_out: dict = {}
+
+    def cold_side() -> None:
+        try:
+            cold_out["result"] = phase_coldstart(card, Path(job_dir.name))
+        except BaseException as exc:     # re-raised in this thread
+            cold_out["error"] = exc
+
+    cold_thread = threading.Thread(target=cold_side, name="phase-17a")
+    cold_thread.start()
+    try:
+        takeover = phase_takeover(card, Path(job_dir.name), truth, main)
+        lap("takeover")
+        _breaker_closed(2, "phase 15")
+        primed = phase_prime(card, prime_specs, two_card)
+        lap("prime")
+        t17 = time.perf_counter()
+        census = phase_census(card, Path(job_dir.name))
+        _breaker_closed(2, "phase 17b")
+        chaos17 = phase_device_chaos(card, Path(job_dir.name))
+        _breaker_closed(2, "phase 17c")
+    finally:
+        t_join = time.perf_counter()
+        cold_thread.join()
+    if "error" in cold_out:
+        raise cold_out["error"]
+    cold = cold_out["result"]
+    # what phase 17 added to the script so far: 17b, 17c and the wait for
+    # 17a after them
+    t17_abc = time.perf_counter() - t17
+    waited_17a = time.perf_counter() - t_join
+    lap("coldstart_census_chaos")
+    fleet = phase_fleet(card, Path(job_dir.name), Path(cold["build_dir"]))
     lap("fleet")
     _breaker_closed(2, "phase 16")
     say(f"phase 16 the primer and the fleet [{card}]: "
-        f"{time.perf_counter() - t16:.1f} s (16a {primed['phase_s']:.1f} s, "
-        f"16b-c {fleet['phase_s']:.1f} s); the recorded specs primed with "
-        "no nvcc run, two replicas up, the job bit-equal to phase 11b's, a "
-        "crashed replica replaced, every drain acked")
+        f"{primed['phase_s'] + fleet['phase_s']:.1f} s (16a "
+        f"{primed['phase_s']:.1f} s, 16b-c {fleet['phase_s']:.1f} s); the "
+        "recorded specs primed with no nvcc run, two replicas up, the job "
+        "bit-equal to phase 11b's, a crashed replica replaced, every drain "
+        "acked")
+    reports = phase_trace_report(card, {
+        "11 job A": service["trace_a"],
+        "15 taken-over job": takeover["trace_file"],
+        "17a cold job": cold["trace_file"]})
+    lap("trace_report")
+    say(f"phase 17 the operator's gates [{card}]: "
+        f"{t17_abc + reports['phase_s']:.1f} s added to the script (17b "
+        f"{census['phase_s']:.1f} s, 17c {chaos17['phase_s']:.1f} s, the "
+        f"wait for 17a after them {waited_17a:.1f} s, 17d "
+        f"{reports['phase_s']:.1f} s); 17a's own {cold['phase_s']:.1f} s "
+        "ran beside phases 15, 16a, 17b and 17c; the cold replica paid "
+        f"{sorted(cold['builds'])} nvcc builds (compile_s "
+        f"{cold['compile_s']:.3f} s), the primed replicas none; the census "
+        "closed; chip 3 quarantined and readmitted, the resumed job "
+        "bit-equal; three traces rendered and validated")
     job_dir.cleanup()
     say("main path: " + json.dumps({
         k: main[k] for k in ("ions_per_s", "timings", "peak_bytes", "wall_s",
@@ -5124,6 +5551,10 @@ def main() -> int:
     say(f"primer and fleet [{card}]: " + json.dumps(
         {"16a": {k: v for k, v in primed.items() if k != "census"},
          "16b": fleet}))
+    say(f"operator's gates [{card}]: " + json.dumps(
+        {"17a": {k: v for k, v in cold.items()
+                 if k not in ("trace_file", "build_dir")},
+         "17b": census, "17c": chaos17, "17d": reports}))
     say(f"device patterns and the profiler [{card}]: " + json.dumps(
         {"13a": patterns13, "13b": {k: v for k, v in profiled.items()
                                     if k != "attribution"},
@@ -5149,6 +5580,9 @@ def main() -> int:
         entry["takeover_launches"] = takeover["launches"][entry["name"]]
         entry["prime_launches"] = primed["launches"][entry["name"]]
         entry["fleet_launches"] = fleet["launches"][entry["name"]]
+        entry["coldstart_launches"] = cold["launches"][entry["name"]]
+        entry["census_launches"] = census["launches"][entry["name"]]
+        entry["device_chaos_launches"] = chaos17["launches"][entry["name"]]
     _breaker_closed(2, "the script")
     say(f"  [{card}] 10.4 no host fallback: after every phase the device "
         "breaker was closed, the two refused jobs are step 10.3's, and no "

@@ -10,7 +10,18 @@ sm_distributed_tpu_torch.drivers.<name>``: copies of the JAX package's
 - ``resource_smoke``: the disk governor's degrade ladder, the 507 shed and
   the retention GC through the in-process service;
 - ``trace_smoke``: one traced job through the in-process service, its
-  records through ``utils.tracing.validate_records``;
+  records through ``utils.tracing.validate_records`` and ``trace_report``;
+- ``trace_report``: a job's trace (a file or a live service's route)
+  rendered as the phase breakdown, the accounting split and the slowest
+  batches, or printed as JSON, schema-checked, by replica;
+- ``coldstart_smoke``: a cold replica over an empty kernel build directory
+  pays the nvcc builds, a primed one over the same directory none;
+- ``compile_census``: the bucket specs and the nvcc runs closed under
+  repeat traffic and another size in the same lattice bucket;
+- ``device_chaos``: a chip of a 4-chip pool quarantined mid-job, the job
+  resumed bit-equal, the chip readmitted;
+- ``stream_chaos``: the replica owning a live stream killed or drained,
+  the peer resuming from the chunk log, bit-equal to the batch run;
 - ``fleet_smoke``: three replica processes, one killed mid-scrape, the
   ``/fleet/*`` partial view and the fleet SLO bit-equal to the survivors'
   buckets, then a profile capture during a fused job;

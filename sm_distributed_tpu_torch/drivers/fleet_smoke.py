@@ -21,13 +21,14 @@ both through real service stacks of the port:
    ``sm_profile_captures_total``.  On the card (``--device cuda``) the
    capture must also attribute device time to the fused kernel by class
    and inject ``device_kernel`` spans, stamped with the serving replica,
-   into the running job's trace; on the CPU the profiler sees no device
-   events, so those checks need the card.
+   into the running job's trace, and ``drivers/trace_report.py
+   --by-replica`` over that trace must attribute device time to the
+   stamped replica.  On the CPU the profiler sees no device events, so
+   those checks need the card; there the report must attribute the job's
+   attempt to the serving replica.
 
 The JAX script's phase 3 pins its ``PROFILE_r*.json`` history (TPU and CPU
-records), which is not the port's, and has no counterpart here; its
-``trace_report --by-replica`` step is replaced by the replica stamp on the
-injected spans (the port has no ``trace_report`` yet).
+records), which is not the port's, and has no counterpart here.
 
 Usage::
 
@@ -63,6 +64,7 @@ from sm_distributed_tpu_torch.io.fixtures import generate_synthetic_dataset
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 REPLICA_MODULE = "sm_distributed_tpu_torch.drivers.replica_chaos"
+REPORT_MODULE = "sm_distributed_tpu_torch.drivers.trace_report"
 REPLICAS = ("r0", "r1", "r2")
 VICTIM = "r0"
 N_JOBS = 6
@@ -445,28 +447,51 @@ def phase_profile(work: Path, device: str) -> int:
         h.wait_terminal([mid], timeout_s=300.0)
         if "sm_profile_captures_total" not in h.metrics_text():
             return fail("sm_profile_captures_total missing from /metrics")
-        if not on_card:
-            print(f"fleet_smoke: profile capture OK during {mid} "
-                  f"({body['attribution']['n_events']} device events off "
-                  "the card; the fused kernel's attribution needs it)")
-            return 0
         with urllib.request.urlopen(
                 f"{h.base}/jobs/{mid}/trace?raw=1", timeout=30.0) as r:
             records = json.loads(r.read())["records"]
-        dev = [rec for rec in records if rec.get("kind") == "span"
-               and rec.get("name") == "device_kernel"
-               and (rec.get("attrs") or {}).get("kernel_class")
-               == "fused_kernel"]
-        if not dev:
-            return fail(f"job {mid} trace gained no fused device_kernel "
-                        "spans")
-        if not dev[0].get("replica"):
-            return fail("injected device_kernel spans carry no replica "
-                        "stamp")
+        rid = h.sm_config.service.replica_id
+        if on_card:
+            dev = [rec for rec in records if rec.get("kind") == "span"
+                   and rec.get("name") == "device_kernel"
+                   and (rec.get("attrs") or {}).get("kernel_class")
+                   == "fused_kernel"]
+            if not dev:
+                return fail(f"job {mid} trace gained no fused device_kernel "
+                            "spans")
+            rid = dev[0].get("replica")
+            if not rid:
+                return fail("injected device_kernel spans carry no replica "
+                            "stamp — --by-replica attribution impossible")
+        # the --by-replica report, end to end over the same trace
+        tf = base / "trace.jsonl"
+        with open(tf, "w") as f:
+            for rec in records:
+                f.write(json.dumps(rec) + "\n")
+        out = subprocess.run(
+            [sys.executable, "-m", REPORT_MODULE, str(tf), "--by-replica",
+             "--json"], capture_output=True, text=True, cwd=str(REPO_ROOT),
+            timeout=120)
+        if out.returncode != 0:
+            return fail(f"trace_report --by-replica failed: {out.stderr}")
+        br = json.loads(out.stdout)["by_replica"].get(rid, {})
+        if not on_card:
+            if br.get("attempts", 0) < 1:
+                return fail(f"--by-replica attributes no attempt of {mid} "
+                            f"to {rid}: {br}")
+            print(f"fleet_smoke: profile capture OK during {mid} "
+                  f"({body['attribution']['n_events']} device events off "
+                  "the card; the fused kernel's attribution needs it); "
+                  f"--by-replica puts {br['attempts']} attempt(s) on {rid}")
+            return 0
+        if br.get("device_kernel_s", 0.0) <= 0.0:
+            return fail(f"--by-replica attributes no device time to {rid}: "
+                        f"{br}")
         print(f"fleet_smoke: profile capture OK — {fused[0]['op']} "
               f"({fused[0]['device_s']:.4f}s device), "
               f"{body['injected_spans']} spans injected into {mid}, "
-              f"stamped {dev[0]['replica']}")
+              f"stamped {rid}; --by-replica attributes "
+              f"{br['device_kernel_s']:.4f}s device to {rid}")
         return 0
     finally:
         h.shutdown()

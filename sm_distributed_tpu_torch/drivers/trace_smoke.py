@@ -9,10 +9,9 @@ with tracing enabled, then asserts the acceptance shape end to end:
   (``utils.tracing.validate_records``);
 - ONE root ``submit`` span covers admission → claim → every SearchJob
   phase → ≥1 per-batch scoring span → ≥1 isocalc worker span →
-  store_results (all inside the root's [ts, ts+dur] window).
-
-The JAX smoke also renders the trace through ``scripts/trace_report.py``;
-the port has no report tool, so that step is not here.
+  store_results (all inside the root's [ts, ts+dur] window);
+- ``drivers/trace_report.py`` validates the trace file the endpoint served
+  and renders its phase/batch breakdown.
 
 Usage::
 
@@ -34,6 +33,7 @@ from pathlib import Path
 from sm_distributed_tpu_torch.drivers import (
     add_device_arguments,
     require_card,
+    trace_report,
 )
 from sm_distributed_tpu_torch.drivers.harness import (
     Harness,
@@ -114,17 +114,17 @@ def run(work: Path, backend: str = "numpy_ref", device: str = "cpu") -> int:
                  if r["kind"] == "span" and not (lo <= r["ts"] <= hi)]
         if stray:
             return fail(f"spans outside the root window: {stray}")
-        # the file the endpoint served validates too
-        on_disk = tracing.read_trace(
-            tracing.trace_path(h.service.trace_dir, body["trace_id"]))
-        problems = tracing.validate_records(on_disk)
-        if not on_disk or problems:
-            return fail(f"trace file: {len(on_disk)} records, "
-                        f"problems {problems[:5]}")
+
+        # the report renders from the same file the endpoint served
+        trace_path = tracing.trace_path(h.service.trace_dir,
+                                        body["trace_id"])
+        rc = trace_report.main([str(trace_path), "--validate"])
+        if rc != 0:
+            return fail(f"trace_report exited {rc}")
     finally:
         h.shutdown()
     print("trace_smoke: OK — root span, phase/batch/worker spans, schema, "
-          "chrome export and the trace file all check out")
+          "chrome export and trace_report all check out")
     return 0
 
 
