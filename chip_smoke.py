@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives seventeen paths (seven of the library search, the job
+nvcc and drives eighteen paths (seven of the library search, the job
 path, the service, the service's read path and stream ingest, a
 device-mode isotope search under the profiler, the main path on meshes of
 devices, a replica takeover, the kernel-build primer beside the elastic
-fleet, and the operator's gates: a cold replica, the compile census and
-device chaos), each with the kernel launch counts set to 0 just before it
-and read just after:
+fleet, the operator's gates: a cold replica, the compile census and
+device chaos, and the load sweep beside host chaos), each with the kernel
+launch counts set to 0 just before it and read just after (phase 18's in
+its own processes, which start with none):
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -196,7 +197,22 @@ and read just after:
   job.  The phase prints what it added to the script: 17b, 17c, the wait
   for 17a after them and 17d.
   States, counts and bits only; a deadline of 180 s (phase 16) or 300 s
-  (phase 17) only ends a hang.
+  (phase 17) only ends a hang;
+- the load sweep and host chaos (phase 18), each a subprocess on the card
+  over the kernels phase 2 built (loads, no nvcc run), started beside 17a
+  and joined before 16b: 18a ``drivers/load_sweep --smoke`` (a 12-submit
+  burst at a queue bound of 6, its depth held by the distinct queued ids
+  and the admission controller's depth, every shed a structured 429; a
+  queued and a mid-run deadline; a dead-lettered and a quarantined poison
+  job; its jobs scored on ``cuda``, so moments and packed chaos launches
+  above 0), 18b ``drivers/host_chaos --smoke`` (a 4-chip pool of two
+  hosts, host h1 a ``--bare`` replica SIGKILLed while the job is held at
+  its second group, h1's chips evicted as one unit, the job resumed on
+  host 0's chips bit-equal to its golden run, h1 readmitted; on one card
+  every lease scores on ``cuda:0``).  Each exits 0 and prints its
+  service's ``sm_kernel_launches_total`` by kernel; the phase prints what
+  it added to the script: the wait for 18a and 18b after 17c.  A deadline
+  of 600 s only ends a hang.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -225,8 +241,9 @@ event count of its device function over phase 13b's search in
 16a's prime cycles in ``prime_launches``: 0, priming launches nothing,
 phase 16b's job on its replica in ``fleet_launches``, 17a's cold job on
 its replica in ``coldstart_launches``, 17b's three census jobs in
-``census_launches`` and 17c's three chaos jobs in
-``device_chaos_launches``), its error against
+``census_launches``, 17c's three chaos jobs in
+``device_chaos_launches``, 18a's sweep in ``load_sweep_launches`` and
+18b's three host-chaos jobs in ``host_chaos_launches``), its error against
 the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
@@ -276,11 +293,11 @@ N_FORMULAS = 100          # ~4.9k ions with 3 adducts and 20 decoys each
 # path (mz_chunk = the flat path's BAND_WINDOWS), +H only, ~12 formulas with
 # 20 decoys each: 2 batches of 128 (its depth, cut from 20 formulas in 2
 # batches of the JAX bench's desi batch of 256 to keep the script's time),
-# 100 noise peaks a pixel (cut from 200, the main path's, for the same
-# reason: the slide's generation and m/z sort were 86 of the phase's 180
-# s; the kernels' shapes do not depend on it)
+# 50 noise peaks a pixel (cut from 200, the main path's, to 100 and then
+# 50 for the same reason: the slide's generation and m/z sort were 86 of
+# the phase's 180 s at 200; the kernels' shapes do not depend on it)
 WS_SIDE = 1024
-WS_NOISE_PEAKS = 100
+WS_NOISE_PEAKS = 50
 WS_FORMULAS = 12
 WS_PARALLEL = {"mz_chunk": 512, "formula_batch": 128}
 
@@ -5309,6 +5326,96 @@ def phase_device_chaos(card: str, tmp: Path) -> dict:
     return {"phase_s": took, "launches": launches}
 
 
+# phase 18's two gates, each a subprocess on the card: its argv after
+# ``python -m``, and the key of the JSON line it prints last
+SWEEP_GATES = {
+    "18a": (["sm_distributed_tpu_torch.drivers.load_sweep", "--smoke"],
+            "load_sweep"),
+    "18b": (["sm_distributed_tpu_torch.drivers.host_chaos", "--smoke"],
+            "host_chaos"),
+}
+SWEEP_DEADLINE_S = 600
+
+
+def phase_sweeps_start(tmp: Path) -> dict:
+    """18a and 18b started: ``drivers/load_sweep --smoke`` (burst, deadline
+    and poison through the in-process service, its jobs scored on
+    ``cuda``) and ``drivers/host_chaos --smoke`` (a 4-chip pod of two hosts,
+    host h1 a ``--bare`` replica SIGKILLed mid-job, the job resumed
+    bit-equal on host 0's chips, h1 readmitted), each a subprocess on the
+    card over the kernels phase 2 built (``build/torch_kernels``: loads,
+    no nvcc run)."""
+    import os
+    import threading
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    env.pop("SM_FAILPOINTS", None)
+    started = {}
+    for gate, (argv, _key) in SWEEP_GATES.items():
+        work = tmp / f"phase{gate}"
+        work.mkdir(parents=True)
+        log = open(work / "out.log", "w")
+        run = started[gate] = {
+            "t0": time.perf_counter(), "log": log, "work": work,
+            "proc": subprocess.Popen(
+                [sys.executable, "-m", *argv, "--work", str(work / "w")],
+                stdout=log, stderr=subprocess.STDOUT, env=env,
+                cwd=str(ROOT))}
+
+        def watch(run=run) -> None:
+            # the gate's own seconds end at its exit, not at the join
+            run["proc"].wait()
+            run["t_end"] = time.perf_counter()
+
+        run["watcher"] = threading.Thread(target=watch, daemon=True)
+        run["watcher"].start()
+    return started
+
+
+def phase_sweeps_join(card: str, started: dict) -> dict:
+    """18a and 18b joined: each exited 0 and printed its service's
+    ``sm_kernel_launches_total`` by kernel; 18a's jobs launched the
+    moments and the packed chaos kernels.  A deadline only ends a hang."""
+    out = {}
+    try:
+        deadline = time.perf_counter() + SWEEP_DEADLINE_S
+        for gate, run in started.items():
+            run["watcher"].join(max(0.0, deadline - time.perf_counter()))
+            rc = run["proc"].wait(timeout=1)
+            run["log"].close()
+            text = (run["work"] / "out.log").read_text()
+            key = SWEEP_GATES[gate][1]
+            assert rc == 0, f"{gate}: {key} exited {rc}\n" + text[-3000:]
+            line = next((ln for ln in reversed(text.splitlines())
+                         if ln.startswith(f'{{"{key}"')), None)
+            assert line, f"{gate}: {key} printed no JSON line\n" + \
+                text[-3000:]
+            summary = json.loads(line)[key]
+            launches = summary["kernel_launches"]
+            out[gate] = {"phase_s": round(run["t_end"] - run["t0"], 1),
+                         "launches": launches,
+                         **{k: v for k, v in summary.items()
+                            if k != "kernel_launches"}}
+            for ln in text.splitlines():
+                if ln.startswith(("  ", "host_chaos: ", "load sweep")):
+                    say(f"    {gate} {ln[:300]}")
+    finally:
+        for run in started.values():
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait(timeout=30)
+            run["log"].close()
+    la = out["18a"]["launches"]
+    assert la["moments"] > 0 and la["chaos"] > 0, \
+        f"18a: the sweep's jobs launched no moments or chaos kernel: {la}"
+    for gate, got in out.items():
+        say(f"  {gate} [{card}]: {SWEEP_GATES[gate][1]} --smoke OK in "
+            f"{got['phase_s']:.1f} s; launches {got['launches']}")
+    return out
+
+
 def phase_trace_report(card: str, traces: dict) -> dict:
     """17d: ``drivers/trace_report`` renders each trace and validates it
     with ``--json`` (and ``--by-replica``): phase 11's job A, phase 15's
@@ -5449,6 +5556,9 @@ def main() -> int:
 
     cold_thread = threading.Thread(target=cold_side, name="phase-17a")
     cold_thread.start()
+    # phase 18's two gates run beside it, each a subprocess of its own
+    t18 = time.perf_counter()
+    sweeps = phase_sweeps_start(Path(job_dir.name))
     try:
         takeover = phase_takeover(card, Path(job_dir.name), truth, main)
         lap("takeover")
@@ -5460,6 +5570,11 @@ def main() -> int:
         _breaker_closed(2, "phase 17b")
         chaos17 = phase_device_chaos(card, Path(job_dir.name))
         _breaker_closed(2, "phase 17c")
+    except BaseException:
+        for run in sweeps.values():
+            run["proc"].kill()
+            run["proc"].wait(timeout=30)
+        raise
     finally:
         t_join = time.perf_counter()
         cold_thread.join()
@@ -5471,6 +5586,17 @@ def main() -> int:
     t17_abc = time.perf_counter() - t17
     waited_17a = time.perf_counter() - t_join
     lap("coldstart_census_chaos")
+    # phase 18 adds to the script only the wait for its two gates here
+    t_join18 = time.perf_counter()
+    gates18 = phase_sweeps_join(card, sweeps)
+    waited_18 = time.perf_counter() - t_join18
+    lap("sweeps")
+    say(f"phase 18 the load sweep and host chaos [{card}]: "
+        f"{waited_18:.1f} s added to the script (the wait for 18a and 18b "
+        f"after phase 17c); 18a's own {gates18['18a']['phase_s']:.1f} s and "
+        f"18b's {gates18['18b']['phase_s']:.1f} s ran beside phases 15, "
+        f"16a, 17a, 17b and 17c ({time.perf_counter() - t18:.1f} s from "
+        "their start to their join)")
     fleet = phase_fleet(card, Path(job_dir.name), Path(cold["build_dir"]))
     lap("fleet")
     _breaker_closed(2, "phase 16")
@@ -5555,6 +5681,7 @@ def main() -> int:
         {"17a": {k: v for k, v in cold.items()
                  if k not in ("trace_file", "build_dir")},
          "17b": census, "17c": chaos17, "17d": reports}))
+    say(f"load sweep and host chaos [{card}]: " + json.dumps(gates18))
     say(f"device patterns and the profiler [{card}]: " + json.dumps(
         {"13a": patterns13, "13b": {k: v for k, v in profiled.items()
                                     if k != "attribution"},
@@ -5583,6 +5710,10 @@ def main() -> int:
         entry["coldstart_launches"] = cold["launches"][entry["name"]]
         entry["census_launches"] = census["launches"][entry["name"]]
         entry["device_chaos_launches"] = chaos17["launches"][entry["name"]]
+        entry["load_sweep_launches"] = gates18["18a"]["launches"][
+            entry["name"]]
+        entry["host_chaos_launches"] = gates18["18b"]["launches"][
+            entry["name"]]
     _breaker_closed(2, "the script")
     say(f"  [{card}] 10.4 no host fallback: after every phase the device "
         "breaker was closed, the two refused jobs are step 10.3's, and no "

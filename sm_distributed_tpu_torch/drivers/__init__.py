@@ -22,6 +22,13 @@ sm_distributed_tpu_torch.drivers.<name>``: copies of the JAX package's
   resumed bit-equal, the chip readmitted;
 - ``stream_chaos``: the replica owning a live stream killed or drained,
   the peer resuming from the chunk log, bit-equal to the batch run;
+- ``load_sweep``: the service's traffic mixes (burst, sustained,
+  deadline, cancel, poison, breaker, device fault, disk, replicas, pod,
+  read, stream, elastic) and the serving invariants after each, the
+  scheduling-plane mixes over ``replica_chaos --bare`` processes;
+- ``host_chaos``: a 2-host pod (the in-process service and a bare
+  replica as host h1), h1 killed mid-job, its chips evicted as one unit,
+  the job resumed bit-equal on host 0's chips, h1 readmitted;
 - ``fleet_smoke``: three replica processes, one killed mid-scrape, the
   ``/fleet/*`` partial view and the fleet SLO bit-equal to the survivors'
   buckets, then a profile capture during a fused job;

@@ -70,6 +70,7 @@ from sm_distributed_tpu_torch.utils import failpoints
 POOL = 4
 ALL_CHIPS = list(range(POOL))
 SURVIVORS = [0, 1, 2]
+GROUP_SLEEP = "device.score_batch=sleep:0.4"
 
 
 def fail(text: str) -> int:
@@ -135,14 +136,15 @@ def run(work: Path, smoke: bool, backend: str = "torch_cuda",
 
         # ---- 2. sticky chip death mid-job -------------------------------
         # the job is granted all 4 chips first (lease-time probes pass),
-        # THEN chip 3 dies mid-run: each group's scoring sleeps so the
-        # fault (2nd group) lands well after the grant, and the probe
-        # seam reports chip 3 bad the moment the job is seen holding its
-        # 4-chip lease.  The sticky fault at group 1 is probe-attributed
-        # to chip 3, which is quarantined; the retry re-leases the 3
-        # survivors and resumes from the group-0 checkpoint.
-        failpoints.configure("device.score_batch=sleep:0.4;"
-                             "backend.chip_fault=raise:RuntimeError@2")
+        # THEN chip 3 dies mid-run: each group's scoring sleeps, the probe
+        # seam reports chip 3 bad once the job is seen holding its 4-chip
+        # lease, and only then is the sticky fault armed, for the next
+        # group.  The order is decided by states (the lease on the trace,
+        # chip 3 bad), never by when the poll runs: a late poll only
+        # moves the fault to a later group.  The fault is
+        # probe-attributed to chip 3, which is quarantined; the retry
+        # re-leases the 3 survivors and resumes from the last checkpoint.
+        failpoints.configure(GROUP_SLEEP)
         try:
             status, _hd, _b = h.submit(
                 msg(fx, "fast", "fault4", devices=POOL))
@@ -161,6 +163,8 @@ def run(work: Path, smoke: bool, backend: str = "torch_cuda",
             if not granted:
                 return fail("fault job never acquired the 4-chip lease")
             health.simulate_bad({3})   # the chip dies mid-job
+            failpoints.configure(
+                f"{GROUP_SLEEP};backend.chip_fault=raise:RuntimeError@1")
             rows = h.wait_terminal(["fault4"])
         finally:
             failpoints.configure(None)
@@ -222,14 +226,18 @@ def run(work: Path, smoke: bool, backend: str = "torch_cuda",
               "annotations BIT-IDENTICAL to the 4-chip golden")
 
         # ---- 3. half-open readmission -----------------------------------
+        # the pool's grants and the telemetry sampler re-probe too, so any
+        # of them may readmit the chip first: decided by its state
         health.simulate_bad(())
         deadline = time.time() + 10.0
-        readmitted = []
-        while time.time() < deadline and not readmitted:
+        while time.time() < deadline and health.state_of(3) != "ok":
             time.sleep(0.2)
-            readmitted = health.reprobe_due()
-        if 3 not in readmitted:
-            return fail(f"chip 3 never readmitted (got {readmitted})")
+            health.reprobe_due()
+        if health.state_of(3) != "ok":
+            return fail(f"chip 3 never readmitted (state "
+                        f"{health.state_of(3)})")
+        if health.snapshot()["readmits_total"] < 1:
+            return fail("chip 3 back in service without a readmission")
         status, _hd, _b = h.submit(msg(fx, "fast", "after4", devices=POOL))
         if status != 202:
             return fail(f"post-readmit submit returned {status}")

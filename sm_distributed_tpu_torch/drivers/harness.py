@@ -1,16 +1,17 @@
 """One in-process annotation service of the port and the HTTP helpers the
 service drivers share (a copy of the ``Harness`` of the JAX package's
-``scripts/load_sweep.py``)."""
+``scripts/load_sweep.py``, its invariants included)."""
 
 from __future__ import annotations
 
 import json
+import threading
 import time
 import urllib.error
 import urllib.request
 from pathlib import Path
 
-from sm_distributed_tpu_torch.drivers.chaos_sweep import deep_merge
+from sm_distributed_tpu_torch.drivers.chaos_sweep import debris, deep_merge
 from sm_distributed_tpu_torch.engine.daemon import annotate_callback
 from sm_distributed_tpu_torch.io.fixtures import generate_synthetic_dataset
 from sm_distributed_tpu_torch.service import AnnotationService
@@ -39,6 +40,15 @@ def http(base: str, method: str, path: str, body: dict | None = None):
 def get_json(base: str, path: str) -> dict:
     with urllib.request.urlopen(base + path, timeout=30.0) as r:
         return json.loads(r.read())
+
+
+def queued_ids(root: Path) -> set[str]:
+    """The distinct message ids in ``pending/`` and ``running/``: a message
+    renamed from one to the other between the two listings counts once."""
+    ids: set[str] = set()
+    for state in ("pending", "running"):
+        ids.update(p.stem for p in (root / state).glob("*.json"))
+    return ids
 
 
 class Harness:
@@ -80,6 +90,9 @@ class Harness:
     def submit(self, msg: dict):
         return http(self.base, "POST", "/submit", msg)
 
+    def delete(self, msg_id: str):
+        return http(self.base, "DELETE", f"/jobs/{msg_id}")
+
     def jobs(self) -> dict:
         _s, _h, rows = http(self.base, "GET", "/jobs")
         return {r["msg_id"]: r for r in rows}
@@ -100,6 +113,37 @@ class Harness:
         missing = {m: rows.get(m, {}).get("state", "absent") for m in msg_ids
                    if rows.get(m, {}).get("state") not in TERMINAL}
         raise AssertionError(f"jobs never reached a terminal state: {missing}")
+
+    # ---------------------------------------------------------- invariants
+    def sample_depth(self) -> int:
+        """Admitted-but-not-terminal messages on disk, each counted once."""
+        return len(queued_ids(self.root))
+
+    def admission_depth(self) -> int:
+        """The admission controller's own depth (``sm_admission_depth``),
+        read under its lock."""
+        return int(self.service.admission.stats()["depth"])
+
+    def assert_clean(self, label: str) -> None:
+        """No live attempt thread, the device token free, no tmp or
+        heartbeat debris and ``running/`` empty."""
+        zombies = [t.name for t in threading.enumerate()
+                   if t.name.startswith("attempt-") and t.is_alive()]
+        if zombies:
+            raise AssertionError(
+                f"{label}: live attempt threads leaked: {zombies}")
+        token = self.service.scheduler.device_token
+        if not token.acquire(timeout=1.0):
+            raise AssertionError(f"{label}: device token still held")
+        token.release()
+        # checkpoint shards under work/ are legitimate resume state for
+        # FAILED jobs; everything else must be gone
+        left = [p for p in debris([self.root, self.dir / "results",
+                                   self.dir / "work"]) if ".ckpt." not in p]
+        if left:
+            raise AssertionError(f"{label}: tmp/heartbeat debris: {left}")
+        if list(self.root.glob("running/*")):
+            raise AssertionError(f"{label}: running/ not empty after drain")
 
     def shutdown(self):
         self.service.shutdown()

@@ -35,12 +35,18 @@ Internal subcommand (the replica worker process)::
 
     python -m sm_distributed_tpu_torch.drivers.replica_chaos \\
         --replica-serve QUEUE_DIR SM_CONF --replica-id rX \\
-        [--idle-exit S] [--metrics-dump FILE] [--ports-dir DIR]
+        [--idle-exit S] [--metrics-dump FILE] [--ports-dir DIR] \\
+        [--bare [--null-sleep S]]
 
 It runs the full ``AnnotationService`` until the spool stays idle
-``--idle-exit`` seconds, then dumps its ``/metrics`` text.  (The JAX
-script's ``--bare`` mode, a null callback for its load sweep, waits for a
-port of the load sweep.)
+``--idle-exit`` seconds, then dumps its ``/metrics`` text.  With
+``--bare`` it runs only a ``JobScheduler`` whose callback sleeps
+``--null-sleep`` seconds per job, for the load sweep's scheduling-plane
+mixes and ``host_chaos``'s second host: no backend is built, no kernel is
+launched and no ``torch.cuda`` call is made (its device pool's probe
+passes every chip without touching a device), so a mix of several bare
+replicas pays no CUDA context.  It stops once a fleet drain completes or
+the spool has been idle ``--idle-exit`` seconds.
 """
 
 from __future__ import annotations
@@ -173,11 +179,13 @@ def cmd_replica_serve(args) -> int:
     from sm_distributed_tpu_torch.service.primer import bind_builds
     from sm_distributed_tpu_torch.utils.logger import init_logger
 
-    bind_builds(sm)
-
     init_logger(None, json_logs=False)
     metrics_text = ""
     try:
+        if args.bare:
+            metrics_text = _serve_bare(args, sm)
+            return _lock_order_rc()
+        bind_builds(sm)
         from sm_distributed_tpu_torch.engine.daemon import annotate_callback
         from sm_distributed_tpu_torch.service import AnnotationService
 
@@ -196,12 +204,71 @@ def cmd_replica_serve(args) -> int:
         if args.metrics_dump and metrics_text:
             Path(args.metrics_dump).parent.mkdir(parents=True, exist_ok=True)
             Path(args.metrics_dump).write_text(metrics_text)
+    return _lock_order_rc()
+
+
+def _lock_order_rc() -> int:
+    from sm_distributed_tpu_torch.analysis import lockorder
+
     rep = lockorder.report()
     if rep["cycles"]:
         print(f"LOCK-ORDER-CYCLES {rep['cycles']}", file=sys.stderr,
               flush=True)
         return 5
     return 0
+
+
+def _bare_probe(chip: int) -> tuple[bool, str]:
+    """A bare replica's chips are bookkeeping only: every probe passes
+    without touching a device."""
+    return True, "bare"
+
+
+def _serve_bare(args, sm) -> str:
+    """A scheduler over the spool with a null callback that sleeps
+    ``--null-sleep`` seconds per job; returns its metrics text once a
+    fleet drain completed or the spool stayed idle ``--idle-exit``
+    seconds."""
+    from sm_distributed_tpu_torch.service.device_pool import (
+        DevicePool,
+        resolve_pool_size,
+    )
+    from sm_distributed_tpu_torch.service.health import HealthTracker
+    from sm_distributed_tpu_torch.service.metrics import MetricsRegistry
+    from sm_distributed_tpu_torch.service.scheduler import JobScheduler
+
+    cfg = sm.service
+    sleep_s = float(args.null_sleep)
+
+    def null_callback(msg):
+        time.sleep(sleep_s)
+
+    size = resolve_pool_size(cfg)
+    pool = DevicePool(size, max_bypass=cfg.device_pool_max_bypass,
+                      hosts=cfg.device_pool_hosts,
+                      health=HealthTracker.from_config(
+                          size, cfg, hosts=cfg.device_pool_hosts,
+                          probe_fn=_bare_probe))
+    registry = MetricsRegistry()
+    sched = JobScheduler(args.queue_dir, null_callback, config=cfg,
+                         metrics=registry, device_pool=pool)
+    sched.start()
+    root = Path(args.queue_dir) / QUEUE_ANNOTATE
+    idle_since = None
+    try:
+        while not sched.drain_complete():
+            busy = any(root.glob("pending/*.json")) or \
+                any(root.glob("running/*.json"))
+            if busy:
+                idle_since = None
+            elif idle_since is None:
+                idle_since = time.time()
+            elif time.time() - idle_since >= args.idle_exit:
+                break
+            time.sleep(0.05)
+    finally:
+        sched.shutdown()
+    return registry.expose()
 
 
 # ------------------------------------------------------------------ driver
@@ -595,6 +662,11 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--idle-exit", type=float, default=2.0)
     ap.add_argument("--metrics-dump", default=None)
     ap.add_argument("--ports-dir", default=None)
+    ap.add_argument("--bare", action="store_true",
+                    help="with --replica-serve: a scheduler with a null "
+                         "callback, no backend and no CUDA call")
+    ap.add_argument("--null-sleep", type=float, default=0.002,
+                    help="seconds each null job of a --bare replica takes")
     args = ap.parse_args(argv)
 
     if args.replica_serve:

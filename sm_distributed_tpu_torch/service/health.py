@@ -195,13 +195,15 @@ class HealthTracker:
                            sorted(self._sim_bad))
 
     @classmethod
-    def from_config(cls, size: int, cfg, hosts: int = 1) -> "HealthTracker":
+    def from_config(cls, size: int, cfg, hosts: int = 1,
+                    probe_fn=None) -> "HealthTracker":
         """Build from ``ServiceConfig`` knobs (scheduler/service seam)."""
         return cls(size, hosts=hosts,
                    probe_on_lease=cfg.health_probe_on_lease,
                    fault_quarantine=cfg.health_fault_quarantine,
                    reprobe_after_s=cfg.health_reprobe_after_s,
-                   host_evict_fraction=cfg.health_host_evict_fraction)
+                   host_evict_fraction=cfg.health_host_evict_fraction,
+                   probe_fn=probe_fn)
 
     # ------------------------------------------------------------- metrics
     def attach_metrics(self, registry) -> None:

@@ -50,22 +50,26 @@ from .scheduler import JobScheduler
 from .telemetry import DeviceMonitor, SLOTracker
 
 
-def _collect_launches(m: MetricsRegistry) -> None:
-    """``sm_kernel_launches_total{kernel=}``: each kernel wrapper's launch
-    count (one a launch of its kernel on the card, none on the CPU)."""
+def kernel_launches() -> dict[str, int]:
+    """Each kernel wrapper's launch count in this process, by kernel (one a
+    launch of its kernel on the card, none on the CPU)."""
     from ..ops.chaos import chaos_count_sums, chaos_count_sums_strips
     from ..ops.moments import batch_moments
     from ..ops.score import fused_window_moments
 
+    return {"moments": batch_moments.launches,
+            "chaos": chaos_count_sums.launches,
+            "chaos_tiles": chaos_count_sums.tiled_launches,
+            "chaos_strips": chaos_count_sums_strips.launches,
+            "fused_window_moments": fused_window_moments.launches}
+
+
+def _collect_launches(m: MetricsRegistry) -> None:
+    """``sm_kernel_launches_total{kernel=}``: :func:`kernel_launches`."""
     family = m.counter("sm_kernel_launches_total",
                        "Hand-written kernel launches in this process, by "
                        "kernel", ("kernel",))
-    for kernel, n in (("moments", batch_moments.launches),
-                      ("chaos", chaos_count_sums.launches),
-                      ("chaos_tiles", chaos_count_sums.tiled_launches),
-                      ("chaos_strips", chaos_count_sums_strips.launches),
-                      ("fused_window_moments",
-                       fused_window_moments.launches)):
+    for kernel, n in kernel_launches().items():
         c = family.labels(kernel=kernel)
         # counters only move forward: a delta from the wrapper's count
         c.inc(max(0.0, n - c.value))

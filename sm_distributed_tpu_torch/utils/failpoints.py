@@ -29,6 +29,10 @@ Actions:
     torn[:fraction]  truncate the file handed to ``failpoint(..., path=)`` to
                      ``fraction`` of its bytes (default 0.5) and CONTINUE
     enospc           raise ``OSError(errno.ENOSPC, ...)`` at this write seam
+    wait:path        block until the file ``path`` exists, then continue: a
+                     gate that holds a job at a seam until a chaos driver
+                     has seen the state it waits for (the port's own action;
+                     the JAX package's grammar has no such gate)
 
 Triggers (both deterministic):
     @N       fire on the Nth hit of this failpoint only (1-based, per process)
@@ -116,7 +120,8 @@ def registered_failpoints() -> dict[str, str]:
 @dataclass
 class _Spec:
     name: str
-    action: str                  # raise | crash | sleep | torn
+    action: str                  # raise | crash | sleep | torn |
+                                 # enospc | wait
     arg: str | None = None
     nth: int | None = None       # fire on this hit only (1-based)
     prob: float | None = None    # seeded per-hit probability
@@ -132,7 +137,7 @@ def _parse_one(name: str, rhs: str) -> _Spec:
     arg = m.group("arg")
     nth = int(m.group("nth")) if m.group("nth") else None
     prob = float(m.group("prob")) if m.group("prob") else None
-    if action not in ("raise", "crash", "sleep", "torn", "enospc"):
+    if action not in ("raise", "crash", "sleep", "torn", "enospc", "wait"):
         raise ValueError(f"failpoint {name}: unknown action {action!r}")
     if action == "enospc" and arg:
         raise ValueError(f"failpoint {name}: enospc takes no argument")
@@ -140,6 +145,8 @@ def _parse_one(name: str, rhs: str) -> _Spec:
         raise ValueError(
             f"failpoint {name}: exception {arg!r} not in "
             f"{sorted(_EXCEPTIONS)}")
+    if action == "wait" and not arg:
+        raise ValueError(f"failpoint {name}: wait needs a gate file path")
     if action == "sleep":
         if not arg:
             raise ValueError(f"failpoint {name}: sleep needs a seconds arg")
@@ -308,6 +315,11 @@ def failpoint(name: str, path: str | os.PathLike | None = None) -> None:
         os._exit(int(spec.arg or 21))
     if spec.action == "sleep":
         time.sleep(float(spec.arg))
+        return
+    if spec.action == "wait":
+        gate = Path(spec.arg)
+        while not gate.exists():
+            time.sleep(0.01)
         return
     if spec.action == "torn":
         if path is None:

@@ -99,11 +99,38 @@ def _device_outcome(work: Path) -> dict:
             "results": base / "results"}
 
 
+# the JAX script's own caveats under load (ROADMAP queue 3): its fault
+# stage arms the sticky fault before the lease poll marks chip 3 bad, and
+# its readmission stage reads only its own re-probe's answer, though the
+# pool's grants and the telemetry sampler re-probe too.  The port's driver
+# decides both by states (tests/test_torch_device_chaos_races.py)
+DEVICE_REFERENCE_CAVEATS = ("no device_quarantine event for chip 3",
+                            "chip 3 never readmitted")
+
+
 def test_device_chaos_smoke_matches_the_jax_script(tmp_path):
+    jax_argv = [str(ROOT / "scripts" / "device_chaos.py"), "--smoke"]
     runs = _run_both(
-        tmp_path, [str(ROOT / "scripts" / "device_chaos.py"), "--smoke"],
+        tmp_path, jax_argv,
         ["-m", "sm_distributed_tpu_torch.drivers.device_chaos", "--smoke",
          "--device", "cpu"], together=True)
+    if runs["jax"]["rc"] != 0 and any(
+            c in runs["jax"]["log"] for c in DEVICE_REFERENCE_CAVEATS):
+        # such a run is no reference: it is made once more, alone.  The
+        # port's run is held as it came
+        again = tmp_path / "again"
+        again.mkdir()
+        proc, fh = _start([*jax_argv, "--work", str(again / "jax")],
+                          again / "jax.log")
+        try:
+            rc = proc.wait(timeout=DRIVER_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fh.close()
+        runs["jax"] = {"rc": rc, "work": again / "jax",
+                       "log": (again / "jax.log").read_text()}
     for side, run in runs.items():
         assert run["rc"] == 0, (side, run["log"][-3000:])
     assert "device_chaos: OK" in runs["port"]["log"]
