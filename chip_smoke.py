@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives eighteen paths (seven of the library search, the job
+nvcc and drives nineteen paths (seven of the library search, the job
 path, the service, the service's read path and stream ingest, a
 device-mode isotope search under the profiler, the main path on meshes of
 devices, a replica takeover, the kernel-build primer beside the elastic
 fleet, the operator's gates: a cold replica, the compile census and
-device chaos, and the load sweep beside host chaos), each with the kernel
-launch counts set to 0 just before it and read just after (phase 18's in
-its own processes, which start with none):
+device chaos, the load sweep beside host chaos, and the main path on a
+mesh spanning two processes), each with the kernel launch counts set to 0
+just before it and read just after (phases 18's and 19's in their own
+processes, which start with none):
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -212,7 +213,25 @@ its own processes, which start with none):
   every lease scores on ``cuda:0``).  Each exits 0 and prints its
   service's ``sm_kernel_launches_total`` by kernel; the phase prints what
   it added to the script: the wait for 18a and 18b after 17c.  A deadline
-  of 600 s only ends a hang.
+  of 600 s only ends a hang;
+- a mesh spanning processes (phase 19): two processes of this script
+  (``--pod-worker DIR``, the launch contract's ``SM_COORDINATOR``,
+  ``SM_NUM_PROCESSES`` and ``SM_PROCESS_ID`` over a localhost port) parse
+  phase 3b's imzML and search phase 3's first formulas whose ions fill one
+  batch of 2048 (its depth, cut from all three batches for the script's
+  time) with phase 3b's warm pattern cache on one 2x2 mesh, pixel shard r
+  in process r, so every formula shard's shuffle crosses the processes.
+  19a: both on ``cuda:0`` with local devices ``[cuda:0, cuda:0]`` (one
+  card: the shuffle and the gather over gloo, which takes CUDA tensors);
+  19b, where four cards are visible: each on two cards of its own
+  (``CUDA_VISIBLE_DEVICES``), over NCCL.  Started after phase 14 beside
+  phases 15-18 and joined after 18: both processes' rows bit-equal to each
+  other and, ion by ion, to phase 3's and to 14a's, each process
+  launching the moments and the packed chaos kernels twice a batch (its
+  two cells) and nothing else; each prints its parse,
+  set-up and score seconds, its transport, its cross-process bytes a batch
+  and its device peak, and the phase what it added to the script.  A
+  deadline of 600 s only ends a hang.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -231,6 +250,11 @@ path's principal images and the whole-slide batch's; and in phase 4 runs
 the two-thread launch race three times on its kernels and prints its
 moments plans' occupancy beside this one's.
 
+    python3 chip_smoke.py --pod-only
+
+runs phases 1-3 and then phase 19 alone (19a, and 19b where four cards are
+visible, each on a cold pattern cache): the four-card check of 19b.
+
 One line per phase; any failure raises and exits non-zero.  The line before
 the last is a JSON object with each kernel's launches on its path (phase
 11's jobs A and B in ``service_launches``, phase 12's stream job, its
@@ -242,8 +266,9 @@ event count of its device function over phase 13b's search in
 phase 16b's job on its replica in ``fleet_launches``, 17a's cold job on
 its replica in ``coldstart_launches``, 17b's three census jobs in
 ``census_launches``, 17c's three chaos jobs in
-``device_chaos_launches``, 18a's sweep in ``load_sweep_launches`` and
-18b's three host-chaos jobs in ``host_chaos_launches``), its error against
+``device_chaos_launches``, 18a's sweep in ``load_sweep_launches``,
+18b's three host-chaos jobs in ``host_chaos_launches`` and phase 19's
+searches by process in ``pod_launches``), its error against
 the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
@@ -1301,6 +1326,19 @@ def _same_frame(got, want, what: str) -> None:
                 f"{what}: column {col} differs")
 
 
+def write_imzml(ds, imzml: Path) -> Path:
+    """``ds`` as a processed imzML/ibd pair at ``imzml``."""
+    from sm_distributed_tpu_torch.io.imzml import ImzMLWriter
+
+    rp = ds.row_ptr
+    with ImzMLWriter(imzml) as wr:
+        for i in range(ds.n_pixels):
+            r, c = divmod(i, ds.ncols)
+            wr.add_spectrum(c + 1, r + 1, ds.mzs_flat[rp[i]:rp[i + 1]],
+                            ds.ints_flat[rp[i]:rp[i + 1]])
+    return imzml
+
+
 def phase_job_path(ds, truth, search, main: dict, tmp: Path) -> dict:
     """The README's Quickstart on the card: the main path's dataset written
     as an imzML/ibd pair, its formulas as a molecular-DB CSV, then the
@@ -1319,20 +1357,13 @@ def phase_job_path(ds, truth, search, main: dict, tmp: Path) -> dict:
         SearchResultsStore,
     )
     from sm_distributed_tpu_torch.io.dataset import SpectralDataset
-    from sm_distributed_tpu_torch.io.imzml import ImzMLWriter
     from sm_distributed_tpu_torch.models.msm_basic import _slice_table
     from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
 
     t_start = time.perf_counter()
     # the dataset as an imzML/ibd pair, read back array by array
     t0 = time.perf_counter()
-    imzml = tmp / "main_path.imzML"
-    rp = ds.row_ptr
-    with ImzMLWriter(imzml) as wr:
-        for i in range(ds.n_pixels):
-            r, c = divmod(i, ds.ncols)
-            wr.add_spectrum(c + 1, r + 1, ds.mzs_flat[rp[i]:rp[i + 1]],
-                            ds.ints_flat[rp[i]:rp[i + 1]])
+    imzml = write_imzml(ds, tmp / "main_path.imzML")
     t_write = time.perf_counter() - t0
     back = SpectralDataset.from_imzml(imzml)
     assert (back.nrows, back.ncols) == (ds.nrows, ds.ncols)
@@ -3166,6 +3197,7 @@ def phase_sharded(card: str, ds, truth, search, ds_cfg, main: dict) -> dict:
         turns[who].append(score_s(search.last_backend if who == "single"
                                   else backend))
     out["launches"] = launches
+    out["metrics"] = bundle.all_metrics
     out["meshes"][label(SHARD_FULL)] = {
         "setup_s": tim["backend_setup"], "score_s": tim["score"],
         "ions_per_s": table.n_ions / tim["score"], "wall_s": wall,
@@ -5416,6 +5448,262 @@ def phase_sweeps_join(card: str, started: dict) -> dict:
     return out
 
 
+# phase 19: the main path on a 2x2 mesh spanning two processes of this
+# script (``--pod-worker DIR``), pixel shard r in process r, so every
+# formula shard's shuffle crosses them.  19a: both on cuda:0, each with
+# local devices [cuda:0, cuda:0] (one card: gloo); 19b, where four cards
+# are visible: each on two cards of its own (CUDA_VISIBLE_DEVICES, NCCL)
+POD_SM = {"fdr": {"decoy_sample_size": 20},
+          "parallel": {"pixels_axis": 2, "formulas_axis": 2}}
+POD_CASES = {"19a": {"devices": ["cuda:0", "cuda:0"], "visible": None},
+             "19b": {"devices": ["cuda:0", "cuda:1"],
+                     "visible": ["0,1", "2,3"]}}
+POD_DEADLINE_S = 600
+# its depth: phase 3's first formulas whose ions fill one batch of 2048
+# (with their decoys, which the FDR's seeded sampling gives them as in
+# phase 3), cut from all 3 batches when a staged run of the script passed
+# 1,120 s; their rows are held to phase 3's ion by ion
+POD_MAX_IONS = 2048
+
+
+def pod_formulas(table, formulas) -> list:
+    """Phase 3's first formulas whose ions (targets and decoys, counted in
+    phase 3's table) number at most ``POD_MAX_IONS``."""
+    import collections
+
+    per = collections.Counter(table.sfs)
+    out, n = [], 0
+    for sf in dict.fromkeys(formulas):
+        n += per[sf]
+        if n > POD_MAX_IONS:
+            break
+        out.append(sf)
+    return out
+
+
+def pod_worker(work: Path) -> int:
+    """One process of phase 19 (``chip_smoke.py --pod-worker DIR``, with
+    ``SM_COORDINATOR``, ``SM_NUM_PROCESSES`` and ``SM_PROCESS_ID`` set):
+    parses phase 3b's imzML, searches ``DIR/spec.json``'s formulas with the
+    warm pattern cache on its part of the 2x2 mesh (``DIR/spec.json`` names the local
+    devices), the launch counts set to 0 just before the search, scores
+    the search's batches once more warm (the transport's steady state, the
+    same bits), and writes its rows, its annotations and its figures into
+    ``DIR``."""
+    import pickle
+
+    sys.path.insert(0, str(ROOT))
+    from sm_distributed_tpu_torch.io.dataset import SpectralDataset
+    from sm_distributed_tpu_torch.models.msm_basic import (
+        MSMBasicSearch,
+        _slice_table,
+    )
+    from sm_distributed_tpu_torch.parallel import distributed
+    from sm_distributed_tpu_torch.utils.config import DSConfig, SMConfig
+
+    spec = json.loads((work / "spec.json").read_text())
+    t0 = time.perf_counter()
+    ds = SpectralDataset.from_imzml(spec["imzml"])
+    parse_s = time.perf_counter() - t0
+    devices = [torch.device(d) for d in spec["devices"]]
+    search = MSMBasicSearch(ds, spec["formulas"], DSConfig(),
+                            SMConfig.from_dict(POD_SM),
+                            isocalc_cache_dir=spec["cache"], devices=devices)
+    bundle, wall, launches, peak = _search_run(search)
+    backend = search.last_backend
+    rank = distributed.world()[0]
+    assert backend.spans_processes, backend.mesh.devices
+    with open(work / f"bundle_p{rank}.pkl", "wb") as f:
+        pickle.dump({"annotations": bundle.annotations,
+                     "all_metrics": bundle.all_metrics}, f)
+    table = search.last_table
+    n_ions, b = table.n_ions, backend.batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = backend.score_batches([_slice_table(table, s, min(s + b, n_ions))
+                                  for s in range(0, n_ions, b)])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    assert np.array_equal(np.concatenate(warm).astype(np.float32),
+                          _search_rows(bundle)), "warm rows differ"
+    out = {"rank": rank, "parse_s": parse_s, "wall_s": wall,
+           "warm_score_s": warm_s,
+           "timings": bundle.timings, "launches": launches,
+           "peak_bytes": peak, "collective": backend.collective,
+           "cross_bytes": backend.cross_bytes,
+           "cells": backend.mesh.local(), "batch": backend.batch,
+           "n_ions": n_ions, "n_batches": -(-n_ions // backend.batch),
+           "variant_counts": dict(backend.variant_counts)}
+    (work / f"pod_p{rank}.json").write_text(json.dumps(out))
+    distributed.shutdown()
+    return 0
+
+
+def phase_pod_start(tmp: Path, imzml: Path, cache: Path, formulas,
+                    case: str) -> dict:
+    """19a or 19b started: two ``--pod-worker`` processes of this script
+    over a localhost rendezvous, each a subprocess on the card over the
+    kernels phase 2 built (loads, no nvcc run); stopped at the latest when
+    this script exits."""
+    import atexit
+    import os
+    import socket
+    import threading
+
+    work = tmp / f"phase{case}"
+    work.mkdir(parents=True)
+    (work / "spec.json").write_text(json.dumps({
+        "imzml": str(imzml), "cache": str(cache),
+        "formulas": [str(sf) for sf in formulas],
+        "devices": POD_CASES[case]["devices"]}))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    env.pop("SM_FAILPOINTS", None)
+    env.update(SM_COORDINATOR=f"127.0.0.1:{port}", SM_NUM_PROCESSES="2")
+    run = {"case": case, "work": work, "t0": time.perf_counter(),
+           "procs": [], "logs": []}
+    for rank in (0, 1):
+        renv = dict(env, SM_PROCESS_ID=str(rank))
+        if POD_CASES[case]["visible"]:
+            renv["CUDA_VISIBLE_DEVICES"] = POD_CASES[case]["visible"][rank]
+        log = open(work / f"out_p{rank}.log", "w")
+        run["logs"].append(log)
+        run["procs"].append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--pod-worker",
+             str(work)], stdout=log, stderr=subprocess.STDOUT, env=renv,
+            cwd=str(ROOT)))
+
+    def watch() -> None:
+        for proc in run["procs"]:
+            proc.wait()
+        run["t_end"] = time.perf_counter()
+
+    run["watcher"] = threading.Thread(target=watch, daemon=True)
+    run["watcher"].start()
+    atexit.register(_stop_pod, run)
+    return run
+
+
+def _stop_pod(run: dict) -> None:
+    for proc in run["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    for log in run["logs"]:
+        log.close()
+
+
+def pod_cases() -> list[str]:
+    """19a, and 19b where four cards are visible."""
+    return [c for c in POD_CASES
+            if c == "19a" or torch.cuda.device_count() >= 4]
+
+
+def _held_by_ion(got, ref, label: str) -> None:
+    """``got``'s metric rows bit-equal to ``ref``'s rows of the same ions
+    (both ``all_metrics`` frames; ``got``'s ions a subset of ``ref``'s)."""
+    import pandas as pd
+
+    cols = list(CONTRACT)
+    keys = pd.MultiIndex.from_frame(got[["sf", "adduct"]])
+    want = ref.set_index(["sf", "adduct"]).loc[keys, cols]
+    assert np.array_equal(got[cols].to_numpy().astype(np.float32),
+                          want.to_numpy().astype(np.float32)), \
+        f"{label}: rows differ"
+
+
+def phase_pod_join(card: str, run: dict, ref, sharded=None) -> dict:
+    """19a or 19b joined: both processes exited 0; their metric rows are
+    bit-equal to each other and, ion by ion, to phase 3's and to phase
+    14a's (``sharded``, its ``all_metrics``; ``--pod-only`` runs no phase
+    14), their annotations and FDR ranks equal phase 3's when all of its
+    ions were scored; each launched the moments and the packed chaos
+    kernels twice a batch (its two cells) and nothing else.  A deadline
+    only ends a hang."""
+    import pickle
+    import types
+
+    case, work = run["case"], run["work"]
+    try:
+        run["watcher"].join(POD_DEADLINE_S)
+        rcs = [proc.wait(timeout=1) for proc in run["procs"]]
+    finally:
+        _stop_pod(run)
+    logs = [(work / f"out_p{r}.log").read_text() for r in (0, 1)]
+    for r, rc in enumerate(rcs):
+        assert rc == 0, f"{case}: process {r} exited {rc}\n" + logs[r][-3000:]
+    ranks = []
+    for r in (0, 1):
+        got = json.loads((work / f"pod_p{r}.json").read_text())
+        with open(work / f"bundle_p{r}.pkl", "rb") as f:
+            got["bundle"] = types.SimpleNamespace(**pickle.load(f))
+        ranks.append(got)
+    assert np.array_equal(_search_rows(ranks[0]["bundle"]),
+                          _search_rows(ranks[1]["bundle"])), \
+        f"{case}: the two processes' rows differ"
+    for r, got in enumerate(ranks):
+        mine = got["bundle"].all_metrics
+        _held_by_ion(mine, ref.all_metrics, f"{case} process {r} vs phase 3")
+        if sharded is not None:
+            _held_by_ion(mine, sharded, f"{case} process {r} vs phase 14a")
+        if len(mine) == len(ref.all_metrics):
+            _bit_equal(got["bundle"], ref, f"{case} process {r}")
+        n, la = got["n_batches"], got["launches"]
+        assert la["moments"] == la["chaos"] == 2 * n and all(
+            v == 0 for k, v in la.items() if k not in ("moments", "chaos")), \
+            f"{case} process {r}: moments and packed chaos must launch " \
+            f"twice a batch ({n} batches) and nothing else: {la}"
+        assert got["collective"] == ("gloo" if case == "19a" else "nccl"), \
+            got["collective"]
+    t_end = run.get("t_end", time.perf_counter())
+    out = {"phase_s": t_end - run["t0"],
+           "launches": [got["launches"] for got in ranks],
+           "ranks": [{k: v for k, v in got.items() if k != "bundle"}
+                     for got in ranks]}
+    for got in ranks:
+        tim = got["timings"]
+        say(f"  {case} [{card}] process {got['rank']} (cells "
+            f"{got['cells']}): parse {got['parse_s']:.3f} s, patterns "
+            f"{tim['isotope_patterns']:.3f} s, set-up "
+            f"{tim['backend_setup']:.3f} s, score {tim['score']:.3f} s "
+            f"(warm again {got['warm_score_s']:.3f} s, the same bits; "
+            f"{got['n_ions']} ions in {got['n_batches']} batches of "
+            f"{got['batch']}); collective {got['collective']}; "
+            f"{got['cross_bytes']} cross-process bytes a batch (sent and "
+            f"received); device peak {got['peak_bytes'] / 2**30:.2f} GiB; "
+            f"launches {got['launches']}; variants {got['variant_counts']}")
+    return out
+
+
+def pod_only() -> int:
+    """``--pod-only``: phases 1-3 (the reference rows), the main path's
+    dataset as imzML, then 19a and, where four cards are visible, 19b,
+    each alone, their processes on a cold pattern cache: the four-card
+    check of 19b without the rest of the script."""
+    card, _dev = phase_environment()
+    phase_build()
+    ds, truth, search, _ds_cfg = _setup_main_path()
+    main = phase_main_path(ds, truth, search)
+    pod = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
+        imzml = write_imzml(ds, Path(tmp) / "main_path.imzML")
+        for case in pod_cases():
+            run = phase_pod_start(Path(tmp), imzml, Path(tmp) / f"cache{case}",
+                                  pod_formulas(search.last_table,
+                                               truth.formulas), case)
+            pod[case] = phase_pod_join(card, run, main["bundle"])
+            say(f"phase {case} [{card}]: {pod[case]['phase_s']:.1f} s alone")
+    say(f"mesh spanning processes [{card}]: " + json.dumps(pod))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def phase_trace_report(card: str, traces: dict) -> dict:
     """17d: ``drivers/trace_report`` renders each trace and validates it
     with ``--json`` (and ``--by-replica``): phase 11's job A, phase 15's
@@ -5460,6 +5748,12 @@ def main() -> int:
     parser.add_argument("--ab", metavar="DIR", help="another checkout of the "
                         "repo whose moments, fused and chaos kernels are "
                         "timed in turns against this one's")
+    parser.add_argument("--pod-worker", metavar="DIR",
+                        help="run one process of phase 19 (started by the "
+                        "script itself)")
+    parser.add_argument("--pod-only", action="store_true",
+                        help="run phases 1-3 and phase 19 alone (19b where "
+                        "four cards are visible)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5468,6 +5762,11 @@ def main() -> int:
         print("chip_smoke: the sm_distributed_tpu_torch package is not beside "
               "this script", file=sys.stderr)
         return 2
+    if opts.pod_worker:
+        return pod_worker(Path(opts.pod_worker))
+    if opts.pod_only:
+        sys.path.insert(0, str(ROOT))
+        return pod_only()
     t_script = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from sm_distributed_tpu_torch.models.msm_basic import _slice_table
@@ -5541,6 +5840,15 @@ def main() -> int:
                      and s["mesh_pix"] * s["mesh_form"] == 2), None)
     _breaker_closed(2, "phase 14")
     torch.cuda.empty_cache()
+    # phase 19's processes run beside phases 15-18: 19a on this card, 19b
+    # where four cards are visible
+    t19 = time.perf_counter()
+    pods = [phase_pod_start(Path(job_dir.name),
+                            Path(job_dir.name) / "main_path.imzML",
+                            Path(job_dir.name) / "work" / "isocalc_cache",
+                            pod_formulas(search.last_table, truth.formulas),
+                            case)
+            for case in pod_cases()]
     # phase 17a's cold replica (a subprocess, its own spool and build
     # directory) starts its serve and pays its nvcc builds while phases
     # 15, 16a, 17b and 17c run here; 16b's fleet is its primed side
@@ -5597,6 +5905,23 @@ def main() -> int:
         f"18b's {gates18['18b']['phase_s']:.1f} s ran beside phases 15, "
         f"16a, 17a, 17b and 17c ({time.perf_counter() - t18:.1f} s from "
         "their start to their join)")
+    # phase 19 adds to the script only the wait for its processes here
+    t_join19 = time.perf_counter()
+    pod = {run["case"]: phase_pod_join(card, run, main["bundle"],
+                                       sharded["metrics"]) for run in pods}
+    waited_19 = time.perf_counter() - t_join19
+    lap("pod")
+    _breaker_closed(2, "phase 19")
+    if "19b" not in pod:
+        say(f"  19b [{card}]: not run, {torch.cuda.device_count()} card(s) "
+            "visible (it needs four: two processes of two distinct cards "
+            "each, over NCCL)")
+    say(f"phase 19 a mesh spanning processes [{card}]: {waited_19:.1f} s "
+        "added to the script (the wait for its processes after phase 18); "
+        + ", ".join(f"{c}'s own {pod[c]['phase_s']:.1f} s" for c in pod)
+        + f" beside phases 15-18 ({time.perf_counter() - t19:.1f} s from "
+        "their start to their join); both processes' rows bit-equal to "
+        "each other, to phase 3's and 14a's ion by ion")
     fleet = phase_fleet(card, Path(job_dir.name), Path(cold["build_dir"]))
     lap("fleet")
     _breaker_closed(2, "phase 16")
@@ -5671,7 +5996,11 @@ def main() -> int:
     say(f"read path and stream [{card}]: " + json.dumps(
         {k: v for k, v in stream.items() if k != "launches"}))
     say(f"sharded main path [{card}]: " + json.dumps(
-        {k: v for k, v in sharded.items() if k != "launches"}))
+        {k: v for k, v in sharded.items()
+         if k not in ("launches", "metrics")}))
+    say(f"mesh spanning processes [{card}]: " + json.dumps(
+        {c: {k: v for k, v in got.items() if k != "launches"}
+         for c, got in pod.items()}))
     say(f"replica takeover [{card}]: " + json.dumps(
         {k: v for k, v in takeover.items() if k != "launches"}))
     say(f"primer and fleet [{card}]: " + json.dumps(
@@ -5714,6 +6043,9 @@ def main() -> int:
             entry["name"]]
         entry["host_chaos_launches"] = gates18["18b"]["launches"][
             entry["name"]]
+        entry["pod_launches"] = {
+            case: [by_rank[entry["name"]] for by_rank in got["launches"]]
+            for case, got in pod.items()}
     _breaker_closed(2, "the script")
     say(f"  [{card}] 10.4 no host fallback: after every phase the device "
         "breaker was closed, the two refused jobs are step 10.3's, and no "

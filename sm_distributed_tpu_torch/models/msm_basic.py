@@ -47,7 +47,9 @@ receives provisional annotations over the first scored group; the
 first-annotation observers hear when the first FDR-rankable metrics exist;
 checkpoint shards pass the disk governor's preflight.  In a multi-process
 runtime (``parallel/distributed.py``) every process resumes a checkpointed
-search from the same group.
+search from the same group; on a mesh spanning processes each scores its
+own cells, and a device OOM fails its process instead of halving the batch
+there alone.
 """
 
 from __future__ import annotations
@@ -585,6 +587,14 @@ class MSMBasicSearch:
         (nothing left to shrink — the OOM is then a real failure for the
         caller, but still NOT a breaker count).  Host work only."""
         cur = cap or max(e - s for s, e in slices)
+        if getattr(backend, "spans_processes", False):
+            # the other processes' collectives would no longer match a
+            # batch halved here alone: the OOM fails this process, and the
+            # others fail at the group's timeout
+            oom.record_oom_event("score_group", error)
+            logger.error("device OOM in one process of a mesh spanning "
+                         "processes: no backoff in place: %s", error)
+            return 0
         new = cur // 2
         if new >= 1 and shape_buckets.buckets_enabled(
                 self.sm_config.parallel):

@@ -4,12 +4,9 @@ Port of ``sm_distributed_tpu/parallel/distributed.py``.  The JAX package
 calls ``jax.distributed.initialize(coordinator, num_processes,
 process_id)`` on every host; here every process calls
 ``torch.distributed.init_process_group`` with the gloo backend over a TCP
-rendezvous at the coordinator's address.  Gloo carries the host-side
-agreements (the checkpoint resume point, ``models/msm_basic.py``); device
-data never crosses processes in this slice: a mesh that spans processes is
-ROADMAP queue 1 item 7b (NCCL).
+rendezvous at the coordinator's address.
 
-Launch (one process per host), e.g.::
+The launch contract (one process per host, or per group of cards)::
 
     SM_COORDINATOR=host0:8476 SM_NUM_PROCESSES=2 SM_PROCESS_ID=$i \\
         python -m sm_distributed_tpu_torch.engine.cli run ...
@@ -18,6 +15,24 @@ or set ``parallel.coordinator_address`` / ``num_processes`` /
 ``process_id`` in the engine config.  Without a coordinator the
 rendezvous reads torch's ``MASTER_ADDR`` / ``MASTER_PORT`` (``env://``, as
 ``torchrun`` sets them).  Single-process (the default) is a strict no-op.
+
+**The pod.**  Right after the group is up, one gloo ``all_gather_object``
+gives every process each process's visible cards (their UUIDs, in local
+order): the pod's chip order is host-major, ranks in order and each
+rank's cards in order (``parallel/mesh.py`` maps leases and config meshes
+through it).  From the same facts every process computes the transport of
+**device tensors** (the mesh's shuffle and gather, ``parallel/sharded.py``)
+by one rule (:func:`transport_for`): NCCL when no card appears in two
+processes (the multi-host deployment), gloo otherwise (processes sharing a
+card, and the CPU).  The NCCL group is a second group (``new_group``): the
+rule needs the gathered facts, which need a group already up, and the
+host agreements (``agree_min``, the checkpoint resume point of
+``models/msm_basic.py``) stay on the default gloo group.  A failed NCCL
+collective raises; nothing retries on gloo.  Gloo takes CUDA tensors in
+``all_to_all_single`` and ``all_gather`` (checked on the card by
+``chip_smoke.py`` phase 19a), so device tensors go to either group as they
+are.  Every collective waits at most ``INIT_TIMEOUT_S``: a fault in one
+process ends the others with an error there, never a hang.
 
 As in the JAX package:
 
@@ -45,6 +60,7 @@ import os
 import socket
 import time
 from datetime import timedelta
+from typing import NamedTuple
 
 from ..utils.failpoints import failpoint, record_recovery, register_failpoint
 from ..utils.logger import logger
@@ -56,11 +72,22 @@ FP_DIST_INIT = register_failpoint(
     "retries)")
 
 # how long one attempt waits for the rendezvous (the other processes and
-# the coordinator's store) before it fails into the retry ladder
+# the coordinator's store) before it fails into the retry ladder, and how
+# long any collective of the group waits for the other processes
 INIT_TIMEOUT_S = 60.0
 
 _initialized = False
 _simulated = False
+
+
+class Pod(NamedTuple):
+    """What every process knows of the group, gathered once at init."""
+    cards: tuple            # per rank: its visible cards' UUIDs, in order
+    transport: str          # of device tensors: "nccl" or "gloo"
+
+
+_pod: Pod | None = None
+_nccl_group = None          # the NCCL group when the pod's transport is NCCL
 
 
 def resolve_distributed_settings(cfg) -> tuple[str, int, int]:
@@ -174,10 +201,105 @@ def maybe_initialize_distributed(cfg) -> bool:
         record_recovery("dist.init_retry")
     _initialized = True
     _simulated = simulate
+    if not simulate:
+        _gather_pod()
     ident = process_identity()
     logger.info("multi-process runtime up: process %d on host %s",
                 ident["process_id"], ident["host"])
     return True
+
+
+def transport_for(cards_by_rank) -> str:
+    """The transport of device tensors between the processes, from each
+    process's card UUIDs: ``"nccl"`` when every process has cards and no
+    card appears in two processes, ``"gloo"`` otherwise (two processes
+    sharing a card, or a process without one: the CPU)."""
+    seen = [u for cards in cards_by_rank for u in cards]
+    if all(cards_by_rank) and len(seen) == len(set(seen)):
+        return "nccl"
+    return "gloo"
+
+
+def _local_cards() -> list[str]:
+    import torch
+
+    if not torch.cuda.is_available():
+        return []
+    return [str(torch.cuda.get_device_properties(i).uuid)
+            for i in range(torch.cuda.device_count())]
+
+
+def _gather_pod() -> None:
+    """Every process's visible cards, gathered in one gloo
+    ``all_gather_object``, and the device transport they decide (a second,
+    NCCL group when it is NCCL: every process computes the same rule, so
+    every process creates it)."""
+    global _pod, _nccl_group
+    import torch.distributed as dist
+
+    size = dist.get_world_size()
+    facts: list = [None] * size
+    dist.all_gather_object(facts, {"cards": _local_cards()})
+    cards = tuple(tuple(f["cards"]) for f in facts)
+    transport = transport_for(cards)
+    if transport == "nccl":
+        _nccl_group = dist.new_group(
+            backend="nccl", timeout=timedelta(seconds=INIT_TIMEOUT_S))
+    _pod = Pod(cards, transport)
+    logger.info("pod: %d processes, cards per process %s; device tensors "
+                "move over %s", size, [len(c) for c in cards], transport)
+
+
+def pod() -> Pod | None:
+    """The facts gathered at init; None without a live process group."""
+    return _pod
+
+
+def device_collective(device) -> str:
+    """The transport tensors on ``device`` take between processes: NCCL
+    for card tensors when the pod's rule says so, gloo otherwise."""
+    import torch
+
+    if (_pod is not None and _pod.transport == "nccl"
+            and torch.device(device).type == "cuda"):
+        return "nccl"
+    return "gloo"
+
+
+def _group_for(t):
+    return _nccl_group if device_collective(t.device) == "nccl" else None
+
+
+def all_to_all(send, send_splits: list[int], recv_splits: list[int]):
+    """One ``all_to_all_single`` of a packed 1-D buffer: ``send_splits[q]``
+    elements go to process q, ``recv_splits[q]`` come from it, in rank
+    order; the received buffer is on ``send``'s device."""
+    import torch.distributed as dist
+
+    recv = send.new_empty(sum(recv_splits))
+    dist.all_to_all_single(recv, send, list(recv_splits), list(send_splits),
+                           group=_group_for(send))
+    return recv
+
+
+def all_gather(t) -> list:
+    """Every process's ``t`` (one shape on all), in rank order, on ``t``'s
+    device."""
+    import torch
+    import torch.distributed as dist
+
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t, group=_group_for(t))
+    return out
+
+
+def all_gather_object(obj) -> list:
+    """Every process's ``obj``, in rank order (gloo, the default group)."""
+    import torch.distributed as dist
+
+    out: list = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def agree_min(value: int) -> int:
@@ -197,7 +319,7 @@ def shutdown() -> None:
     """Tear the runtime down and reset the idempotence latch: destroys the
     process group when this process really created it; a failure there is
     logged, not raised, and the latch clears either way."""
-    global _initialized, _simulated
+    global _initialized, _simulated, _pod, _nccl_group
     if _initialized and not _simulated:
         try:
             import torch.distributed as dist
@@ -208,3 +330,5 @@ def shutdown() -> None:
             logger.warning("torch.distributed shutdown failed: %s", exc)
     _initialized = False
     _simulated = False
+    _pod = None
+    _nccl_group = None

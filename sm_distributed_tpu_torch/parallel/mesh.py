@@ -22,12 +22,21 @@ virtual CPU devices.  Only a caller
 that passes the device list may repeat a device (the tests, and
 ``chip_smoke.py`` on a one-card machine).
 
-A lease whose chips live in another process (a mesh spanning processes)
-raises ``NotImplementedError``: that is ROADMAP queue 1 item 7b (NCCL
-between processes).
+**A mesh spanning processes.**  Under the launch contract
+(``parallel/distributed.py``: ``SM_COORDINATOR``, ``SM_NUM_PROCESSES``,
+``SM_PROCESS_ID``) the pod's chips are ordered host-major, ranks in order
+and each rank's chips in order (:func:`global_device_order`).  A mesh over
+that order holds this process's chips as ``torch.device``s and every other
+process's as :class:`RemoteChip` placeholders; each process drives only
+its own cells (:meth:`Mesh.local`).  Such a mesh comes from a ``cuda``
+lease with another process's chips, from config axes asking for more
+cards than this process has, or from an explicit device list shorter than
+the axes ask (this process's part; every process passes its own).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -68,10 +77,41 @@ def resolve_axis_sizes(n_devices: int, cfg) -> tuple[int, int]:
     return pix, form
 
 
+@dataclass(frozen=True)
+class RemoteChip:
+    """A chip of another process in a mesh that spans processes: that
+    process's index and the chip's id, its place in the pod's host-major
+    order, so :func:`global_device_order` sorts it as the JAX package
+    sorts ``jax.Device``s.  The process that owns it drives its cells."""
+    process_index: int
+    id: int
+
+    def __str__(self) -> str:
+        return f"process{self.process_index}:chip{self.id}"
+
+
+def pod_devices(local: list, counts) -> list:
+    """The pod's host-major chip order: process r's ``counts[r]`` chips in
+    turn, this process's as ``local`` (its devices, in order), every other
+    process's as a :class:`RemoteChip`."""
+    from .distributed import world
+
+    rank = world()[0]
+    if counts[rank] != len(local):
+        raise ValueError(f"process {rank} holds {len(local)} chips, the pod "
+                         f"says {counts[rank]}")
+    out: list = []
+    for r, n in enumerate(counts):
+        out += (list(local) if r == rank else
+                [RemoteChip(r, len(out) + i) for i in range(n)])
+    return out
+
+
 class Mesh:
     """A (pixels, formulas) grid of devices.  ``devices[s, f]`` is the
-    device of cell (s, f); ``shape`` maps each axis name to its size, as
-    ``jax.sharding.Mesh.shape`` does."""
+    device of cell (s, f), a ``torch.device`` or, in a mesh spanning
+    processes, another process's :class:`RemoteChip`; ``shape`` maps each
+    axis name to its size, as ``jax.sharding.Mesh.shape`` does."""
 
     axis_names = (PIXELS_AXIS, FORMULAS_AXIS)
 
@@ -96,6 +136,24 @@ class Mesh:
     def distinct(self) -> list:
         """The mesh's devices, each once, in row-major order."""
         return list(dict.fromkeys(self.devices.flat))
+
+    def local(self) -> list[tuple[int, int]]:
+        """The cells (s, f) this process drives, formula shard-major."""
+        n_pix, n_form = self.devices.shape
+        return [(s, f) for f in range(n_form) for s in range(n_pix)
+                if not isinstance(self.devices[s, f], RemoteChip)]
+
+    def owner(self, s: int, f: int) -> int:
+        """The process that drives cell (s, f)."""
+        d = self.devices[s, f]
+        if isinstance(d, RemoteChip):
+            return d.process_index
+        from .distributed import world
+
+        return world()[0]
+
+    def spans_processes(self) -> bool:
+        return any(isinstance(d, RemoteChip) for d in self.devices.flat)
 
 
 def make_mesh(cfg, devices=None, hosts: int = 1,
@@ -124,17 +182,23 @@ def make_mesh(cfg, devices=None, hosts: int = 1,
     return Mesh([flat[s * form:(s + 1) * form] for s in range(pix)])
 
 
-def config_devices(device: str, cfg) -> list[torch.device]:
+def axes_ask(cfg) -> int:
+    """The devices the config's axes ask for (a ``-1`` axis asks for
+    one)."""
+    return max(1, cfg.pixels_axis) * max(1, cfg.formulas_axis)
+
+
+def config_devices(device: str, cfg) -> list:
     """The devices a mesh built from the config spans.  The axes ask for
-    ``max(1, pixels_axis) * max(1, formulas_axis)`` devices (a ``-1`` axis
-    asks for one).  ``cpu``: the CPU, that many times.  ``cuda``: one card
-    (the current one) when they ask for one, so the shipped defaults score
-    on one card as before; every visible card when they ask for more (a
-    ``-1`` axis then absorbs the cards left over, as in the JAX package),
-    raising without one: nothing falls back to the CPU.  ``cuda:i``: that
-    card alone."""
+    ``axes_ask(cfg)`` devices.  ``cpu``: the CPU, that many times.
+    ``cuda``: one card (the current one) when they ask for one, so the
+    shipped defaults score on one card as before; every visible card when
+    they ask for more (a ``-1`` axis then absorbs the cards left over, as in
+    the JAX package), raising without one: nothing falls back to the CPU;
+    in a pod whose group is up, the pod's global card order when they ask
+    for more than this process's cards.  ``cuda:i``: that card alone."""
     dev = torch.device(device)
-    n = max(1, cfg.pixels_axis) * max(1, cfg.formulas_axis)
+    n = axes_ask(cfg)
     if dev.type == "cpu":
         return [dev] * n
     if dev.type != "cuda":
@@ -145,7 +209,13 @@ def config_devices(device: str, cfg) -> list[torch.device]:
         from ..models.msm_torch import resolve_device
 
         resolve_device(dev)           # raises, naming the missing card
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    local = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    from .distributed import pod
+
+    facts = pod()
+    if facts is not None and n > len(local):
+        return pod_devices(local, [len(c) for c in facts.cards])
+    return local
 
 
 def host_topology(device_indices, chips_per_host) -> dict[int, tuple]:
@@ -186,37 +256,40 @@ def lease_devices(device_indices, devices=None,
 
     ``None`` -> ``None`` (the caller meshes over the config's devices).
     ``devices`` is the pool's chip order (default: this process's visible
-    cards on ``cuda``; on ``cpu`` every chip of the simulated pool is the
-    CPU).  Indices beyond it are dropped with a warning, and an empty
-    result falls back to ``None``, as in the JAX package: the work goes to
-    the chips that exist, never to the host.  In a multi-process runtime
-    the pool indexes the global host-major order: a lease of this
-    process's chips maps to its local cards, and a lease with a chip in
-    another process raises (ROADMAP queue 1 item 7b)."""
+    cards on ``cuda``, the pod's cards in a multi-process runtime; on
+    ``cpu`` every chip of the simulated pool is this process's CPU).
+    Indices beyond it are dropped with a warning, and an empty result falls
+    back to ``None``, as in the JAX package: the work goes to the chips
+    that exist, never to the host.  In a multi-process runtime the pool
+    indexes the global host-major order (:func:`global_device_order` of
+    chips carrying ``process_index`` and ``id``): this process's chips map
+    to its cards, in its order, and every other process's chip to a
+    :class:`RemoteChip`, which a mesh spanning processes holds."""
     if device_indices is None:
         return None
     indices = [int(i) for i in device_indices]
-    from .distributed import world
+    from .distributed import pod, world
 
     rank, size = world()
+    dev = torch.device(device)
+    multi = size > 1 and dev.type != "cpu"
     if devices is None:
-        dev = torch.device(device)
         if dev.type == "cpu":
             devices = [dev] * (max(indices, default=0) + 1)
+        elif multi:
+            counts = [len(c) for c in pod().cards]
+            devices = [RemoteChip(r, sum(counts[:r]) + i)
+                       for r, n in enumerate(counts) for i in range(n)]
         else:
             devices = [torch.device("cuda", i)
                        for i in range(torch.cuda.device_count())]
-    if size > 1:
-        per = len(devices)
-        foreign = [i for i in indices if i // max(per, 1) != rank]
-        if foreign:
-            raise NotImplementedError(
-                f"device lease {tuple(indices)} holds chips {foreign} of "
-                f"another process (process {rank} of {size} drives chips "
-                f"{rank * per}..{(rank + 1) * per - 1}): a mesh spanning "
-                "processes is not in the PyTorch port yet (queue 1 item 7b "
-                "of ROADMAP.md)")
-        indices = [i - rank * per for i in indices]
+    if multi:
+        order = global_device_order(devices)
+        mine = [d for d in order if int(d.process_index) == rank]
+        devices = [torch.device(dev.type, mine.index(d))
+                   if int(d.process_index) == rank
+                   else RemoteChip(int(d.process_index), int(d.id))
+                   for d in order]
     picked = [devices[i] for i in indices if 0 <= i < len(devices)]
     if len(picked) < len(indices):
         logger.warning(

@@ -2,9 +2,10 @@
 
 Port of ``sm_distributed_tpu/parallel/sharded.py`` (``ShardedJaxBackend``,
 ``make_jax_backend``).  The JAX package runs one ``shard_map``-ed program
-per batch over its mesh; here one controller (the search's thread) drives
-every cell (s, f) of a ``parallel/mesh.Mesh`` of torch devices in three
-stages:
+per batch over its mesh; here each process's controller (the search's
+thread) drives its own cells (s, f) of a ``parallel/mesh.Mesh`` of torch
+devices (every cell in one process; in a mesh spanning processes, the
+cells on this process's chips, ``Mesh.local``) in three stages:
 
 1. **extraction**: cell (s, f) histograms pixel shard s's resident peaks
    (the contiguous image rows ``[s * p_loc, (s + 1) * p_loc)``, m/z
@@ -17,16 +18,29 @@ stages:
    kept peaks;
 2. **the shuffle** (the JAX package's ``all_to_all`` along the pixel
    axis): device (j, f) receives sub-batch j of every pixel shard's block
-   (``Tensor.to(device)``, a device-to-device copy between cards) and
-   concatenates them along the pixel axis, ending with all pixels of
-   ``B_loc / n_pix`` ions;
+   and concatenates them along the pixel axis, ending with all pixels of
+   ``B_loc / n_pix`` ions.  A part whose two cells are in one process is a
+   ``Tensor.to(device)`` copy (device to device between cards); the parts
+   that cross processes go through one ``all_to_all_single`` a batch over
+   a packed buffer, whose split sizes both sides derive from the plan and
+   the metric grid (``parallel/distributed.py`` picks NCCL or gloo);
 3. **metrics**: ``ops/metrics.batch_metrics`` on that ``(B_loc / n_pix, K,
    P)`` block: the masked moments kernel and the packed chaos kernel on
    the card, launched under their tensor's device
    (``kernels/_build.on_tensor_device``).  Then **the gather** (the JAX
    package's ``all_gather``): the ``(B_loc / n_pix, 4)`` metric rows of
-   every pixel shard, in pixel-shard order, reassemble formula shard f's
-   rows.
+   every cell reach every process (one ``all_gather`` a batch in a mesh
+   spanning processes) and, in pixel-shard order, reassemble formula
+   shard f's rows.
+
+Every process of a mesh spanning processes computes the whole host plan
+(it is deterministic, so all pick one variant and one band width), holds
+the resident rows of the pixel shards it has a cell in, and issues its
+collectives in one fixed order derived from the mesh and the plan, never
+from which cell finished first; every process ends with the same metric
+bits and the same ion images.  A process of the pod that fails alone
+leaves the others waiting in a collective until the group's timeout
+(``distributed.INIT_TIMEOUT_S``), where they fail too.
 
 Image values are exact integers on the shared intensity grid, so every ion's
 full image is bit-identical to the single-device path's and its metrics are
@@ -121,8 +135,17 @@ class ShardedTorchBackend:
         par = sm_config.parallel
         self.mesh = mesh if mesh is not None else make_mesh(
             par, device=sm_config.device)
-        for d in self.mesh.distinct():
+        # the cells this process drives (every cell unless the mesh spans
+        # processes), formula shard-major
+        self._cells = self.mesh.local()
+        if not self._cells:
+            raise ValueError(f"this process drives no cell of the mesh "
+                             f"{self.mesh.devices.tolist()}")
+        self.spans_processes = self.mesh.spans_processes()
+        grid = self.mesh.devices
+        for d in dict.fromkeys(grid[c] for c in self._cells):
             resolve_device(d)             # a card that exists; no TF32
+        self._home = grid[self._cells[0]]
         n_pix = self.mesh.shape[PIXELS_AXIS]
         n_form = self.mesh.shape[FORMULAS_AXIS]
         self._n_pix, self._n_form = n_pix, n_form
@@ -170,6 +193,10 @@ class ShardedTorchBackend:
                 ds, self.ppm, n_pix)
             self._nrows_metric = ds.nrows
         self._n_pix_metric = self._nrows_metric * ds.ncols
+        # each pixel shard's columns inside the metric grid (0: past it)
+        self._widths = [max(0, min(self._p_loc,
+                                   self._n_pix_metric - s * self._p_loc))
+                        for s in range(n_pix)]
         # the real pixel count for the masked moments; None off the lattice
         self._n_real = ds.n_pixels if self._buckets else None
         if restrict_table is not None:
@@ -185,14 +212,19 @@ class ShardedTorchBackend:
         self._band_mode = par.band_slice
         self.int_scale = ds.intensity_quantization(self.ppm)[1]
         self._mz_shards = mz_s            # host-side, for the bound ranks
-        # pixel shard s's rows on each distinct device of mesh row s: cells
-        # of one row on one device share them
+        self.collective = "none"
+        if self.spans_processes:
+            self._pod_setup(ds)
+        # pixel shard s's rows on each distinct device of this process's
+        # cells of mesh row s: cells of one row on one device share them
         self._px: list[dict] = []
         self._in: list[dict] = []
         for s in range(n_pix):
-            codes, _scales = compact_cube(in_s[s], self.cube_dtype)
             row_px, row_in = {}, {}
-            for d in dict.fromkeys(self.mesh.devices[s]):
+            row = dict.fromkeys(grid[c] for c in self._cells if c[0] == s)
+            if row:
+                codes, _scales = compact_cube(in_s[s], self.cube_dtype)
+            for d in row:
                 row_px[d] = torch.from_numpy(
                     px_s[s].astype(np.int64)).to(d)
                 row_in[d] = cube_to_device(codes, d)
@@ -204,6 +236,9 @@ class ShardedTorchBackend:
             px_s.shape, self.mesh.shape, n_pix, n_form, self._p_loc,
             self.cube_dtype)
         self._gc_width = 0                # sticky chunk band width
+        # bytes this process sent and received across processes in its
+        # last batch's shuffle
+        self.cross_bytes = 0
         # batches this backend scored by each extraction variant
         self.variant_counts = dict.fromkeys(("plain", "band", "compact"), 0)
         # called with each stage's name as it is enqueued (chip_smoke.py
@@ -211,6 +246,41 @@ class ShardedTorchBackend:
         self.timer = None
 
     # ------------------------------------------------------------- set-up
+    def _pod_setup(self, ds: SpectralDataset) -> None:
+        """A mesh spanning processes: which process drives each cell, each
+        process's cells, whether any shuffle part crosses processes, and
+        the device transport.  The processes compare what their plans
+        derive from (the cells' owners, the batch, the shard geometry) in
+        one gloo gather, so a process that would issue other collectives
+        raises here instead of deadlocking the group."""
+        from . import distributed
+
+        n_pix, n_form = self._n_pix, self._n_form
+        size = distributed.world()[1]
+        own = np.array([[self.mesh.owner(s, f) for f in range(n_form)]
+                        for s in range(n_pix)])
+        if set(own.flat) != set(range(size)):
+            raise ValueError(
+                f"a mesh spanning processes spans all {size} of them; this "
+                f"one's cells are driven by processes {sorted(set(own.flat))}")
+        self._owners = own
+        self._cells_of = [[(s, f) for f in range(n_form)
+                           for s in range(n_pix) if own[s, f] == q]
+                          for q in range(size)]
+        self._crosses = bool((own[:, None, :] != own[None, :, :]).any())
+        self.collective = distributed.device_collective(self._home)
+        mine = (own.tolist(), self.batch, self._p_loc, self._n_pix_metric,
+                tuple(self._mz_shards.shape), int(ds.n_peaks))
+        differ = [q for q, theirs in enumerate(
+            distributed.all_gather_object(mine)) if theirs != mine]
+        if differ:
+            raise ValueError(
+                f"processes {differ} plan another mesh or dataset than "
+                f"process {distributed.world()[0]} ({mine})")
+        logger.info("mesh %s spans %d processes (this one drives cells %s); "
+                    "device collectives over %s", self.mesh.shape, size,
+                    self._cells, self.collective)
+
     def shrink_batch(self, batch: int) -> None:
         """Cap the padding batch (shrink only), clamped to the mesh's batch
         granule (formula shards x pixel shards): below it, memory relief
@@ -349,28 +419,98 @@ class ShardedTorchBackend:
             None, gc_width=self._gc_width, n_pixels=self._p_loc)
         return imgs.view(self.batch // self._n_form, plan.k, self._p_loc)
 
-    def _shuffle(self, blocks: list, j: int, dev) -> torch.Tensor:
-        """Stage 2 on device ``dev``: sub-batch j of every pixel shard's
-        block, along the pixel axis, cut to the metric grid."""
-        bj = blocks[0].shape[0] // self._n_pix
-        rows = slice(j * bj, (j + 1) * bj)
-        parts = []
-        for s, blk in enumerate(blocks):
-            width = min(self._p_loc, self._n_pix_metric - s * self._p_loc)
-            if width <= 0:
-                break
-            part = blk[rows]
-            parts.append((part if width == self._p_loc
-                          else part[:, :, :width]).to(dev))
-        if len(parts) == 1 and parts[0].is_contiguous():
-            return parts[0]
-        return torch.cat(parts, dim=2)
+    def _shuffle(self, blocks: dict, bj: int, k: int) -> dict:
+        """Stage 2: each of this process's cells (j, f) gets sub-batch j of
+        every pixel shard's block of formula shard f, along the pixel axis,
+        cut to the metric grid: a ``Tensor.to`` copy from a cell of this
+        process, the rest out of :meth:`_exchange`."""
+        grid = self.mesh.devices
+        shards = [s for s, w in enumerate(self._widths) if w > 0]
+        recv = (self._exchange(blocks, bj, k, shards)
+                if self.spans_processes and self._crosses else {})
+        mine = {}
+        for j, f in self._cells:
+            rows = slice(j * bj, (j + 1) * bj)
+            parts = []
+            for s in shards:
+                blk = blocks.get((s, f))
+                if blk is None:
+                    part = recv[(s, j, f)]
+                elif self._widths[s] == self._p_loc:
+                    part = blk[rows]
+                else:
+                    part = blk[rows, :, :self._widths[s]]
+                parts.append(part.to(grid[j, f]))
+            mine[(j, f)] = (parts[0] if len(parts) == 1
+                            and parts[0].is_contiguous()
+                            else torch.cat(parts, dim=2))
+        return mine
+
+    def _exchange(self, blocks: dict, bj: int, k: int, shards) -> dict:
+        """The shuffle's parts that cross processes, in one
+        ``all_to_all_single``: this process packs its parts for process q in
+        (f, j, s) order and unpacks what process q packed for it in the same
+        order; both derive every part's size (``bj * k`` times the shard's
+        width in the metric grid) from the plan.  Returns ``{(s, j, f):
+        (bj, k, width)}`` on this process's first device."""
+        from . import distributed
+
+        rank, size = distributed.world()
+        own = self._owners
+        sends: list = [[] for _ in range(size)]
+        send_n, recv_n = [0] * size, [0] * size
+        recv_keys: list = [[] for _ in range(size)]
+        for f in range(self._n_form):
+            for j in range(self._n_pix):
+                for s in shards:
+                    src, dst = own[s, f], own[j, f]
+                    n = bj * k * self._widths[s]
+                    if src == dst:
+                        continue
+                    if src == rank:
+                        part = blocks[(s, f)][j * bj:(j + 1) * bj, :,
+                                              :self._widths[s]]
+                        sends[dst].append(part.to(self._home).reshape(-1))
+                        send_n[dst] += n
+                    elif dst == rank:
+                        recv_keys[src].append((s, j, f))
+                        recv_n[src] += n
+        parts = [p for q in sends for p in q]
+        dtype = next(iter(blocks.values())).dtype
+        send = (torch.cat(parts) if parts else
+                torch.empty(0, dtype=dtype, device=self._home))
+        del parts, sends
+        got = distributed.all_to_all(send, send_n, recv_n)
+        self.cross_bytes = (sum(send_n) + sum(recv_n)) * send.element_size()
+        out, off = {}, 0
+        for q in range(size):
+            for s, j, f in recv_keys[q]:
+                n = bj * k * self._widths[s]
+                out[(s, j, f)] = got[off:off + n].view(bj, k, self._widths[s])
+                off += n
+        return out
+
+    def _gather(self, parts: dict, home) -> dict:
+        """Every cell's tensor of ``parts`` (this process's cells; one
+        shape for all) on ``home``: in a mesh spanning processes by one
+        ``all_gather`` of each process's cells in (f, s) order, padded to
+        the most cells any process drives."""
+        if not self.spans_processes:
+            return {c: t.to(home) for c, t in parts.items()}
+        from . import distributed
+
+        mine = [parts[c].to(home) for c in self._cells]
+        most = max(len(cells) for cells in self._cells_of)
+        mine += [torch.zeros_like(mine[0])] * (most - len(mine))
+        got = distributed.all_gather(torch.stack(mine))
+        return {c: got[q][i] for q, cells in enumerate(self._cells_of)
+                for i, c in enumerate(cells)}
 
     def _dispatch(self, table: IsotopePatternTable,
                   plan: ShardPlan | None = None) -> torch.Tensor:
         """Enqueue one padded batch on the mesh; returns its (b, 4)
-        metrics in the table's ion order, on the mesh's first device (not
-        synchronised)."""
+        metrics in the table's ion order, on this process's first device
+        (not synchronised)."""
         if plan is None:
             plan = self._flat_plan(table)
         self._grow(plan)
@@ -380,33 +520,32 @@ class ShardedTorchBackend:
         b_loc = self.batch // n_form
         bj = b_loc // n_pix
         self._mark("start")
-        blocks = [[self._cell_images(plan, variant, s, fi, grid[s, fi])
-                   for s in range(n_pix)] for fi in range(n_form)]
+        blocks = {(s, fi): self._cell_images(plan, variant, s, fi,
+                                             grid[s, fi])
+                  for s, fi in self._cells}
         self._mark("extract")
-        mine = [[self._shuffle(blocks[fi], j, grid[j, fi])
-                 for j in range(n_pix)] for fi in range(n_form)]
+        mine = self._shuffle(blocks, bj, plan.k)
         del blocks
         self._mark("shuffle")
-        rows = []
-        for fi in range(n_form):
+        rows = {}
+        for j, fi in self._cells:
             order = plan.chunks[fi][5]
             sl = slice(fi * b_loc, (fi + 1) * b_loc)
-            theor = plan.ints_p[sl][order]
-            n_valid = plan.nv_p[sl][order]
-            for j in range(n_pix):
-                dev, sub = grid[j, fi], slice(j * bj, (j + 1) * bj)
-                rows.append(batch_metrics(
-                    mine[fi][j], _put(theor[sub], dev), _put(n_valid[sub], dev),
-                    self._nrows_metric, self.ds.ncols, self.nlevels,
-                    n_real=self._n_real,
-                    do_preprocessing=self.do_preprocessing, q=self.q))
-                mine[fi][j] = None
+            sub = slice(j * bj, (j + 1) * bj)
+            theor = plan.ints_p[sl][order][sub]
+            n_valid = plan.nv_p[sl][order][sub]
+            dev = grid[j, fi]
+            rows[(j, fi)] = batch_metrics(
+                mine.pop((j, fi)), _put(theor, dev), _put(n_valid, dev),
+                self._nrows_metric, self.ds.ncols, self.nlevels,
+                n_real=self._n_real,
+                do_preprocessing=self.do_preprocessing, q=self.q)
         self._mark("metrics")
-        home = grid[0, 0]
+        home = self._home
+        rows = self._gather(rows, home)
         outs = []
         for fi in range(n_form):
-            f_rows = torch.cat([r.to(home) for r in rows[fi * n_pix:
-                                                         (fi + 1) * n_pix]])
+            f_rows = torch.cat([rows[(j, fi)] for j in range(n_pix)])
             outs.append(f_rows[_put(plan.chunks[fi][3], home, torch.int64)])
         out = torch.cat(outs)
         self._mark("gather")
@@ -421,7 +560,8 @@ class ShardedTorchBackend:
         summed over the formula shards.  Nothing is padded to a
         compaction or band capacity here, so those stay 0.  ``devices``
         counts the mesh's distinct cards (the JAX package's mesh size: its
-        meshes never repeat a device)."""
+        meshes never repeat a device); a mesh spanning processes counts
+        every cell, as the JAX package's pod mesh does."""
         chunks = plan.chunks
         spec = {
             "kind": "sharded", "variant": variant,
@@ -437,7 +577,8 @@ class ShardedTorchBackend:
             "c": int(sum(c[1].shape[0] for c in chunks)),
             "wc": int(max(c[1].shape[1] for c in chunks)),
             "w": int(sum(c[3].shape[0] for c in chunks)),
-            "devices": len(self.mesh.distinct()),
+            "devices": (self.mesh.size if self.spans_processes
+                        else len(self.mesh.distinct())),
             "mesh_pix": int(self._n_pix), "mesh_form": int(self._n_form),
             "p_loc": int(self._p_loc),
         }
@@ -466,7 +607,8 @@ class ShardedTorchBackend:
         for t, plan in zip(tables, plans):
             with tracing.span("score_batch", backend="torch_cuda_sharded",
                               ions=int(t.n_ions), enqueue=True,
-                              mesh=self.mesh.shape):
+                              mesh=self.mesh.shape,
+                              collective=self.collective):
                 outs.append(self._dispatch(t, plan))
         devices = [str(d) for d in self.mesh.devices.flat]
         with tracing.span("device_sync", batches=len(outs), devices=devices):
@@ -476,21 +618,25 @@ class ShardedTorchBackend:
         return res
 
     def _trace_mesh_memory(self) -> None:
-        """Each of the mesh's cards' allocated bytes onto the ambient
+        """Each of this process's cards' allocated bytes onto the ambient
         trace (nothing on the CPU)."""
+        grid = self.mesh.devices
         per = {str(d): int(torch.cuda.memory_allocated(d))
-               for d in self.mesh.distinct() if torch.device(d).type == "cuda"}
+               for d in dict.fromkeys(grid[c] for c in self._cells)
+               if d.type == "cuda"}
         if per:
             tracing.event("mesh_hbm", devices=per)
 
     def extract_ion_images(self, table: IsotopePatternTable) -> np.ndarray:
         """(n_ions, K, n_pixels) f32 ion images of ``table``, in its ion
-        order, off the device shards: collective-free, each cell extracts
-        its formula shard's windows on its pixel shard (the plain variant)
-        and the blocks are assembled on the host, divided by the intensity
-        grid's power-of-two scale (exact), the images of invalid isotope
-        peaks zero.  Bit-equal to ``ops/imager_np``.  Tables longer than
-        the batch are extracted batch by batch."""
+        order, off the device shards: each cell extracts its formula
+        shard's windows on its pixel shard (the plain variant), every
+        cell's block reaches every process (one ``all_gather`` on the host
+        in a mesh spanning processes) and the blocks are assembled on the
+        host, divided by the intensity grid's power-of-two scale (exact),
+        the images of invalid isotope peaks zero.  Bit-equal to
+        ``ops/imager_np`` in every process.  Tables longer than the batch
+        are extracted batch by batch."""
         from ..models.msm_basic import _slice_table
 
         n, b = table.n_ions, self.batch
@@ -503,13 +649,15 @@ class ShardedTorchBackend:
         k, p_loc = plan.k, self._p_loc
         b_loc = b // self._n_form
         imgs = np.zeros((b, k, self._n_pix * p_loc), dtype=np.float32)
-        for fi in range(self._n_form):
-            for s in range(self._n_pix):
-                dev = self.mesh.devices[s, fi]
-                blk = self._cell_images(plan, "plain", s, fi, dev)
-                blk = blk[_put(plan.chunks[fi][3], dev, torch.int64)]
-                imgs[fi * b_loc:(fi + 1) * b_loc, :,
-                     s * p_loc:(s + 1) * p_loc] = blk.cpu().numpy()
+        blocks = {}
+        for s, fi in self._cells:
+            dev = self.mesh.devices[s, fi]
+            blk = self._cell_images(plan, "plain", s, fi, dev)
+            blocks[(s, fi)] = blk[_put(plan.chunks[fi][3], dev, torch.int64)]
+        cpu = torch.device("cpu")
+        for (s, fi), blk in self._gather(blocks, cpu).items():
+            imgs[fi * b_loc:(fi + 1) * b_loc, :,
+                 s * p_loc:(s + 1) * p_loc] = blk.numpy()
         imgs = np.ascontiguousarray(imgs[:n, :, :self.ds.n_pixels])
         imgs /= np.float32(self.int_scale)
         valid = np.arange(k)[None, :] < table.n_valid[:, None]
@@ -533,17 +681,26 @@ def make_torch_backend(ds: SpectralDataset, ds_config: DSConfig,
     ``TorchBackend`` pinned to that chip, an N-chip lease
     ``ShardedTorchBackend`` over a mesh of those chips, shaped by
     ``parallel.pixels_axis`` / ``formulas_axis``.  ``devices`` (an explicit
-    device list, which may repeat a device) takes the lease's place.  With
-    neither, the mesh spans the config's devices
-    (``mesh.config_devices``); a mesh of one device gets ``TorchBackend``.
-    ``restrict_table`` (the search's full ion table) drops the dataset's
-    peaks outside every window (exact)."""
-    from .distributed import maybe_initialize_distributed
-    from .mesh import host_topology, lease_devices
+    device list, which may repeat a device) takes the lease's place; in a
+    multi-process runtime a list shorter than the axes ask is this
+    process's part of a mesh spanning processes (one gloo gather learns
+    the others' lengths).  With neither, the mesh spans the config's
+    devices (``mesh.config_devices``); a mesh of one device gets
+    ``TorchBackend``.  ``restrict_table`` (the search's full ion table)
+    drops the dataset's peaks outside every window (exact)."""
+    from .distributed import (
+        all_gather_object,
+        maybe_initialize_distributed,
+        world,
+    )
+    from .mesh import axes_ask, host_topology, lease_devices, pod_devices
 
     par = sm_config.parallel
     maybe_initialize_distributed(par)          # no-op single-process
     hosts = 1
+    if devices is not None and world()[1] > 1 and \
+            axes_ask(par) > len(devices):
+        devices = pod_devices(devices, all_gather_object(len(devices)))
     if devices is None:
         devices = lease_devices(device_indices, device=sm_config.device)
         pool_hosts = max(1, int(sm_config.service.device_pool_hosts))

@@ -198,17 +198,41 @@ def test_lease_devices_matches_jax(indices, caplog):
 
 
 def test_lease_across_processes_raises_naming_7b(monkeypatch):
-    """In a 2-process runtime of 4 chips each, process 0's chips 0-3 map
-    to its cards; a lease holding chip 5 spans processes (item 7b)."""
+    """In a 2-process runtime of 4 chips each (enumerated in a shuffled
+    order), a lease maps through the pod's host-major order exactly as the
+    JAX package's multi-process ``lease_devices`` does: this process's
+    chips become its cards, by their place among its own chips, and the
+    other process's chips ``RemoteChip``s carrying its index and id.  (No
+    lease raises any more: the name is kept from the slice before the
+    mesh spanning processes.)"""
+    import jax
+
+    from sm_distributed_tpu.parallel.mesh import lease_devices as jlease
     from sm_distributed_tpu_torch.parallel import distributed
 
-    monkeypatch.setattr(distributed, "world", lambda: (0, 2))
-    devs = _fakes(per_proc=4)
-    assert [d.id for d in pmesh.lease_devices((1, 2), devices=devs)] == [1, 2]
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        pmesh.lease_devices((3, 5), devices=devs)
+    devs = _fakes(n_proc=2, per_proc=4)
+    random.Random(3).shuffle(devs)
+    monkeypatch.setattr(jax, "process_count", lambda: 2)
+    monkeypatch.setattr(jax, "devices", lambda: list(devs))
+    for rank in (0, 1):
+        monkeypatch.setattr(distributed, "world", lambda rank=rank: (rank, 2))
+        for lease in [(1, 2), (3, 5), (4, 7), (0, 6), tuple(range(8)), (9,)]:
+            want = jlease(lease)
+            got = pmesh.lease_devices(lease, devices=devs)
+            if want is None:
+                assert got is None
+                continue
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                if w.process_index == rank:
+                    assert g == torch.device("cuda", w.id - 4 * rank)
+                else:
+                    assert g == pmesh.RemoteChip(w.process_index, w.id)
     monkeypatch.setattr(distributed, "world", lambda: (1, 2))
-    assert [d.id for d in pmesh.lease_devices((4, 7), devices=devs)] == [0, 3]
+    assert pmesh.lease_devices((4, 7), devices=devs) == [
+        torch.device("cuda", 0), torch.device("cuda", 3)]
+    assert pmesh.lease_devices((3, 5), devices=devs) == [
+        pmesh.RemoteChip(0, 3), torch.device("cuda", 1)]
 
 
 # ---------------------------------------------- sharded = single-device, bits
