@@ -4,15 +4,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives nineteen paths (seven of the library search, the job
+nvcc and drives twenty paths (seven of the library search, the job
 path, the service, the service's read path and stream ingest, a
 device-mode isotope search under the profiler, the main path on meshes of
 devices, a replica takeover, the kernel-build primer beside the elastic
 fleet, the operator's gates: a cold replica, the compile census and
-device chaos, the load sweep beside host chaos, and the main path on a
-mesh spanning two processes), each with the kernel launch counts set to 0
-just before it and read just after (phases 18's and 19's in their own
-processes, which start with none):
+device chaos, the load sweep beside host chaos, the main path on a mesh
+spanning two processes, and the numerics sentinel with two OOM cases),
+each with the kernel launch counts set to 0 just before it and read just
+after (phases 18's, 19's and 20b's in their own processes, which start
+with none):
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -231,7 +232,31 @@ processes, which start with none):
   two cells) and nothing else; each prints its parse,
   set-up and score seconds, its transport, its cross-process bytes a batch
   and its device peak, and the phase what it added to the script.  A
-  deadline of 600 s only ends a hang.
+  deadline of 600 s only ends a hang;
+- the numerics contracts and two OOM cases (phase 20; 20a, 20c and 20d
+  run right after phase 10, on its shared m/z sort): 20a
+  ``drivers/ulp_sentinel``'s measure on ``cuda:0`` (the off-lattice 9x11
+  fixture through the masked moments and packed chaos kernels, and fused
+  over a bf16 cube through the fused kernel, against the numpy oracle) and
+  its gate against the committed ``NUMERICS_H100_r*.json``: FDR ranks
+  identical, chaos / spatial / spectral / msm within 0 / 16 / 16 / 32
+  ulp, the fused bf16 drift within ``compact_cube``'s contract, and the
+  history band, all hard; 20b ``drivers/isocalc_smoke --device cuda`` as
+  a subprocess beside phase 15 (serial and 2-worker pool tables equal and
+  their shards byte-identical, in oracle and device mode); 20c an OOM
+  beside a resident backend: two ``SearchJob``s over one
+  ``DatasetResidency(2, 2)``, job B (phase 3's ions) under a memory
+  fraction at the midpoint of its measured 2048 / 1024 peaks with job A's
+  backend resident, backed off to at most 1024, bit-equal to phase 3,
+  then A's next job a backend hit with no set-up, bit-equal; 20d an OOM
+  inside the fused wrapper's ``principal`` allocation: phase 6's search
+  under a cap between the bytes measured at the wrapper's entry and the
+  same plus ``principal`` (or, where the measured bytes leave no such cap,
+  its figures printed as not provoked), the OOM's traceback in
+  ``ops/score.py``'s ``fused_window_moments``, no launch counted for it,
+  backed off to at most 1024, bit-equal to phase 6, every kernel held to
+  its plain version after it.  The fraction returns to 1.0 in a
+  ``finally``; counts, states and bits decide, no wall-clock bound.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -267,8 +292,10 @@ phase 16b's job on its replica in ``fleet_launches``, 17a's cold job on
 its replica in ``coldstart_launches``, 17b's three census jobs in
 ``census_launches``, 17c's three chaos jobs in
 ``device_chaos_launches``, 18a's sweep in ``load_sweep_launches``,
-18b's three host-chaos jobs in ``host_chaos_launches`` and phase 19's
-searches by process in ``pod_launches``), its error against
+18b's three host-chaos jobs in ``host_chaos_launches``, phase 19's
+searches by process in ``pod_launches``, 20a's sentinel in
+``numerics_launches`` and 20c's job B and 20d's search in
+``oom_launches``), its error against
 the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 port beside it, the script exits non-zero and prints no result.
@@ -306,8 +333,10 @@ F64_OPS_PER_S = 34e12
 # the centered norms within 16 ulp, the centered dots within 16 ulp of the
 # scale they are divided by in the correlation (sqrt(normsq0 * normsq_k))
 MOMENT_ULPS = 16
-# the MSM component contracts (chaos, spatial, spectral, msm) in ulp
-CONTRACT = {"chaos": 0, "spatial": 16, "spectral": 16, "msm": 32}
+# the MSM component contracts (chaos, spatial, spectral, msm) in ulp: the
+# port's ``analysis/numerics.COMPONENT_CONTRACTS``, read in main() once the
+# package is known to sit beside this script
+CONTRACT: dict = {}
 
 # full-width main path: the JAX bench's scale geometry
 NROWS = NCOLS = 256
@@ -1875,6 +1904,7 @@ def phase_fused(ds, truth, search, ds_cfg, main: dict,
              "max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
              "bound_ms": bound, "bound_by": by, "library_ms": None}
     summary = {"wall_s": wall, "timings": tim, "peak_bytes": peak,
+               "bundle": bundle,
                "ions_per_s": table.n_ions / tim["score"],
                "ulp_to_main": gaps, "moments_gaps": mom_gaps,
                "batch_ms": {"histogram": hist_ms, "kernel": kern_ms,
@@ -2570,16 +2600,21 @@ class _SortedLayoutOnce:
     resident arrays.  Keeps the phase's many searches within its time; the
     walls of those searches leave the sort out (step 10.1's searches run
     the port's own set-up, sort included).  The sort is taken on entry,
-    outside every timed search."""
+    outside every timed search.  ``memo`` (a dict) keeps the sort past
+    the block, for a later phase on the same dataset (phase 20)."""
 
-    def __init__(self, ds, ppm: float):
+    def __init__(self, ds, ppm: float, memo: dict | None = None):
         self._ds, self._ppm = ds, ppm
+        self._memo = {} if memo is None else memo
 
     def __enter__(self):
         from sm_distributed_tpu_torch.models import msm_torch
 
         self._mod, self._orig = msm_torch, msm_torch.prepare_flat_sorted_arrays
-        memo = {(id(self._ds), self._ppm): self._orig(self._ds, self._ppm)}
+        memo = self._memo
+        key = (id(self._ds), self._ppm)
+        if key not in memo:
+            memo[key] = self._orig(self._ds, self._ppm)
 
         def once(ds, ppm):
             key = (id(ds), ppm)
@@ -2712,13 +2747,14 @@ def _kernels_held(backend, table) -> dict:
         backend, table, ions=PLAIN_IONS)}
 
 
-def phase_resilience(card: str, ds, truth, search, ds_cfg, main: dict
-                     ) -> dict:
+def phase_resilience(card: str, ds, truth, search, ds_cfg, main: dict,
+                     sorts: dict | None = None) -> dict:
     """Phase 10: checkpoint and resume, a real CUDA OOM backed off from,
     the breaker and the fault taxonomy by injection, and bf16 / int8
     resident cubes, on the main path's dataset and ions.  Every line
     carries the card's name and power limit.  Returns each path's launch
-    counts and the figures the summary prints."""
+    counts and the figures the summary prints.  ``sorts`` keeps the shared
+    m/z sort for phase 20."""
     import gc as pygc
 
     from sm_distributed_tpu_torch.models import breaker, oom
@@ -2792,7 +2828,7 @@ def phase_resilience(card: str, ds, truth, search, ds_cfg, main: dict
     out["resume"]["score_s"] = bundle.timings["score"]
     _breaker_closed(0, "10.1")
 
-    with _SortedLayoutOnce(ds, ds_cfg.image_generation.ppm):
+    with _SortedLayoutOnce(ds, ds_cfg.image_generation.ppm, sorts):
 
         # -- 2. a real CUDA OOM ------------------------------------------
         t0 = time.perf_counter()
@@ -3031,6 +3067,379 @@ def phase_resilience(card: str, ds, truth, search, ds_cfg, main: dict
     took = time.perf_counter() - t_phase
     out["seconds"] = took
     say(f"phase 10 resilience and compact cubes [{card}]: {took:.1f} s")
+    return out
+
+
+# ------------------------------------------- phase 20 numerics and two OOMs
+MIB = 1 << 20
+# 20d: the cap lies at least this far from each measured side
+OOM_MARGIN = 128 * MIB
+
+
+def phase_numerics(card: str) -> dict:
+    """20a: ``drivers/ulp_sentinel``'s measure on ``cuda:0`` (the
+    off-lattice 9x11 fixture through the masked moments and packed chaos
+    kernels, and fused over a bf16 cube through the fused kernel, against
+    the numpy oracle), then its gate against the committed
+    ``NUMERICS_H100_r*.json``: FDR ranks identical, each component within
+    its contract, the fused bf16 drift within ``compact_cube``'s, and the
+    history band, all hard."""
+    import glob
+
+    from sm_distributed_tpu_torch.drivers import ulp_sentinel
+
+    t0 = time.perf_counter()
+    history = sorted(glob.glob(str(ROOT / ulp_sentinel.HISTORY_GLOB)))
+    assert history, f"no committed {ulp_sentinel.HISTORY_GLOB}"
+    torch.cuda.synchronize()
+    reset_launches()
+    art = ulp_sentinel.measure(device="cuda:0")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    rc = ulp_sentinel.gate(art, history, 0.5, 1, "phase 20a")
+    assert rc == 0, f"20a: the ULP sentinel's gate returned {rc}"
+    assert art["fdr_ranks_identical"] and art["fdr_ranks_identical_fused"]
+    assert art["lattice_rows"] > art["dataset_rows"], art["lattice_rows"]
+    for name in ("moments", "chaos", "fused_window_moments"):
+        assert launches[name] > 0, f"20a: {name} never launched {launches}"
+    took = time.perf_counter() - t0
+    say(f"  [{card}] 20a ULP sentinel on cuda:0 ({art['n_ions']} ions, "
+        f"lattice rows {art['lattice_rows']} over {art['dataset_rows']}): "
+        f"drift by component {json.dumps(art['sm_numerics_max_ulp'])} "
+        f"(contracts {json.dumps(art['component_contracts'])}), fused bf16 "
+        f"{json.dumps(art['sm_numerics_max_ulp_fused'])} (compact_cube "
+        f"{art['cube_contract_ulps']}); FDR ranks identical on both; "
+        f"banded against {[Path(h).name for h in history]}; "
+        f"{art['declared_contracts']} contracts in "
+        f"{art['declared_modules']} modules; card {art['card']}, "
+        f"{art['power_limit']}; launches {launches} ({took:.1f} s)")
+    return {"launches": launches, "phase_s": took,
+            "drift": art["sm_numerics_max_ulp"],
+            "drift_fused": art["sm_numerics_max_ulp_fused"]}
+
+
+def phase_isocalc_pool_start(tmp: Path) -> dict:
+    """20b started: ``drivers/isocalc_smoke --device cuda`` as a subprocess
+    (the fixture's ions serially and through a 2-worker spawn pool, in
+    oracle mode and in device mode on the card)."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    path = tmp / "phase20b.log"
+    log = open(path, "w")
+    return {"t0": time.perf_counter(), "log": log, "path": path,
+            "proc": subprocess.Popen(
+                [sys.executable, "-m",
+                 "sm_distributed_tpu_torch.drivers.isocalc_smoke",
+                 "--device", "cuda"],
+                stdout=log, stderr=subprocess.STDOUT, env=env,
+                cwd=str(ROOT))}
+
+
+def phase_isocalc_pool_join(card: str, run: dict) -> dict:
+    """20b joined: the smoke exited 0 with both modes' serial and pool
+    tables equal and their shards byte-identical.  A deadline only ends a
+    hang."""
+    try:
+        rc = run["proc"].wait(timeout=SWEEP_DEADLINE_S)
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait(timeout=30)
+        run["log"].close()
+    text = run["path"].read_text()
+    assert rc == 0, f"20b: isocalc_smoke exited {rc}\n" + text[-3000:]
+    line = next((ln for ln in text.splitlines()
+                 if ln.startswith("isocalc_smoke: OK")), "")
+    assert "oracle mode" in line and "device mode on cuda" in line, text
+    say(f"  [{card}] 20b {line}")
+    return {"phase_s": round(time.perf_counter() - run["t0"], 1)}
+
+
+class _FusedEntry:
+    """Wraps the fused wrapper where the flat fused step calls it
+    (``models.msm_torch.fused_window_moments``): ``measure`` keeps the
+    device bytes allocated and the peak at the call's entry (just before
+    the wrapper's own allocations) and the bytes of the ``principal`` rows
+    it allocates; ``observe`` keeps, for each CUDA OOM raised inside it,
+    its traceback's frames (file and function names only: the exception
+    and its frames are not held) and the launch count before and after."""
+
+    def __init__(self):
+        from sm_distributed_tpu_torch.models import msm_torch
+        from sm_distributed_tpu_torch.ops import score
+
+        self._mod, self._score = msm_torch, score
+        self._orig = msm_torch.fused_window_moments
+        self.entries, self.ooms = [], []
+
+    def __enter__(self):
+        def wrapped(whp, starts, r_lo_loc, r_hi_loc, n_real, *, gc_width, k):
+            n_chunks, wc = r_lo_loc.shape
+            self.entries.append({
+                "allocated": torch.cuda.memory_allocated(),
+                "peak": torch.cuda.max_memory_allocated(),
+                "principal_bytes": n_chunks * (wc // k) * whp.shape[1] * 4})
+            before = self._score.fused_window_moments.launches
+            try:
+                return self._orig(whp, starts, r_lo_loc, r_hi_loc, n_real,
+                                  gc_width=gc_width, k=k)
+            except torch.OutOfMemoryError as exc:
+                import traceback
+
+                self.ooms.append({
+                    "frames": [f"{Path(f.filename).name}::{f.name}"
+                               for f in traceback.extract_tb(
+                                   exc.__traceback__)],
+                    "launches_before": before,
+                    "launches_after":
+                        self._score.fused_window_moments.launches})
+                raise
+
+        self._mod.fused_window_moments = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.fused_window_moments = self._orig
+        return False
+
+
+def phase_ooms(card: str, ds, truth, search, ds_cfg, main: dict,
+               fused_bundle, tmp: Path, sorts: dict) -> dict:
+    """20c and 20d, on the main path's dataset with phase 10's shared m/z
+    sort.
+
+    20c, an OOM beside a resident backend: two ``SearchJob``s over one
+    ``DatasetResidency(max_datasets=2, max_backends=2)``, A on the first
+    ``BREAKER_FORMULAS`` formulas, B on phase 3's; the residency's dataset
+    slot holds the main path's arrays (phase 3b held the imzML's parse
+    equal to them), so no job parses.  With A resident, a fresh backend of
+    B's ions scores a batch of 2048 and one of 1024; the memory fraction
+    goes to the midpoint of their device peaks (a gap of at least 512
+    MiB), and job B must raise a CUDA OOM, back off to at most 1024 and
+    store annotations bit-equal to phase 3's, with the breaker closed;
+    then (the fraction 1.0 again) A's next job is a backend hit, with no
+    new set-up, bit-equal to A's first.
+
+    20d, an OOM inside a kernel wrapper's allocation: phase 6's search
+    (``fused_metrics="on"``).  A fresh fused backend measures, at a batch
+    of 2048, the bytes allocated and the peak at the fused wrapper's entry
+    and the ``principal`` rows it allocates, and the whole batch's peak at
+    1024.  The cap lies at least ``OOM_MARGIN`` above both peaks and as
+    far below the bytes allocated at the entry plus ``principal``: the
+    allocated bytes, not the entry's peak, decide whether the allocation
+    fits, and they are at most the peak.  The search must raise a CUDA OOM
+    with a frame in ``ops/score.py``'s ``fused_window_moments``, launch
+    nothing in the failed call, back off to at most 1024 with one fused
+    launch a batch, and give annotations bit-equal to phase 6's, with the
+    breaker closed; then each kernel, launched again, is held to its plain
+    version.  Where the measured bytes leave no such cap, the figures are
+    printed and 20d is recorded as not provoked."""
+    import gc as pygc
+
+    from sm_distributed_tpu_torch.engine.residency import DatasetResidency
+    from sm_distributed_tpu_torch.engine.search_job import SearchJob
+    from sm_distributed_tpu_torch.models import oom
+    from sm_distributed_tpu_torch.models.msm_basic import (
+        MSMBasicSearch,
+        _slice_table,
+    )
+    from sm_distributed_tpu_torch.models.msm_torch import TorchBackend
+    from sm_distributed_tpu_torch.utils.config import SMConfig
+
+    from sm_distributed_tpu_torch.models import breaker
+
+    t_phase = time.perf_counter()
+    refused = breaker.refused_count()       # step 10.3's: none added here
+    total = torch.cuda.get_device_properties(0).total_memory
+    table = search.last_table
+    b0 = _slice_table(table, 0, 2048)
+    out = {"launches": {}}
+
+    def line(msg: str) -> None:
+        say(f"  [{card}] {msg}")
+
+    def peaks_of(sm, batches) -> dict:
+        """A fresh backend of phase 3's ions: the device peak of batch 0
+        at each size (the backend's residents included)."""
+        backend = TorchBackend(ds, ds_cfg, sm, restrict_table=table)
+        got = {}
+        for batch in batches:
+            backend.shrink_batch(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            backend.score_batches([_slice_table(b0, 0, batch)])
+            torch.cuda.synchronize()
+            got[batch] = torch.cuda.max_memory_allocated()
+        del backend
+        pygc.collect()
+        torch.cuda.empty_cache()
+        return got
+
+    class _MainResidency(DatasetResidency):
+        def dataset(self, key, loader):
+            return super().dataset(key, lambda: ds)
+
+    with _SortedLayoutOnce(ds, ds_cfg.image_generation.ppm, sorts):
+        # -- 20c: an OOM beside a resident backend ------------------------
+        t0 = time.perf_counter()
+        imzml = tmp / "main_path.imzML"
+        sm = SMConfig.from_dict({
+            "device": "cuda", "work_dir": str(tmp / "work"),
+            "fdr": {"decoy_sample_size": 20},
+            "storage": {"results_dir": str(tmp / "results_20c"),
+                        "store_images": False}})
+        residency = _MainResidency(max_datasets=2, max_backends=2)
+
+        def job(formulas):
+            return SearchJob("oom20c", "phase 20c", imzml, ds_cfg, sm,
+                             formulas=formulas, residency=residency)
+
+        few = truth.formulas[:BREAKER_FORMULAS]
+        a_first = job(few).run()
+        assert residency.stats["backend_misses"] == 1, residency.stats
+        peaks = peaks_of(sm, (2048, 1024))
+        gap = peaks[2048] - peaks[1024]
+        assert gap >= 512 * MIB, (
+            f"20c: no memory fraction separates a batch of 2048 "
+            f"({peaks[2048]} B at peak) from one of 1024 ({peaks[1024]} B)")
+        cap = peaks[1024] + gap // 2
+        key = oom.shape_key(ds.n_pixels, "torch_cuda", None)
+        oom.reset()
+        torch.cuda.set_per_process_memory_fraction(cap / total, 0)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            b_bundle = job(truth.formulas).run()
+            torch.cuda.synchronize()
+            launches_c = read_launches()
+            events = oom.snapshot()["events"]
+            learned = oom.safe_batch_for(key)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, 0)
+            oom.reset()
+        assert events >= 1, "20c: no CUDA OOM was raised"
+        assert learned is not None and learned <= 1024, learned
+        _same_frame(b_bundle.annotations.reset_index(drop=True),
+                    main["bundle"].annotations.reset_index(drop=True),
+                    "20c job B annotations")
+        _breaker_closed(refused, "20c job B")
+        n_b = -(-table.n_ions // learned)
+        assert launches_c["moments"] >= n_b and \
+            launches_c["chaos"] >= n_b, launches_c
+        stats = dict(residency.stats)
+        a_again = job(few).run()
+        after = residency.stats
+        assert after["backend_hits"] == stats["backend_hits"] + 1 and \
+            after["backend_misses"] == stats["backend_misses"], (stats, after)
+        _same_frame(a_again.annotations.reset_index(drop=True),
+                    a_first.annotations.reset_index(drop=True),
+                    "20c job A again")
+        _same_frame(a_again.all_metrics.reset_index(drop=True),
+                    a_first.all_metrics.reset_index(drop=True),
+                    "20c job A's metrics again")
+        _breaker_closed(refused, "20c job A again")
+        out["launches"]["20c"] = launches_c
+        out["20c"] = {"peak_2048_bytes": peaks[2048],
+                      "peak_1024_bytes": peaks[1024], "cap_bytes": cap,
+                      "fraction": cap / total, "oom_events": events,
+                      "learned_batch": learned, "residency": dict(after),
+                      "seconds": time.perf_counter() - t0}
+        line(f"20c OOM beside a resident backend: job A "
+             f"({len(few)} formulas) resident; B's peaks {peaks[2048]} B at "
+             f"2048 and {peaks[1024]} B at 1024 with A resident; cap {cap} B "
+             f"(fraction {cap / total:.6f} of {total} B); job B raised "
+             f"{events} OOM(s), learned batch {learned}, annotations "
+             f"bit-equal to phase 3, breaker closed (launches "
+             f"{launches_c}); fraction 1.0 again, A's next job a backend "
+             f"hit with no set-up, bit-equal; residency {after} "
+             f"({out['20c']['seconds']:.1f} s)")
+        del residency, a_first, a_again, b_bundle
+        pygc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 20d: an OOM inside the fused wrapper's allocation ------------
+        t0 = time.perf_counter()
+        sm_fused = SMConfig.from_dict({"fdr": {"decoy_sample_size": 20},
+                                       "parallel": {"fused_metrics": "on"}})
+        with _FusedEntry() as probe:
+            peaks = peaks_of(sm_fused, (2048, 1024))
+        entry = probe.entries[0]
+        lo = max(entry["peak"], peaks[1024]) + OOM_MARGIN
+        hi = entry["allocated"] + entry["principal_bytes"] - OOM_MARGIN
+        figures = {"allocated_at_entry_2048": entry["allocated"],
+                   "peak_at_entry_2048": entry["peak"],
+                   "principal_bytes_2048": entry["principal_bytes"],
+                   "peak_2048_bytes": peaks[2048],
+                   "peak_1024_bytes": peaks[1024],
+                   "cap_low_bytes": lo, "cap_high_bytes": hi}
+        if lo > hi:
+            out["launches"]["20d"] = None
+            out["20d"] = {"provoked": False, **figures,
+                          "seconds": time.perf_counter() - t0}
+            out["phase_s"] = time.perf_counter() - t_phase
+            line(f"20d not provoked: at 2048 the fused wrapper's entry has "
+                 f"{entry['allocated']} B allocated (peak {entry['peak']} B) "
+                 f"and allocates {entry['principal_bytes']} B of principal "
+                 f"rows; the whole batch of 1024 peaks at {peaks[1024]} B: "
+                 f"no cap {OOM_MARGIN} B from both sides ({figures})")
+            return out
+        cap = (lo + hi) // 2
+        oom.reset()
+        run = MSMBasicSearch(ds, truth.formulas, ds_cfg, sm_fused)
+        run.isocalc = search.isocalc
+        torch.cuda.set_per_process_memory_fraction(cap / total, 0)
+        try:
+            with _FusedEntry() as seen:
+                bundle, wall, launches_d, _peak = _search_run(run)
+            events = oom.snapshot()["events"]
+            learned = oom.safe_batch_for(key)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, 0)
+            oom.reset()
+        in_wrapper = [o for o in seen.ooms
+                      if "score.py::fused_window_moments" in o["frames"]]
+        assert events >= 1 and in_wrapper, (
+            f"20d: no OOM inside fused_window_moments ({seen.ooms}, "
+            f"{events} events)")
+        assert all(o["launches_after"] == o["launches_before"]
+                   for o in in_wrapper), in_wrapper
+        assert learned is not None and learned <= 1024, learned
+        n_b = -(-table.n_ions // learned)
+        assert launches_d["fused_window_moments"] == n_b and \
+            launches_d["chaos"] == n_b and launches_d["moments"] == 0, (
+                launches_d, n_b)
+        _bit_equal(bundle, fused_bundle, "20d fused search after the OOM")
+        _breaker_closed(refused, "20d")
+        # the fused kernel on the search's backend, the moments and packed
+        # chaos kernels on phase 3's
+        t_b0 = _slice_table(table, 0, learned)
+        held = {**_kernels_held(run.last_backend, t_b0),
+                **_kernels_held(search.last_backend, t_b0)}
+        del run, bundle
+        pygc.collect()
+        torch.cuda.empty_cache()
+    out["launches"]["20d"] = launches_d
+    out["20d"] = {"provoked": True, **figures, "cap_bytes": cap,
+                  "fraction": cap / total, "oom_events": events,
+                  "ooms_in_wrapper": len(in_wrapper),
+                  "oom_frames": in_wrapper[0]["frames"],
+                  "learned_batch": learned, "wall_s": wall, **held,
+                  "seconds": time.perf_counter() - t0}
+    line(f"20d OOM inside the fused wrapper's allocation: at 2048 its entry "
+         f"has {entry['allocated']} B allocated (peak {entry['peak']} B) and "
+         f"allocates {entry['principal_bytes']} B of principal rows; the "
+         f"batch of 1024 peaks at {peaks[1024]} B; cap {cap} B (fraction "
+         f"{cap / total:.6f}); the search raised {events} OOM(s), "
+         f"{len(in_wrapper)} in fused_window_moments (frames "
+         f"{in_wrapper[0]['frames'][-3:]}), the failed call launched "
+         f"nothing, learned batch {learned}, launches {launches_d}, "
+         f"annotations bit-equal to phase 6, breaker closed; every kernel "
+         f"again vs plain {json.dumps(held)} "
+         f"({out['20d']['seconds']:.1f} s)")
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -5762,13 +6171,17 @@ def main() -> int:
         print("chip_smoke: the sm_distributed_tpu_torch package is not beside "
               "this script", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(ROOT))
+    from sm_distributed_tpu_torch.analysis.numerics import (
+        COMPONENT_CONTRACTS,
+    )
+
+    CONTRACT.update(COMPONENT_CONTRACTS)
     if opts.pod_worker:
         return pod_worker(Path(opts.pod_worker))
     if opts.pod_only:
-        sys.path.insert(0, str(ROOT))
         return pod_only()
     t_script = time.perf_counter()
-    sys.path.insert(0, str(ROOT))
     from sm_distributed_tpu_torch.models.msm_basic import _slice_table
 
     took = {}                       # seconds from the start, by phase
@@ -5810,6 +6223,7 @@ def main() -> int:
     lap("golden")
     _breaker_closed(0, "phase 5")
     fused_entry, fused = phase_fused(ds, truth, search, ds_cfg, main, ab)
+    fused_bundle = fused.pop("bundle")      # phase 20d's reference
     lap("fused")
     _breaker_closed(0, "phase 6")
     torch.cuda.empty_cache()
@@ -5821,8 +6235,18 @@ def main() -> int:
     lap("preprocessed")
     _breaker_closed(0, "phase 7b")
     torch.cuda.empty_cache()
-    resilience = phase_resilience(card, ds, truth, search, ds_cfg, main)
+    sorts: dict = {}                    # phase 10's m/z sort, for 20c-d
+    resilience = phase_resilience(card, ds, truth, search, ds_cfg, main,
+                                  sorts)
     lap("resilience")
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    numerics20 = phase_numerics(card)
+    ooms20 = phase_ooms(card, ds, truth, search, ds_cfg, main, fused_bundle,
+                        Path(job_dir.name), sorts)
+    t20 = time.perf_counter() - t20
+    del sorts, fused_bundle
+    lap("numerics_ooms")
     torch.cuda.empty_cache()
     before_11 = _recorded_specs()
     service = phase_service(card, Path(job_dir.name), truth, main)
@@ -5867,6 +6291,8 @@ def main() -> int:
     # phase 18's two gates run beside it, each a subprocess of its own
     t18 = time.perf_counter()
     sweeps = phase_sweeps_start(Path(job_dir.name))
+    # phase 20b's isocalc pool gate, a subprocess beside them
+    pool20 = phase_isocalc_pool_start(Path(job_dir.name))
     try:
         takeover = phase_takeover(card, Path(job_dir.name), truth, main)
         lap("takeover")
@@ -5879,7 +6305,7 @@ def main() -> int:
         chaos17 = phase_device_chaos(card, Path(job_dir.name))
         _breaker_closed(2, "phase 17c")
     except BaseException:
-        for run in sweeps.values():
+        for run in [*sweeps.values(), pool20]:
             run["proc"].kill()
             run["proc"].wait(timeout=30)
         raise
@@ -5898,7 +6324,22 @@ def main() -> int:
     t_join18 = time.perf_counter()
     gates18 = phase_sweeps_join(card, sweeps)
     waited_18 = time.perf_counter() - t_join18
+    t_join20 = time.perf_counter()
+    pool = phase_isocalc_pool_join(card, pool20)
+    waited_20b = time.perf_counter() - t_join20
     lap("sweeps")
+    say(f"phase 20 the numerics contracts and two OOMs [{card}]: "
+        f"{t20 + waited_20b:.1f} s added to the script (20a "
+        f"{numerics20['phase_s']:.1f} s, 20c {ooms20['20c']['seconds']:.1f} "
+        f"s, 20d {ooms20['20d']['seconds']:.1f} s, the wait for 20b "
+        f"{waited_20b:.1f} s); 20b's own {pool['phase_s']:.1f} s ran beside "
+        "phases 15-18; drift within the contracts and the H100 history, "
+        "the pool's shards byte-identical in both modes, an OOM beside a "
+        "resident backend backed off bit-equal with the backend still "
+        "resident, "
+        + ("an OOM inside the fused wrapper's allocation backed off "
+           "bit-equal" if ooms20["20d"]["provoked"] else
+           "20d not provoked (its figures above)"))
     say(f"phase 18 the load sweep and host chaos [{card}]: "
         f"{waited_18:.1f} s added to the script (the wait for 18a and 18b "
         f"after phase 17c); 18a's own {gates18['18a']['phase_s']:.1f} s and "
@@ -6011,6 +6452,9 @@ def main() -> int:
                  if k not in ("trace_file", "build_dir")},
          "17b": census, "17c": chaos17, "17d": reports}))
     say(f"load sweep and host chaos [{card}]: " + json.dumps(gates18))
+    say(f"numerics contracts and two OOMs [{card}]: " + json.dumps(
+        {"20a": {k: v for k, v in numerics20.items() if k != "launches"},
+         "20b": pool, "20c": ooms20["20c"], "20d": ooms20["20d"]}))
     say(f"device patterns and the profiler [{card}]: " + json.dumps(
         {"13a": patterns13, "13b": {k: v for k, v in profiled.items()
                                     if k != "attribution"},
@@ -6046,6 +6490,10 @@ def main() -> int:
         entry["pod_launches"] = {
             case: [by_rank[entry["name"]] for by_rank in got["launches"]]
             for case, got in pod.items()}
+        entry["numerics_launches"] = numerics20["launches"][entry["name"]]
+        entry["oom_launches"] = {
+            case: None if counts is None else counts[entry["name"]]
+            for case, counts in ooms20["launches"].items()}
     _breaker_closed(2, "the script")
     say(f"  [{card}] 10.4 no host fallback: after every phase the device "
         "breaker was closed, the two refused jobs are step 10.3's, and no "

@@ -33,7 +33,13 @@ sm_distributed_tpu_torch.drivers.<name>``: copies of the JAX package's
   ``/fleet/*`` partial view and the fleet SLO bit-equal to the survivors'
   buckets, then a profile capture during a fused job;
 - ``prime_cache``: the kernel-build primer offline over the recorded
-  bucket specs, one JSON summary line.
+  bucket specs, one JSON summary line;
+- ``ulp_sentinel``: the numerics contracts' runtime half, the fixture's
+  per-component ULP drift against the numpy oracle gated by the contracts
+  and banded against the committed ``NUMERICS_H100_r*.json`` (its band
+  helpers are ``perf_sentinel``'s);
+- ``isocalc_smoke``: the isotope-pattern pool gate, serial and 2-worker
+  tables equal and their cache shards byte-identical.
 
 The service drivers run on ``torch_cuda`` on the card unless asked for
 ``--device cpu`` or ``--backend numpy_ref`` (:func:`add_device_arguments`;

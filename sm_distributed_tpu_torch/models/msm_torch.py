@@ -53,6 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..analysis.numerics import numerics_surface
 from ..io.dataset import SpectralDataset
 from ..ops import buckets as shape_buckets
 from ..ops.imager import (
@@ -85,6 +86,38 @@ from ..ops.quantize import (
 )
 from ..utils import tracing
 from ..utils.config import DSConfig, SMConfig
+
+# Numerics contracts (analysis/numerics.py), the JAX package's
+# ``models/msm_jax.py`` sites by the port function that computes each (its
+# moments, chaos, correlation, pattern-match and cube-expansion sites are
+# declared by ops/moments.py, ops/metrics.py and ops/quantize.py).  The
+# band and compact variants take no padded= clause: they pad nothing.
+NUMERICS = numerics_surface(__name__, {
+    "score_chunked":
+        "contract=ulp(8); test=tests/test_torch_numerics.py::"
+        "test_chunked_step_holds_its_contract",
+    "score_flat_plain":
+        "contract=ulp(16); test=tests/test_torch_numerics.py::"
+        "test_flat_step_holds_its_contracts; padded=pixel_sorted,int_sorted",
+    "score_flat_compact":
+        "contract=bit_exact; test=tests/test_torch_variants.py::"
+        "test_variants_match_plain_and_jax",
+    "score_flat_sliced":
+        "contract=bit_exact; test=tests/test_torch_variants.py::"
+        "test_variants_match_plain_and_jax",
+    "score_flat_fused":
+        "contract=ulp(16); test=tests/test_torch_numerics.py::"
+        "test_fused_step_holds_its_contract; padded=pixel_sorted,int_sorted",
+    "TorchBackend.extract_ion_images":
+        "contract=bit_exact; test=tests/test_torch_job.py::"
+        "test_extract_ion_images_matches_jax_and_numpy",
+    "extract_images_flat_banded":
+        "contract=bit_exact; test=tests/test_torch_extract.py::"
+        "test_extraction_bit_equal",
+    "TorchBackend.image_block":
+        "contract=bit_exact; test=tests/test_torch_cube.py::"
+        "test_cube_image_block_is_the_scored_block",
+})
 
 logger = logging.getLogger(__name__)
 

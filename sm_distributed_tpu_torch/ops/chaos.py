@@ -54,7 +54,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..analysis.numerics import numerics_surface
 from ..kernels import _build
+
+# Numerics contracts (analysis/numerics.py), the JAX package's
+# ``ops/chaos_pallas.py`` sites.  The CPU tests hold the plain twins; the
+# kernels' proof is on the card (chip_smoke.py phases 4, 8 and 20: each
+# kernel bit-equal to its plain version).
+NUMERICS = numerics_surface(__name__, {
+    "chaos_count_sums":
+        "contract=bit_exact; test=tests/test_torch_chaos.py::"
+        "test_plain_matches_scipy",
+    "chaos_count_sums_strips":
+        "contract=bit_exact; test=tests/test_torch_chaos.py::"
+        "test_plain_matches_strip_kernel_interpret",
+})
 
 # the JAX package's packed-kernel budgets (ops/chaos_pallas.py), in cells:
 # the routing decision is kept identical so the two packages agree on which

@@ -45,7 +45,17 @@ import time
 import numpy as np
 import torch
 
+from ..analysis.numerics import numerics_surface
 from .isocalc import SEGMENT_GRID_CAP
+
+# Numerics contract (analysis/numerics.py), the JAX package's
+# ``ops/isocalc_jax.py`` ``run``: the blur and centroid outputs within 128
+# ulp of the JAX package's kernel (indices and fallbacks exact).
+NUMERICS = numerics_surface(__name__, {
+    "blur_centroid":
+        "contract=ulp(128); test=tests/test_torch_isocalc_device.py::"
+        "test_blur_centroid_matches_jax_kernel",
+})
 
 # per-segment state-count buckets, finer at the small end where the
 # distribution mass lives (per-segment states p50=10, p90=28 on the full-DB

@@ -17,9 +17,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..analysis.numerics import numerics_surface
 from .chaos import chaos_count_sums, chaos_count_sums_torch
 from .metrics_np import hotspot_clip, hotspot_percentile_f32  # noqa: F401
 from .moments import batch_moments, batch_moments_torch
+
+# Numerics contracts (analysis/numerics.py), the JAX package's
+# ``ops/metrics_jax.py`` sites.  The flat step's test holds each
+# component at its site's declared bound against the numpy oracle on the
+# fixtures.  The JAX package's ``isotope_image_correlation_batch`` has no
+# site here: spatial always goes through the moments and
+# ``correlation_from_moments``.
+NUMERICS = numerics_surface(__name__, {
+    "batch_metrics":
+        "contract=ulp(16); test=tests/test_torch_numerics.py::"
+        "test_flat_step_holds_its_contracts; padded=images",
+    "measure_of_chaos_batch":
+        "contract=bit_exact; test=tests/test_torch_numerics.py::"
+        "test_flat_step_holds_its_contracts; padded=principal",
+    "hotspot_clip_batch":
+        "contract=bit_exact; test=tests/test_torch_preprocess.py::"
+        "test_hotspot_clip_batch_matches_jax_and_oracle; padded=images",
+    "correlation_from_moments":
+        "contract=ulp(16); test=tests/test_torch_numerics.py::"
+        "test_flat_step_holds_its_contracts",
+    "isotope_pattern_match_batch":
+        "contract=ulp(16); test=tests/test_torch_numerics.py::"
+        "test_flat_step_holds_its_contracts",
+    "batch_metrics_from_partials":
+        "contract=bit_exact; test=tests/test_torch_numerics.py::"
+        "test_epilogue_from_partials_is_batch_metrics; padded=principal",
+})
 
 _TINY = 1e-30   # the JAX package's np.float32(1e-30) denominators floor
 

@@ -34,7 +34,25 @@ from typing import NamedTuple
 
 import torch
 
+from ..analysis.numerics import numerics_surface
 from ..kernels import _build
+
+# Numerics contracts (analysis/numerics.py), the JAX package's
+# ``ops/moments_pallas.py`` sites: the wrapper stands for both Pallas
+# kernels (masked and not) and the dispatching ``batch_moments``.  The CPU
+# test holds the plain twin to f64; the kernel's proof is on the card
+# (chip_smoke.py phases 4, 8 and 20).  The plain twin's contract is looser
+# than the JAX ``batch_moments_jnp``'s bit_exact: torch's reduction order
+# depends on the row length, so lattice pad pixels move the centered
+# sums' last bits.
+NUMERICS = numerics_surface(__name__, {
+    "batch_moments":
+        "contract=ulp(16); test=tests/test_torch_moments.py::"
+        "test_plain_matches_f64; padded=images",
+    "batch_moments_torch":
+        "contract=ulp(16); test=tests/test_torch_moments.py::"
+        "test_plain_matches_f64; padded=images",
+})
 
 _Moments = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor]

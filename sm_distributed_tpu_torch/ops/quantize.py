@@ -18,6 +18,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..analysis.numerics import numerics_surface
+
+# Numerics contracts (analysis/numerics.py), the JAX package's.  bf16
+# compaction rounds the integer grid to 8 significant bits: the drift from
+# the f32 cube is data-level, hence the wide contract; what it must keep
+# is the FDR ranking, identical on the sentinel fixture
+# (drivers/ulp_sentinel.py, whose measure the named test runs).
+NUMERICS = numerics_surface(__name__, {
+    "quantize_mz":
+        "contract=bit_exact; test=tests/test_torch_numerics.py::"
+        "test_quantize_sites_equal_the_jax_packages",
+    "quantize_window":
+        "contract=bit_exact; test=tests/test_torch_host.py::"
+        "test_quantize_window",
+    "quantize_intensities":
+        "contract=bit_exact; test=tests/test_torch_numerics.py::"
+        "test_quantize_sites_equal_the_jax_packages",
+    "intensity_scale":
+        "contract=bit_exact; test=tests/test_torch_numerics.py::"
+        "test_quantize_sites_equal_the_jax_packages",
+    "compact_cube":
+        "contract=ulp(4096); test=tests/test_torch_ulp_sentinel.py::"
+        "test_measure_on_the_cpu_matches_the_jax_side",
+    "expand_cube_range":
+        "contract=bit_exact; test=tests/test_torch_cube_dtype.py::"
+        "test_device_expansion_matches_host",
+})
+
 MZ_SCALE = 1e5  # quantization steps per Da
 MZ_MAX = (2**31 - 2) / MZ_SCALE
 # padding sentinel for m/z cubes: larger than any real quantized m/z

@@ -42,9 +42,20 @@ import ctypes
 import numpy as np
 import torch
 
+from ..analysis.numerics import numerics_surface
 from ..kernels import _build
 from .imager import banded_images
 from .moments import K_MAX, batch_moments_torch, moments_groups, moments_plan
+
+# Numerics contract (analysis/numerics.py), the JAX package's
+# ``ops/score_pallas.py`` site.  The CPU test holds the plain twin to an
+# f64 reference; the kernel's proof is on the card (chip_smoke.py phases
+# 6, 10.5 and 20: the kernel against this plain version).
+NUMERICS = numerics_surface(__name__, {
+    "fused_window_moments":
+        "contract=ulp(16); test=tests/test_torch_fused.py::"
+        "test_plain_matches_dense_reference; padded=whp",
+})
 
 
 def _moment_partials(x: torch.Tensor, n_real: int) -> torch.Tensor:

@@ -72,6 +72,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..analysis.numerics import numerics_surface
 from ..io.dataset import SpectralDataset
 from ..models.msm_torch import (
     COMPACT_NS_PER_SLOT,
@@ -105,6 +106,19 @@ from ..utils import tracing
 from ..utils.config import DSConfig, SMConfig
 from ..utils.logger import logger
 from .mesh import FORMULAS_AXIS, PIXELS_AXIS, Mesh, make_mesh
+
+# Numerics contracts (analysis/numerics.py), the JAX package's: the mesh
+# step and the mesh program are bit-equal to the single-device backend.
+# No padded= clause: the padded shard arrays are the backend's members,
+# not the step's parameters.
+NUMERICS = numerics_surface(__name__, {
+    "ShardedTorchBackend._dispatch":
+        "contract=bit_exact; test=tests/test_torch_parallel.py::"
+        "test_sharded_matches_single_device",
+    "ShardedTorchBackend.score_batches":
+        "contract=bit_exact; test=tests/test_torch_parallel.py::"
+        "test_sharded_window_restriction_bit_exact",
+})
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m

@@ -50,10 +50,20 @@ from pathlib import Path
 
 import torch
 
+from ..analysis.numerics import numerics_surface
 from ..kernels import _build
 from ..ops import buckets as shape_buckets
 from ..ops.chaos import chaos_route, packed_variant, scan_variant
 from ..utils.logger import logger
+
+# Numerics contract (analysis/numerics.py), the JAX package's: priming
+# builds kernels and scores nothing, so a primed spec's results are the
+# unprimed one's.
+NUMERICS = numerics_surface(__name__, {
+    "prime_spec":
+        "contract=bit_exact; test=tests/test_torch_primer.py::"
+        "test_primer_idempotent_and_resumable",
+})
 
 
 def spec_kernels(spec: dict) -> tuple[str, ...]:

@@ -2,9 +2,9 @@
 registry (which attributes each lock guards) declares the same one.
 
 Every registry of the JAX package's service is listed, the primer and
-its bucket-spec registry, the fleet controller and the fleet view
-included; ``PORT_LACKS`` (classes of modules the port does not have) is
-empty.  An entry for state the port's class does not keep is left out of
+its bucket-spec registry, the fleet controller, the fleet view and the
+numerics-contract registry included; ``PORT_LACKS`` (classes of modules
+the port does not have) is empty.  An entry for state the port's class does not keep is left out of
 its registry, listed in ``PORT_OMITS``.
 """
 
@@ -43,6 +43,7 @@ CLASSES = [
     ("ops.buckets", "_SpecRegistry"),
     ("service.fleet", "FleetController"),
     ("service.fleetview", "FleetView"),
+    ("analysis.numerics", "_NumericsRegistry"),
 ]
 PORT_LACKS: set = set()
 # JAX registry entries whose attribute the port's class does not have

@@ -1,8 +1,9 @@
-"""The PyTorch port stands alone: no jax, nothing of the JAX package, and the
-card by default with no CPU fallback.
+"""The PyTorch port stands alone: no jax, nothing of the JAX package or its
+``scripts/`` tooling, and the card by default with no CPU fallback.
 
 - importing every port module (and ``chip_smoke.py``) in a fresh process
-  leaves ``jax`` and ``sm_distributed_tpu`` out of ``sys.modules``;
+  leaves ``jax``, ``sm_distributed_tpu`` and ``scripts`` out of
+  ``sys.modules``;
 - an AST scan of the port's sources finds no such import;
 - the backend, the search and ``serve``, at their default device, raise
   without a GPU;
@@ -25,7 +26,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sm_distributed_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "sm_distributed_tpu")
+# the JAX package, its tooling under scripts/, and jax itself
+FORBIDDEN = ("jax", "jaxlib", "sm_distributed_tpu", "scripts")
 
 
 def _port_modules() -> list[str]:
