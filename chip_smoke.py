@@ -256,7 +256,20 @@ with none):
   ``ops/score.py``'s ``fused_window_moments``, no launch counted for it,
   backed off to at most 1024, bit-equal to phase 6, every kernel held to
   its plain version after it.  The fraction returns to 1.0 in a
-  ``finally``; counts, states and bits decide, no wall-clock bound.
+  ``finally``; counts, states and bits decide, no wall-clock bound;
+- the sync census of the main path (phase 21, right after phase 3, on its
+  resident backend and data): its 3 batches of 2048 re-scored under
+  ``torch.cuda.set_sync_debug_mode("warn")`` through
+  ``analysis/synccensus.SyncCensus``, every sync warning attributed to the
+  innermost frame of the port on its thread's stack; the syncs a batch
+  printed by ``file:line``, the phase failing if a sync in a hot module
+  (``analysis/rules.HOT_MODULES``) sits on a line the ``host-sync`` rule
+  does not see as annotated (a blind spot of the static rule on the main
+  path) or if it saw no sync at all, and the rows bit-equal to phase 3's.
+  The debug mode is restored on the way out; sites, counts and bits
+  decide, no wall-clock bound.  The debug mode flags implicit syncs only,
+  so the census proves the rule has no blind spot there, not that it is
+  complete.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -1295,6 +1308,54 @@ def phase_main_path(ds, truth, search) -> dict:
             "n_ions": table.n_ions, "n_peaks": ds.n_peaks,
             "drift": drift, "recall": recall, "batch_ms": breakdown,
             "bundle": bundle}
+
+
+def phase_sync_census(card: str, search, main: dict) -> dict:
+    """Phase 21: phase 3's batches re-scored on its resident backend under
+    the sync debug mode; the syncs a batch by site, held to the
+    ``host-sync`` rule's annotations, and the rows to phase 3's bits."""
+    from sm_distributed_tpu_torch.analysis.synccensus import (
+        UNATTRIBUTED,
+        SyncCensus,
+        blind_spots,
+    )
+    from sm_distributed_tpu_torch.models.msm_basic import _slice_table
+
+    backend, table = search.last_backend, search.last_table
+    tables = [_slice_table(table, s, min(s + backend.batch, table.n_ions))
+              for s in range(0, table.n_ions, backend.batch)]
+    ref = main["bundle"].all_metrics[
+        ["chaos", "spatial", "spectral", "msm"]].to_numpy()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with SyncCensus() as census:
+        rows = backend.score_batches(tables)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    assert torch.cuda.get_sync_debug_mode() == mode, \
+        "21: the sync debug mode was not restored"
+    sites = census.sites()
+    assert sites, "21: the census saw no sync: its hook is blind"
+    got = np.concatenate(rows)
+    assert np.array_equal(got, ref), \
+        "21: rows under the sync debug mode differ from phase 3's"
+    blind = blind_spots(sites, ROOT)
+    per_batch = {site: n / len(tables) for site, n in sites.items()}
+    say(f"  21 [{card}]: {sum(sites.values())} syncs over "
+        f"{len(tables)} batches ({[t.n_ions for t in tables]} ions), "
+        f"{sum(sites.values()) / len(tables):.2f} a batch, by site "
+        + json.dumps(per_batch)
+        + (f"; {sites[UNATTRIBUTED]} outside the package"
+           if UNATTRIBUTED in sites else ""))
+    assert not blind, (
+        f"21: syncs in hot modules on lines the host-sync rule does not see "
+        f"as annotated: {blind}")
+    say(f"phase 21 sync census [{card}]: {took:.3f} s for "
+        f"{len(tables)} batches under the debug mode; every sync in a hot "
+        "module on an annotated line, rows bit-equal to phase 3")
+    return {"syncs": sites, "per_batch": per_batch, "batches": len(tables),
+            "seconds": took}
 
 
 # the job path's phases, in the order SearchJob runs them
@@ -6196,6 +6257,8 @@ def main() -> int:
     ds, truth, search, ds_cfg = _setup_main_path()
     main = phase_main_path(ds, truth, search)
     lap("main")
+    census21 = phase_sync_census(card, search, main)
+    lap("sync_census")
     prime_specs = _recorded_specs()       # phase 3's, for phase 16a
     _breaker_closed(0, "phase 3")
     backend = search.last_backend
@@ -6455,6 +6518,7 @@ def main() -> int:
     say(f"numerics contracts and two OOMs [{card}]: " + json.dumps(
         {"20a": {k: v for k, v in numerics20.items() if k != "launches"},
          "20b": pool, "20c": ooms20["20c"], "20d": ooms20["20d"]}))
+    say(f"sync census of the main path [{card}]: " + json.dumps(census21))
     say(f"device patterns and the profiler [{card}]: " + json.dumps(
         {"13a": patterns13, "13b": {k: v for k, v in profiled.items()
                                     if k != "attribution"},

@@ -445,7 +445,9 @@ class TorchBackend:
                         "mz_chunk cube path (dense per-pixel rows); scoring "
                         "the full cube")
         mz_q, int_cube = prepare_cube_arrays(ds, ppm=self.ppm)
+        # smlint: host-sync-ok[the cube goes up once, at set-up]
         self._mz_q = torch.from_numpy(mz_q).to(self.device)
+        # smlint: host-sync-ok[the cube goes up once, at set-up]
         self._ints = torch.from_numpy(int_cube).to(self.device)
         self.resident_bytes = {"mz": self._mz_q.nbytes,
                                "intensity": self._ints.nbytes, "scales": 0}
@@ -509,9 +511,11 @@ class TorchBackend:
             in_s = np.concatenate([in_s, np.zeros(tail, in_s.dtype)])
         codes, scales = compact_cube(in_s, self.cube_dtype)
         self._mz_host = mz_s
+        # smlint: host-sync-ok[the resident peaks go up once, at set-up]
         self._px_s = torch.from_numpy(px_s.astype(np.int64)).to(self.device)
         self._in_s = cube_to_device(codes, self.device)
         if scales is not None:
+            # smlint: host-sync-ok[the int8 tile scales go up once, at set-up]
             self._scales = torch.from_numpy(scales).to(self.device)
         self.resident_bytes = {
             "pixel": self._px_s.nbytes, "intensity": self._in_s.nbytes,
@@ -639,6 +643,7 @@ class TorchBackend:
              ) -> torch.Tensor:
         """A host array on the backend's device."""
         t = torch.from_numpy(np.ascontiguousarray(a))
+        # smlint: host-sync-ok[a batch's host plan goes up before its launches]
         return (t if dtype is None else t.to(dtype)).to(self.device)
 
     def _cube_plan(self, table: IsotopePatternTable) -> dict:
@@ -718,6 +723,7 @@ class TorchBackend:
         the same spec in both packages.  The band and compact capacities
         are the JAX package's padding (its ``band_bucket`` and sticky
         compaction capacities); the port pads neither."""
+        # smlint: spec-key-ok[resident slots are peak_bucket-padded at set-up]
         n = int(self._px_s.shape[0])
         n_keep = r_pad = w_cap = 0
         if variant == "compact":
@@ -739,7 +745,9 @@ class TorchBackend:
             "n_resident": n, "b": int(d["b"]), "k": int(k),
             "gc_width": int(d["gc_width"]),
             "n_keep": n_keep, "r_pad": r_pad, "w_cap": w_cap,
+            # smlint: spec-key-ok[2bk bounds of a padded batch; b on a ladder]
             "g": int(plan.pos.shape[0]),
+            # smlint: spec-key-ok[a padded batch's chunks: b and k bound them]
             "c": int(r_lo_loc.shape[0]), "wc": int(r_lo_loc.shape[1]),
             "devices": 1,
         }
@@ -771,7 +779,8 @@ class TorchBackend:
                 d["pos"], d["starts"], d["r_lo_loc"],
                 d["r_hi_loc"], None, gc_width=d["gc_width"],
                 n_pixels=self._n_pix_b).view(d["b"], k, -1)
-        valid = (torch.arange(k, device=self.device)[None, :]
+        valid = (torch.arange(k, dtype=torch.int64,
+                              device=self.device)[None, :]
                  < d["n_valid"][:, None])
         return (imgs.masked_fill_(~valid[:, :, None], 0.0), d["theor_ints"],
                 d["n_valid"])
@@ -798,6 +807,7 @@ class TorchBackend:
             imgs, _theor, _n_valid = self.image_block(table, plan)
             # the plan's ion order back to the table's
             imgs = imgs[self._put(plan.chunks[3], torch.int64)]
+        # smlint: host-sync-ok[the export fetches its ion images once]
         out = imgs[:n, :, :self.ds.n_pixels].cpu().numpy()
         out /= np.float32(self.int_scale)
         return out
@@ -816,6 +826,7 @@ class TorchBackend:
     def score_batch(self, table: IsotopePatternTable) -> np.ndarray:
         """(n_ions, 4) f64 metrics of one batch."""
         out = self._dispatch(table)
+        # smlint: host-sync-ok[the batch's metric rows are its result]
         return out[:table.n_ions].cpu().numpy().astype(np.float64)
 
     def score_batches(self, tables, cancel=None) -> list[np.ndarray]:
@@ -841,5 +852,6 @@ class TorchBackend:
             with tracing.span("score_batch", backend="torch_cuda",
                               ions=int(t.n_ions), enqueue=True, **dev_attr):
                 outs.append(self._dispatch(t, plan))
+        # smlint: host-sync-ok[rows fetched once, after every batch is queued]
         return [o[:t.n_ions].cpu().numpy().astype(np.float64)
                 for o, t in zip(outs, tables)]

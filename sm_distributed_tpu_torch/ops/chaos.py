@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..analysis.numerics import numerics_surface
+from ..analysis.surface import kernel_surface
 from ..kernels import _build
 
 # Numerics contracts (analysis/numerics.py), the JAX package's
@@ -68,6 +69,17 @@ NUMERICS = numerics_surface(__name__, {
     "chaos_count_sums_strips":
         "contract=bit_exact; test=tests/test_torch_chaos.py::"
         "test_plain_matches_strip_kernel_interpret",
+})
+
+# The kernel build surface (analysis/surface.py): the libraries this module
+# launches, and what bounds their launches' shapes.
+KERNEL_SURFACE = kernel_surface(__name__, {
+    "_launch_smem":
+        "library=chaos; shapes=images of at most SMEM_MAX_PIXELS, at most "
+        "MAX_KERNEL_LEVELS levels a launch (level ranges past it)",
+    "_launch_tiles":
+        "library=chaos_strips; shapes=row tiles of tile_plan(nrows, ncols, "
+        "nlevels), at most MAX_KERNEL_LEVELS levels a launch",
 })
 
 # the JAX package's packed-kernel budgets (ops/chaos_pallas.py), in cells:
@@ -243,6 +255,7 @@ def chaos_thresholds(vmax: torch.Tensor, nlevels: int) -> torch.Tensor:
     are f32 divisions of f32 integers, as the JAX package computes them, and
     the product is one rounded f32 multiply."""
     fracs = np.arange(nlevels, dtype=np.float32) / np.float32(nlevels)
+    # smlint: host-sync-ok[nlevels host fractions go up once a batch]
     return vmax[:, None] * torch.from_numpy(fracs).to(vmax.device)
 
 
@@ -256,7 +269,8 @@ def _component_counts(mask: torch.Tensor) -> torch.Tensor:
     pixel points to itself."""
     n, r, c = mask.shape
     big = r * c
-    idx = torch.arange(big, device=mask.device).view(1, r, c)
+    idx = torch.arange(big, dtype=torch.int64,
+                       device=mask.device).view(1, r, c)
     lab = torch.where(mask, idx, big)
     flat_pad = torch.full((n, 1), big, dtype=lab.dtype, device=mask.device)
     while True:
@@ -321,7 +335,8 @@ def _scan_component_counts(mask: torch.Tensor) -> torch.Tensor:
     index of its pixels, whose label is its own."""
     n, r, c = mask.shape
     big = r * c
-    iota = torch.arange(big, device=mask.device).view(1, r, c)
+    iota = torch.arange(big, dtype=torch.int64,
+                        device=mask.device).view(1, r, c)
     resets = ~mask
 
     def sweep(lab):

@@ -228,6 +228,7 @@ class DeviceBlurCentroid:
                     m_rel[bi, : m.size] = m
                     ab[bi, : a.size] = a
                     ln[bi] = npts
+                # smlint: host-sync-ok[a block's segments go up for its stage]
                 args = [torch.from_numpy(x).to(self.device)
                         for x in (m_rel, ab, ln)]
                 if cuda:
@@ -240,8 +241,10 @@ class DeviceBlurCentroid:
                     ev1.record()
                 g = np.asarray(group)
                 for dst, src in zip((v, li, y0, y1, y2, gm, fb), outs):
+                    # smlint: host-sync-ok[the host finishes the peaks in f64]
                     dst[g] = src.cpu().numpy()[: len(group)]
                 if cuda:
+                    # smlint: host-sync-ok[device time, read after the fetch]
                     device_s += ev0.elapsed_time(ev1) / 1e3
                 n_blocks += 1
         seg_maps = (np.asarray(seg_ion, np.int64),

@@ -79,13 +79,16 @@ def hotspot_clip_batch(images: torch.Tensor, q: float) -> torch.Tensor:
       of scratch."""
     n, k, p = images.shape
     # the JAX package's host f32 constant: t = f32(q) / f32(100)
+    # smlint: host-sync-ok[two scalars go up once a clipped batch]
     t = torch.tensor(np.float32(q) / np.float32(100.0), dtype=torch.float32,
                      device=images.device)
+    # smlint: host-sync-ok[two scalars go up once a clipped batch]
     inf = torch.tensor(float("inf"), dtype=images.dtype, device=images.device)
     step = max(1, HOTSPOT_SORT_BYTES // max(1, 12 * k * p))
     for s in range(0, n, step):
         block = images[s:s + step]
         srt = torch.sort(block, dim=-1).values
+        # smlint: masked-ok[zero pads are never positive: the count is exact]
         m = (block > 0).sum(dim=-1)                        # int64
         pos = t * torch.clamp(m - 1, min=0).to(torch.float32)   # one mul
         lo = torch.floor(pos)                              # exact
@@ -179,7 +182,7 @@ def batch_metrics(images: torch.Tensor, theor_ints: torch.Tensor,
     any device instead of the kernels: the chain the kernels are held
     against on the card."""
     k = images.shape[1]
-    valid = (torch.arange(k, device=images.device)[None, :]
+    valid = (torch.arange(k, dtype=torch.int64, device=images.device)[None, :]
              < n_valid[:, None])
     images.masked_fill_(~valid[:, :, None], 0.0)
     if do_preprocessing:
@@ -208,7 +211,8 @@ def batch_metrics_from_partials(partials: torch.Tensor,
     are exact zeros, so chaos needs no ``n_real`` mask.  The principal rows
     of ions with no valid peak are zeroed IN PLACE."""
     k = partials.shape[1]
-    valid = (torch.arange(k, device=partials.device)[None, :]
+    valid = (torch.arange(k, dtype=torch.int64,
+                          device=partials.device)[None, :]
              < n_valid[:, None])
     zero = torch.zeros((), dtype=partials.dtype, device=partials.device)
     sums, normsq, dots = (torch.where(valid, partials[..., i], zero)

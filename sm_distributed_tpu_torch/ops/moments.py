@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..analysis.numerics import numerics_surface
+from ..analysis.surface import kernel_surface
 from ..kernels import _build
 
 # Numerics contracts (analysis/numerics.py), the JAX package's
@@ -54,6 +55,14 @@ NUMERICS = numerics_surface(__name__, {
         "test_plain_matches_f64; padded=images",
 })
 
+# The kernel build surface (analysis/surface.py): the library this module
+# launches, and what bounds its launches' shapes.
+KERNEL_SURFACE = kernel_surface(__name__, {
+    "_launch":
+        "library=moments; shapes=K <= K_MAX rows a launch (row groups past "
+        "it), the cluster and slices of moments_plan(n, K, P)",
+})
+
 _Moments = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor]
 
@@ -63,22 +72,30 @@ def batch_moments_torch(images: torch.Tensor, n_real: int | None = None
     """(sums (N,K), normsq (N,K), dots (N,K), vmax (N,), n_notnull (N,))
     in plain torch ops.  With ``n_real`` None (or equal to P) this is the
     unpadded sequence."""
+    # smlint: masked-ok[zero pads add nothing; the order is within ulp(16)]
     sums = images.sum(dim=-1)
     p = images.shape[-1]
     if n_real is None:
+        # smlint: host-sync-ok[the plain twin's one scalar divisor]
         cent = images - sums[..., None] / torch.tensor(
             float(p), dtype=torch.float32, device=images.device)
     else:
+        # smlint: host-sync-ok[the plain twin's one scalar divisor]
         mean = sums[..., None] / torch.tensor(
             float(n_real), dtype=torch.float32, device=images.device)
-        real = torch.arange(p, device=images.device) < n_real
+        real = torch.arange(p, dtype=torch.int64,
+                            device=images.device) < n_real
         cent = torch.where(real[None, None, :], images - mean,
                            torch.zeros((), dtype=images.dtype,
                                        device=images.device))
+    # smlint: masked-ok[the real mask above zeroes the centred pads]
     normsq = (cent * cent).sum(dim=-1)
+    # smlint: masked-ok[the real mask above zeroes the centred pads]
     dots = (cent[:, 0:1, :] * cent).sum(dim=-1)
     principal = images[:, 0, :]
+    # smlint: masked-ok[pads are zero, intensities non-negative]
     vmax = principal.amax(dim=1)
+    # smlint: masked-ok[zero pads are never positive: the count is exact]
     nn = (principal > 0).to(torch.float32).sum(dim=1)
     return sums, normsq, dots, vmax, nn
 

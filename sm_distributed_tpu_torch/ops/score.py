@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..analysis.numerics import numerics_surface
+from ..analysis.surface import kernel_surface
 from ..kernels import _build
 from .imager import banded_images
 from .moments import K_MAX, batch_moments_torch, moments_groups, moments_plan
@@ -55,6 +56,14 @@ NUMERICS = numerics_surface(__name__, {
     "fused_window_moments":
         "contract=ulp(16); test=tests/test_torch_fused.py::"
         "test_plain_matches_dense_reference; padded=whp",
+})
+
+# The kernel build surface (analysis/surface.py): the library this module
+# launches, and what bounds its launches' shapes.
+KERNEL_SURFACE = kernel_surface(__name__, {
+    "_launch":
+        "library=fused_moments; shapes=the chunk plan's windows, K <= K_MAX "
+        "a launch (row groups past it), the cluster of moments_plan",
 })
 
 
@@ -155,6 +164,7 @@ def fused_window_moments(whp: torch.Tensor, starts, r_lo_loc: torch.Tensor,
                 or not t.is_contiguous() or t.device != whp.device:
             raise ValueError("fused_window_moments takes contiguous (C, Wc) "
                              "int32 rank bounds on the histogram's device")
+    # smlint: host-sync-ok[the chunk grid offsets go up once a batch]
     starts_d = torch.from_numpy(
         np.ascontiguousarray(starts, dtype=np.int32)).to(whp.device)
     if starts_d.shape != (n_chunks,):

@@ -64,22 +64,41 @@ def _outcome(work: Path) -> dict:
     return {"jobs": jobs, "spool": spool, "fdr": fdr}
 
 
+# the JAX script's own caveat under load (ROADMAP queue 3): its
+# readmission stage reads only its own re-probes' answers, though the
+# pool's grants re-probe the returned host's chips too, so a chip the pool
+# readmitted first is never seen.  The port's driver decides by the chips'
+# states.
+HOST_REFERENCE_CAVEATS = ("never readmitted after the host returned",)
+
+
 def test_host_chaos_smoke_matches_the_jax_script(tmp_path):
+    jax_argv = [str(ROOT / "scripts" / "host_chaos.py"), "--smoke"]
     rc = {
         "port": _run(["-m", "sm_distributed_tpu_torch.drivers.host_chaos",
                       "--smoke", "--device", "cpu", "--work",
                       str(tmp_path / "port")], tmp_path / "port.log"),
-        "jax": _run([str(ROOT / "scripts" / "host_chaos.py"), "--smoke",
-                     "--work", str(tmp_path / "jax")], tmp_path / "jax.log"),
+        "jax": _run([*jax_argv, "--work", str(tmp_path / "jax")],
+                    tmp_path / "jax.log"),
     }
+    jax_dir = tmp_path
+    if rc["jax"] != 0 and any(c in (tmp_path / "jax.log").read_text()
+                              for c in HOST_REFERENCE_CAVEATS):
+        # such a run is no reference: it is made once more, alone.  The
+        # port's run is held as it came
+        jax_dir = tmp_path / "again"
+        jax_dir.mkdir()
+        rc["jax"] = _run([*jax_argv, "--work", str(jax_dir / "jax")],
+                         jax_dir / "jax.log")
     for side, code in rc.items():
-        assert code == 0, (side, (tmp_path / f"{side}.log").read_text()
+        log_dir = jax_dir if side == "jax" else tmp_path
+        assert code == 0, (side, (log_dir / f"{side}.log").read_text()
                            [-3000:])
     log = (tmp_path / "port.log").read_text()
     assert "host_chaos: OK" in log
     launches = json.loads(log.strip().splitlines()[-1])["host_chaos"]
     assert launches["pool"] == 4
-    got, want = (_outcome(tmp_path / s) for s in ("port", "jax"))
+    got, want = _outcome(tmp_path / "port"), _outcome(jax_dir / "jax")
     assert got == want
     jobs = got["jobs"]
     golden = next(k for k in jobs if k.startswith("golden"))
