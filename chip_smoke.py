@@ -4,16 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sm_distributed_tpu_torch/csrc`` with
-nvcc and drives twenty paths (seven of the library search, the job
+nvcc and drives twenty-one paths (seven of the library search, the job
 path, the service, the service's read path and stream ingest, a
 device-mode isotope search under the profiler, the main path on meshes of
 devices, a replica takeover, the kernel-build primer beside the elastic
 fleet, the operator's gates: a cold replica, the compile census and
 device chaos, the load sweep beside host chaos, the main path on a mesh
-spanning two processes, and the numerics sentinel with two OOM cases),
+spanning two processes, the numerics sentinel with two OOM cases, and
+the port's bench on its cut headline case),
 each with the kernel launch counts set to 0 just before it and read just
-after (phases 18's, 19's and 20b's in their own processes, which start
-with none):
+after (phases 18's, 19's, 20b's and 22's in their own processes, which
+start with none):
 
 - the main path, the plain flat chain (phases 3-5): 256x256 pixels, 200
   noise peaks a pixel, formula batches of 2048 ions, a cold isotope-pattern
@@ -269,7 +270,25 @@ with none):
   The debug mode is restored on the way out; sites, counts and bits
   decide, no wall-clock bound.  The debug mode flags implicit syncs only,
   so the census proves the rule has no blind spot there, not that it is
-  complete.
+  complete;
+- the port's bench (phase 22): ``python -m
+  sm_distributed_tpu_torch.drivers.bench`` as a subprocess on the card,
+  started beside phases 15-18 and joined after 20b, on its headline case
+  cut to 32x32 pixels, 40 formulas (840 ions), 1 rep, a 200-ion floor
+  sample in one process, no cold isotope patterns and no cold start
+  (:data:`BENCH_ARGS`, flags the bench already has), its isotope patterns
+  computed in one process (``SM_ISOCALC_PROCS``), so that it takes few of
+  the cores phases 15-18 share: exit 0 and one JSON
+  line with the documented keys (``drivers/bench.LINE_KEYS``), the card's
+  name, the preset's ions, the moments and packed chaos kernels launched
+  once a batch of its five timed streams and the fused kernel never,
+  ``0 < roofline_frac <= 1`` and, from its profiled stream, device events
+  and ``0 < measured_roofline_frac <= 1``; the port's ``perf_sentinel
+  --self-check`` passes with the line as its only history and
+  ``drivers/trace_report`` renders its trace.  The phase prints its own
+  seconds, the wait it added and the span of phases 15-18 beside it (what
+  it costs them shows there).  Counts, states and bits decide; a
+  deadline of 600 s only ends a hang.
 
 The two moments kernels (``csrc/moments.cu``, ``csrc/fused_moments.cu``) run
 one thread-block cluster per ion, planned by ``ops/moments.moments_plan``;
@@ -3217,6 +3236,122 @@ def phase_isocalc_pool_join(card: str, run: dict) -> dict:
     assert "oracle mode" in line and "device mode on cuda" in line, text
     say(f"  [{card}] 20b {line}")
     return {"phase_s": round(time.perf_counter() - run["t0"], 1)}
+
+
+# phase 22: the port's bench (drivers/bench.py) on its headline case, the
+# depth cut with flags it already has: 32x32 pixels, 40 formulas (840 ions,
+# one batch of 2048), 1 rep, a 200-ion floor sample in one process, no cold
+# isotope patterns and no cold start; its patterns in one process too
+BENCH_ARGS = ("--nrows", "32", "--ncols", "32", "--n-formulas", "40",
+              "--reps", "1", "--baseline-ions", "200", "--floor-procs", "1",
+              "--skip-isocalc-cold", "--skip-cold")
+BENCH_ENV = {"SM_ISOCALC_PROCS": "1"}
+BENCH_IONS = 40 * (1 + 20)          # formulas x (the target + 20 decoys)
+BENCH_STREAMS = 5
+BENCH_REPS = 1
+
+
+def phase_bench_start(tmp: Path) -> dict:
+    """22 started: ``python -m sm_distributed_tpu_torch.drivers.bench`` with
+    :data:`BENCH_ARGS` as a subprocess on the card, its JSON line to a file
+    of its own."""
+    import os
+    import threading
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + (os.pathsep + env["PYTHONPATH"]
+                                     if env.get("PYTHONPATH") else "")
+    env.update(BENCH_ENV)
+    work = tmp / "phase22"
+    work.mkdir(parents=True)
+    out, log = open(work / "out.json", "w"), open(work / "err.log", "w")
+    run = {"t0": time.perf_counter(), "out": out, "log": log, "work": work,
+           "proc": subprocess.Popen(
+               [sys.executable, "-m", "sm_distributed_tpu_torch.drivers.bench",
+                *BENCH_ARGS], stdout=out, stderr=log, env=env,
+               cwd=str(ROOT))}
+
+    def watch() -> None:
+        # the bench's own seconds end at its exit, not at the join
+        run["proc"].wait()
+        run["t_end"] = time.perf_counter()
+
+    run["watcher"] = threading.Thread(target=watch, daemon=True)
+    run["watcher"].start()
+    return run
+
+
+def phase_bench_join(card: str, run: dict) -> dict:
+    """22 joined: the bench exited 0 with one JSON line whose keys are the
+    port's documented set (``drivers/bench.LINE_KEYS``); it names the card;
+    its ions are the preset's; the moments and packed chaos kernels each
+    launched once a batch of its five timed streams, the fused kernel not
+    at all (``fused_metrics="auto"``); ``0 < roofline_frac <= 1``; its
+    profiled stream saw device events and ``0 < measured_roofline_frac <=
+    1``; the port's ``perf_sentinel --self-check`` passes with the line as
+    its history; ``drivers/trace_report`` renders its trace.  Counts,
+    states and bits; a deadline only ends a hang."""
+    import contextlib
+    import io
+
+    from sm_distributed_tpu_torch.drivers import perf_sentinel, trace_report
+    from sm_distributed_tpu_torch.drivers.bench import LINE_KEYS
+
+    try:
+        run["watcher"].join(SWEEP_DEADLINE_S)
+        rc = run["proc"].wait(timeout=1)
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait(timeout=30)
+        run["out"].close()
+        run["log"].close()
+    err = (run["work"] / "err.log").read_text()
+    stdout = (run["work"] / "out.json").read_text()
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    assert rc == 0, f"22: the bench exited {rc}\n" + err[-3000:]
+    assert len(lines) == 1, f"22: {len(lines)} JSON lines on stdout\n" + \
+        stdout[-3000:]
+    got = json.loads(lines[0])
+    assert set(got) == LINE_KEYS, \
+        f"22: keys {sorted(set(got) ^ LINE_KEYS)} off the documented set"
+    assert got["device_kind"] == torch.cuda.get_device_name(0), \
+        got["device_kind"]
+    assert got["n_ions"] == BENCH_IONS, got["n_ions"]
+    scored = BENCH_STREAMS * BENCH_REPS * got["n_batches"]
+    la = got["kernel_launches"]
+    assert la["moments"] == la["chaos"] == scored and \
+        la["fused_window_moments"] == 0, \
+        f"22: launches {la} over {scored} scored batches"
+    assert 0 < got["roofline_frac"] <= 1, got["roofline_frac"]
+    assert got["profile_n_events"] > 0, got["profile_n_events"]
+    assert got["measured_roofline_frac"] is not None and \
+        0 < got["measured_roofline_frac"] <= 1, got["measured_roofline_frac"]
+    history = run["work"] / "BENCH_H100_r00.json"
+    history.write_text(lines[0] + "\n")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text), contextlib.redirect_stderr(text):
+        rc_sentinel = perf_sentinel.main(["--self-check", "--history",
+                                          str(history), "--min-history", "1"])
+        rc_trace = trace_report.main([got["trace_path"]])
+    assert rc_sentinel == 0, "22: perf_sentinel --self-check exited " \
+        f"{rc_sentinel}\n" + text.getvalue()[-3000:]
+    assert rc_trace == 0 and "phase breakdown:" in text.getvalue(), \
+        f"22: trace_report exited {rc_trace}\n" + text.getvalue()[-3000:]
+    out = {"phase_s": round(run["t_end"] - run["t0"], 1),
+           "launches": la,
+           **{k: got[k] for k in (
+               "value", "jax_spread", "vs_baseline", "n_ions", "n_batches",
+               "roofline_frac", "measured_roofline_frac", "kernel_time_frac",
+               "profile_n_events", "hbm_peak_bytes", "power_limit_w",
+               "phases")}}
+    say(f"  22 [{card}] drivers/bench: one JSON line, the documented keys, "
+        f"{got['n_ions']} ions in {got['n_batches']} batch(es), launches "
+        f"{la}, roofline {got['roofline_frac']}, measured "
+        f"{got['measured_roofline_frac']} over {got['profile_n_events']} "
+        "device events; the sentinel's self-check passed on it and its "
+        "trace rendered")
+    return out
 
 
 class _FusedEntry:
@@ -6356,6 +6491,8 @@ def main() -> int:
     sweeps = phase_sweeps_start(Path(job_dir.name))
     # phase 20b's isocalc pool gate, a subprocess beside them
     pool20 = phase_isocalc_pool_start(Path(job_dir.name))
+    # phase 22's bench, a subprocess beside them too
+    bench22 = phase_bench_start(Path(job_dir.name))
     try:
         takeover = phase_takeover(card, Path(job_dir.name), truth, main)
         lap("takeover")
@@ -6368,7 +6505,7 @@ def main() -> int:
         chaos17 = phase_device_chaos(card, Path(job_dir.name))
         _breaker_closed(2, "phase 17c")
     except BaseException:
-        for run in [*sweeps.values(), pool20]:
+        for run in [*sweeps.values(), pool20, bench22]:
             run["proc"].kill()
             run["proc"].wait(timeout=30)
         raise
@@ -6387,10 +6524,23 @@ def main() -> int:
     t_join18 = time.perf_counter()
     gates18 = phase_sweeps_join(card, sweeps)
     waited_18 = time.perf_counter() - t_join18
+    # phases 15-18 from their start to their join: what the subprocesses
+    # beside them (20b, 22) cost them shows here
+    span_15_18 = time.perf_counter() - t18
     t_join20 = time.perf_counter()
     pool = phase_isocalc_pool_join(card, pool20)
     waited_20b = time.perf_counter() - t_join20
+    t_join22 = time.perf_counter()
+    bench = phase_bench_join(card, bench22)
+    waited_22 = time.perf_counter() - t_join22
     lap("sweeps")
+    say(f"phase 22 the port's bench [{card}]: {waited_22:.1f} s added to "
+        f"the script (the wait for it after 20b); its own "
+        f"{bench['phase_s']:.1f} s ran beside phases 15-18, which spanned "
+        f"{span_15_18:.1f} s from their start to their join; "
+        f"{bench['value']} ions/s on the cut headline case, launches "
+        "equal to the streams' batches, both roofline shares in (0, 1], "
+        "the sentinel's self-check and the trace report passed")
     say(f"phase 20 the numerics contracts and two OOMs [{card}]: "
         f"{t20 + waited_20b:.1f} s added to the script (20a "
         f"{numerics20['phase_s']:.1f} s, 20c {ooms20['20c']['seconds']:.1f} "
@@ -6519,6 +6669,7 @@ def main() -> int:
         {"20a": {k: v for k, v in numerics20.items() if k != "launches"},
          "20b": pool, "20c": ooms20["20c"], "20d": ooms20["20d"]}))
     say(f"sync census of the main path [{card}]: " + json.dumps(census21))
+    say(f"the port's bench [{card}]: " + json.dumps(bench))
     say(f"device patterns and the profiler [{card}]: " + json.dumps(
         {"13a": patterns13, "13b": {k: v for k, v in profiled.items()
                                     if k != "attribution"},

@@ -39,7 +39,20 @@ sm_distributed_tpu_torch.drivers.<name>``: copies of the JAX package's
   and banded against the committed ``NUMERICS_H100_r*.json`` (its band
   helpers are ``perf_sentinel``'s);
 - ``isocalc_smoke``: the isotope-pattern pool gate, serial and 2-worker
-  tables equal and their cache shards byte-identical.
+  tables equal and their cache shards byte-identical;
+- ``bench``: ions scored per second on the card against the numpy floor,
+  the headline, ``scale`` and ``desi`` cases, cold starts, the roofline
+  share and the profiled stream, one JSON line (the JAX package's
+  ``bench.py``, its XLA keys renamed);
+- ``perf_sentinel``: the bench history ``BENCH_H100_r*.json`` banded, the
+  sentinel's ``--self-check``; its band helpers serve ``ulp_sentinel``;
+- ``roofline_probe``: the stream against the cost model at the card's
+  published peaks, the measured peaks beside them;
+- ``profile_bench`` and ``desi_probe``: a batch's phases and the ``desi``
+  case's batches and phases through ``TorchBackend.probe_phases``;
+- ``cold_path_bench`` and ``desi_bigdb_bench``: one end-to-end job at
+  ~80k formulas with a cold pattern cache, and the 512x512 slide against
+  ~1.68M ions.
 
 The service drivers run on ``torch_cuda`` on the card unless asked for
 ``--device cpu`` or ``--backend numpy_ref`` (:func:`add_device_arguments`;

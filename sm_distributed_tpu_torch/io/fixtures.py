@@ -116,22 +116,51 @@ def generate_synthetic_dataset(
     mz_jitter_ppm: float = 0.5,
     seed: int = 7,
     name: str = "synthetic_spheroid",
+    reuse: bool = False,
 ) -> tuple[Path, SyntheticGroundTruth]:
     """Write a processed-mode imzML/ibd pair with known ground truth.
 
     Returns (imzml_path, ground_truth).  ``present_fraction`` of the formulas
     receive structured spatial signal at their theoretical isotope m/z values
     (intensities following the theoretical envelope); everything else only
-    ever matches background noise.
+    ever matches background noise.  With ``reuse=True`` an existing output is
+    kept when its parameter-marker file (the JAX package's, byte for byte)
+    matches: generation is deterministic in ``seed``, so the ground truth is
+    rebuilt without rewriting the spectra.
     """
+    import json
+
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     formulas = list(formulas if formulas is not None else FIXTURE_FORMULAS)
+    iso_cfg = IsotopeGenerationConfig(adducts=(adduct,))
+    marker = out_dir / f"{name}.params.json"
+    params = {
+        "nrows": nrows, "ncols": ncols, "formulas": formulas,
+        "present_fraction": present_fraction, "adduct": adduct,
+        "noise_peaks": noise_peaks, "mz_jitter_ppm": mz_jitter_ppm,
+        "seed": seed, "iso": [list(iso_cfg.adducts), iso_cfg.charge,
+                              iso_cfg.isocalc_sigma, iso_cfg.isocalc_pts_per_mz],
+    }
+    imzml_path = out_dir / f"{name}.imzML"
+    ibd_path = imzml_path.with_suffix(".ibd")
+    if reuse and marker.exists() and imzml_path.exists() and ibd_path.exists():
+        try:
+            if json.loads(marker.read_text()) == params:
+                n_present = max(1, int(round(present_fraction * len(formulas))))
+                present = list(rng.permutation(formulas)[:n_present])
+                return imzml_path, SyntheticGroundTruth(
+                    formulas=formulas, present=present, adduct=adduct,
+                    nrows=nrows, ncols=ncols)
+        except (json.JSONDecodeError, OSError):
+            pass
+    # invalidate before regenerating: a killed run must not leave a marker
+    # that validates partly written files on the next reuse=True call
+    marker.unlink(missing_ok=True)
     present, patterns, images = _signal_patterns(
         formulas, present_fraction, adduct, nrows, ncols, rng)
 
-    imzml_path = out_dir / f"{name}.imzML"
     mz_lo, mz_hi = 80.0, 1000.0
     with ImzMLWriter(imzml_path, continuous=False) as wr:
         for y in range(nrows):
@@ -159,6 +188,7 @@ def generate_synthetic_dataset(
     truth = SyntheticGroundTruth(
         formulas=formulas, present=present, adduct=adduct, nrows=nrows, ncols=ncols
     )
+    marker.write_text(json.dumps(params))
     return imzml_path, truth
 
 

@@ -211,11 +211,14 @@ def _load_locked(name: str) -> ctypes.CDLL:
         started = _start_build(name)
         if started is not None:
             _finish_build(name, started)
+    t0 = time.perf_counter()
     _libs[name] = ctypes.CDLL(str(lib_path))
+    secs = time.perf_counter() - t0
     with _state_lock:
         fact = _facts.setdefault(name, {})
         fact["library"] = lib_path.name
         fact["loads"] = fact.get("loads", 0) + 1
+        fact["load_s"] = fact.get("load_s", 0.0) + secs
         found = fact.setdefault("state", "found") == "found"
         if found:
             fact["found_loads"] = fact.get("found_loads", 0) + 1
@@ -288,7 +291,7 @@ def ptxas_report(log: str) -> dict:
 # ------------------------------------------------------------------ census
 def census() -> dict:
     """Every kernel's build census: ``{nvcc_runs, kernels: {name: {state,
-    library, nvcc_s, registers, spill_stores, loads, setups}}}``.
+    library, nvcc_s, load_s, registers, spill_stores, loads, setups}}}``.
     ``state``: "built" (nvcc ran in this process), "found" (a library built
     before was loaded) or "not_loaded"; ``registers`` and ``spill_stores``
     are the largest over the library's kernels, from ptxas's report of a
@@ -307,6 +310,7 @@ def census() -> dict:
             "state": f.get("state", "not_loaded"),
             "library": f.get("library"),
             "nvcc_s": (round(f["nvcc_s"], 3) if "nvcc_s" in f else None),
+            "load_s": round(f.get("load_s", 0.0), 6),
             "registers": max((r for r, _ in rep), default=None),
             "spill_stores": max((sp for _, sp in rep), default=None),
             "loads": f.get("loads", 0),

@@ -144,6 +144,72 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def _extract_plain(pixel_sorted, int_sorted, pos, starts, r_lo_loc,
+                   r_hi_loc, *, gc_width: int, b: int, k: int, n_pixels: int,
+                   scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain chain's extraction step: the raw (b, k, P) image block of
+    one padded batch in the plan's ion order, from every resident peak (a
+    compact ``int_sorted`` expanded to f32 whole)."""
+    return extract_images_flat_banded(
+        pixel_sorted, expand_cube_range(int_sorted, scales), pos, starts,
+        r_lo_loc, r_hi_loc, None, gc_width=gc_width,
+        n_pixels=n_pixels).view(b, k, -1)
+
+
+def _extract_band(pixel_sorted, int_sorted, b_lo: int, width: int, pos,
+                  starts, r_lo_loc, r_hi_loc, *, gc_width: int, b: int,
+                  k: int, n_pixels: int, scales: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """The band chain's extraction step (:func:`score_flat_sliced`)."""
+    return _extract_plain(
+        pixel_sorted[b_lo:b_lo + width],
+        expand_cube_range(int_sorted, scales, b_lo, b_lo + width),
+        torch.clamp(pos - b_lo, 0, width), starts, r_lo_loc, r_hi_loc,
+        gc_width=gc_width, b=b, k=k, n_pixels=n_pixels)
+
+
+def _extract_compact(pixel_sorted, int_sorted, run_pos, run_delta, n_b: int,
+                     pos_b, starts, r_lo_loc, r_hi_loc, *, gc_width: int,
+                     b: int, k: int, n_pixels: int,
+                     scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The compact chain's extraction step (:func:`score_flat_compact`)."""
+    px_b, in_b = compact_peaks(pixel_sorted, int_sorted, run_pos, run_delta,
+                               n_b, scales)
+    return _extract_plain(px_b, in_b, pos_b, starts, r_lo_loc, r_hi_loc,
+                          gc_width=gc_width, b=b, k=k, n_pixels=n_pixels)
+
+
+def _block_metrics(imgs, inv, theor_ints, n_valid, n_real, *, nrows: int,
+                   ncols: int, nlevels: int, do_preprocessing: bool = False,
+                   q: float = 99.0) -> torch.Tensor:
+    """The plain, band and compact chains' metrics step: ``batch_metrics``
+    of the block, its rows un-permuted to the table's ion order by
+    ``inv``."""
+    out = batch_metrics(imgs, theor_ints, n_valid, nrows, ncols, nlevels,
+                        n_real=n_real, do_preprocessing=do_preprocessing, q=q)
+    return out[inv]
+
+
+def _fused_scratch(pixel_sorted, int_sorted, pos, *, gc_width: int,
+                   n_pixels: int, scales: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """The fused chain's extraction step: the plain path's histogram (a
+    compact cube expands whole)."""
+    return flat_histogram(pixel_sorted, expand_cube_range(int_sorted, scales),
+                          pos, gc_width=gc_width, n_pixels=n_pixels)
+
+
+def _fused_moments(wh, starts, r_lo_loc, r_hi_loc, n_real, *, gc_width: int,
+                   b: int, k: int, n_pixels: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused chain's moments step: the fused window-moments kernel over
+    the histogram, ``(partials (b, k, 5), principal (b, P))``."""
+    partials, principal = fused_window_moments(
+        wh[:, :n_pixels], starts, r_lo_loc, r_hi_loc,
+        n_pixels if n_real is None else n_real, gc_width=gc_width, k=k)
+    return partials.view(b, k, 5), principal.view(b, n_pixels)
+
+
 def score_flat_plain(
     pixel_sorted: torch.Tensor,  # (N,) int64 resident pixel rows
     int_sorted: torch.Tensor,    # (N,) f32 resident intensities
@@ -172,14 +238,12 @@ def score_flat_plain(
     are un-permuted by ``inv``.  A compact ``int_sorted`` (bf16, or int8
     with its tile ``scales``) is expanded to f32 whole: the plain histogram
     reads every resident slot."""
-    imgs = extract_images_flat_banded(
-        pixel_sorted, expand_cube_range(int_sorted, scales), pos, starts,
-        r_lo_loc, r_hi_loc, None,
-        gc_width=gc_width, n_pixels=nrows * ncols)
-    out = batch_metrics(imgs.view(b, k, -1), theor_ints, n_valid, nrows,
-                        ncols, nlevels, n_real=n_real,
-                        do_preprocessing=do_preprocessing, q=q)
-    return out[inv]
+    imgs = _extract_plain(pixel_sorted, int_sorted, pos, starts, r_lo_loc,
+                          r_hi_loc, gc_width=gc_width, b=b, k=k,
+                          n_pixels=nrows * ncols, scales=scales)
+    return _block_metrics(imgs, inv, theor_ints, n_valid, n_real,
+                          nrows=nrows, ncols=ncols, nlevels=nlevels,
+                          do_preprocessing=do_preprocessing, q=q)
 
 
 def score_flat_sliced(
@@ -216,13 +280,12 @@ def score_flat_sliced(
     as the full histogram treats them — images and metrics are
     bit-identical to the plain variant's.  A compact cube expands the
     band's slots only, each int8 slot by the scale of its absolute tile."""
-    pos_b = torch.clamp(pos - b_lo, 0, width)
-    return score_flat_plain(
-        pixel_sorted[b_lo:b_lo + width],
-        expand_cube_range(int_sorted, scales, b_lo, b_lo + width),
-        pos_b, starts, r_lo_loc, r_hi_loc, inv, theor_ints, n_valid, n_real,
-        gc_width=gc_width, b=b, k=k, nrows=nrows, ncols=ncols,
-        nlevels=nlevels, do_preprocessing=do_preprocessing, q=q)
+    imgs = _extract_band(pixel_sorted, int_sorted, b_lo, width, pos, starts,
+                         r_lo_loc, r_hi_loc, gc_width=gc_width, b=b, k=k,
+                         n_pixels=nrows * ncols, scales=scales)
+    return _block_metrics(imgs, inv, theor_ints, n_valid, n_real,
+                          nrows=nrows, ncols=ncols, nlevels=nlevels,
+                          do_preprocessing=do_preprocessing, q=q)
 
 
 def score_flat_compact(
@@ -257,12 +320,13 @@ def score_flat_compact(
     hit multiset, and every image and metric bit, is the plain variant's.
     A compact cube expands the gathered slots only, with their gathered
     tile scales."""
-    px_b, in_b = compact_peaks(pixel_sorted, int_sorted, run_pos, run_delta,
-                               n_b, scales)
-    return score_flat_plain(
-        px_b, in_b, pos_b, starts, r_lo_loc, r_hi_loc, inv, theor_ints,
-        n_valid, n_real, gc_width=gc_width, b=b, k=k, nrows=nrows,
-        ncols=ncols, nlevels=nlevels, do_preprocessing=do_preprocessing, q=q)
+    imgs = _extract_compact(pixel_sorted, int_sorted, run_pos, run_delta,
+                            n_b, pos_b, starts, r_lo_loc, r_hi_loc,
+                            gc_width=gc_width, b=b, k=k,
+                            n_pixels=nrows * ncols, scales=scales)
+    return _block_metrics(imgs, inv, theor_ints, n_valid, n_real,
+                          nrows=nrows, ncols=ncols, nlevels=nlevels,
+                          do_preprocessing=do_preprocessing, q=q)
 
 
 def score_flat_fused(
@@ -292,15 +356,14 @@ def score_flat_fused(
     plain path's matmuls read, and the metric rows are un-permuted by
     ``inv``."""
     n_pix = nrows * ncols
-    wh = flat_histogram(pixel_sorted, expand_cube_range(int_sorted, scales),
-                        pos, gc_width=gc_width, n_pixels=n_pix)
-    partials, principal = fused_window_moments(
-        wh[:, :n_pix], starts, r_lo_loc, r_hi_loc,
-        n_pix if n_real is None else n_real, gc_width=gc_width, k=k)
+    wh = _fused_scratch(pixel_sorted, int_sorted, pos, gc_width=gc_width,
+                        n_pixels=n_pix, scales=scales)
+    partials, principal = _fused_moments(
+        wh, starts, r_lo_loc, r_hi_loc, n_real, gc_width=gc_width, b=b, k=k,
+        n_pixels=n_pix)
     del wh
-    out = batch_metrics_from_partials(
-        partials.view(b, k, 5), principal.view(b, n_pix), theor_ints, n_valid,
-        nrows, ncols, nlevels)
+    out = batch_metrics_from_partials(partials, principal, theor_ints,
+                                      n_valid, nrows, ncols, nlevels)
     return out[inv]
 
 
@@ -435,6 +498,10 @@ class TorchBackend:
         # them here)
         self._spec_n_keep = 0
         self._spec_r_pad = 0
+        # the JAX backend skips its warm-up's executions when a manifest
+        # says its persistent XLA cache holds every executable; the port
+        # has no such cache, so its warm-up always scores
+        self.last_warmup_skipped = False
 
     def _init_cube(self, ds: SpectralDataset,
                    restrict_table: IsotopePatternTable | None) -> None:
@@ -679,8 +746,7 @@ class TorchBackend:
         if plan is None:
             plan = self._flat_plan(table)
         if variant is None:
-            variant = ("fused" if self._fused
-                       else self._variant_for(plan.runs, plan.band))
+            variant = self._variant_of(plan)
         d = self._device_plan(table, plan)
         statics = dict(gc_width=d["gc_width"], b=d["b"], k=table.max_peaks,
                        nrows=self._nrows_b, ncols=self.ds.ncols,
@@ -774,11 +840,10 @@ class TorchBackend:
                 gc_width=d["gc_width"]).view(self.batch, k, -1)
         else:
             d = self._device_plan(table, plan)
-            imgs = extract_images_flat_banded(
-                self._px_s, expand_cube_range(self._in_s, self._scales),
-                d["pos"], d["starts"], d["r_lo_loc"],
-                d["r_hi_loc"], None, gc_width=d["gc_width"],
-                n_pixels=self._n_pix_b).view(d["b"], k, -1)
+            imgs = _extract_plain(
+                self._px_s, self._in_s, d["pos"], d["starts"], d["r_lo_loc"],
+                d["r_hi_loc"], gc_width=d["gc_width"], b=d["b"], k=k,
+                n_pixels=self._n_pix_b, scales=self._scales)
         valid = (torch.arange(k, dtype=torch.int64,
                               device=self.device)[None, :]
                  < d["n_valid"][:, None])
@@ -811,6 +876,31 @@ class TorchBackend:
         out = imgs[:n, :, :self.ds.n_pixels].cpu().numpy()
         out /= np.float32(self.int_scale)
         return out
+
+    @property
+    def resident_peaks(self) -> int:
+        """Peak slots resident on the device: the flat path's sorted,
+        restricted and lattice-padded slots; the cube path's (P, L) slots."""
+        if self.mz_chunk:
+            return int(self._mz_q.numel())
+        return int(self._mz_host.size)
+
+    def band_shapes(self, tables) -> list[tuple[int, int, int]]:
+        """``(windows, gc_width, grid_bins)`` of each flat-path batch of
+        ``tables`` as a stream of them launches it: the windows its banded
+        matmuls compute (the chunk plan's C x Wc), the band width they run
+        at (the sticky width of the batch's size, grown over ``tables``
+        first, as ``score_batches`` grows it) and the bound grid's bins —
+        what ``ops/imager.banded_score_cost_model`` prices."""
+        if self.mz_chunk:
+            raise ValueError("band_shapes prices the flat path; this "
+                             "backend scores the mz_chunk cube")
+        plans = [self._flat_plan(t) for t in tables]
+        for plan in plans:
+            self._grow_from_plan(plan)
+        return [(int(plan.chunks[1].size),
+                 self._gc_width if plan.b_eff == self.batch
+                 else self._gc_tail, int(plan.pos.size)) for plan in plans]
 
     @property
     def n_real(self) -> int | None:
@@ -855,3 +945,147 @@ class TorchBackend:
         # smlint: host-sync-ok[rows fetched once, after every batch is queued]
         return [o[:t.n_ions].cpu().numpy().astype(np.float64)
                 for o, t in zip(outs, tables)]
+
+    def _variant_of(self, plan: FlatPlan) -> str:
+        """The flat variant ``_dispatch`` takes for ``plan`` by default."""
+        return "fused" if self._fused else self._variant_for(plan.runs,
+                                                             plan.band)
+
+    def warmup(self, tables) -> None:
+        """Pre-size the sticky band widths on ``tables`` and score one batch
+        of each variant they take, so every kernel of the stream is built,
+        loaded and set up on the device before the first timed batch (the
+        mesh's ``warmup``, ``parallel/sharded.py``).  The cube path scores
+        the first batch.  ``last_warmup_skipped`` stays False: the JAX
+        backend's manifest trim has no counterpart here."""
+        tables = list(tables)
+        self.last_warmup_skipped = False
+        if self.mz_chunk:
+            if tables:
+                self.score_batch(tables[0])
+            return
+        plans = [self._flat_plan(t) for t in tables]
+        for plan in plans:
+            self._grow_from_plan(plan)
+        seen: set = set()
+        for t, plan in zip(tables, plans):
+            variant = self._variant_of(plan)
+            if variant not in seen:
+                seen.add(variant)
+                # smlint: host-sync-ok[warm-up waits out each variant once]
+                self._dispatch(t, plan, variant).cpu()
+
+    def probe_phases(self, table: IsotopePatternTable):
+        """Per-phase launch hooks for profiling: ``(phases, info)``, where
+        ``phases`` maps the JAX backend's phase names to zero-argument
+        callables, each launching on the device the step ``score_batch``
+        launches for this batch, through the same step functions, with the
+        same tensors and the same variant, and returning its device output:
+
+        - ``fused_full``: the whole batch (``_dispatch``);
+        - ``extract``: the variant's extraction step, then ``mask_block``
+          (the images of invalid peaks zeroed, hot-spot clipped with
+          ``do_preprocessing``); on the fused variant the histogram;
+        - ``moments``: the moments kernel over that block; on the fused
+          variant the fused window-moments kernel over the histogram and
+          ``moments_from_partials``;
+        - ``chaos``, ``correlation``, ``pattern``: the epilogue's steps on
+          those moments (``msm_combine`` of the three, un-permuted by the
+          plan, is the batch's metric rows).
+
+        The steps chain: each reads what the latest call of the one before
+        it returned, and all of them ran once before the hooks are handed
+        out.  ``info`` names the path, the variant and the batch's shapes.
+        The cube path has ``fused_full`` only, as the JAX backend's."""
+        if self.mz_chunk:
+            return ({"fused_full": lambda: self._dispatch(table)},
+                    {"path": "mz_chunk"})
+        from ..ops.metrics import (
+            correlation_from_moments,
+            isotope_pattern_match_batch,
+            mask_block,
+            measure_of_chaos_batch,
+            moments_from_partials,
+        )
+        from ..ops.moments import batch_moments
+
+        plan = self._flat_plan(table)
+        variant = self._variant_of(plan)
+        d = self._device_plan(table, plan)
+        b, k, n_pix, gc = d["b"], table.max_peaks, self._n_pix_b, d["gc_width"]
+        nrows, ncols = self._nrows_b, self.ds.ncols
+        theor, n_valid = d["theor_ints"], d["n_valid"]
+        chunk = (d["starts"], d["r_lo_loc"], d["r_hi_loc"])
+        shape = dict(gc_width=gc, b=b, k=k, n_pixels=n_pix)
+        state: dict = {}
+        if variant == "fused":
+            def extract():
+                state["wh"] = _fused_scratch(
+                    self._px_s, self._in_s, d["pos"], gc_width=gc,
+                    n_pixels=n_pix, scales=self._scales)
+                return state["wh"]
+
+            def moments():
+                partials, principal = _fused_moments(
+                    state["wh"], *chunk, self._n_real, **shape)
+                *mom, state["valid"] = moments_from_partials(
+                    partials, principal, n_valid)
+                state["principal"], state["moments"] = principal, tuple(mom)
+                return state["moments"]
+        else:
+            if variant == "band":
+                b_lo, width = plan.band
+                block = lambda: _extract_band(  # noqa: E731
+                    self._px_s, self._in_s, b_lo, width, d["pos"], *chunk,
+                    **shape, scales=self._scales)
+            elif variant == "compact":
+                run_pos, run_delta, n_b, pos_b = plan.runs
+                args = (self._put(run_pos, torch.int64),
+                        self._put(run_delta, torch.int64), n_b,
+                        self._put(pos_b, torch.int64))
+                block = lambda: _extract_compact(  # noqa: E731
+                    self._px_s, self._in_s, *args, *chunk, **shape,
+                    scales=self._scales)
+            else:
+                block = lambda: _extract_plain(  # noqa: E731
+                    self._px_s, self._in_s, d["pos"], *chunk, **shape,
+                    scales=self._scales)
+
+            def extract():
+                imgs = block()
+                state["valid"] = mask_block(imgs, n_valid,
+                                            self.do_preprocessing, self.q)
+                state["imgs"], state["principal"] = imgs, imgs[:, 0, :]
+                return imgs
+
+            def moments():
+                state["moments"] = batch_moments(state["imgs"], self._n_real)
+                return state["moments"]
+
+        def chaos():
+            _sums, _normsq, _dots, vmax, n_notnull = state["moments"]
+            return measure_of_chaos_batch(state["principal"], nrows, ncols,
+                                          self.nlevels, vmax, n_notnull)
+
+        def correlation():
+            _sums, normsq, dots, _vmax, _nn = state["moments"]
+            return correlation_from_moments(normsq, dots, theor,
+                                            state["valid"])
+
+        def pattern():
+            return isotope_pattern_match_batch(state["moments"][0], theor,
+                                               state["valid"])
+
+        extract()
+        moments()
+        phases = {"fused_full": lambda: self._dispatch(table, plan, variant),
+                  "extract": extract, "moments": moments, "chaos": chaos,
+                  "correlation": correlation, "pattern": pattern}
+        info = dict(path="flat", variant=variant, b=int(b), k=int(k),
+                    gc_width=int(gc), nrows=int(nrows), ncols=int(ncols),
+                    nlevels=int(self.nlevels),
+                    resident_peaks=self.resident_peaks,
+                    grid_bins=int(plan.pos.size),
+                    band_width=int(plan.band[1]) if plan.band else 0,
+                    kept_peaks=int(plan.runs[2]) if plan.runs else 0)
+        return phases, info

@@ -548,3 +548,139 @@ def extract_images_mz_chunked(
                      out=imgs[c * wc:(c + 1) * wc])
         del wh
     return imgs[inv]
+
+
+# -- roofline cost model ------------------------------------------------------
+
+def fused_score_cost_model(
+    n_pixels: int,
+    resident_peaks: int,
+    n_ions: int,
+    max_peaks: int,
+    formula_batch: int,
+    nlevels: int = 30,
+    ordered: bool = True,
+    fused: bool = False,
+    cube_dtype: str = "f32",
+) -> dict:
+    """Minimum-work estimate of one full scoring rep (all ions once), the
+    roofline's work model (``drivers/roofline_probe.py``,
+    ``drivers/bench.py``).  A copy of the JAX package's
+    ``ops/imager_jax.py::fused_score_cost_model``, equal to it on every
+    input; pure Python.
+
+    - histogram scatter: every scored peak slot is one intensity read, one
+      index read and one f32 read-modify-write on the scratch (~12 B).
+      Ordered streams scatter each resident peak about once in all (the
+      band variant's per-batch bands); unordered streams re-touch the
+      residents per batch.
+    - scratch zero-init: one (P+1) x max(G+1, gc+2) f32 block per batch.
+    - membership matmul: wh (P, G+1) @ D (G+1, B) per batch at f32.  The
+      chunk plan's banded matmuls (:func:`banded_images`) do 2·BK·(gc+2)·P
+      flops a batch instead: fewer than this term at large batches, more
+      at small ones, so this floor does not bound the port's work; the
+      port's roofline divides by :func:`banded_score_cost_model`.
+    - image block: (n_ions, K, P) f32 written by extraction, then read by
+      the moments pass (1x) and the chaos sweeps (~2 passes).
+
+    Returns byte and flop totals; the larger of bytes over a bandwidth peak
+    and flops over a matmul peak is the roofline floor.  It prices no
+    padding, no host work and no launch gaps.
+
+    ``fused=True`` prices the fused window-moments kernel
+    (``ops/score.py``): the (B, K, P) image block never round-trips device
+    memory; the kernel reads the histogram band twice (moments, then the
+    centred epilogue) and writes the moment partials and the (B, P)
+    principal images the chaos kernel reads.  ``cube_dtype`` prices the
+    resident intensity read of the scatter at the compact width (bf16 2 B,
+    int8 1 B a peak).
+    """
+    n_batches = max(1, -(-n_ions // formula_batch))
+    g = 2 * formula_batch * max_peaks
+    scratch_cols = max(g + 1, 4098)
+    scatter_slots = (resident_peaks if ordered
+                     else resident_peaks * n_batches)
+    int_bytes = {"f32": 4, "bf16": 2, "int8": 1}[cube_dtype]
+    # per slot: intensity read + index read + f32 scratch read-modify-write
+    scatter_bytes = (int_bytes + 8) * scatter_slots
+    init_bytes = 4 * n_batches * (n_pixels + 1) * scratch_cols
+    if fused:
+        band_read_bytes = 2 * 4 * n_batches * (g + 1) * n_pixels
+        image_bytes = 4 * n_ions * n_pixels          # principal write only
+        metric_read_bytes = 2 * image_bytes          # chaos ~2 passes
+        # the membership dot runs in both kernel passes; the centred
+        # epilogue's dots add 2*2 flops per (ion, peak, pixel) cell
+        matmul_flops = (2 * 2.0 * n_batches * n_pixels * (g + 1)
+                        * formula_batch
+                        + 4.0 * n_ions * max_peaks * n_pixels)
+        total_bytes = (scatter_bytes + init_bytes + band_read_bytes
+                       + image_bytes + metric_read_bytes)
+        return dict(
+            n_batches=n_batches,
+            scatter_slots=int(scatter_slots),
+            scatter_bytes=int(scatter_bytes),
+            scratch_init_bytes=int(init_bytes),
+            band_read_bytes=int(band_read_bytes),
+            image_bytes=int(image_bytes),
+            metric_read_bytes=int(metric_read_bytes),
+            total_bytes=int(total_bytes),
+            matmul_flops=float(matmul_flops),
+        )
+    image_bytes = 4 * n_ions * max_peaks * n_pixels
+    metric_read_bytes = 3 * image_bytes    # moments 1x + chaos ~2 passes
+    matmul_flops = 2.0 * n_batches * n_pixels * (g + 1) * formula_batch
+    total_bytes = scatter_bytes + init_bytes + image_bytes + metric_read_bytes
+    return dict(
+        n_batches=n_batches,
+        scatter_slots=int(scatter_slots),
+        scatter_bytes=int(scatter_bytes),
+        scratch_init_bytes=int(init_bytes),
+        image_bytes=int(image_bytes),
+        metric_read_bytes=int(metric_read_bytes),
+        total_bytes=int(total_bytes),
+        matmul_flops=float(matmul_flops),
+    )
+
+
+def banded_score_cost_model(
+    n_pixels: int,
+    resident_peaks: int,
+    n_ions: int,
+    max_peaks: int,
+    formula_batch: int,
+    bands: list[tuple[int, int, int]],
+    nlevels: int = 30,
+    ordered: bool = True,
+    fused: bool = False,
+    cube_dtype: str = "f32",
+) -> dict:
+    """The port's minimum work of one full scoring rep, the floor its
+    roofline shares divide by: :func:`fused_score_cost_model`'s terms, with
+    the two the port's extraction does not share priced from what its
+    launches do.  ``bands`` holds one ``(windows, gc_width, grid_bins)``
+    a batch of the rep (``TorchBackend.band_shapes``):
+
+    - membership matmul: the chunk plan's banded matmuls
+      (:func:`banded_images`), 2·W·(gc+2)·P flops a batch for its W
+      planned windows at band width gc, instead of the dense
+      2·P·(G+1)·B.  The fused kernel runs the banded dot in both its
+      passes, plus the centred epilogue's 4 flops a (ion, peak, pixel)
+      cell, as the dense model prices it;
+    - scratch zero-init: one max(G+1, gc+2) x W_px f32 block a batch, W_px
+      = P+1 rounded up to a multiple of 4 (:func:`flat_histogram`),
+      instead of (P+1) x max(G+1, 4098).
+
+    The keys are :func:`fused_score_cost_model`'s; ``n_batches`` is
+    ``len(bands)``."""
+    model = fused_score_cost_model(
+        n_pixels, resident_peaks, n_ions, max_peaks, formula_batch,
+        nlevels=nlevels, ordered=ordered, fused=fused, cube_dtype=cube_dtype)
+    width = -(-(n_pixels + 1) // 4) * 4
+    init_bytes = sum(4 * max(g + 1, gc + 2) * width for _w, gc, g in bands)
+    banded = sum(2.0 * w * (gc + 2) * n_pixels for w, gc, _g in bands)
+    flops = (2 * banded + 4.0 * n_ions * max_peaks * n_pixels if fused
+             else banded)
+    model["total_bytes"] += int(init_bytes) - model["scratch_init_bytes"]
+    model.update(n_batches=len(bands), scratch_init_bytes=int(init_bytes),
+                 matmul_flops=float(flops))
+    return model

@@ -181,16 +181,27 @@ def batch_metrics(images: torch.Tensor, theor_ints: torch.Tensor,
     ``plain`` runs the plain versions of the moments and chaos steps on
     any device instead of the kernels: the chain the kernels are held
     against on the card."""
+    valid = mask_block(images, n_valid, do_preprocessing, q)
+    moments = batch_moments_torch if plain else batch_moments
+    sums, normsq, dots, vmax, n_notnull = moments(images, n_real)
+    return _msm_rows(images[:, 0, :], sums, normsq, dots, vmax, n_notnull,
+                     theor_ints, n_valid, valid, nrows, ncols, nlevels, plain)
+
+
+def mask_block(images: torch.Tensor, n_valid: torch.Tensor,
+               do_preprocessing: bool = False, q: float = 99.0
+               ) -> torch.Tensor:
+    """``batch_metrics``' first step on an (N, K, P) image block, IN PLACE:
+    the images of invalid isotope peaks zeroed, then, with
+    ``do_preprocessing``, the block hot-spot clipped at percentile ``q``.
+    Returns the (N, K) validity mask."""
     k = images.shape[1]
     valid = (torch.arange(k, dtype=torch.int64, device=images.device)[None, :]
              < n_valid[:, None])
     images.masked_fill_(~valid[:, :, None], 0.0)
     if do_preprocessing:
         hotspot_clip_batch(images, q)
-    moments = batch_moments_torch if plain else batch_moments
-    sums, normsq, dots, vmax, n_notnull = moments(images, n_real)
-    return _msm_rows(images[:, 0, :], sums, normsq, dots, vmax, n_notnull,
-                     theor_ints, n_valid, valid, nrows, ncols, nlevels, plain)
+    return valid
 
 
 def batch_metrics_from_partials(partials: torch.Tensor,
@@ -202,8 +213,19 @@ def batch_metrics_from_partials(partials: torch.Tensor,
 
     ``partials``: (N, K, 5) moment columns (sums, normsq, dots, vmax, nn)
     of the UNMASKED window rows; ``principal``: (N, nrows*ncols) window-0
-    images.  ``batch_metrics`` zeroes invalid rows before its moments pass;
-    here the mask moves onto the moment columns, which is exactly
+    images, masked by :func:`moments_from_partials`."""
+    sums, normsq, dots, vmax, n_notnull, valid = moments_from_partials(
+        partials, principal, n_valid)
+    return _msm_rows(principal, sums, normsq, dots, vmax, n_notnull,
+                     theor_ints, n_valid, valid, nrows, ncols, nlevels)
+
+
+def moments_from_partials(partials: torch.Tensor, principal: torch.Tensor,
+                          n_valid: torch.Tensor):
+    """``(sums, normsq, dots, vmax, n_notnull, valid)`` of the fused
+    kernel's (N, K, 5) moment columns, masked as ``batch_metrics`` masks its
+    image block.  ``batch_metrics`` zeroes invalid rows before its moments
+    pass; here the mask moves onto the moment columns, which is exactly
     equivalent: an invalid row's masked image is all zero, so its sums,
     normsq and dots are 0.0, what the ``where`` writes, and valid rows'
     moments never see the mask.  vmax, nn and the principal image are
@@ -221,8 +243,7 @@ def batch_metrics_from_partials(partials: torch.Tensor,
     vmax = torch.where(alive0, partials[:, 0, 3], zero)
     n_notnull = torch.where(alive0, partials[:, 0, 4], zero)
     principal.masked_fill_(~alive0[:, None], 0.0)
-    return _msm_rows(principal, sums, normsq, dots, vmax, n_notnull,
-                     theor_ints, n_valid, valid, nrows, ncols, nlevels)
+    return sums, normsq, dots, vmax, n_notnull, valid
 
 
 def _msm_rows(principal, sums, normsq, dots, vmax, n_notnull, theor_ints,
@@ -235,6 +256,14 @@ def _msm_rows(principal, sums, normsq, dots, vmax, n_notnull, theor_ints,
                                    vmax, n_notnull, plain=plain)
     spatial = correlation_from_moments(normsq, dots, theor_ints, valid)
     spectral = isotope_pattern_match_batch(sums, theor_ints, valid)
+    return msm_combine(chaos, spatial, spectral, n_valid, vmax)
+
+
+def msm_combine(chaos: torch.Tensor, spatial: torch.Tensor,
+                spectral: torch.Tensor, n_valid: torch.Tensor,
+                vmax: torch.Tensor) -> torch.Tensor:
+    """(N, 4) (chaos, spatial, spectral, msm) of the three components, each
+    0 where the ion has no valid peak or an all-zero principal image."""
     alive = (n_valid > 0) & (vmax > 0)
     zero = torch.zeros((), dtype=chaos.dtype, device=chaos.device)
     chaos = torch.where(alive, chaos, zero)

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no jax, nothing of the JAX package or its
-``scripts/`` tooling, and the card by default with no CPU fallback.
+``scripts/`` and ``bench.py`` tooling, and the card by default with no CPU
+fallback.
 
 - importing every port module (and ``chip_smoke.py``) in a fresh process
-  leaves ``jax``, ``sm_distributed_tpu`` and ``scripts`` out of
+  leaves ``jax``, ``sm_distributed_tpu``, ``scripts`` and ``bench`` out of
   ``sys.modules``;
 - an AST scan of the port's sources finds no such import;
 - the backend, the search and ``serve``, at their default device, raise
@@ -26,8 +27,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sm_distributed_tpu_torch"
-# the JAX package, its tooling under scripts/, and jax itself
-FORBIDDEN = ("jax", "jaxlib", "sm_distributed_tpu", "scripts")
+# the JAX package, its tooling under scripts/ and bench.py, and jax itself
+FORBIDDEN = ("jax", "jaxlib", "sm_distributed_tpu", "scripts", "bench")
 
 
 def _port_modules() -> list[str]:
@@ -114,7 +115,9 @@ def test_import_list_covers_the_service():
               "resources", "scheduler", "server", "telemetry"):
         assert f"sm_distributed_tpu_torch.service.{m}" in mods
     for d in ("chaos_sweep", "fleet_smoke", "prime_cache", "replica_chaos",
-              "resource_smoke", "trace_smoke"):
+              "resource_smoke", "trace_smoke", "bench", "roofline_probe",
+              "perf_sentinel", "profile_bench", "desi_probe",
+              "cold_path_bench", "desi_bigdb_bench"):
         assert f"sm_distributed_tpu_torch.drivers.{d}" in mods
     assert {"sm_distributed_tpu_torch.engine.daemon",
             "sm_distributed_tpu_torch.engine.residency",
