@@ -5751,8 +5751,10 @@ def phase_coldstart(card: str, tmp: Path) -> dict:
     gives ``compile_s > 0``; ``/debug/compile`` counts one nvcc run a
     kernel; the idle primer then primes every recorded spec with no
     further run; the replica's launches (its ``/metrics``) are one moments
-    and one packed chaos launch a score batch; SIGTERM -> exit 0.  The
-    directory is phase 16b's, whose replicas are the primed side."""
+    and one packed chaos launch a score batch; its ``sm_kernel_cache_*``
+    families count the directory's two libraries and their bytes, with no
+    more misses than nvcc runs; SIGTERM -> exit 0.  The directory is phase
+    16b's, whose replicas are the primed side."""
     import os
     import signal
     import threading
@@ -5818,6 +5820,18 @@ def phase_coldstart(card: str, tmp: Path) -> dict:
 
         _wait_state("17a: the idle primer primed the cold job's specs",
                     primed, deadline)
+        # the kernel-cache gauges: the monitor samples every 0.5 s, so the
+        # last sample may predate the builds; wait for it (a hang only)
+        libs = sorted(build_dir.glob("lib*.so"))
+        lib_bytes = sum(f.stat().st_size for f in libs)
+
+        def cache_sampled() -> bool:
+            text = _http(url, "/metrics")[1]
+            return (_metric(text, "sm_kernel_cache_entries") == len(libs)
+                    and _metric(text, "sm_kernel_cache_bytes") == lib_bytes)
+
+        _wait_state("17a: /metrics counts the build directory's libraries",
+                    cache_sampled, deadline)
         _, dbg = _http(url, "/debug/compile")
         _, slo = _http(url, "/slo")
         _, text = _http(url, "/metrics")
@@ -5853,6 +5867,15 @@ def phase_coldstart(card: str, tmp: Path) -> dict:
     census = dbg["builds"]
     assert census["nvcc_runs"] == 2 and all(
         census["kernels"][k]["state"] == "built" for k in sites), census
+    # one library a kernel built, no other file counted as one
+    assert sorted(f.name.split("-")[0] for f in libs) == \
+        ["libchaos", "libmoments"], libs
+    cache = {k: _metric(text, f"sm_kernel_cache_{k}")
+             for k in ("entries", "bytes", "misses_total")}
+    assert cache["entries"] == len(libs) and \
+        cache["bytes"] == lib_bytes and \
+        cache["misses_total"] <= census["nvcc_runs"], \
+        (cache, len(libs), lib_bytes, census["nvcc_runs"])
     prim = dbg["primer"]
     launches = {k: int(_metric(text, f'sm_kernel_launches_total'
                                      f'{{kernel="{k}"}}'))
@@ -5873,6 +5896,10 @@ def phase_coldstart(card: str, tmp: Path) -> dict:
         f"{fa['attainment']}), partial preview {pa['n_scored']}/"
         f"{pa['n_ions']} ions; nvcc_runs {census['nvcc_runs']}; the idle "
         f"primer primed {prim['primed']}/{prim['known']} spec(s); "
+        f"/metrics kernel cache: {int(cache['entries'])} libraries, "
+        f"{int(cache['bytes'])} bytes (the directory's {len(libs)}, "
+        f"{lib_bytes}), {int(cache['misses_total'])} misses of "
+        f"{census['nvcc_runs']} nvcc runs; "
         f"launches {launches}; SIGTERM -> exit 0")
     return {"phase_s": took, "up_s": up_s, "job_s": job_s, "builds": sites,
             "compile_s": acc["compile_s"],
@@ -5880,6 +5907,7 @@ def phase_coldstart(card: str, tmp: Path) -> dict:
             "slo_first_annotation": {k: fa[k] for k in
                                      ("count", "attainment")},
             "primed": f"{prim['primed']}/{prim['known']}",
+            "kernel_cache": cache,
             "launches": launches, "build_dir": str(build_dir),
             "trace_file": str(trace_file)}
 

@@ -53,6 +53,9 @@ sm_distributed_tpu_torch.drivers.<name>``: copies of the JAX package's
 - ``cold_path_bench`` and ``desi_bigdb_bench``: one end-to-end job at
   ~80k formulas with a cold pattern cache, and the 512x512 slide against
   ~1.68M ions.
+- ``annotate_demo``: the README's first example (the JAX package's
+  ``examples/annotate_demo.py``): a synthetic dataset annotated by a
+  ``SearchJob`` and queried through the ``AnnotationIndex``.
 
 The service drivers run on ``torch_cuda`` on the card unless asked for
 ``--device cpu`` or ``--backend numpy_ref`` (:func:`add_device_arguments`;

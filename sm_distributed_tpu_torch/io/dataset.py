@@ -197,6 +197,15 @@ class SpectralDataset:
     def row_lengths(self) -> np.ndarray:
         return np.diff(self.row_ptr)
 
+    def norm_img_pixel_inds(self) -> np.ndarray:
+        """Dense pixel index per spectrum (the reference's
+        ``Dataset.get_norm_img_pixel_inds``)."""
+        return self.pixel_inds
+
+    def get_dims(self) -> tuple[int, int]:
+        """(nrows, ncols), as the reference's ``Dataset.get_dims``."""
+        return self.nrows, self.ncols
+
     def get_sample_area_mask(self) -> np.ndarray:
         """(nrows, ncols) bool: the pixels that hold a spectrum (the
         reference's ``Dataset.get_sample_area_mask``)."""

@@ -148,6 +148,13 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
+# every name _library_path makes, whatever the sources' hash: what counts as
+# a built library in a build directory (the service's kernel-cache
+# accounting, service/telemetry.py); temporary files, manifests and logs do
+# not match
+LIBRARY_NAME = re.compile(rf"^lib({'|'.join(KERNELS)})-[0-9a-f]{{12}}\.so$")
+
+
 def _start_build(name: str):
     """Start nvcc for one source; returns (process, tmp, lib, start time)
     or None when the library is already built."""

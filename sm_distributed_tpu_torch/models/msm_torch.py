@@ -499,8 +499,10 @@ class TorchBackend:
         self._spec_n_keep = 0
         self._spec_r_pad = 0
         # the JAX backend skips its warm-up's executions when a manifest
-        # says its persistent XLA cache holds every executable; the port
-        # has no such cache, so its warm-up always scores
+        # says its persistent XLA cache holds every executable; the port's
+        # kernel build directory holds libraries, not executions (cuBLAS's
+        # handle, the allocator's pool), so its warm-up always scores: a
+        # departure the surface census lists (warmup_cache_events)
         self.last_warmup_skipped = False
 
     def _init_cube(self, ds: SpectralDataset,
@@ -957,7 +959,8 @@ class TorchBackend:
         loaded and set up on the device before the first timed batch (the
         mesh's ``warmup``, ``parallel/sharded.py``).  The cube path scores
         the first batch.  ``last_warmup_skipped`` stays False: the JAX
-        backend's manifest trim has no counterpart here."""
+        backend's manifest trim has no counterpart here (a departure the
+        surface census lists)."""
         tables = list(tables)
         self.last_warmup_skipped = False
         if self.mz_chunk:

@@ -206,12 +206,15 @@ class AnnotationService:
 
         self.primer = CachePrimer(
             self.sm_config, busy=self._primer_busy, metrics=self.metrics)
-        # device & memory telemetry: memory/occupancy sampler feeding
-        # gauges + the GET /debug/timeseries snapshot ring
+        # device & memory telemetry: memory/occupancy/kernel-cache sampler
+        # feeding gauges + the GET /debug/timeseries snapshot ring
+        from ..kernels._build import build_dir_for
+
         self.telemetry = DeviceMonitor(
             self.metrics, self.sm_config.telemetry,
             device_pool=self.device_pool,
             queue_root=self.queue_dir / queue,
+            compile_cache_dir=build_dir_for(self.sm_config),
             replica_id=cfg.replica_id,
             readpath=self.readpath, stream_ingest=self.stream_ingest)
         # device-backend circuit breaker: configure the process singleton

@@ -5,7 +5,10 @@ Copy of ``sm_distributed_tpu/service/telemetry.py`` for the card:
 - **DeviceMonitor** — a sampling thread reading per-device memory in use,
   peak and capacity (``utils/devicemem.py``: the caching allocator's
   counters per CUDA device, ``None`` without CUDA), the device pool's
-  occupancy, and process RSS.  Every sample updates gauges on the shared
+  occupancy, the kernel build directory (``parallel.compile_cache_dir``:
+  its libraries and their bytes, the JAX package's XLA persistent-cache
+  accounting under ``sm_kernel_cache_*`` names), and process RSS.  Every
+  sample updates gauges on the shared
   ``MetricsRegistry`` AND lands in a bounded in-memory **time-series
   ring** served by ``GET /debug/timeseries``.  The monitor also installs a
   ``phase_timer`` observer so every traced job phase records its peak
@@ -41,6 +44,7 @@ import time
 from collections import deque
 from pathlib import Path
 
+from ..kernels import _build
 from ..utils import devicemem, tracing
 from ..utils.config import TelemetryConfig
 from ..utils.logger import add_phase_observer, logger, remove_phase_observer
@@ -61,6 +65,7 @@ class DeviceMonitor:
 
     def __init__(self, registry, cfg: TelemetryConfig | None = None,
                  queue_root: str | Path | None = None,
+                 compile_cache_dir: str | Path | None = None,
                  device_pool=None, replica_id: str = "",
                  readpath=None, stream_ingest=None):
         self.registry = registry
@@ -73,6 +78,9 @@ class DeviceMonitor:
         # never taken
         self.device_pool = device_pool
         self.queue_root = Path(queue_root) if queue_root else None
+        # the kernel build directory: one library per kernel and source hash
+        self.compile_cache_dir = (Path(compile_cache_dir)
+                                  if compile_cache_dir else None)
         # the read path's cache and in-flight state and the stream
         # ingest's chunk counters sample into the ring too
         self.readpath = readpath
@@ -82,6 +90,7 @@ class DeviceMonitor:
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        self._prev_cache_entries: int | None = None
         m = registry
         self.g_hbm_in_use = m.gauge(
             "sm_device_hbm_bytes_in_use",
@@ -107,7 +116,35 @@ class DeviceMonitor:
         self.g_phase_hbm = m.gauge(
             "sm_phase_hbm_peak_bytes",
             "Peak HBM observed at each pipeline phase's exit", ("phase",))
+        self.g_cache_entries = m.gauge(
+            "sm_kernel_cache_entries",
+            "Kernel libraries in the kernel build directory")
+        self.g_cache_bytes = m.gauge(
+            "sm_kernel_cache_bytes",
+            "Total size of the kernel libraries in the build directory")
+        self.c_cache_miss = m.counter(
+            "sm_kernel_cache_misses_total",
+            "Kernel builds observed as new libraries in the build directory")
+
     # ------------------------------------------------------------- sampling
+    def _cache_stats(self) -> tuple[int | None, int | None]:
+        """(entry count, total bytes) of the kernel build directory, or
+        (None, None) when none is configured or present.  Counts only the
+        libraries ``kernels/_build`` names (``_build.LIBRARY_NAME``), so
+        growth strictly implies nvcc builds."""
+        d = self.compile_cache_dir
+        if d is None or not d.is_dir():
+            return None, None
+        n = size = 0
+        try:
+            for p in d.iterdir():
+                if p.is_file() and _build.LIBRARY_NAME.match(p.name):
+                    n += 1
+                    size += p.stat().st_size
+        except OSError:
+            return None, None
+        return n, size
+
     def sample(self) -> dict:
         """Take one snapshot: update every gauge and append to the ring."""
         now = time.time()
@@ -153,6 +190,15 @@ class DeviceMonitor:
         else:
             occupancy = None
 
+        entries, cache_bytes = self._cache_stats()
+        if entries is not None:
+            self.g_cache_entries.set(entries)
+            self.g_cache_bytes.set(cache_bytes or 0)
+            if self._prev_cache_entries is not None and \
+                    entries > self._prev_cache_entries:
+                self.c_cache_miss.inc(entries - self._prev_cache_entries)
+            self._prev_cache_entries = entries
+
         # pod identity: samples from different host processes
         # interleave in shared dashboards — stamp which process took each
         proc_id, proc_host = tracing.process()
@@ -168,6 +214,8 @@ class DeviceMonitor:
             "device_token_locked": locked,
             "device_token_occupancy": (round(occupancy, 4)
                                        if occupancy is not None else None),
+            "kernel_cache_entries": entries,
+            "kernel_cache_bytes": cache_bytes,
             "rss_bytes": _rss_bytes(),
         }
         if pool_snap is not None:

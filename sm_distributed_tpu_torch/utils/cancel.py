@@ -78,6 +78,12 @@ class CancelToken:
     def deadline_exceeded(self) -> bool:
         return self.deadline_at is not None and time.time() >= self.deadline_at
 
+    def remaining_s(self) -> float | None:
+        """Seconds until the deadline (None when no deadline is set)."""
+        if self.deadline_at is None:
+            return None
+        return self.deadline_at - time.time()
+
     def touch(self, phase: str = "") -> None:
         """Progress heartbeat: the watchdog cancels attempts whose last
         touch is older than ``service.watchdog_stall_s``."""

@@ -88,6 +88,15 @@ def remove_phase_observer(fn) -> None:
         _phase_observers.remove(fn)
 
 
+def set_phase_observer(fn) -> None:
+    """Legacy single-slot installer: replaces ALL observers with ``fn``
+    (or clears them with ``None``).  Prefer add/remove_phase_observer —
+    this survives only for callers that relied on the replace semantics."""
+    _phase_observers.clear()
+    if fn is not None:
+        _phase_observers.append(fn)
+
+
 def _notify_phase(phase: str, dt: float) -> None:
     """Exception-safe dispatch: an observer that raises must not break
     phase_timer (or starve the observers after it)."""

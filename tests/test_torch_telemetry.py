@@ -6,13 +6,17 @@ validation, and one traced job through each package's in-process service
 (``/slo``, ``/debug/timeseries``, the trace's ``first_annotation`` event).
 
 Each case makes the same calls on both packages and holds the outcomes
-equal.  The JAX file's XLA-cache accounting and perf-sentinel cases have
-no counterpart (the port has no XLA compile cache and no sentinel).
+equal.  The JAX file's XLA-cache accounting has its counterpart in the
+kernel build directory's (``sm_kernel_cache_*``, snapshot keys
+``kernel_cache_*``): each package's cache layout, the same entries, bytes
+and misses.  The JAX file's perf-sentinel cases have none here (the port's
+sentinel has its own tests).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 import urllib.request
@@ -25,6 +29,7 @@ import sm_distributed_tpu.service.metrics as jmetrics
 import sm_distributed_tpu.service.telemetry as jtel
 import sm_distributed_tpu.utils.config as jconfig
 import sm_distributed_tpu.utils.tracing as jtracing
+import sm_distributed_tpu_torch.kernels._build as tbuild
 import sm_distributed_tpu_torch.models.msm_basic as tmsm
 import sm_distributed_tpu_torch.service.device_pool as tpool
 import sm_distributed_tpu_torch.service.metrics as tmetrics
@@ -188,6 +193,87 @@ def test_device_monitor_ring_is_bounded():
     assert _both(case) == (5, 2, True)
 
 
+# Each package's persistent compile cache: the JAX package's XLA entries
+# (``jit_<name>-<32+ hex>``) and the port's kernel libraries
+# (``lib<kernel>-<12 hex>.so``), each beside files that are not entries.
+CACHE_LAYOUT = {
+    "jax": dict(entries=(f"jit_fused-{'0' * 32}", f"jit_other-{'1' * 32}"),
+                others=(f"jit_fused-{'0' * 32}-atime", "warmup_manifest.json",
+                        "compile.log", "jit_tmp.tmp"),
+                keys=("xla_cache_entries", "xla_cache_bytes"),
+                misses="sm_xla_cache_misses_total"),
+    "torch": dict(entries=(f"libmoments-{'0' * 12}.so",
+                           f"libchaos-{'1' * 12}.so"),
+                  others=("build.log", "prime_manifest.json",
+                          f".libchaos-{'1' * 12}.so.123.tmp", "lock"),
+                  keys=("kernel_cache_entries", "kernel_cache_bytes"),
+                  misses="sm_kernel_cache_misses_total"),
+}
+
+
+def _cache_case(m, d):
+    lay = CACHE_LAYOUT["jax" if m is PACKAGES["jax"] else "torch"]
+    reg = m["metrics"].MetricsRegistry()
+    cache = d / "cache"
+    mon = m["tel"].DeviceMonitor(reg, _cfg(m), compile_cache_dir=cache)
+    out = []
+
+    def look():
+        snap = mon.sample()
+        miss = reg.value(lay["misses"])
+        out.append((snap[lay["keys"][0]], snap[lay["keys"][1]], miss))
+
+    look()                                  # no directory yet: None
+    cache.mkdir()
+    (cache / lay["entries"][0]).write_bytes(b"x" * 100)
+    for name in lay["others"]:
+        (cache / name).write_bytes(b"y" * 7)
+    look()                                  # the first count is no miss
+    (cache / lay["entries"][1]).write_bytes(b"z" * 50)
+    look()                                  # one new entry: one miss
+    look()                                  # no growth: no miss
+    for name in os.listdir(cache):
+        (cache / name).unlink()
+    cache.rmdir()
+    look()                                  # gone again: None, no miss
+    return out
+
+
+def test_device_monitor_compile_cache_accounting(tmp_path):
+    got = _both(_cache_case, tmp_path)
+    assert got == [(None, None, 0.0), (1, 100, 0.0), (2, 150, 1.0),
+                   (2, 150, 1.0), (None, None, 1.0)]
+
+
+def test_device_monitor_without_compile_cache_dir():
+    def case(m):
+        lay = CACHE_LAYOUT["jax" if m is PACKAGES["jax"] else "torch"]
+        snap = m["tel"].DeviceMonitor(m["metrics"].MetricsRegistry(),
+                                      _cfg(m)).sample()
+        return [snap[k] for k in lay["keys"]]
+
+    assert _both(case) == [None, None]
+
+
+def test_kernel_cache_entry_rule_matches_library_names():
+    """The entry rule accepts exactly the names ``_build._library_path``
+    makes: every kernel's library, at any sources' hash, and nothing
+    beside it in a build directory."""
+    made = [tbuild._library_path(k).name for k in tbuild.KERNELS]
+    assert len(set(made)) == len(tbuild.KERNELS)
+    assert all(tbuild.LIBRARY_NAME.match(n) for n in made)
+    other_hash = [n.replace(n[-15:-3], "abcdef012345") for n in made]
+    assert all(tbuild.LIBRARY_NAME.match(n) for n in other_hash)
+    rejected = [
+        f".{made[0]}.{os.getpid()}.tmp",     # _start_build's temporary
+        made[0] + ".tmp", made[0][:-3], "lib" + made[0],
+        made[0].replace("lib", "libx", 1),   # not a kernel of KERNELS
+        made[0][:-6] + "0.so",               # 11 hex digits
+        made[0][:-15] + "ABCDEF012345.so",   # not lower-case hex
+        "prime_manifest.json", "bucket_manifest.json", "build.log", "lock"]
+    assert not [n for n in rejected if tbuild.LIBRARY_NAME.match(n)]
+
+
 def test_phase_observer_records_hbm(monkeypatch):
     def case(m):
         tr = m["tracing"]
@@ -323,6 +409,21 @@ def test_acceptance_timeseries_contains_occupancy_samples(traced_jobs):
 
     got = {name: view(h) for name, (h, _m) in traced_jobs.items()}
     assert got["torch"] == got["jax"] == (True, 0.05, True, True, 1)
+
+
+def test_acceptance_timeseries_carries_compile_cache_keys(traced_jobs):
+    """Each service samples its own compile cache: the port's monitor reads
+    the kernel build directory its config names."""
+    def view(h, keys):
+        body = _get(h.base, "/debug/timeseries")
+        return all(all(k in s for k in keys) for s in body["samples"])
+
+    got = {name: view(h, CACHE_LAYOUT[name]["keys"])
+           for name, (h, _m) in traced_jobs.items()}
+    assert got == {"jax": True, "torch": True}
+    h = traced_jobs["torch"][0]
+    assert h.service.telemetry.compile_cache_dir == \
+        tbuild.build_dir_for(h.sm_config)
 
 
 def test_acceptance_trace_records_first_annotation(traced_jobs):
